@@ -1,0 +1,125 @@
+"""Causal LM wrapper (port of ``repro/models/lm.py``): init, KV caches,
+prefill, one decode step and the greedy/temperature generate loop."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import utils
+from repro_torch.configs.base import ModelConfig
+from repro_torch.nn import embeddings, norms, transformer
+
+Params = dict
+
+
+def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
+    """Random weights from a ``torch.Generator`` seeded with ``seed``, drawn
+    tensor by tensor on ``device`` in the config's parameter dtype.  Same
+    layout as ``repro.models.lm.init`` except the stack, which is one dict
+    per layer (``nn/transformer.py``); ``weights.from_jax`` carries JAX
+    weights over instead."""
+    if cfg.pos_emb != "rope":
+        raise NotImplementedError("the port serves RoPE models so far")
+    dev = utils.resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {
+        "embed": embeddings.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                       tie=cfg.tie_embeddings,
+                                       param_dtype=cfg.param_dtype),
+        "stack": transformer.stack_init(gen, cfg),
+        "final_norm": norms.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, dev),
+    }
+
+
+def param_count(params) -> int:
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    items = params.values() if isinstance(params, dict) else params
+    return sum(param_count(p) for p in items)
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
+                device="cuda") -> list[dict]:
+    return transformer.init_caches(cfg, batch, max_len, dtype,
+                                   device=utils.resolve_device(device))
+
+
+def _device(params: Params) -> torch.device:
+    return params["embed"]["tok"].device
+
+
+def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = norms.norm_apply(cfg.norm, params["final_norm"], x)
+    return embeddings.logits(params["embed"], x)
+
+
+def prefill(params: Params, cfg: ModelConfig, batch: dict, caches: list[dict]
+            ) -> tuple[torch.Tensor, list[dict]]:
+    """Run the prefix, fill caches, return last-position logits (B, V)."""
+    x = embeddings.embed(params["embed"], batch["tokens"].to(_device(params)),
+                         cfg.accum_dtype)
+    x, caches, _ = transformer.stack_forward(params["stack"], cfg, x,
+                                             mode="prefill", caches=caches)
+    return _head(params, cfg, x[:, -1:, :])[:, 0], caches
+
+
+def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                caches: list[dict], pos_offset=0, *,
+                write_mask: Optional[torch.Tensor] = None,
+                token_valid: Optional[torch.Tensor] = None,
+                with_stats: bool = False):
+    """One serve step: token (B, 1) -> logits (B, V), updated caches.
+
+    RoPE reads each row's position off its cache length, so ``pos_offset``
+    (kept for the JAX signature) is unused by the RoPE models ported so
+    far.  ``write_mask`` (B,) keeps rows from writing K/V; ``token_valid``
+    (B,) marks phantom rows for the FFN dispatch.  With ``with_stats=True``
+    also returns the per-site routing stats of an active
+    ``api.collect_routing`` tap (None without one)."""
+    x = embeddings.embed(params["embed"], token.to(_device(params)),
+                         cfg.accum_dtype)
+    tv = token_valid[:, None] if token_valid is not None else None
+    x, caches, aux = transformer.stack_forward(params["stack"], cfg, x,
+                                               mode="decode", caches=caches,
+                                               decode_mask=write_mask,
+                                               token_valid=tv)
+    logits = _head(params, cfg, x)[:, 0]
+    if with_stats:
+        return logits, caches, aux.get("routing")
+    return logits, caches
+
+
+def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
+             steps: int, max_len: int, generator: Optional[torch.Generator] = None,
+             temperature: float = 0.0, eos_id: Optional[int] = None
+             ) -> torch.Tensor:
+    """Greedy (or, with a generator and temperature > 0, sampled) decoding.
+
+    With ``eos_id`` set, rows that emit it stop: their later tokens are
+    pinned to ``eos_id`` and the loop exits once every row has finished, so
+    the result may have fewer than ``steps`` generated columns."""
+    dev = _device(params)
+    prompt = prompt.to(dev)
+    B = prompt.shape[0]
+    caches = transformer.init_caches(cfg, B, max_len, device=dev)
+    logits, caches = prefill(params, cfg, {"tokens": prompt}, caches)
+    out = [prompt.to(torch.int32)]
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    for i in range(steps):
+        out.append(tok)
+        if eos_id is not None:
+            done = done | (tok[:, 0] == eos_id)
+            if bool(done.all()):
+                break
+        logits, caches = decode_step(params, cfg, tok, caches,
+                                     pos_offset=prompt.shape[1] + i)
+        if temperature > 0.0 and generator is not None:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=generator).to(torch.int32)
+        else:
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+        if eos_id is not None:
+            tok = torch.where(done[:, None], torch.full_like(tok, eos_id), tok)
+    return torch.cat(out, dim=1)
