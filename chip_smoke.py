@@ -16,6 +16,8 @@ Phases (any failure raises, and the exit code is non-zero):
               compared on tokens whose indices agree.  Times each kernel,
               its plain version and, where one PyTorch call computes the
               same function, that call (library_ms), with CUDA events.
+   ragged   — the same kernels at the CPU tests' small unaligned sizes,
+              which exercise their masked edge paths.
 4. serve    — internlm2-20b FFF at full width (bf16) with 8 of its 48
               layers, random weights from a seeded CUDA generator: batch 8,
               prompt 128, 16 greedy decode steps through
@@ -65,7 +67,7 @@ def log(msg: str) -> None:
 # helpers
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -245,6 +247,66 @@ def phase_kernels(gen) -> dict:
     return rows
 
 
+def phase_ragged(gen) -> None:
+    """The kernels' masked paths, at the CPU tests' small, unaligned sizes
+    (which the full-width shapes never reach): odd batches, D = 20, leaf
+    widths 4 and 8, a two-tree forest, the master leaf, every activation."""
+    from repro_torch.kernels.fused_decode import kernel as fdk, ref as fdr
+    from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
+    from repro_torch.kernels.tree_router import kernel as trk, ref as trr
+
+    dev = torch.device("cuda")
+    d, checked = 20, 0
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, depth in ((1, 1), (7, 2), (37, 4)):
+            N = 2 ** depth - 1
+            x = randn(B, d, dtype=dtype)
+            nw, nb = randn(N, d, scale=d ** -0.5, dtype=dtype), randn(N, scale=0.1, dtype=dtype)
+            want, margin = margins(x, nw, nb, depth)
+            compare_idx("tree_router (ragged)", trk.tree_router(x, nw, nb, depth=depth),
+                        want, margin)
+            checked += 1
+        for H, act in ((4, "gelu"), (8, "relu"), (8, "silu")):
+            E, C = 3, 16
+            gs = torch.tensor([0, 5, 16], dtype=torch.int32, device=dev)
+            mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
+            x = randn(E, C, d, dtype=dtype) * mask
+            w, w2 = (randn(E, d, H, scale=d ** -0.5, dtype=dtype) for _ in range(2))
+            compare("grouped_matmul (ragged)", gk.grouped_matmul(x, w, gs, act=act),
+                    gr.grouped_matmul_ref(x, w, gs, act=act), dtype)
+            compare("grouped_matmul_dual (ragged)", gk.grouped_matmul_dual(x, w, w2, gs),
+                    gr.grouped_matmul_dual_ref(x, w, w2, gs), dtype)
+            checked += 2
+        for act, leaf, master in (("gelu", 4, False), ("swiglu", 8, True),
+                                  ("relu", 8, True)):
+            T, depth, B = 2, 3, 7
+            N, E = 2 ** depth - 1, 2 ** depth
+            x = randn(B, d, dtype=dtype)
+            nw, nb = randn(T, N, d, scale=d ** -0.5, dtype=dtype), randn(T, N, scale=0.1, dtype=dtype)
+            n_up = 2 if act == "swiglu" else 1
+            leaves = tuple(randn(T, E, d, leaf, scale=d ** -0.5, dtype=dtype)
+                           for _ in range(n_up)) + (randn(T, E, leaf, d, scale=leaf ** -0.5, dtype=dtype),)
+            mw = 5
+            mst = (tuple(randn(d, mw, scale=d ** -0.5, dtype=dtype) for _ in range(n_up))
+                   + (randn(mw, d, scale=mw ** -0.5, dtype=dtype),)) if master else None
+            y, idx = fdk.fused_forest_decode(x, nw, nb, leaves, depth=depth, act=act, master_w=mst)
+            y_ref, idx_ref = fdr.fused_decode_ref(x, nw, nb, leaves, depth=depth, act=act, master_w=mst)
+            agree = torch.ones(B, dtype=torch.bool, device=dev)
+            for t in range(T):
+                _, margin = margins(x, nw[t], nb[t], depth)
+                a, _ = compare_idx("fused_forest_decode (ragged)", idx[:, t], idx_ref[:, t], margin)
+                agree &= a
+            compare("fused_forest_decode (ragged)", y, y_ref, dtype, rows=agree)
+            checked += 1
+    torch.cuda.synchronize()
+    log(f"[ragged] {checked} small unaligned kernel cases agree with their "
+        f"plain versions (fp32 and bf16)")
+
+
 def phase_serve(common, api, serve_mod, FFF_CONFIG) -> dict:
     cfg = dataclasses.replace(FFF_CONFIG, n_layers=SERVE_LAYERS)
     from repro_torch.models import lm
@@ -401,6 +463,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         rows = phase_kernels(gen)
+        phase_ragged(gen)
     counts = phase_serve(common, api, serve_mod, FFF_CONFIG)
     phase_parity(api, fff, lm, FFF_CONFIG)
 

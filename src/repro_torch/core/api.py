@@ -36,12 +36,6 @@ MODES = ("train", "infer")
 #: serving capacity factor of the capacity-bounded kernel path
 DEFAULT_CAPACITY_INFER = 2.0
 
-#: the JAX ``pallas`` backend sends batches of at most this many tokens
-#: through its gathered-matmul kernels; the ``cuda`` backend of this port
-#: takes the grouped path at every token count until those kernels are
-#: ported (both paths are exact, so only speed differs)
-PALLAS_DECODE_MAX_TOKENS = 32
-
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionSpec:
@@ -73,16 +67,14 @@ class ExecutionSpec:
 @dataclasses.dataclass(frozen=True)
 class FFFOutput:
     """Structured aux returned by every backend; fields a backend cannot
-    produce are None.
+    produce are None.  (The training slice adds FORWARD_T's node_probs,
+    mixture and entropy.)
 
     leaf_idx:          (..., trees) int32 — routed leaf per (token, tree)
     overflow_fraction: scalar — fraction of slots dropped by a capacity
                        bound (0 for exact paths)
     """
     leaf_idx: Optional[torch.Tensor] = None
-    node_probs: Optional[torch.Tensor] = None
-    mixture: Optional[torch.Tensor] = None
-    entropy: Optional[torch.Tensor] = None
     overflow_fraction: Optional[torch.Tensor] = None
 
 
@@ -302,10 +294,11 @@ def _infer_cuda(params, cfg, x, spec):
     tree_router descent, then the grouped leaf GEMMs.  Exact: tokens over a
     leaf's capacity are repaired densely, so overflow_fraction is 0.
 
-    Deliberate difference from JAX: ``pallas`` runs batches of at most
-    ``PALLAS_DECODE_MAX_TOKENS`` tokens through its per-token gathered
+    Deliberate difference from JAX: ``pallas`` runs batches of at most 32
+    tokens (``PALLAS_DECODE_MAX_TOKENS``) through its per-token gathered
     matmul kernels; this backend takes the grouped path at every token
-    count until the gathered kernels (``fused_fff``) are ported."""
+    count until the gathered kernels (``fused_fff``) are ported.  Both
+    paths are exact, so only speed differs."""
     xf, lead = utils.flatten_leading(x)
     cf = (spec.capacity_factor if spec.capacity_factor is not None
           else DEFAULT_CAPACITY_INFER)

@@ -108,19 +108,37 @@ grouped_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // bfloat16: the same tiling on the tensor cores (warp-level mma through
 // the WMMA API, bf16 products accumulated in f32).  A block of four warps
 // owns a 64-token x 64-column tile; each warp a 32x32 quarter as 2x2
-// fragments of 16x16.  32-deep slices of x and w go to shared memory with
-// 16-byte loads (element-wise, masked, at ragged or unaligned edges); the
-// activation (or silu(g) * u) is applied to the accumulator fragments,
-// which share one element mapping, and the tile leaves through shared
-// memory for the masked bf16 store.
-constexpr int TM = 64, TN = 64, TK = 32, kTcThreads = 128;
+// fragments of 16x16.  32-deep slices of x and w stream into a 3-stage
+// ring in shared memory with 16-byte cp.async copies (element-wise,
+// masked, at ragged or unaligned edges), so the loads of slices k+1 and
+// k+2 are in flight while slice k is multiplied.  The activation (or
+// silu(g) * u) is applied to the accumulator fragments, which share one
+// element mapping, and the tile leaves through shared memory (reusing the
+// ring) for the masked bf16 store.
+constexpr int TM = 64, TN = 64, TK = 32, kStages = 3, kTcThreads = 128;
+constexpr int kALd = TK + 8, kBLd = TN + 8, kCLd = TN + 4;  // padded rows
 using bf16 = __nv_bfloat16;
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 8 elements of row r, columns c..c+7 of a (rows x cols, leading dim ld)
+// matrix into shared memory: one async 16-byte copy when whole and
+// aligned, else masked element stores (zeros outside the matrix)
 __device__ __forceinline__ void load8(bf16* dst, const bf16* src, int r, int c,
                                       int rows, int cols, int ld) {
   const bf16* p = src + static_cast<size_t>(r) * ld + c;
   if (r < rows && c + 8 <= cols && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(p);
+    cp_async16(dst, p);
   } else {
 #pragma unroll
     for (int t = 0; t < 8; ++t)
@@ -129,11 +147,21 @@ __device__ __forceinline__ void load8(bf16* dst, const bf16* src, int r, int c,
 }
 
 template <bool kDual>
+struct TcSmem {
+  static constexpr int kA = TM * kALd, kB = TK * kBLd;      // elements
+  static constexpr int kStage = kA + kB * (kDual ? 2 : 1);  // elements
+  static constexpr int kBytes = kStages * kStage * 2;
+  static_assert(TM * kCLd * 4 <= kBytes, "the output tile reuses the ring");
+  static_assert((kA * 2) % 32 == 0 && (kB * 2) % 32 == 0, "wmma alignment");
+};
+
+template <bool kDual>
 __global__ void __launch_bounds__(kTcThreads)
 grouped_matmul_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                          const bf16* __restrict__ w2, const int* __restrict__ gs,
                          bf16* __restrict__ y, int C, int D, int H, int act) {
   namespace wmma = nvcuda::wmma;
+  using L = TcSmem<kDual>;
   const int e = blockIdx.z, c0 = blockIdx.y * TM, h0 = blockIdx.x * TN;
   const int tid = threadIdx.x, warp = tid / 32;
   bf16* yb = y + static_cast<size_t>(e) * C * H;
@@ -144,14 +172,28 @@ grouped_matmul_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
     return;
   }
-  __shared__ __align__(32) bf16 As[TM][TK + 8];
-  __shared__ __align__(32) bf16 Bs[TK][TN + 8];
-  __shared__ __align__(32) bf16 Bs2[kDual ? TK : 1][TN + 8];
-  __shared__ __align__(32) float Cs[TM][TN + 4];
+  __shared__ __align__(128) unsigned char smem[L::kBytes];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
   const bf16* xb = x + static_cast<size_t>(e) * C * D;
   const bf16* wb = w + static_cast<size_t>(e) * D * H;
   const bf16* w2b = kDual ? w2 + static_cast<size_t>(e) * D * H : nullptr;
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  const int nk = (D + TK - 1) / TK;
+
+  auto load_stage = [&](int kt) {
+    bf16* As = ring + (kt % kStages) * L::kStage;
+    bf16* Bs = As + L::kA;
+    const int k0 = kt * TK;
+    for (int i = tid; i < TM * TK / 8; i += kTcThreads) {
+      const int r = i / (TK / 8), c = (i % (TK / 8)) * 8;
+      load8(As + r * kALd + c, xb, c0 + r, k0 + c, C, D, D);
+    }
+    for (int i = tid; i < TK * TN / 8; i += kTcThreads) {
+      const int r = i / (TN / 8), c = (i % (TN / 8)) * 8;
+      load8(Bs + r * kBLd + c, wb, k0 + r, h0 + c, D, H, H);
+      if constexpr (kDual) load8(Bs + L::kB + r * kBLd + c, w2b, k0 + r, h0 + c, D, H, H);
+    }
+  };
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2], acc2[2][2];
 #pragma unroll
@@ -161,40 +203,44 @@ grouped_matmul_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       wmma::fill_fragment(acc[i][j], 0.0f);
       if constexpr (kDual) wmma::fill_fragment(acc2[i][j], 0.0f);
     }
-  for (int k0 = 0; k0 < D; k0 += TK) {
-    for (int i = tid; i < TM * TK / 8; i += kTcThreads) {
-      const int r = i / (TK / 8), c = (i % (TK / 8)) * 8;
-      load8(&As[r][c], xb, c0 + r, k0 + c, C, D, D);
-    }
-    for (int i = tid; i < TK * TN / 8; i += kTcThreads) {
-      const int r = i / (TN / 8), c = (i % (TN / 8)) * 8;
-      load8(&Bs[r][c], wb, k0 + r, h0 + c, D, H, H);
-      if constexpr (kDual) load8(&Bs2[r][c], w2b, k0 + r, h0 + c, D, H, H);
-    }
-    __syncthreads();
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nk) load_stage(st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of slice kt landed
+    __syncthreads();               // everyone's did; slice kt-1 is consumed
+    if (kt + kStages - 1 < nk) load_stage(kt + kStages - 1);
+    cp_async_commit();
+    const bf16* As = ring + (kt % kStages) * L::kStage;
+    const bf16* Bs = As + L::kA;
 #pragma unroll
     for (int kk = 0; kk < TK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], &As[wm + 16 * i][kk], TK + 8);
+      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], As + (wm + 16 * i) * kALd + kk, kALd);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], &Bs[kk][wn + 16 * j], TN + 8);
+      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], Bs + kk * kBLd + wn + 16 * j, kBLd);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
       if constexpr (kDual) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], &Bs2[kk][wn + 16 * j], TN + 8);
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(b[j], Bs + L::kB + kk * kBLd + wn + 16 * j, kBLd);
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int j = 0; j < 2; ++j) wmma::mma_sync(acc2[i][j], a[i], b[j], acc2[i][j]);
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: reuse it for the output tile
+  float* Cs = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -204,14 +250,14 @@ grouped_matmul_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         if constexpr (kDual) acc[i][j].x[t] = fff::silu(acc[i][j].x[t]) * acc2[i][j].x[t];
         else acc[i][j].x[t] = fff::activate(acc[i][j].x[t], act);
       }
-      wmma::store_matrix_sync(&Cs[wm + 16 * i][wn + 16 * j], acc[i][j], TN + 4,
+      wmma::store_matrix_sync(Cs + (wm + 16 * i) * kCLd + wn + 16 * j, acc[i][j], kCLd,
                               wmma::mem_row_major);
     }
   __syncthreads();
   for (int i = tid; i < TM * TN; i += kTcThreads) {
     const int r = c0 + i / TN, c = h0 + i % TN;
     if (r < C && c < H)
-      yb[static_cast<size_t>(r) * H + c] = __float2bfloat16(Cs[i / TN][i % TN]);
+      yb[static_cast<size_t>(r) * H + c] = __float2bfloat16(Cs[(i / TN) * kCLd + i % TN]);
   }
 }
 

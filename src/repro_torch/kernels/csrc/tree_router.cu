@@ -9,11 +9,14 @@
 // (15 * 6144 at internlm2-20b width) against 2*D bytes of token read once,
 // ~15 operations per byte, far below the ~295 where the tensor cores would
 // be the limit.  Design: one warp per token, eight tokens per block; the
-// lanes stride over D (coalesced reads of the token row) and each lane
-// keeps NB node sums in registers, so the token row is read once per NB
-// nodes (once in all for N <= 16); the node hyperplanes (N*D, 184 KB in
-// bf16) are shared by every warp and stay in L1/L2.  The N logits are
-// reduced with warp shuffles into shared memory and lane 0 descends.
+// lanes stride over D and each lane keeps NB node sums in registers, so the
+// token row is read once per NB nodes (once in all for N <= 16); the node
+// hyperplanes (N*D, 184 KB in bf16) are shared by every warp and stay in
+// L1/L2.  When D and the pointers allow, each lane reads 16 bytes at a
+// time (8 bf16 or 4 f32) of the token and of each node row, which cuts the
+// load instructions 8x (4x); otherwise it reads element by element.  The
+// N logits are reduced with warp shuffles into shared memory and lane 0
+// descends.
 #include "common.cuh"
 
 namespace {
@@ -21,7 +24,30 @@ namespace {
 constexpr int kWarps = 8;   // tokens per block
 constexpr int kNB = 16;     // node sums held in registers per pass
 
-template <typename T>
+// 16 bytes of T (8 bf16 or 4 f32) as floats
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int kN = 4;
+  __device__ static void load(const float* p, float* out) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void load(const __nv_bfloat16* p, float* out) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+};
+
+template <typename T, bool kVector>
 __global__ void __launch_bounds__(kWarps * 32)
 tree_router_kernel(const T* __restrict__ x, const T* __restrict__ nw,
                    const T* __restrict__ nb, int* __restrict__ out, int B,
@@ -37,12 +63,28 @@ tree_router_kernel(const T* __restrict__ x, const T* __restrict__ nw,
     float acc[kNB];
 #pragma unroll
     for (int j = 0; j < kNB; ++j) acc[j] = 0.0f;
-    for (int d = lane; d < D; d += 32) {
-      const float xv = fff::to_f32(xr[d]);
+    if constexpr (kVector) {
+      constexpr int V = Vec<T>::kN;
+      for (int d = lane * V; d < D; d += 32 * V) {
+        float xv[V], wv[V];
+        Vec<T>::load(xr + d, xv);
 #pragma unroll
-      for (int j = 0; j < kNB; ++j)
-        if (n0 + j < N)
-          acc[j] += xv * fff::to_f32(nw[static_cast<size_t>(n0 + j) * D + d]);
+        for (int j = 0; j < kNB; ++j) {
+          if (n0 + j < N) {
+            Vec<T>::load(nw + static_cast<size_t>(n0 + j) * D + d, wv);
+#pragma unroll
+            for (int v = 0; v < V; ++v) acc[j] += xv[v] * wv[v];
+          }
+        }
+      }
+    } else {
+      for (int d = lane; d < D; d += 32) {
+        const float xv = fff::to_f32(xr[d]);
+#pragma unroll
+        for (int j = 0; j < kNB; ++j)
+          if (n0 + j < N)
+            acc[j] += xv * fff::to_f32(nw[static_cast<size_t>(n0 + j) * D + d]);
+      }
     }
 #pragma unroll
     for (int j = 0; j < kNB; ++j) {
@@ -61,6 +103,24 @@ tree_router_kernel(const T* __restrict__ x, const T* __restrict__ nw,
   }
 }
 
+template <typename T>
+void launch(const void* x, const void* nw, const void* nb, int* out, int B,
+            int D, int depth, cudaStream_t s) {
+  const dim3 grid((B + kWarps - 1) / kWarps);
+  const size_t smem = kWarps * ((1 << depth) - 1) * sizeof(float);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(nw);
+  const bool vector = D % Vec<T>::kN == 0 &&
+                      (reinterpret_cast<uintptr_t>(xt) & 15) == 0 &&
+                      (reinterpret_cast<uintptr_t>(wt) & 15) == 0;
+  if (vector)
+    tree_router_kernel<T, true><<<grid, kWarps * 32, smem, s>>>(
+        xt, wt, static_cast<const T*>(nb), out, B, D, depth);
+  else
+    tree_router_kernel<T, false><<<grid, kWarps * 32, smem, s>>>(
+        xt, wt, static_cast<const T*>(nb), out, B, D, depth);
+}
+
 }  // namespace
 
 // x (B, D), nw (N, D), nb (N,) of one dtype, N = 2^depth - 1 with
@@ -69,19 +129,12 @@ extern "C" int tree_router(const void* x, const void* nw, const void* nb,
                            int* out, int B, int D, int depth, int dtype,
                            void* stream) {
   if (B < 1 || D < 1 || depth < 1 || depth > 8) return cudaErrorInvalidValue;
-  const dim3 grid((B + kWarps - 1) / kWarps);
-  const size_t smem = kWarps * ((1 << depth) - 1) * sizeof(float);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == fff::kF32) {
-    tree_router_kernel<float><<<grid, kWarps * 32, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(nw),
-        static_cast<const float*>(nb), out, B, D, depth);
-  } else if (dtype == fff::kBF16) {
-    tree_router_kernel<__nv_bfloat16><<<grid, kWarps * 32, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(nw),
-        static_cast<const __nv_bfloat16*>(nb), out, B, D, depth);
-  } else {
+  if (dtype == fff::kF32)
+    launch<float>(x, nw, nb, out, B, D, depth, s);
+  else if (dtype == fff::kBF16)
+    launch<__nv_bfloat16>(x, nw, nb, out, B, D, depth, s);
+  else
     return cudaErrorInvalidValue;
-  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,12 +5,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-ACTS = {
-    "none": lambda x: x,
-    "relu": F.relu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
-    "silu": F.silu,
-}
+from repro_torch import utils
+
+#: the kernels' activations ("none" is the down-projection's)
+ACTS = {"none": utils.ACTIVATIONS["identity"],
+        **{k: utils.ACTIVATIONS[k] for k in ("relu", "gelu", "silu")}}
 
 
 def _row_mask(x: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:

@@ -248,8 +248,11 @@ def test_kernel_backend_overrides_match_jax(model, backend, seq):
                                     caches)
         dec, _ = lm.decode_step(params, cfg, torch.from_numpy(model["tok"]),
                                 caches, S)
+        gen = lm.generate(params, cfg, torch.from_numpy(model["prompt"]),
+                          STEPS, MAX_LEN)
     close(logits, model["prefill"], kind="e2e")
     close(dec, model["decode"], kind="e2e")
+    np.testing.assert_array_equal(gen.numpy(), model["generate"])
 
 
 def test_weights_bridge_layout(model):
