@@ -36,7 +36,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import os
 import subprocess
 import sys
 import time
@@ -102,13 +101,16 @@ def margins(x, nw, nb, depth):
 
 
 def compare_idx(name, got, want, margin):
-    """Exact leaf indices except near-ties; returns the agreeing mask."""
+    """Exact leaf indices except near-ties; returns the agreeing mask, the
+    number of near-tie disagreements and the largest index difference off
+    near-ties (0, or this raises)."""
     agree = got.long() == want.long()
     bad = ~agree & (margin >= NEAR_TIE)
     if bool(bad.any()):
         raise AssertionError(f"{name}: {int(bad.sum())} tokens routed "
                              f"differently away from any near-tie")
-    return agree, int((~agree).sum())
+    diff = (got.long() - want.long()).abs()[margin >= NEAR_TIE]
+    return agree, int((~agree).sum()), float(diff.max()) if diff.numel() else 0.0
 
 
 def compare(name, got, want, dtype, rows=None):
@@ -173,12 +175,12 @@ def phase_kernels(gen) -> dict:
         nb = randn(N_NODES, scale=0.1, dtype=dtype)
         got = trk.tree_router(x, nw, nb, depth=DEPTH)
         want, margin = margins(x, nw, nb, DEPTH)
-        _, ties = compare_idx("tree_router", got, want, margin)
+        _, ties, err = compare_idx("tree_router", got, want, margin)
         ms = time_ms(lambda: trk.tree_router(x, nw, nb, depth=DEPTH))
         plain = time_ms(lambda: trr.tree_router_ref(x, nw, nb, depth=DEPTH))
         b, by = bound(B * D * sz + N_NODES * D * sz + N_NODES * sz + B * 4,
                       2 * B * N_NODES * D, dtype)
-        rows[("tree_router", dtype)] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+        rows[("tree_router", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                             bound_ms=b, bound_by=by, library_ms=None,
                                             near_ties=ties)
 
@@ -222,7 +224,7 @@ def phase_kernels(gen) -> dict:
         y, idx = fdk.fused_forest_decode(xd, nwf, nbf, leaves, depth=DEPTH, act="swiglu")
         y_ref, idx_ref = fdr.fused_decode_ref(xd, nwf, nbf, leaves, depth=DEPTH, act="swiglu")
         _, margin = margins(xd, nw, nb, DEPTH)
-        agree, ties = compare_idx("fused_forest_decode", idx[:, 0], idx_ref[:, 0], margin)
+        agree, ties, _ = compare_idx("fused_forest_decode", idx[:, 0], idx_ref[:, 0], margin)
         err = compare("fused_forest_decode", y, y_ref, dtype, rows=agree)
         ms = time_ms(lambda: fdk.fused_forest_decode(xd, nwf, nbf, leaves,
                                                      depth=DEPTH, act="swiglu"))
@@ -298,7 +300,7 @@ def phase_ragged(gen) -> None:
             agree = torch.ones(B, dtype=torch.bool, device=dev)
             for t in range(T):
                 _, margin = margins(x, nw[t], nb[t], depth)
-                a, _ = compare_idx("fused_forest_decode (ragged)", idx[:, t], idx_ref[:, t], margin)
+                a, _, _ = compare_idx("fused_forest_decode (ragged)", idx[:, t], idx_ref[:, t], margin)
                 agree &= a
             compare("fused_forest_decode (ragged)", y, y_ref, dtype, rows=agree)
             checked += 1

@@ -166,10 +166,15 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-def check(t: torch.Tensor, name: str, *, dtype=None, shape=None) -> None:
-    """What every kernel wrapper requires of a tensor it hands to C."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+def check(t: torch.Tensor, name: str, *, like: Optional[torch.Tensor] = None,
+          dtype=None, shape=None) -> None:
+    """What every kernel wrapper requires of a tensor it hands to C: on a
+    CUDA device (``like``'s device when given), of ``dtype`` (default
+    ``like``'s), of ``shape``, contiguous."""
+    if like is not None:
+        if t.device != like.device:
+            raise ValueError(f"{name}: on {t.device}, expected {like.device}")
+        dtype = dtype or like.dtype
     if dtype is not None and t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -177,6 +182,8 @@ def check(t: torch.Tensor, name: str, *, dtype=None, shape=None) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
 
 
 def dtype_code(t: torch.Tensor) -> int:
@@ -185,8 +192,11 @@ def dtype_code(t: torch.Tensor) -> int:
     return DTYPE_CODES[t.dtype]
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def stream_of(t: torch.Tensor) -> tuple[int, int]:
+    """(device ordinal, current stream) of a CUDA tensor: every C entry
+    point selects that device first, since the libraries' CUDA runtime
+    keeps a current device of its own."""
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -192,7 +192,8 @@ extern "C" int fused_forest_decode(const void* x, const void* nw, const void* nb
                                    void* y, float* yacc, int* counter,
                                    int* leaf_idx, int B, int D, int T, int depth,
                                    int E, int l, int O, int mw, int act,
-                                   int dtype, void* stream) {
+                                   int dtype, int device, void* stream) {
+  if (const cudaError_t err = cudaSetDevice(device)) return static_cast<int>(err);
   if (B < 1 || D < 1 || T < 1 || depth < 1 || depth > 12 || l < 1 || O < 1 ||
       E != (1 << depth) || act < fff::kActNone || act > fff::kActSwiglu ||
       ((act == fff::kActSwiglu) != (w3 != nullptr)) ||

@@ -289,7 +289,8 @@ int launch(const void* x, const void* w, const void* w2, const int* gs,
 // dtype; act is an activation code other than swiglu.
 extern "C" int grouped_matmul(const void* x, const void* w, const int* gs,
                               void* y, int E, int C, int D, int H, int act,
-                              int dtype, void* stream) {
+                              int dtype, int device, void* stream) {
+  if (const cudaError_t err = cudaSetDevice(device)) return static_cast<int>(err);
   if (act < fff::kActNone || act > fff::kActSilu) return cudaErrorInvalidValue;
   return launch<false>(x, w, nullptr, gs, y, E, C, D, H, act, dtype, stream);
 }
@@ -298,7 +299,8 @@ extern "C" int grouped_matmul(const void* x, const void* w, const int* gs,
 extern "C" int grouped_matmul_dual(const void* x, const void* wg,
                                    const void* wu, const int* gs, void* y,
                                    int E, int C, int D, int H, int dtype,
-                                   void* stream) {
+                                   int device, void* stream) {
+  if (const cudaError_t err = cudaSetDevice(device)) return static_cast<int>(err);
   return launch<true>(x, wg, wu, gs, y, E, C, D, H, fff::kActSwiglu, dtype,
                       stream);
 }

@@ -127,7 +127,8 @@ void launch(const void* x, const void* nw, const void* nb, int* out, int B,
 // 1 <= depth <= 8; out (B,) int32.  Returns cudaGetLastError().
 extern "C" int tree_router(const void* x, const void* nw, const void* nb,
                            int* out, int B, int D, int depth, int dtype,
-                           void* stream) {
+                           int device, void* stream) {
+  if (const cudaError_t err = cudaSetDevice(device)) return static_cast<int>(err);
   if (B < 1 || D < 1 || depth < 1 || depth > 8) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == fff::kF32)

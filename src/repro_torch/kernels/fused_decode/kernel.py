@@ -16,7 +16,7 @@ P, I = common.P, common.I
 
 KERNEL = common.register(common.Kernel(
     "fused_forest_decode", "fused_decode.cu", "fused_forest_decode",
-    [P] * 13 + [I] * 10 + [P],
+    [P] * 13 + [I] * 11 + [P],
     replaces="src/repro/kernels/fused_decode/kernel.py:175"))
 
 
@@ -34,6 +34,12 @@ def fused_forest_decode(x: torch.Tensor, nw: torch.Tensor, nb: torch.Tensor,
     if x.device.type == "cpu":
         return R.fused_decode_ref(x, nw, nb, leaf_w, depth=depth, act=act,
                                   master_w=master_w)
+    return _launch(x, nw, nb, leaf_w, depth, act, master_w)
+
+
+def _launch(x, nw, nb, leaf_w, depth, act, master_w):
+    """The CUDA branch: operand checks, output and scratch allocation, the
+    launch."""
     B, D = x.shape
     T, N, _ = nw.shape
     if depth < 1 or N != 2 ** depth - 1:
@@ -45,19 +51,19 @@ def fused_forest_decode(x: torch.Tensor, nw: torch.Tensor, nb: torch.Tensor,
         raise ValueError(f"unknown act {act!r}")
     E, l, O = leaf_w[0].shape[1], leaf_w[0].shape[3], leaf_w[-1].shape[3]
     common.check(x, "x")
-    common.check(nw, "nw", dtype=x.dtype, shape=(T, N, D))
-    common.check(nb, "nb", dtype=x.dtype, shape=(T, N))
+    common.check(nw, "nw", like=x, shape=(T, N, D))
+    common.check(nb, "nb", like=x, shape=(T, N))
     for w in leaf_w[:-1]:
-        common.check(w, "leaf up weight", dtype=x.dtype, shape=(T, E, D, l))
-    common.check(leaf_w[-1], "leaf down weight", dtype=x.dtype, shape=(T, E, l, O))
+        common.check(w, "leaf up weight", like=x, shape=(T, E, D, l))
+    common.check(leaf_w[-1], "leaf down weight", like=x, shape=(T, E, l, O))
     mw = 0
     if master_w is not None:
         if len(master_w) != len(leaf_w):
             raise ValueError("master leaf must have the leaves' form")
         mw = master_w[0].shape[1]
         for w in master_w[:-1]:
-            common.check(w, "master up weight", dtype=x.dtype, shape=(D, mw))
-        common.check(master_w[-1], "master down weight", dtype=x.dtype,
+            common.check(w, "master up weight", like=x, shape=(D, mw))
+        common.check(master_w[-1], "master down weight", like=x,
                      shape=(mw, O))
     swiglu = act == "swiglu"
     up, up3 = leaf_w[0], (leaf_w[1] if swiglu else None)
@@ -75,5 +81,5 @@ def fused_forest_decode(x: torch.Tensor, nw: torch.Tensor, nb: torch.Tensor,
                   p(m_up), p(m_up3), p(m_down), p(y), p(yacc), p(counter),
                   p(leaf_idx), B, D, T, depth, E, l, O, mw,
                   common.ACT_CODES[act], common.dtype_code(x),
-                  common.stream_of(x))
+                  *common.stream_of(x))
     return y, leaf_idx

@@ -14,7 +14,7 @@ P, I = common.P, common.I
 
 KERNEL = common.register(common.Kernel(
     "tree_router", "tree_router.cu", "tree_router",
-    [P, P, P, P, I, I, I, I, P],
+    [P, P, P, P, I, I, I, I, I, P],
     replaces="src/repro/kernels/tree_router/kernel.py:55"))
 
 
@@ -26,17 +26,22 @@ def tree_router(x: torch.Tensor, node_w: torch.Tensor, node_b: torch.Tensor,
     last tile itself."""
     if x.device.type == "cpu":
         return R.tree_router_ref(x, node_w, node_b, depth=depth)
+    return _launch(x, node_w, node_b, depth)
+
+
+def _launch(x, node_w, node_b, depth):
+    """The CUDA branch: operand checks, output allocation, the launch."""
     B, D = x.shape
     N = 2 ** depth - 1
     if not 1 <= depth <= 8:
         raise ValueError(f"tree_router kernel takes 1 <= depth <= 8, got {depth}")
     common.check(x, "x")
-    common.check(node_w, "node_w", dtype=x.dtype, shape=(N, D))
-    common.check(node_b, "node_b", dtype=x.dtype, shape=(N,))
+    common.check(node_w, "node_w", like=x, shape=(N, D))
+    common.check(node_b, "node_b", like=x, shape=(N,))
     out = torch.empty(B, dtype=torch.int32, device=x.device)
     if B == 0:
         return out
     KERNEL.launch(x.data_ptr(), node_w.data_ptr(), node_b.data_ptr(),
                   out.data_ptr(), B, D, depth, common.dtype_code(x),
-                  common.stream_of(x))
+                  *common.stream_of(x))
     return out

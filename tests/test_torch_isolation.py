@@ -89,6 +89,13 @@ def test_every_kernel_names_the_pallas_kernel_it_replaces():
         src = common.CSRC / k.source
         assert src.is_file() and f"extern \"C\" int {k.symbol}(" in src.read_text()
         assert "Replaces repro/kernels/" in src.read_text()
+        # the ctypes signature matches the C one, pointer for pointer: a
+        # mismatch would only show on the card
+        text = src.read_text()
+        start = text.index(f'extern "C" int {k.symbol}(') + len(k.symbol) + 16
+        params = [p.strip() for p in text[start:text.index(")", start)].split(",")]
+        assert [("*" in p) for p in params] == [
+            t is common.P for t in k.argtypes], (k.name, params)
         path, line = k.replaces.rsplit(":", 1)
         text = (REPO / path).read_text().splitlines()[int(line) - 1]
         assert "pallas_call" in text, (k.name, text)

@@ -382,3 +382,59 @@ def test_cuda_decode_sentinel_masks_invalid_rows():
     close(y, jy, kind="e2e")                      # outputs stay exact
     stats = api.routing_stats_from(out, tcfg)
     assert float(stats.slots) == valid.sum()      # sentinel rows drop out
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' CUDA branches, up to the launch
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def stub_launch(monkeypatch):
+    """Drive a wrapper's CUDA branch with CPU tensors: the device-type check
+    and the launch are stubbed, every other operand check runs, and each
+    launch's arguments are held against the kernel's ctypes signature
+    (which tests/test_torch_isolation.py holds against the C source)."""
+    launched = []
+    check = common.check
+
+    def check_but_device(t, name, **kw):
+        try:
+            check(t, name, **kw)
+        except ValueError as e:
+            if "expected a CUDA tensor" not in str(e):
+                raise
+
+    def launch(self, *args):
+        assert len(args) == len(self.argtypes), self.name
+        for a, t in zip(args, self.argtypes):
+            if t is common.P:
+                assert a is None or isinstance(a, int), (self.name, a)
+            else:
+                assert type(a) is int, (self.name, a)
+        launched.append(self.name)
+
+    monkeypatch.setattr(common, "check", check_but_device)
+    monkeypatch.setattr(common, "stream_of", lambda t: (0, 0))
+    monkeypatch.setattr(common.Kernel, "launch", launch)
+    return launched
+
+
+def test_cuda_branches_marshal_their_c_signatures(stub_launch):
+    from repro_torch.kernels.tree_router import kernel as trk
+    out = trk._launch(torch.zeros(5, 16), torch.zeros(7, 16), torch.zeros(7), 3)
+    assert out.shape == (5,) and out.dtype == torch.int32
+    x, w = torch.zeros(3, 16, 8), torch.zeros(3, 8, 4)
+    gs = torch.zeros(3, dtype=torch.int32)
+    assert gk._launch(gk.GMM, x, (w,), gs, (0,)).shape == (3, 16, 4)
+    assert gk._launch(gk.GMM_DUAL, x, (w, w), gs, ()).shape == (3, 16, 4)
+    for act, master in (("gelu", False), ("swiglu", True)):
+        _, _, tp, tcfg = fff_pair(40, act=act, trees=2, master=master)
+        nw, nb = fd_ops.collapse_nodes(tp, tcfg)
+        leaf_w, _ = fd_ops._leaf_weights(tp, tcfg)
+        y, idx = fdk._launch(torch.zeros(6, 16), nw, nb, leaf_w, 3, act,
+                             fd_ops._master_weights(tp, tcfg))
+        assert y.shape == (6, 16) and idx.shape == (6, 2)
+    assert stub_launch == ["tree_router", "grouped_matmul", "grouped_matmul_dual",
+                           "fused_forest_decode", "fused_forest_decode"]
+    with pytest.raises(ValueError, match="expected shape"):
+        gk._launch(gk.GMM, x, (torch.zeros(3, 9, 4),), gs, (0,))
