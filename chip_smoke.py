@@ -371,15 +371,19 @@ def phase_profile(cfg, params, lm, tokens) -> None:
         return out
 
     def report(label, prof, wall_s, steps):
-        events = [e for e in prof.key_averages()
+        averages = prof.key_averages()
+        events = [e for e in averages
                   if str(e.device_type).endswith("CUDA")]   # kernels, memsets, copies
         dev = lambda e: getattr(e, "self_device_time_total",
                                 getattr(e, "self_cuda_time_total", 0))
         busy_us = sum(dev(e) for e in events)
+        launches = sum(e.count for e in averages if e.key.startswith(
+            ("cudaLaunchKernel", "cuLaunchKernel")))
         top = sorted(events, key=dev, reverse=True)[:8]
         log(f"[profile] {label}: {wall_s / steps * 1e3:.2f} ms per step (host "
             f"clock, profiler on); device busy {busy_us / 1e3 / steps:.2f} ms "
-            f"per step = {busy_us / 1e6 / wall_s:.1%} of the window")
+            f"per step = {busy_us / 1e6 / wall_s:.1%} of the window; "
+            f"{launches / steps:.0f} kernel launches per step")
         for e in top:
             log(f"[profile]   {dev(e) / 1e3 / steps:8.3f} ms/step  {e.count // steps:4d}"
                 f" calls/step  {e.key[:90]}")
