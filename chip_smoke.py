@@ -250,20 +250,24 @@ def phase_kernels(gen) -> dict:
 
 
 def phase_ragged(gen) -> None:
-    """The kernels' masked paths, at the CPU tests' small, unaligned sizes
-    (which the full-width shapes never reach): odd batches, D = 20, leaf
-    widths 4 and 8, a two-tree forest, the master leaf, every activation."""
+    """The kernels' masked and element-wise paths, at the CPU tests' small
+    sizes (which the full-width shapes never reach): odd batches, D = 20
+    and 24, leaf widths 4 and 8, a two-tree forest, the master leaf, every
+    activation."""
     from repro_torch.kernels.fused_decode import kernel as fdk, ref as fdr
     from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
-    from repro_torch.kernels.tree_router import kernel as trk, ref as trr
+    from repro_torch.kernels.tree_router import kernel as trk
 
     dev = torch.device("cuda")
-    d, checked = 20, 0
+    checked = 0
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    for dtype in (torch.float32, torch.bfloat16):
+    # D = 20 takes the element-wise paths; D = 24 (a multiple of 8) the
+    # 16-byte ones wherever the other widths allow
+    for d, dtype in [(d, t) for d in (20, 24)
+                     for t in (torch.float32, torch.bfloat16)]:
         for B, depth in ((1, 1), (7, 2), (37, 4)):
             N = 2 ** depth - 1
             x = randn(B, d, dtype=dtype)
@@ -305,8 +309,8 @@ def phase_ragged(gen) -> None:
             compare("fused_forest_decode (ragged)", y, y_ref, dtype, rows=agree)
             checked += 1
     torch.cuda.synchronize()
-    log(f"[ragged] {checked} small unaligned kernel cases agree with their "
-        f"plain versions (fp32 and bf16)")
+    log(f"[ragged] {checked} small kernel cases agree with their plain "
+        f"versions (fp32 and bf16)")
 
 
 def phase_serve(common, api, serve_mod, FFF_CONFIG) -> dict:

@@ -35,6 +35,34 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+// elements of T in one 16-byte load (8 bf16, 4 f32)
+template <typename T> constexpr int kVec = 16 / sizeof(T);
+
+// V consecutive elements of T as floats: one 16-byte load when V is a
+// whole vector (p must then be 16-byte aligned), else element by element
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  if constexpr (V == kVec<T>) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    if constexpr (sizeof(T) == 4) {
+      const float* f = reinterpret_cast<const float*>(&v);
+#pragma unroll
+      for (int i = 0; i < V; ++i) out[i] = f[i];
+    } else {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int i = 0; i < V / 2; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        out[2 * i] = f.x;
+        out[2 * i + 1] = f.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = to_f32(p[i]);
+  }
+}
+
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + __expf(-v)); }
 
 __device__ __forceinline__ float activate(float v, int act) {

@@ -16,15 +16,16 @@
 // one tree (or of the master leaf).  Each block
 //   1. stages the token row in shared memory as f32;
 //   2. recomputes that tree's N node logits (15 x 6144 multiply-adds, one
-//      warp per node, shuffle-reduced) and descends — ties go right — so
+//      warp per node, 16-byte reads, shuffle-reduced) and descends — ties go right — so
 //      the routed leaf index is the offset of its weight loads, the
 //      paper's "conditionality is an offset in the data load";
-//   3. computes its 32 hidden units (lanes over units, warps over D,
-//      coalesced rows of the (D, l) slab), applies the activation and
-//      rounds h to the element type, as the Pallas kernel does;
+//   3. computes its 32 hidden units (threads over units and rows of D,
+//      16-byte coalesced reads of the (D, l) slab where the shapes allow),
+//      applies the activation and rounds h to the element type, as the
+//      Pallas kernel does;
 //   4. multiplies them into the matching 32 rows of the (l, O) down slab
-//      (threads over O, coalesced) and adds its partial output into an f32
-//      accumulator with atomics.
+//      (threads over O, 16-byte reads) and adds its partial output into an
+//      f32 accumulator with atomics.
 // The last block to finish a token (a per-token arrival counter) converts
 // that token's f32 sum to the output type, so the launch is the only one.
 // The atomics make the order of the per-slice partial sums vary from run
@@ -38,7 +39,10 @@ constexpr int kHS = 32;      // hidden units per block (one per lane)
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
-template <typename T>
+// V = 1 reads the weights element by element (any shape); V = 16 bytes'
+// worth (8 bf16, 4 f32) needs D, l, mw and O divisible by V and 16-byte
+// aligned weights, and cuts the load instructions by V.
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 fused_decode_kernel(const T* __restrict__ x, const T* __restrict__ nw,
                     const T* __restrict__ nb, const T* __restrict__ w1,
@@ -48,13 +52,15 @@ fused_decode_kernel(const T* __restrict__ x, const T* __restrict__ nw,
                     float* __restrict__ yacc, int* __restrict__ counter,
                     int* __restrict__ leaf_idx, int D, int T_, int depth,
                     int E, int l, int O, int mw, int act) {
+  constexpr int kTpr = kHS / V;           // threads across one row's 32 units
+  constexpr int kRows = kThreads / kTpr;  // weight rows read at once
   extern __shared__ float smem[];
   const int N = (1 << depth) - 1;
   float* xs = smem;                        // [D]
   float* logits = xs + D;                  // [N]
-  float* part1 = logits + N;               // [kWarps][kHS]
-  float* part3 = part1 + kWarps * kHS;     // [kWarps][kHS]
-  float* hs = part3 + kWarps * kHS;        // [kHS]
+  float* part1 = logits + N;               // [kRows][kHS]
+  float* part3 = part1 + kRows * kHS;      // [kRows][kHS]
+  float* hs = part3 + kRows * kHS;         // [kHS]
   __shared__ int s_idx;
   __shared__ bool s_last;
 
@@ -75,9 +81,12 @@ fused_decode_kernel(const T* __restrict__ x, const T* __restrict__ nw,
     j0 = (s % slices) * kHS;
     const T* nwt = nw + static_cast<size_t>(t) * N * D;
     for (int n = warp; n < N; n += kWarps) {
-      float acc = 0.0f;
-      for (int d = lane; d < D; d += 32)
-        acc += xs[d] * fff::to_f32(nwt[static_cast<size_t>(n) * D + d]);
+      float acc = 0.0f, wn[V];
+      for (int d = lane * V; d < D; d += 32 * V) {
+        fff::load_vec<T, V>(nwt + static_cast<size_t>(n) * D + d, wn);
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc += xs[d + v] * wn[v];
+      }
       acc = fff::warp_sum(acc);
       if (lane == 0) logits[n] = acc + fff::to_f32(nb[t * N + n]);
     }
@@ -105,41 +114,54 @@ fused_decode_kernel(const T* __restrict__ x, const T* __restrict__ nw,
     width = mw;
   }
 
-  // hidden units j0 .. j0+31: lane = unit, warps stride over D
-  const int j = j0 + lane;
-  float a1 = 0.0f, a3 = 0.0f;
-  if (j < width) {
-#pragma unroll 8
-    for (int d = warp; d < D; d += kWarps) {
+  // hidden units j0 .. j0+31: each thread owns V of them and strides over
+  // the rows of D with kRows - 1 other row groups
+  const int u0 = (tid % kTpr) * V, r0 = tid / kTpr;
+  float a1[V] = {}, a3[V] = {}, w[V];
+  if (j0 + u0 < width) {
+#pragma unroll 4
+    for (int d = r0; d < D; d += kRows) {
       const float xv = xs[d];
-      const size_t off = static_cast<size_t>(d) * width + j;
-      a1 += xv * fff::to_f32(up[off]);
-      if (dual) a3 += xv * fff::to_f32(up3[off]);
+      const size_t off = static_cast<size_t>(d) * width + j0 + u0;
+      fff::load_vec<T, V>(up + off, w);
+#pragma unroll
+      for (int v = 0; v < V; ++v) a1[v] += xv * w[v];
+      if (dual) {
+        fff::load_vec<T, V>(up3 + off, w);
+#pragma unroll
+        for (int v = 0; v < V; ++v) a3[v] += xv * w[v];
+      }
     }
   }
-  part1[warp * kHS + lane] = a1;
-  part3[warp * kHS + lane] = a3;
-  __syncthreads();
-  if (warp == 0) {
-    float g = 0.0f, u = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      g += part1[w * kHS + lane];
-      u += part3[w * kHS + lane];
+  for (int v = 0; v < V; ++v) {
+    part1[r0 * kHS + u0 + v] = a1[v];
+    part3[r0 * kHS + u0 + v] = a3[v];
+  }
+  __syncthreads();
+  if (tid < kHS) {
+    float g = 0.0f, u = 0.0f;
+    for (int r = 0; r < kRows; ++r) {
+      g += part1[r * kHS + tid];
+      u += part3[r * kHS + tid];
     }
     const float h = dual ? fff::silu(g) * u : fff::activate(g, act);
-    hs[lane] = j < width ? fff::round_to<T>(h) : 0.0f;
+    hs[tid] = j0 + tid < width ? fff::round_to<T>(h) : 0.0f;
   }
   __syncthreads();
 
   // this slice's share of the down-projection, summed across blocks in f32
   const int nj = min(kHS, width - j0);
   const T* dn = down + static_cast<size_t>(j0) * O;
-  for (int o = tid; o < O; o += kThreads) {
-    float acc = 0.0f;
-    for (int jj = 0; jj < nj; ++jj)
-      acc += hs[jj] * fff::to_f32(dn[static_cast<size_t>(jj) * O + o]);
-    atomicAdd(&yacc[static_cast<size_t>(b) * O + o], acc);
+  for (int o = tid * V; o < O; o += kThreads * V) {
+    float acc[V] = {};
+    for (int jj = 0; jj < nj; ++jj) {
+      fff::load_vec<T, V>(dn + static_cast<size_t>(jj) * O + o, w);
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] += hs[jj] * w[v];
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) atomicAdd(&yacc[static_cast<size_t>(b) * O + o + v], acc[v]);
   }
 
   // the last block of token b writes its output row
@@ -155,17 +177,26 @@ fused_decode_kernel(const T* __restrict__ x, const T* __restrict__ nw,
   }
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 template <typename T>
 int launch(const void* x, const void* nw, const void* nb, const void* w1,
            const void* w3, const void* w2, const void* m1, const void* m3,
            const void* m2, void* y, float* yacc, int* counter, int* leaf_idx,
            int B, int D, int T_, int depth, int E, int l, int O, int mw,
            int act, cudaStream_t s) {
+  constexpr int V = fff::kVec<T>;
+  const bool vector =
+      D % V == 0 && l % V == 0 && O % V == 0 && (m1 == nullptr || mw % V == 0) &&
+      aligned16(nw) && aligned16(w1) && aligned16(w2) && (w3 == nullptr || aligned16(w3)) &&
+      (m1 == nullptr || (aligned16(m1) && aligned16(m2) &&
+                         (m3 == nullptr || aligned16(m3))));
   const int slices = (l + kHS - 1) / kHS;
   const int m_slices = m1 != nullptr ? (mw + kHS - 1) / kHS : 0;
   const dim3 grid(T_ * slices + m_slices, B);
-  const size_t smem = (D + (1 << depth) - 1 + 2 * kWarps * kHS + kHS) * sizeof(float);
-  auto kernel = fused_decode_kernel<T>;
+  const int rows = vector ? kThreads / (kHS / V) : kThreads / kHS;
+  const size_t smem = (D + (1 << depth) - 1 + 2 * rows * kHS + kHS) * sizeof(float);
+  auto kernel = vector ? fused_decode_kernel<T, V> : fused_decode_kernel<T, 1>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

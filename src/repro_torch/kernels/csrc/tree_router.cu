@@ -24,29 +24,6 @@ namespace {
 constexpr int kWarps = 8;   // tokens per block
 constexpr int kNB = 16;     // node sums held in registers per pass
 
-// 16 bytes of T (8 bf16 or 4 f32) as floats
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
 template <typename T, bool kVector>
 __global__ void __launch_bounds__(kWarps * 32)
 tree_router_kernel(const T* __restrict__ x, const T* __restrict__ nw,
@@ -64,14 +41,14 @@ tree_router_kernel(const T* __restrict__ x, const T* __restrict__ nw,
 #pragma unroll
     for (int j = 0; j < kNB; ++j) acc[j] = 0.0f;
     if constexpr (kVector) {
-      constexpr int V = Vec<T>::kN;
+      constexpr int V = fff::kVec<T>;
       for (int d = lane * V; d < D; d += 32 * V) {
         float xv[V], wv[V];
-        Vec<T>::load(xr + d, xv);
+        fff::load_vec<T, V>(xr + d, xv);
 #pragma unroll
         for (int j = 0; j < kNB; ++j) {
           if (n0 + j < N) {
-            Vec<T>::load(nw + static_cast<size_t>(n0 + j) * D + d, wv);
+            fff::load_vec<T, V>(nw + static_cast<size_t>(n0 + j) * D + d, wv);
 #pragma unroll
             for (int v = 0; v < V; ++v) acc[j] += xv[v] * wv[v];
           }
@@ -110,7 +87,7 @@ void launch(const void* x, const void* nw, const void* nb, int* out, int B,
   const size_t smem = kWarps * ((1 << depth) - 1) * sizeof(float);
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(nw);
-  const bool vector = D % Vec<T>::kN == 0 &&
+  const bool vector = D % fff::kVec<T> == 0 &&
                       (reinterpret_cast<uintptr_t>(xt) & 15) == 0 &&
                       (reinterpret_cast<uintptr_t>(wt) & 15) == 0;
   if (vector)
