@@ -45,16 +45,6 @@ class FFNSpec:
             return self.fff_trees * (2 ** self.fff_depth) * self.fff_leaf_width
         return 0
 
-    @property
-    def active_width(self) -> int:
-        if self.kind == "dense":
-            return self.d_ff
-        if self.kind == "moe":
-            return self.moe_top_k * self.d_ff
-        if self.kind == "fff":
-            return self.fff_trees * self.fff_leaf_width
-        return 0
-
     def as_fff(self, leaf_width: int = 0, trees: int = 0) -> "FFNSpec":
         """Convert a dense/moe FFN site into the FFF replacement that keeps
         the training width (paper user-manual Case 1 / FFF-for-MoE)."""
@@ -115,10 +105,6 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
-
-    @property
-    def n_periods(self) -> int:
-        return self.n_layers // len(self.period)
 
     def with_ffn_kind(self, kind: str, **fff_kw) -> "ModelConfig":
         """Swap every FFN site to dense/fff/moe — the --ffn flag."""

@@ -54,14 +54,6 @@ class FFFConfig:
         return 2 ** self.depth - 1
 
     @property
-    def training_width(self) -> int:
-        return self.trees * self.num_leaves * self.leaf_width
-
-    @property
-    def inference_width(self) -> int:
-        return self.trees * self.leaf_width
-
-    @property
     def master_hidden(self) -> int:
         return self.master_width or self.leaf_width
 

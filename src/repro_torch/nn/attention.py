@@ -39,13 +39,8 @@ class AttnConfig:
     use_rope: bool = True
     causal: bool = True
     sliding_window: int = 0          # 0 = full
-    chunk: int = 1024
     param_dtype: Any = torch.float32
     accum_dtype: Any = torch.float32
-
-    @property
-    def groups(self) -> int:
-        return self.n_heads // self.n_kv_heads
 
 
 def init(gen: torch.Generator, cfg: AttnConfig) -> Params:

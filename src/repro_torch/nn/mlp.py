@@ -43,13 +43,13 @@ def init(gen: torch.Generator, spec: FFNSpec, d_model: int, *, param_dtype,
 def forward(params: Params, spec: FFNSpec, d_model: int, x: torch.Tensor, *,
             param_dtype, accum_dtype, train: bool = False,
             valid: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, dict]:
-    """x (..., D) -> (..., D), aux {'hardening', 'moe_aux', 'balance'} plus
-    'routing' when an ``api.collect_routing`` tap is active.  ``valid``
-    marks phantom tokens for the FFF dispatch (ExecutionSpec.valid)."""
+    """x (..., D) -> (..., D), aux: {'routing': RoutingStats} when an
+    ``api.collect_routing`` tap is active, else empty (the training terms
+    of the JAX aux dict arrive with the training slice).  ``valid`` marks
+    phantom tokens for the FFF dispatch (ExecutionSpec.valid)."""
     if train:
         raise NotImplementedError("FFN training arrives with the training slice")
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"hardening": zero, "moe_aux": zero, "balance": zero}
+    aux = {}
     if spec.kind == "none":
         return x, aux
     if spec.kind != "fff":

@@ -29,7 +29,7 @@ def make_attn_config(cfg: ModelConfig, spec: BlockSpec, *, causal: bool = True
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, bias=cfg.attn_bias,
         rope_theta=cfg.rope_theta, use_rope=(cfg.pos_emb == "rope"),
-        causal=causal, sliding_window=spec.sliding_window, chunk=cfg.attn_chunk,
+        causal=causal, sliding_window=spec.sliding_window,
         param_dtype=cfg.param_dtype, accum_dtype=cfg.accum_dtype)
 
 
@@ -74,8 +74,7 @@ def block_forward(params: Params, cfg: ModelConfig, spec: BlockSpec,
         y, kv = attention.forward_decode(params["mixer"], acfg, h, cache["kv"],
                                          decode_mask)
     x = x + y
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"hardening": zero, "moe_aux": zero, "balance": zero}
+    aux = {}
     if spec.ffn.kind != "none":
         h2 = norms.norm_apply(cfg.norm, params["norm2"], x)
         y2, aux = mlp.forward(params["ffn"], spec.ffn, cfg.d_model, h2,

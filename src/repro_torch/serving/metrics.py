@@ -23,9 +23,6 @@ class LatencySummary:
                 f"p99 {self.p99_ms:.2f}ms mean {self.mean_ms:.2f}ms "
                 f"max {self.max_ms:.2f}ms (n={self.n})")
 
-    def as_dict(self) -> dict:
-        return dataclasses.asdict(self)
-
 
 def summarize(samples_s: Sequence[float]) -> LatencySummary:
     """Percentile summary of latency samples (seconds in, ms out)."""
