@@ -22,7 +22,9 @@ Phases (any failure raises, and the exit code is non-zero):
               layers, random weights from a seeded CUDA generator: batch 8,
               prompt 128, 16 greedy decode steps through
               repro_torch.launch.serve.serve; asserts each kernel's launch
-              count on that run and that no site fell back to the reference.
+              count on that run and that no site fell back to the reference,
+              and reports how many prefill tokens overflowed a leaf's
+              capacity (and took the dense repair).
    profile  — a warm prefill and warm decode steps of that model under
               torch.profiler: device busy share and the top kernels.
 5. parity   — the same width with 2 layers in float32: 8 greedy tokens from
@@ -329,13 +331,25 @@ def phase_serve(common, api, serve_mod, FFF_CONFIG) -> dict:
         reference_calls.append(1)
         return ref_fn(*a)
 
+    from repro_torch.kernels.leaf_gemm import ops as gemm_ops
+    scatter = gemm_ops.scatter_to_groups
+    layouts = []
+
+    def recording_scatter(x, leaf_idx, num_leaves, capacity):
+        # keeps each prefill layer's kept mask (a device tensor: no sync)
+        out = scatter(x, leaf_idx, num_leaves, capacity)
+        layouts.append(out.kept)
+        return out
+
     api.register_backend("infer", "reference", counting_reference)
+    gemm_ops.scatter_to_groups = recording_scatter
     common.reset_launch_counts()
     try:
         res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S,
                               gen=GEN, device="cuda", params=params)
     finally:
         api.register_backend("infer", "reference", ref_fn)
+        gemm_ops.scatter_to_groups = scatter
     counts = common.launch_counts()
     want = {"fused_forest_decode": cfg.n_layers * GEN,
             "tree_router": cfg.n_layers, "grouped_matmul_dual": cfg.n_layers,
@@ -349,6 +363,10 @@ def phase_serve(common, api, serve_mod, FFF_CONFIG) -> dict:
     if tuple(toks.shape) != (PREFILL_B, GEN + 1) or not bool(
             ((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
+    dropped = [int((~k).sum()) for k in layouts]
+    log(f"[serve] prefill tokens over their leaf's capacity (dense repair): "
+        f"{sum(dropped)} of {sum(k.numel() for k in layouts)} over "
+        f"{len(layouts)} layers, per layer {dropped}")
     log(f"[serve] prefill {res.prefill_s * 1e3:.2f} ms; decode p50 "
         f"{res.steady.p50_ms:.2f} ms p90 {res.steady.p90_ms:.2f} ms; "
         f"{res.tokens_per_s:.1f} tok/s; launches {counts} (as expected); "
