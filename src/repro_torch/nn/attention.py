@@ -92,8 +92,7 @@ def _expand_kv(kv: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool = True,
-                   bias_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   causal: bool = True) -> torch.Tensor:
     """Materialized-score attention.  q (B, S, H, hd); k, v (B, Sk, K, hd)."""
     B, S, H, hd = q.shape
     Sk = k.shape[1]
@@ -104,8 +103,6 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal:
         mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device).tril(Sk - S)
         s = s.masked_fill(~mask, NEG_INF)
-    if bias_mask is not None:
-        s = s.masked_fill(~bias_mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqp,bphd->bqhd", p, vf).to(q.dtype)
 
