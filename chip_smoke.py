@@ -9,32 +9,53 @@ Phases (any failure raises, and the exit code is non-zero):
 2. build    — nvcc builds every kernel in src/repro_torch/kernels/csrc/.
 3. kernels  — each kernel against its plain PyTorch version at the
               internlm2-20b FFF main-path shapes (D = 6144, depth 4, 16
-              leaves of width 1024; decode batch 8; prefill 8 x 128 tokens),
-              in float32 (TF32 off; tolerance 1e-4) and bfloat16 (5e-2).
-              Leaf indices must match exactly except on near-ties (deciding
-              logit |l| < 1e-3 in float32), which are counted; outputs are
-              compared on tokens whose indices agree.  Times each kernel,
-              its plain version and, where one PyTorch call computes the
-              same function, that call (library_ms), with CUDA events.
+              leaves of width 1024; decode batch 8; prefill 8 x 128 tokens;
+              the gathered kernels at the 32-token verify slab, 6144 -> 1024
+              and 1024 -> 6144, every activation, random, one-leaf and
+              distinct-leaf routings), in float32 (TF32 off; tolerance
+              1e-4) and bfloat16 (5e-2).  Leaf indices must match exactly
+              except on near-ties (deciding logit |l| < 1e-3 in float32),
+              which are counted; outputs are compared on tokens whose
+              indices agree.  Times each kernel, its plain version and,
+              where one PyTorch call computes the same function, that call
+              (library_ms), with CUDA events.
    ragged   — the same kernels at the CPU tests' small unaligned sizes,
-              which exercise their masked edge paths.
+              which exercise their masked edge paths, and the gathered
+              kernels' guard for leaf indices outside [0, E).
 4. serve    — internlm2-20b FFF at full width (bf16) with 8 of its 48
               layers, random weights from a seeded CUDA generator: batch 8,
               prompt 128, 16 greedy decode steps through
-              repro_torch.launch.serve.serve; asserts each kernel's launch
-              count on that run and that no site fell back to the reference,
-              and reports how many prefill tokens overflowed a leaf's
-              capacity (and took the dense repair).
+              repro_torch.launch.serve.serve (the fixed-batch loop); asserts
+              each kernel's launch count on that run and that no site fell
+              back to the reference, and reports how many prefill tokens
+              overflowed a leaf's capacity (and took the dense repair).
    profile  — a warm prefill and warm decode steps of that model under
               torch.profiler: device busy share and the top kernels.
-5. parity   — the same width with 2 layers in float32: 8 greedy tokens from
-              the kernel backends must equal those of the reference backend.
+5. engine   — the same model and weights through the continuous-batching
+              engine (repro_torch.launch.serve.serve_engine): 8 slots,
+              speculative decoding with spec_k 3 (a 32-token verify slab)
+              and the self:1 draft, fcfs, 16 Markov-source requests of
+              16-128 prompt tokens and 32 new tokens each, monolithic then
+              chunked (16-token chunks) admission.  Asserts the launch
+              counts of each run (both gathered kernels once per layer per
+              verify round, the fused decode kernel once per draft step,
+              the grouped kernels once per layer per admission slab), the
+              fixed dispatch shapes, and that the reference never ran.
+   engine profile — three warm speculative rounds under torch.profiler.
+6. parity   — the same width with 2 layers in float32: 8 greedy tokens from
+              the kernel backends must equal those of the reference backend;
+              then the engine (plain and speculative, monolithic and
+              chunked) must give every request lm.generate's greedy tokens,
+              except where a deciding margin (a node logit or the top-2
+              logit gap) is under 1e-3.
 
-Prints the kernel table as one JSON line, the card's name and power limit,
-and, last, {"ok": true, "device": {...}}.
+Prints the kernel table as one JSON line (launches from the monolithic
+engine run), the card's name and power limit, and, last,
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -58,6 +79,11 @@ D, DEPTH, E, L_W, O = 6144, 4, 16, 1024, 6144
 N_NODES = 2 ** DEPTH - 1
 DECODE_B, PREFILL_B, PREFILL_S = 8, 8, 128
 SERVE_LAYERS, GEN, PARITY_LAYERS, PARITY_B, PARITY_S, PARITY_STEPS = 8, 16, 2, 4, 32, 8
+# the engine: 8 slots x (spec_k 3 + 1) = the 32-token verify slab
+SLOTS, SPEC_K, ENGINE_REQS, ENGINE_PROMPT, ENGINE_MIN_PROMPT, ENGINE_GEN = 8, 3, 16, 128, 16, 32
+ENGINE_CHUNK, DRAFT_LAYERS = 16, 1
+VERIFY_B = SLOTS * (SPEC_K + 1)
+ACTS = ("none", "relu", "gelu", "silu")
 
 
 def log(msg: str) -> None:
@@ -241,14 +267,100 @@ def phase_kernels(gen) -> dict:
             library_ms=None, near_ties=ties, distinct_leaves=distinct)
         del wg, wu, wd, leaves
         torch.cuda.empty_cache()
+    log_rows(rows)
+    return rows
+
+
+def phase_gathered(gen) -> dict:
+    """The verify slab's kernels: the gathered leaf matmuls at 32 tokens,
+    6144 -> 1024 (the SwiGLU up-projection, and gathered_matmul with every
+    activation) and 1024 -> 6144 (the down-projection), E = 16, under a
+    random routing, every token on one leaf, and 16 tokens on 16 distinct
+    leaves, timed on the random routing, whose bound counts each distinct
+    routed leaf once; and the tree router at 32 tokens (a row of its own,
+    "tree_router@32", beside the prefill-shape row)."""
+    from repro_torch.kernels.fused_fff import kernel as fk, ref as fr
+    from repro_torch.kernels.tree_router import kernel as trk, ref as trr
+
+    dev = torch.device("cuda")
+    rows = {}
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        sz = 2 if dtype == torch.bfloat16 else 4
+        x = randn(VERIFY_B, D, dtype=dtype)
+        nw = randn(N_NODES, D, scale=D ** -0.5, dtype=dtype)
+        nb = randn(N_NODES, scale=0.1, dtype=dtype)
+        want, margin = margins(x, nw, nb, DEPTH)
+        _, ties, err = compare_idx("tree_router@32",
+                                   trk.tree_router(x, nw, nb, depth=DEPTH), want, margin)
+        ms = time_ms(lambda: trk.tree_router(x, nw, nb, depth=DEPTH))
+        plain = time_ms(lambda: trr.tree_router_ref(x, nw, nb, depth=DEPTH))
+        b, by = bound(VERIFY_B * D * sz + N_NODES * (D + 1) * sz + VERIFY_B * 4,
+                      2 * VERIFY_B * N_NODES * D, dtype)
+        rows[("tree_router@32", dtype)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            library_ms=None, near_ties=ties)
+        wg = randn(E, D, L_W, scale=D ** -0.5, dtype=dtype)
+        wu = randn(E, D, L_W, scale=D ** -0.5, dtype=dtype)
+        wd = randn(E, L_W, O, scale=L_W ** -0.5, dtype=dtype)
+        i32 = dict(device=dev, dtype=torch.int32)
+        routings = {
+            "random": torch.randint(0, E, (VERIFY_B,), generator=gen, **i32),
+            "one leaf": torch.full((VERIFY_B,), 5, **i32),
+            "distinct": torch.randperm(E, generator=gen, device=dev).to(torch.int32)}
+        for rname, idx in routings.items():
+            xb = x[:idx.numel()]
+            h = fk.gathered_matmul_dual(xb, wg, wu, idx)
+            compare(f"gathered_matmul_dual ({rname})", h,
+                    fr.gathered_matmul_dual_ref(xb, wg, wu, idx), dtype)
+            for act in ACTS:
+                compare(f"gathered_matmul {act} 6144->1024 ({rname})",
+                        fk.gathered_matmul(xb, wg, idx, act=act),
+                        fr.gathered_matmul_ref(xb, wg, idx, act=act), dtype)
+            compare(f"gathered_matmul 1024->6144 ({rname})",
+                    fk.gathered_matmul(h, wd, idx),
+                    fr.gathered_matmul_ref(h, wd, idx), dtype)
+        idx = routings["random"]
+        distinct = int(torch.unique(idx).numel())
+        h = fk.gathered_matmul_dual(x, wg, wu, idx)
+        err = compare("gathered_matmul_dual", h,
+                      fr.gathered_matmul_dual_ref(x, wg, wu, idx), dtype)
+        ms = time_ms(lambda: fk.gathered_matmul_dual(x, wg, wu, idx))
+        plain = time_ms(lambda: fr.gathered_matmul_dual_ref(x, wg, wu, idx))
+        b, by = bound(distinct * 2 * D * L_W * sz + VERIFY_B * (D + L_W) * sz
+                      + VERIFY_B * 4, 2 * 2 * VERIFY_B * D * L_W, dtype)
+        rows[("gathered_matmul_dual", dtype)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            library_ms=None, distinct_leaves=distinct)
+        y = fk.gathered_matmul(h, wd, idx)
+        err = compare("gathered_matmul", y, fr.gathered_matmul_ref(h, wd, idx), dtype)
+        ms = time_ms(lambda: fk.gathered_matmul(h, wd, idx))
+        plain = time_ms(lambda: fr.gathered_matmul_ref(h, wd, idx))
+        b, by = bound(distinct * L_W * O * sz + VERIFY_B * (L_W + O) * sz
+                      + VERIFY_B * 4, 2 * VERIFY_B * L_W * O, dtype)
+        rows[("gathered_matmul", dtype)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            library_ms=None, distinct_leaves=distinct)
+        del wg, wu, wd
+        torch.cuda.empty_cache()
+    log_rows(rows)
+    log(f"[kernels] gathered kernels agree in {len(routings)} routings x "
+        f"{len(ACTS) + 2} products per dtype")
+    return rows
+
+
+def log_rows(rows) -> None:
     for (name, dtype), r in rows.items():
         log(f"[kernels] {name:20s} {str(dtype):15s} max|err| {r['max_abs_err']:.3e}"
             f"  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  library "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, kernel/bound "
+            f"{r['ms'] / r['bound_ms']:.2f})  library "
             + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "n/a")
             + (f"  near-ties {r['near_ties']}" if "near_ties" in r else "")
             + (f"  distinct leaves {r['distinct_leaves']}" if "distinct_leaves" in r else ""))
-    return rows
 
 
 def phase_ragged(gen) -> None:
@@ -257,6 +369,7 @@ def phase_ragged(gen) -> None:
     and 24, leaf widths 4 and 8, a two-tree forest, the master leaf, every
     activation."""
     from repro_torch.kernels.fused_decode import kernel as fdk, ref as fdr
+    from repro_torch.kernels.fused_fff import kernel as fk, ref as fr
     from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
     from repro_torch.kernels.tree_router import kernel as trk
 
@@ -310,27 +423,49 @@ def phase_ragged(gen) -> None:
                 agree &= a
             compare("fused_forest_decode (ragged)", y, y_ref, dtype, rows=agree)
             checked += 1
+        # gathered: H = 8 takes the 16-byte loads in both dtypes, 12 in
+        # float32 only, 13 in neither; B = 7 routes two tokens outside
+        # [0, E), whose rows must come out zero
+        for B, H, act in ((1, 8, "gelu"), (7, 12, "relu"), (31, 13, "silu")):
+            E = 3
+            x = randn(B, d, dtype=dtype)
+            w, w2 = (randn(E, d, H, scale=d ** -0.5, dtype=dtype) for _ in range(2))
+            idx = torch.randint(0, E, (B,), generator=gen, device=dev, dtype=torch.int32)
+            if B == 7:
+                idx[0], idx[-1] = -1, E
+            y = fk.gathered_matmul(x, w, idx, act=act)
+            compare("gathered_matmul (ragged)", y, fr.gathered_matmul_ref(x, w, idx, act=act), dtype)
+            y2 = fk.gathered_matmul_dual(x, w, w2, idx)
+            compare("gathered_matmul_dual (ragged)", y2,
+                    fr.gathered_matmul_dual_ref(x, w, w2, idx), dtype)
+            if B == 7 and (float(y[[0, -1]].abs().max()) != 0.0
+                           or float(y2[[0, -1]].abs().max()) != 0.0):
+                raise AssertionError("gathered kernels: an index outside [0, E) "
+                                     "did not give a zero row")
+            checked += 2
     torch.cuda.synchronize()
     log(f"[ragged] {checked} small kernel cases agree with their plain "
         f"versions (fp32 and bf16)")
 
 
-def phase_serve(common, api, serve_mod, FFF_CONFIG) -> dict:
-    cfg = dataclasses.replace(FFF_CONFIG, n_layers=SERVE_LAYERS)
-    from repro_torch.models import lm
-    t0 = time.perf_counter()
-    params = lm.init(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    log(f"[serve] {cfg.arch_id} FFF full width, {cfg.n_layers} of 48 layers, "
-        f"{lm.param_count(params) / 1e9:.2f}B params {cfg.param_dtype}, "
-        f"init {time.perf_counter() - t0:.1f}s")
-    reference_calls = []
+@contextlib.contextmanager
+def no_reference(api):
+    """Fails the run if the reference backend ran inside the context."""
+    calls = []
     ref_fn = api.get_backend("infer", "reference")
+    api.register_backend("infer", "reference",
+                         lambda *a: (calls.append(1), ref_fn(*a))[1])
+    try:
+        yield
+    finally:
+        api.register_backend("infer", "reference", ref_fn)
+    if calls:
+        raise AssertionError(f"the reference backend ran {len(calls)} times "
+                             f"on the kernel path")
 
-    def counting_reference(*a):
-        reference_calls.append(1)
-        return ref_fn(*a)
 
+def phase_serve(common, api, serve_mod, cfg, params) -> dict:
+    from repro_torch.models import lm
     from repro_torch.kernels.leaf_gemm import ops as gemm_ops
     scatter = gemm_ops.scatter_to_groups
     layouts = []
@@ -341,24 +476,21 @@ def phase_serve(common, api, serve_mod, FFF_CONFIG) -> dict:
         layouts.append(out.kept)
         return out
 
-    api.register_backend("infer", "reference", counting_reference)
     gemm_ops.scatter_to_groups = recording_scatter
-    common.reset_launch_counts()
     try:
-        res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S,
-                              gen=GEN, device="cuda", params=params)
+        with no_reference(api):
+            common.reset_launch_counts()
+            res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S,
+                                  gen=GEN, device="cuda", params=params)
+            counts = common.launch_counts()
     finally:
-        api.register_backend("infer", "reference", ref_fn)
         gemm_ops.scatter_to_groups = scatter
-    counts = common.launch_counts()
     want = {"fused_forest_decode": cfg.n_layers * GEN,
             "tree_router": cfg.n_layers, "grouped_matmul_dual": cfg.n_layers,
-            "grouped_matmul": cfg.n_layers}
+            "grouped_matmul": cfg.n_layers, "gathered_matmul": 0,
+            "gathered_matmul_dual": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
-    if reference_calls:
-        raise AssertionError(f"the reference backend ran {len(reference_calls)}"
-                             f" times on the kernel path")
     toks = res.tokens
     if tuple(toks.shape) != (PREFILL_B, GEN + 1) or not bool(
             ((toks >= 0) & (toks < cfg.vocab_size)).all()):
@@ -371,13 +503,30 @@ def phase_serve(common, api, serve_mod, FFF_CONFIG) -> dict:
         f"{res.steady.p50_ms:.2f} ms p90 {res.steady.p90_ms:.2f} ms; "
         f"{res.tokens_per_s:.1f} tok/s; launches {counts} (as expected); "
         f"reference backend never ran")
-    phase_profile(cfg, params, lm, res.tokens)
-    del params
-    torch.cuda.empty_cache()
+    phase_profile(cfg, params, lm)
     return counts
 
 
-def phase_profile(cfg, params, lm, tokens) -> None:
+def profile_report(label, prof, wall_s, steps) -> None:
+    averages = prof.key_averages()
+    events = [e for e in averages
+              if str(e.device_type).endswith("CUDA")]   # kernels, memsets, copies
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+    busy_us = sum(dev(e) for e in events)
+    launches = sum(e.count for e in averages if e.key.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel")))
+    top = sorted(events, key=dev, reverse=True)[:8]
+    log(f"[profile] {label}: {wall_s / steps * 1e3:.2f} ms per step (host "
+        f"clock, profiler on); device busy {busy_us / 1e3 / steps:.2f} ms "
+        f"per step = {busy_us / 1e6 / wall_s:.1%} of the window; "
+        f"{launches / steps:.0f} kernel launches per step")
+    for e in top:
+        log(f"[profile]   {dev(e) / 1e3 / steps:8.3f} ms/step  {e.count // steps:4d}"
+            f" calls/step  {e.key[:90]}")
+
+
+def phase_profile(cfg, params, lm) -> None:
     """Where a warm prefill and a warm decode step spend their time:
     host-clock step time, device busy share (kernel time over the window)
     and the kernels with the most device time, from torch.profiler."""
@@ -392,24 +541,6 @@ def phase_profile(cfg, params, lm, tokens) -> None:
         torch.cuda.synchronize()
         return out
 
-    def report(label, prof, wall_s, steps):
-        averages = prof.key_averages()
-        events = [e for e in averages
-                  if str(e.device_type).endswith("CUDA")]   # kernels, memsets, copies
-        dev = lambda e: getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0))
-        busy_us = sum(dev(e) for e in events)
-        launches = sum(e.count for e in averages if e.key.startswith(
-            ("cudaLaunchKernel", "cuLaunchKernel")))
-        top = sorted(events, key=dev, reverse=True)[:8]
-        log(f"[profile] {label}: {wall_s / steps * 1e3:.2f} ms per step (host "
-            f"clock, profiler on); device busy {busy_us / 1e3 / steps:.2f} ms "
-            f"per step = {busy_us / 1e6 / wall_s:.1%} of the window; "
-            f"{launches / steps:.0f} kernel launches per step")
-        for e in top:
-            log(f"[profile]   {dev(e) / 1e3 / steps:8.3f} ms/step  {e.count // steps:4d}"
-                f" calls/step  {e.key[:90]}")
-
     with torch.inference_mode():
         prefill()                                   # warm
         t0 = time.perf_counter()
@@ -421,7 +552,7 @@ def phase_profile(cfg, params, lm, tokens) -> None:
             t0 = time.perf_counter()
             logits, caches = prefill()
             wall = time.perf_counter() - t0
-        report("prefill", prof, wall, 1)
+        profile_report("prefill", prof, wall, 1)
         tok = logits.argmax(-1)[:, None].to(torch.int32)
         steps = 4
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -431,7 +562,7 @@ def phase_profile(cfg, params, lm, tokens) -> None:
                 tok = logits.argmax(-1)[:, None].to(torch.int32)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        report("decode", prof, wall, steps)
+        profile_report("decode", prof, wall, steps)
 
 
 def phase_parity(api, fff, lm, FFF_CONFIG) -> None:
@@ -478,6 +609,181 @@ def phase_parity(api, fff, lm, FFF_CONFIG) -> None:
         f"reference); smallest deciding |node logit| {smallest[0]:.3e}")
 
 
+def phase_engine(common, api, serve_mod, cfg, params) -> dict:
+    """The continuous-batching engine with speculative decoding at full
+    width: monolithic, then chunked admission, each run's launch counts
+    reset just before it and read just after.  Returns the monolithic
+    run's counts."""
+    from repro_torch.serving.engine import EngineConfig
+    reqs = serve_mod.build_requests(cfg.vocab_size, ENGINE_REQS, ENGINE_PROMPT,
+                                    ENGINE_GEN, seed=0,
+                                    min_prompt_len=ENGINE_MIN_PROMPT)
+    n_layers = cfg.n_layers
+    out = {}
+    for mode, chunk in (("monolithic", 0), ("chunked", ENGINE_CHUNK)):
+        ecfg = EngineConfig(num_slots=SLOTS, max_len=ENGINE_PROMPT + ENGINE_GEN + 1,
+                            max_prompt_len=ENGINE_PROMPT, prefill_chunk=chunk,
+                            spec_k=SPEC_K, draft_config=f"self:{DRAFT_LAYERS}",
+                            scheduler="fcfs", seed=0, device="cuda")
+        log(f"[engine] {mode}: {cfg.arch_id} FFF full width, {n_layers} layers "
+            f"{cfg.param_dtype}, {SLOTS} slots, spec_k {SPEC_K}, draft "
+            f"self:{DRAFT_LAYERS}, {len(reqs)} requests, prompts "
+            f"{min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)}"
+            f" tokens, {ENGINE_GEN} new tokens each")
+        with no_reference(api):
+            common.reset_launch_counts()
+            run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
+            counts = common.launch_counts()
+        m = run.metrics
+        rounds = m.n_steps
+        slabs = m.n_chunks if chunk else m.n_prefills
+        # a verify round: every target layer once through the gathered
+        # kernels (and the router); a draft step: the fused decode kernel
+        # per draft layer; an admission slab (> 32 tokens): the grouped
+        # kernels and the router per target and draft layer
+        want = {"gathered_matmul": n_layers * rounds,
+                "gathered_matmul_dual": n_layers * rounds,
+                "fused_forest_decode": DRAFT_LAYERS * (SPEC_K + 1) * rounds,
+                "grouped_matmul": (n_layers + DRAFT_LAYERS) * slabs,
+                "grouped_matmul_dual": (n_layers + DRAFT_LAYERS) * slabs,
+                "tree_router": n_layers * rounds + (n_layers + DRAFT_LAYERS) * slabs}
+        if counts != want:
+            raise AssertionError(f"[engine] {mode}: launch counts {counts} != "
+                                 f"expected {want}")
+        shapes = run.shapes
+        want_shapes = {"draft": {(SLOTS, 1)}, "verify": {(SLOTS, SPEC_K + 1)}}
+        if chunk:
+            want_shapes["chunk"] = {(SLOTS, chunk)}
+        else:
+            want_shapes.update({k: {(SLOTS, int(k.split("_")[1]))}
+                                for k in shapes if k.startswith("prefill_")})
+        if shapes != want_shapes:
+            raise AssertionError(f"[engine] {mode}: dispatch shapes {shapes} "
+                                 f"!= {want_shapes}")
+        bad = [r.rid for r in run.results
+               if len(r.tokens) != ENGINE_GEN or r.finish_reason != "length"
+               or not ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()]
+        if len(run.results) != len(reqs) or bad:
+            raise AssertionError(f"[engine] {mode}: bad results for rids {bad}")
+        log(f"[engine] {mode}: TTFT p50 {m.ttft.p50_ms:.2f} ms p90 "
+            f"{m.ttft.p90_ms:.2f} ms; per-token p50 {m.per_token.p50_ms:.2f} ms "
+            f"p90 {m.per_token.p90_ms:.2f} ms; {m.throughput_tok_s:.1f} tok/s; "
+            f"{rounds} spec rounds (p50 {m.decode_step.p50_ms:.2f} ms), {slabs} "
+            f"admission slabs; spec acceptance {m.spec_acceptance:.3f} "
+            f"({m.accepted_tokens}/{m.draft_tokens}; random weights: says "
+            f"nothing of a trained model's acceptance); launches {counts} (as "
+            f"expected: each gathered kernel {n_layers} per verify round); "
+            f"dispatch shapes {sorted((k, sorted(v)) for k, v in shapes.items())}")
+        out[mode] = counts
+    phase_engine_profile(cfg, params)
+    return out["monolithic"]
+
+
+def phase_engine_profile(cfg, params) -> None:
+    """Where a warm speculative round's time goes: a warm engine with every
+    slot live and no admission pending, three rounds under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.serving.request import Request
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=ENGINE_PROMPT + ENGINE_GEN + 1,
+                        max_prompt_len=ENGINE_PROMPT, spec_k=SPEC_K,
+                        draft_config=f"self:{DRAFT_LAYERS}", max_prefills_per_step=SLOTS,
+                        device="cuda")
+    eng = ContinuousBatchingEngine(params, cfg, ecfg)
+    gen = torch.Generator().manual_seed(3)
+    for i in range(SLOTS):
+        eng.submit(Request(rid=i, prompt=torch.randint(
+            0, cfg.vocab_size, (ENGINE_PROMPT,), generator=gen).numpy(),
+            max_new_tokens=ENGINE_GEN))
+    eng.step()                       # admit every slot, then one warm round
+    eng.step()
+    steps = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if eng.n_steps != steps + 2 or eng.queue:
+        raise AssertionError("[engine profile] the window was not spec rounds alone")
+    profile_report("spec round (4 draft steps + 32-token verify)", prof, wall, steps)
+
+
+def phase_engine_parity(api, fff, lm, serve_mod, FFF_CONFIG) -> None:
+    """The engine, plain and speculative, monolithic and chunked, against
+    lm.generate request by request (fp32, full width, 2 layers).  A token
+    may differ only where the generate run met a deciding margin under
+    NEAR_TIE: a node logit, or the gap between the two largest logits."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
+    cfg = dataclasses.replace(FFF_CONFIG, n_layers=PARITY_LAYERS,
+                              param_dtype=torch.float32,
+                              accum_dtype=torch.float32)
+    params = lm.init(cfg, seed=1, device="cuda")
+    slots, prompt, steps = 4, 32, 8
+    reqs = serve_mod.build_requests(cfg.vocab_size, 8, prompt, steps, seed=2,
+                                    min_prompt_len=8)
+    max_len = prompt + steps + 1
+    smallest = {}
+    apply_fn, head_fn = api.apply, lm._head
+
+    def recording_apply(p, c, x, spec=api.ExecutionSpec()):
+        xf = x.reshape(-1, x.shape[-1]).to(c.accum_dtype)
+        logits = fff._node_logits_all(p, c, xf)[:, 0]
+        idx = torch.zeros(xf.shape[0], dtype=torch.long, device=x.device)
+        off = 0
+        for m in range(c.depth):
+            cur = logits[:, off:off + 2 ** m].gather(1, idx[:, None])[:, 0]
+            smallest["now"] = min(smallest["now"], float(cur.abs().min()))
+            idx = 2 * idx + (cur >= 0).long()
+            off += 2 ** m
+        return apply_fn(p, c, x, spec)
+
+    def recording_head(p, c, x):
+        out = head_fn(p, c, x)
+        top2 = out.topk(2, dim=-1).values
+        smallest["now"] = min(smallest["now"], float((top2[..., 0] - top2[..., 1]).min()))
+        return out
+
+    want, margin = {}, {}
+    api.apply, lm._head = recording_apply, recording_head
+    try:
+        with torch.inference_mode():
+            for r in reqs:
+                smallest["now"] = math.inf
+                out = lm.generate(params, cfg, torch.from_numpy(r.prompt)[None].cuda(),
+                                  steps, max_len)
+                want[r.rid] = out[0, len(r.prompt):].cpu().numpy()
+                margin[r.rid] = smallest["now"]
+    finally:
+        api.apply, lm._head = apply_fn, head_fn
+    ties = 0
+    for spec_k in (0, SPEC_K):
+        for chunk in (0, 16):
+            ecfg = EngineConfig(num_slots=slots, max_len=max_len,
+                                max_prompt_len=prompt, prefill_chunk=chunk,
+                                spec_k=spec_k, device="cuda")
+            results, _ = ContinuousBatchingEngine(params, cfg, ecfg).run(reqs)
+            for r in results:
+                if (r.tokens == want[r.rid]).all():
+                    continue
+                if margin[r.rid] >= NEAR_TIE:
+                    raise AssertionError(
+                        f"[engine parity] spec_k {spec_k} chunk {chunk} rid "
+                        f"{r.rid}: {r.tokens.tolist()} != lm.generate "
+                        f"{want[r.rid].tolist()} with no deciding margin under "
+                        f"{NEAR_TIE} (smallest {margin[r.rid]:.3e})")
+                ties += 1
+    log(f"[engine parity] {cfg.n_layers} layers fp32, {slots} slots, {len(reqs)} "
+        f"requests x {steps} greedy tokens: the plain and speculative (spec_k "
+        f"{SPEC_K}, a {slots * (SPEC_K + 1)}-token verify slab) engines, "
+        f"monolithic and chunked, equal lm.generate for every request "
+        f"({ties} near-tie differences allowed); smallest deciding margin "
+        f"{min(margin.values()):.3e}")
+    del params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     name, smi = phase_device()
     sys.path.insert(0, str(SRC))
@@ -491,9 +797,21 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         rows = phase_kernels(gen)
+        rows.update(phase_gathered(gen))
         phase_ragged(gen)
-    counts = phase_serve(common, api, serve_mod, FFF_CONFIG)
+    cfg = dataclasses.replace(FFF_CONFIG, n_layers=SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.arch_id} FFF full width, {cfg.n_layers} of 48 layers, "
+        f"{lm.param_count(params) / 1e9:.2f}B params {cfg.param_dtype}, "
+        f"init {time.perf_counter() - t0:.1f}s")
+    phase_serve(common, api, serve_mod, cfg, params)
+    counts = phase_engine(common, api, serve_mod, cfg, params)
+    del params
+    torch.cuda.empty_cache()
     phase_parity(api, fff, lm, FFF_CONFIG)
+    phase_engine_parity(api, fff, lm, serve_mod, FFF_CONFIG)
 
     table = []
     for kname, k in common.KERNELS.items():

@@ -7,7 +7,9 @@ Backends in this slice (inference only):
 
 * ``reference``   — hard descent + exact per-token leaf evaluation;
 * ``cuda``        — the CUDA kernel path for token batches: tree_router,
-  then the grouped SwiGLU/MLP GEMMs (counterpart of JAX ``pallas``);
+  then per-token gathered leaf matmuls for slabs of at most
+  ``PALLAS_DECODE_MAX_TOKENS`` tokens and the grouped SwiGLU/MLP GEMMs
+  above (counterpart of JAX ``pallas``);
 * ``cuda_decode`` — the one-launch fused decode kernel for seq-len-1
   batches (counterpart of JAX ``pallas_decode``).
 
@@ -29,12 +31,18 @@ import torch
 from repro_torch import utils
 from repro_torch.core import fff as fff_lib
 from repro_torch.kernels.fused_decode import ops as fd_ops
+from repro_torch.kernels.fused_fff import ops as fused_ops
 from repro_torch.kernels.leaf_gemm import ops as gemm_ops
 
 MODES = ("train", "infer")
 
 #: serving capacity factor of the capacity-bounded kernel path
 DEFAULT_CAPACITY_INFER = 2.0
+
+#: token count at or below which the cuda backend takes the per-token
+#: gathered kernels instead of the sorted-dispatch grouped GEMMs (the JAX
+#: package's value for its pallas backend)
+PALLAS_DECODE_MAX_TOKENS = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +56,8 @@ class ExecutionSpec:
     dense_levels:    tree levels routed from dense logits before per-token
                      gathers take over
     valid:           optional boolean per-token validity mask (broadcastable
-                     to x's leading shape); ``cuda_decode`` reports invalid
-                     rows at the sentinel leaf so they stay out of routing
+                     to x's leading shape); the kernel backends report
+                     invalid rows at the sentinel leaf so they stay out of routing
                      telemetry.  Outputs are per-token exact regardless.
     """
     mode: str = "infer"
@@ -291,23 +299,24 @@ def _infer_reference(params, cfg, x, spec):
 
 def _infer_cuda(params, cfg, x, spec):
     """FORWARD_I on the CUDA kernels (counterpart of JAX ``pallas``):
-    tree_router descent, then the grouped leaf GEMMs.  Exact: tokens over a
-    leaf's capacity are repaired densely, so overflow_fraction is 0.
-
-    Deliberate difference from JAX: ``pallas`` runs batches of at most 32
-    tokens (``PALLAS_DECODE_MAX_TOKENS``) through its per-token gathered
-    matmul kernels; this backend takes the grouped path at every token
-    count until the gathered kernels (``fused_fff``) are ported.  Both
-    paths are exact, so only speed differs."""
+    tree_router descent, then per-token gathered leaf matmuls for slabs of
+    at most ``PALLAS_DECODE_MAX_TOKENS`` flattened tokens (phantom rows
+    included, so the branch depends on the shape alone) and the grouped
+    leaf GEMMs above.  Exact: tokens over a leaf's capacity are repaired
+    densely, so overflow_fraction is 0.  ``spec.valid`` only masks the
+    reported ``leaf_idx``, as in ``_infer_cuda_decode``."""
     xf, lead = utils.flatten_leading(x)
-    cf = (spec.capacity_factor if spec.capacity_factor is not None
-          else DEFAULT_CAPACITY_INFER)
-    y, leaf_idx = gemm_ops.fff_infer(xf, params, cfg, capacity_factor=cf,
-                                     dense_levels=spec.dense_levels,
-                                     return_leaf_idx=True)
-    return (utils.unflatten_leading(y, lead),
-            FFFOutput(leaf_idx=utils.unflatten_leading(leaf_idx, lead),
-                      overflow_fraction=_zero(x)))
+    if xf.shape[0] <= PALLAS_DECODE_MAX_TOKENS:
+        y, leaf_idx = fused_ops.fff_decode(xf, params, cfg,
+                                           dense_levels=spec.dense_levels,
+                                           return_leaf_idx=True)
+    else:
+        cf = (spec.capacity_factor if spec.capacity_factor is not None
+              else DEFAULT_CAPACITY_INFER)
+        y, leaf_idx = gemm_ops.fff_infer(xf, params, cfg, capacity_factor=cf,
+                                         dense_levels=spec.dense_levels,
+                                         return_leaf_idx=True)
+    return _kernel_output(cfg, x, y, leaf_idx, lead, spec.valid)
 
 
 def _infer_cuda_decode(params, cfg, x, spec):
@@ -319,8 +328,15 @@ def _infer_cuda_decode(params, cfg, x, spec):
         return _infer_reference(params, cfg, x, spec)
     xf, lead = utils.flatten_leading(x)
     y, leaf_idx = fd_ops.fused_decode(xf, params, cfg, return_leaf_idx=True)
-    if spec.valid is not None:
-        vf = torch.broadcast_to(spec.valid.to(x.device),
+    return _kernel_output(cfg, x, y, leaf_idx, lead, spec.valid)
+
+
+def _kernel_output(cfg, x, y, leaf_idx, lead, valid):
+    """A kernel backend's (y, FFFOutput): ``valid`` masks phantom rows'
+    ``leaf_idx`` to the sentinel leaf so they stay out of routing
+    telemetry; outputs are per-token exact regardless."""
+    if valid is not None:
+        vf = torch.broadcast_to(valid.to(x.device),
                                 tuple(x.shape[:-1])).reshape(-1)
         leaf_idx = torch.where(vf[:, None], leaf_idx,
                                torch.full_like(leaf_idx, cfg.num_leaves))

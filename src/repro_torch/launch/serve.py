@@ -1,15 +1,29 @@
-"""Serving driver: the fixed-batch loop (port of ``repro/launch/serve.py
---engine off``, ``run_legacy``).  One batched prefill, then a greedy decode
-loop; prints prefill time, decode latency percentiles, tokens/s and how
-many times each CUDA kernel launched.  The continuous-batching engine is
-the next slice.
+"""Serving driver (port of ``repro/launch/serve.py``): the continuous-
+batching engine (default) or the fixed-batch loop (``--engine off``).
 
-``serve(cfg, ...)`` takes any ``ModelConfig`` — e.g. a full-width config
-with fewer layers, ``dataclasses.replace(FFF_CONFIG, n_layers=8)``.  The
-command line serves the registry config cut by ``reduced()``, as the JAX
-driver does (its ``--reduced`` is always on)::
+``--engine continuous`` serves ``--requests`` Markov-source requests of
+mixed prompt lengths (up to ``--prompt-len``) through ``repro_torch.
+serving``: a request queue, admission by ``--scheduler fcfs|leaf_aware``,
+a slot-pooled KV cache of ``--batch`` slots and interleaved prefill and
+decode over fixed shapes.  ``--prefill-chunk N`` switches admission to
+chunked prefill (N tokens per slab, at most ``--prefill-budget`` slabs per
+step); ``--spec-k K`` turns on speculative decoding, the draft
+(``--draft-config self:N``, default the target's first period) proposing K
+tokens per slot per round and the target verifying them in one slab.
+``--engine off`` keeps the fixed-batch loop: one batched prefill, then a
+greedy decode loop.  Both print latency percentiles, tokens/s and how many
+times each CUDA kernel launched.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --batch 4 \
+``serve(cfg, ...)`` and ``serve_engine(cfg, ...)`` take any
+``ModelConfig``, e.g. a full-width config with fewer layers,
+``dataclasses.replace(FFF_CONFIG, n_layers=8)``.  The command line serves
+the registry config cut by ``reduced()``, as the JAX driver does (its
+``--reduced`` is always on).  The card is the default; ``--device cpu``
+runs the plain PyTorch versions on the host::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --engine continuous --batch 4 --prompt-len 32 --gen 8 --spec-k 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine off --batch 4 \
       --prompt-len 32 --gen 16 [--fff-backend auto|reference|cuda|cuda_decode]
 """
 from __future__ import annotations
@@ -31,6 +45,9 @@ from repro_torch.data import tokens as tokens_lib
 from repro_torch.kernels import common
 from repro_torch.models import lm
 from repro_torch.serving import metrics as metrics_lib
+from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
+from repro_torch.serving.request import Request
+from repro_torch.serving.scheduler import SCHEDULERS
 
 
 @dataclasses.dataclass
@@ -128,6 +145,67 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
                        tok_s, launches)
 
 
+@dataclasses.dataclass
+class EngineRun:
+    results: list                  # RequestResult per request, by rid
+    metrics: metrics_lib.EngineMetrics
+    launches: dict                 # kernel name -> launches during the run
+    shapes: dict                   # engine.dispatch_shapes()
+
+
+def build_requests(vocab_size: int, n: int, prompt_len: int, gen: int, *,
+                   eos_id: int = -1, seed: int = 0,
+                   min_prompt_len: Optional[int] = None) -> list:
+    """``n`` Markov-source requests with prompts of mixed lengths in
+    [min_prompt_len, prompt_len] (default min: max(4, prompt_len // 4)) and
+    ``gen`` new tokens each (the JAX driver's synthetic workload, less
+    tenants and shared prefixes)."""
+    src = tokens_lib.MarkovTokenSource(vocab_size, seed=seed)
+    rng = np.random.default_rng(seed)
+    lo = min(min_prompt_len or max(4, prompt_len // 4), prompt_len)
+    reqs = []
+    for i in range(n):
+        L = int(rng.integers(lo, prompt_len + 1))
+        reqs.append(Request(rid=i, prompt=src.sample(1, L, seed=seed + 1 + i)[0, :L],
+                            max_new_tokens=gen,
+                            eos_id=eos_id if eos_id >= 0 else None))
+    return reqs
+
+
+def serve_engine(cfg: ModelConfig, ecfg: EngineConfig, requests: list, *,
+                 params=None) -> EngineRun:
+    """Serve ``requests`` through a ``ContinuousBatchingEngine`` on
+    ``ecfg.device``; ``params`` defaults to ``lm.init(cfg, seed=ecfg.seed)``
+    there.  Prints the metrics report, the dispatch shapes and the kernel
+    launches of the run."""
+    if params is None:
+        params = lm.init(cfg, seed=ecfg.seed, device=ecfg.device)
+        print(f"{cfg.arch_id}: {lm.param_count(params)/1e6:.1f}M params")
+    engine = ContinuousBatchingEngine(params, cfg, ecfg)
+    mode = (f"chunked prefill (chunk={ecfg.prefill_chunk}, "
+            f"budget={ecfg.prefill_budget})" if ecfg.prefill_chunk
+            else "monolithic prefill")
+    spec = (f", speculative (k={ecfg.spec_k}, "
+            f"draft={ecfg.draft_config or 'self'})" if ecfg.spec_k else "")
+    print(f"engine: {ecfg.num_slots} slots, {len(requests)} requests, prompt "
+          f"lens {min(len(r.prompt) for r in requests)}-"
+          f"{max(len(r.prompt) for r in requests)}, scheduler="
+          f"{ecfg.scheduler}, {mode}{spec}, fff backend={ecfg.fff_backend} "
+          f"requested")
+    before = common.launch_counts()
+    results, m = engine.run(requests)
+    _sync(engine.device)
+    after = common.launch_counts()
+    launches = {k: after[k] - before.get(k, 0) for k in after}
+    print(m.report())
+    shapes = engine.dispatch_shapes()
+    print("dispatch shapes: " + " ".join(
+        f"{k}={sorted(v)}" for k, v in sorted(shapes.items())))
+    print("kernel launches: " + " ".join(f"{k}={v}" for k, v in
+                                         sorted(launches.items())))
+    return EngineRun(results, m, launches, shapes)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-20b",
@@ -138,8 +216,35 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["auto"] + api.list_backends("infer"),
                     help="execution backend for every FFF site (auto = "
                          "per-site resolution; see core/api.py)")
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--engine", default="continuous",
+                    choices=["continuous", "off"],
+                    help="continuous = the batching engine "
+                         "(repro_torch.serving); off = the fixed-batch loop")
+    ap.add_argument("--scheduler", default="fcfs", choices=sorted(SCHEDULERS),
+                    help="admission policy for --engine continuous")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="engine: >0 = chunked prefill, this many tokens per "
+                         "(slots, chunk) slab, interleaved with decode (a "
+                         "power of two <= --prompt-len; 0 = monolithic "
+                         "per-bucket prefill)")
+    ap.add_argument("--prefill-budget", type=int, default=1,
+                    help="engine: most chunk slabs per step when "
+                         "--prefill-chunk > 0")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="engine: >0 = speculative decoding, the draft "
+                         "proposing this many tokens per slot per round and "
+                         "the target verifying the (slots, k+1) slab; 0 = "
+                         "plain one-token decode")
+    ap.add_argument("--draft-config", default="",
+                    help="engine: the draft for --spec-k, 'self' / 'self:N' "
+                         "= the target's own first N periods (default "
+                         "'self')")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="fixed batch (off) / cache slots (engine)")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="engine: number of requests (0 = 2x slots)")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="prompt length (off) / longest prompt (engine)")
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--eos-id", type=int, default=-1,
                     help=">= 0: stop each sequence at this token id")
@@ -153,9 +258,22 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     cfg = registry.get_config(args.arch, ffn=args.ffn)
     cfg = cfg.reduced(seq=max(64, args.prompt_len + args.gen + 1))
-    serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
-          fff_backend=args.fff_backend, eos_id=args.eos_id, seed=args.seed,
-          device=args.device)
+    if args.engine == "off":
+        serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
+              fff_backend=args.fff_backend, eos_id=args.eos_id,
+              seed=args.seed, device=args.device)
+        return
+    ecfg = EngineConfig(
+        num_slots=args.batch, max_len=args.prompt_len + args.gen + 1,
+        max_prompt_len=args.prompt_len, scheduler=args.scheduler,
+        prefill_chunk=args.prefill_chunk, prefill_budget=args.prefill_budget,
+        fff_backend=args.fff_backend, spec_k=args.spec_k,
+        draft_config=args.draft_config or None, seed=args.seed,
+        device=args.device)
+    reqs = build_requests(cfg.vocab_size, args.requests or 2 * args.batch,
+                          args.prompt_len, args.gen, eos_id=args.eos_id,
+                          seed=args.seed)
+    serve_engine(cfg, ecfg, reqs)
 
 
 if __name__ == "__main__":

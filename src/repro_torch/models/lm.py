@@ -1,5 +1,7 @@
 """Causal LM wrapper (port of ``repro/models/lm.py``): init, KV caches,
-prefill, one decode step and the greedy/temperature generate loop."""
+prefill, one decode step, the fixed-shape chunk slabs of the serving
+engine (chunked prefill, speculative verify), per-row cache surgery and
+the greedy/temperature generate loop."""
 from __future__ import annotations
 
 from typing import Optional
@@ -88,6 +90,78 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     if with_stats:
         return logits, caches, aux.get("routing")
     return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# slot-pooled serving (the continuous-batching engine, serving/engine.py)
+# ---------------------------------------------------------------------------
+
+def set_cache_lengths(caches: list[dict], lengths: torch.Tensor) -> list[dict]:
+    """Overwrite every layer's per-row filled length with ``lengths`` (B,):
+    the speculative round's rollback.  Positions at or past a row's new
+    length stay in the pools, masked by length, until appends overwrite
+    them."""
+    out = []
+    for c in caches:
+        kv = c["kv"]
+        out.append(dict(c, kv=kv._replace(
+            length=lengths.to(kv.length.device, kv.length.dtype))))
+    return out
+
+
+def cache_admit(caches: list[dict], admit: torch.Tensor) -> list[dict]:
+    """Restart the rows marked in ``admit`` (B,) bool at length 0: the
+    contiguous-layout counterpart of the JAX package's ``cache_admit``,
+    whose page tables and shared-prefix lengths need paging (every row here
+    owns one ``max_len`` page, and an admission shares no prefix).  The
+    pools are not cleared; everything past length 0 is masked by length."""
+    out = []
+    for c in caches:
+        kv = c["kv"]
+        a = admit.to(kv.length.device)
+        out.append(dict(c, kv=kv._replace(
+            length=torch.where(a, torch.zeros_like(kv.length), kv.length))))
+    return out
+
+
+def _chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           valid_len: torch.Tensor, caches: list[dict]):
+    dev = _device(params)
+    valid_len = valid_len.to(dev)
+    x = embeddings.embed(params["embed"], tokens.to(dev), cfg.accum_dtype)
+    x, caches, aux = transformer.stack_forward(params["stack"], cfg, x,
+                                               mode="chunk", caches=caches,
+                                               chunk_valid=valid_len)
+    return x, valid_len, caches, aux.get("routing")
+
+
+def prefill_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  valid_len: torch.Tensor, caches: list[dict],
+                  pos_offset=None):
+    """One chunk of prefill for every row of a slot-pooled cache: tokens
+    (B, C), a fixed shape for every call; row b's first ``valid_len[b]``
+    tokens are real (0 = no prefill work this chunk) and continue its
+    sequence at its cache length.  ``pos_offset`` (kept for the JAX
+    signature) is unused: RoPE reads each row's start off its cache
+    length, which the caller keeps equal to it.  Returns (logits (B, V) at
+    each row's last valid position, caches, routing stats of an active
+    ``api.collect_routing`` tap or None)."""
+    x, valid_len, caches, stats = _chunk(params, cfg, tokens, valid_len, caches)
+    last = (valid_len.long() - 1).clamp(min=0)[:, None, None]
+    x = torch.gather(x, 1, last.expand(-1, 1, x.shape[-1]))
+    return _head(params, cfg, x)[:, 0], caches, stats
+
+
+def verify_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 valid_len: torch.Tensor, caches: list[dict],
+                 pos_offset=None):
+    """The speculative verify slab: ``prefill_chunk``'s dispatch with the
+    target's logits at every position, (B, C, V): ``logits[b, j]`` follows
+    ``tokens[b, :j + 1]``.  K/V of all valid positions are appended
+    optimistically; the caller rolls rejected ones back with
+    ``set_cache_lengths``.  Returns (logits, caches, routing stats)."""
+    x, _, caches, stats = _chunk(params, cfg, tokens, valid_len, caches)
+    return _head(params, cfg, x), caches, stats
 
 
 def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,

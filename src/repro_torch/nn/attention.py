@@ -1,5 +1,6 @@
 """Attention (port of ``repro/nn/attention.py``): GQA with RoPE, plain
-materialized-score attention, and the KV cache for decode.
+materialized-score attention, and the KV cache for decode, chunked
+prefill and speculative verify.
 
 Attention is plain PyTorch, as the JAX package computes it outside Pallas.
 The blocked ``flash_attention`` the JAX package uses above 2048 tokens is
@@ -191,13 +192,21 @@ def chunk_into_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
     """Write a chunk (B, C, K, hd) at each row's current length (in place):
     row b's first ``valid_len[b]`` positions are written, the rest and any
     position past the row's mapped pages dropped; ``length`` advances by
-    ``valid_len``."""
+    ``valid_len``.  No host synchronization: a dropped position writes back
+    its slot's old value, and a position past the row's pages wraps onto
+    the row's own positions below its length, which no write of this chunk
+    touches, so every index of the scatter is distinct (C must not exceed
+    the row's capacity)."""
     B, C = k.shape[:2]
+    cap = cache.table.shape[1] * cache.k.shape[1]
+    if C > cap:
+        raise ValueError(f"chunk of {C} positions exceeds the cache's {cap}")
     col = torch.arange(C, device=k.device)[None, :]
-    pid, off, inside = _slots(cache, cache.length.long()[:, None] + col)
-    ok = (col < valid_len.long()[:, None]) & inside
-    cache.k[pid[ok], off[ok]] = k[ok].to(cache.k.dtype)
-    cache.v[pid[ok], off[ok]] = v[ok].to(cache.v.dtype)
+    pos = cache.length.long()[:, None] + col
+    ok = ((col < valid_len.long()[:, None]) & (pos < cap))[..., None, None]
+    pid, off, _ = _slots(cache, pos % cap)
+    for pool, new in ((cache.k, k), (cache.v, v)):
+        pool[pid, off] = torch.where(ok, new.to(pool.dtype), pool[pid, off])
     return cache._replace(length=cache.length + valid_len.to(cache.length.dtype))
 
 
@@ -221,6 +230,30 @@ def decode_attend(q1: torch.Tensor, cache: KVCache, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgp,bpkd->bkgd", p, vc.float())
     return o.reshape(B, 1, H, hd).to(q1.dtype)
+
+
+def chunk_attend(q: torch.Tensor, cache: KVCache, start: torch.Tensor, *,
+                 sliding_window: int = 0) -> torch.Tensor:
+    """Chunk attention against the cache with per-row positions: q
+    (B, C, H, hd); row b's query i sits at ``start[b] + i`` and attends to
+    cache positions ``<= start[b] + i`` (its history plus the chunk's own
+    causal prefix, already written by ``chunk_into_cache``).  As in
+    ``decode_attend``, the GQA contraction stays on the K axis."""
+    B, C, H, hd = q.shape
+    K = cache.k.shape[2]
+    kc, vc = gather_cache_kv(cache)                    # (B, S, K, hd)
+    S = kc.shape[1]
+    qg = q.reshape(B, C, K, H // K, hd).float()
+    s = torch.einsum("bckgd,bpkd->bkgcp", qg, kc.float()) / math.sqrt(hd)
+    qpos = start.long()[:, None] + torch.arange(C, device=q.device)[None, :]
+    kpos = torch.arange(S, device=q.device)[None, None, :]
+    valid = kpos <= qpos[:, :, None]                   # (B, C, S)
+    if sliding_window > 0:
+        valid &= kpos > qpos[:, :, None] - sliding_window
+    s = s.masked_fill(~valid[:, None, None, :, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgcp,bpkd->bckgd", p, vc.float())
+    return o.reshape(B, C, H, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -249,4 +282,22 @@ def forward_decode(params: Params, cfg: AttnConfig, x1: torch.Tensor,
     q, k, v = qkv(params, cfg, x1, positions)
     cache = append_to_cache(cache, k, v, write_mask)
     o = decode_attend(q, cache, sliding_window=cfg.sliding_window)
+    return out_proj(params, cfg, o), cache
+
+
+def forward_chunk(params: Params, cfg: AttnConfig, x: torch.Tensor,
+                  cache: KVCache, valid_len: torch.Tensor
+                  ) -> tuple[torch.Tensor, KVCache]:
+    """Chunked prefill and speculative verify: x (B, C, D) continues each
+    row's sequence at its cache length.  Row b's first ``valid_len[b]``
+    positions are written to the cache and attend causally to the row's
+    history; pad positions and rows with ``valid_len == 0`` write nothing
+    and give outputs the caller ignores.  RoPE positions are absolute,
+    ``cache.length[b] + i``."""
+    B, C, _ = x.shape
+    start = cache.length.long()
+    positions = start[:, None] + torch.arange(C, device=x.device)[None, :]
+    q, k, v = qkv(params, cfg, x, positions if cfg.use_rope else None)
+    cache = chunk_into_cache(cache, k, v, valid_len)
+    o = chunk_attend(q, cache, start, sliding_window=cfg.sliding_window)
     return out_proj(params, cfg, o), cache

@@ -5,7 +5,9 @@ period position's parameters on a leading ``n_periods`` axis for
 ``lax.scan``, the port keeps one parameter dict (and one cache dict) per
 layer, in layer order: layer ``i`` is period ``i // len(period)``,
 position ``i % len(period)``.  Modes: ``prefill`` (build caches over a
-prefix) and ``decode`` (one token against the caches).
+prefix), ``decode`` (one token against the caches) and ``chunk`` (a
+``(B, C)`` slab continuing each row at its own cache length: chunked
+prefill and speculative verify).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch.nn import attention, mlp, norms
 Params = dict
 Cache = dict
 
-MODES = ("prefill", "decode")
+MODES = ("prefill", "decode", "chunk")
 
 
 def make_attn_config(cfg: ModelConfig, spec: BlockSpec, *, causal: bool = True
@@ -57,12 +59,15 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec) -> Param
 
 def block_forward(params: Params, cfg: ModelConfig, spec: BlockSpec,
                   x: torch.Tensor, *, mode: str, cache: Cache,
+                  chunk_valid: Optional[torch.Tensor] = None,
                   decode_mask: Optional[torch.Tensor] = None,
                   token_valid: Optional[torch.Tensor] = None
                   ) -> tuple[torch.Tensor, Cache, dict]:
     """One block: pre-norm attention + residual, pre-norm FFN + residual.
-    ``decode_mask`` (B,) keeps rows from writing their KV cache;
-    ``token_valid`` marks phantom tokens for the FFN dispatch."""
+    ``chunk_valid`` (B,) is each row's real token count in chunk mode;
+    ``decode_mask`` (B,) keeps rows from writing their KV cache in decode
+    mode; ``token_valid`` marks phantom tokens for the FFN dispatch (in
+    chunk mode derived from ``chunk_valid`` when not given)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     _check_spec(spec)
@@ -70,6 +75,12 @@ def block_forward(params: Params, cfg: ModelConfig, spec: BlockSpec,
     acfg = make_attn_config(cfg, spec)
     if mode == "prefill":
         y, kv = attention.forward_prefill(params["mixer"], acfg, h, cache["kv"])
+    elif mode == "chunk":
+        y, kv = attention.forward_chunk(params["mixer"], acfg, h, cache["kv"],
+                                        chunk_valid)
+        if token_valid is None:
+            token_valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+                           < chunk_valid.to(x.device)[:, None])
     else:
         y, kv = attention.forward_decode(params["mixer"], acfg, h, cache["kv"],
                                          decode_mask)
@@ -102,6 +113,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
 
 def stack_forward(params: list[Params], cfg: ModelConfig, x: torch.Tensor, *,
                   mode: str, caches: list[Cache],
+                  chunk_valid: Optional[torch.Tensor] = None,
                   decode_mask: Optional[torch.Tensor] = None,
                   token_valid: Optional[torch.Tensor] = None
                   ) -> tuple[torch.Tensor, list[Cache], dict]:
@@ -114,7 +126,8 @@ def stack_forward(params: list[Params], cfg: ModelConfig, x: torch.Tensor, *,
     for i, (p, c) in enumerate(zip(params, caches)):
         pos = i % n_pos
         x, nc, aux = block_forward(p, cfg, cfg.period[pos], x, mode=mode,
-                                   cache=c, decode_mask=decode_mask,
+                                   cache=c, chunk_valid=chunk_valid,
+                                   decode_mask=decode_mask,
                                    token_valid=token_valid)
         new_caches.append(nc)
         r = aux.get("routing")

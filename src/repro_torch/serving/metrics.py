@@ -1,10 +1,11 @@
-"""Latency/throughput summaries (port of the parts of ``repro/serving/
-metrics.py`` the fixed-batch serve loop uses).  Inputs are seconds;
-summaries render in milliseconds."""
+"""Latency/throughput summaries and the engine's metrics (port of
+``repro/serving/metrics.py``, less the per-tenant breakdown, the paging
+counters and the overflow-policy accounting, which arrive with their
+slices).  Inputs are seconds; summaries render in milliseconds."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -41,3 +42,111 @@ def summarize(samples_s: Sequence[float]) -> LatencySummary:
 def tokens_per_second(n_tokens: int, elapsed_s: float) -> float:
     """Throughput with a zero-division guard (0 tokens in 0s -> 0.0)."""
     return n_tokens / max(elapsed_s, 1e-9)
+
+
+@dataclasses.dataclass
+class EngineMetrics:
+    """Aggregate engine telemetry, filled by ``engine.run`` from its
+    finished ``RequestResult``s and snapshotted live by
+    ``engine.poll_metrics()``.
+
+    Latency summaries are over finished requests (``ttft``, ``per_token``,
+    ``e2e``), decode-side dispatches (``decode_step``: a decode step, or a
+    whole speculative round), and gaps between consecutive decode-side
+    dispatches while work was in flight (``decode_interval``: a monolithic
+    prefill lands in one of these gaps, chunked prefill bounds them).
+    ``queue_depth``, ``active_slots`` and ``prefilling_slots`` are
+    instantaneous (0 in a finished ``run`` report, meaningful from
+    ``poll_metrics``)."""
+    n_requests: int = 0
+    n_tokens: int = 0
+    elapsed_s: float = 0.0
+    n_steps: int = 0
+    n_prefills: int = 0
+    n_chunks: int = 0                    # chunked-prefill dispatches
+    ttft: LatencySummary = dataclasses.field(
+        default_factory=lambda: summarize(()))
+    per_token: LatencySummary = dataclasses.field(
+        default_factory=lambda: summarize(()))
+    e2e: LatencySummary = dataclasses.field(
+        default_factory=lambda: summarize(()))
+    decode_step: LatencySummary = dataclasses.field(
+        default_factory=lambda: summarize(()))
+    decode_interval: LatencySummary = dataclasses.field(
+        default_factory=lambda: summarize(()))
+    overflow_fraction_mean: float = 0.0
+    overflow_decode_mean: float = 0.0
+    hint_mismatches: int = 0             # leaf_hints dropped for size mismatch
+    # speculative decoding: draft tokens proposed and accepted
+    # (spec_acceptance = accepted / drafted, 0 when speculation is off)
+    draft_tokens: int = 0
+    accepted_tokens: int = 0
+    prefill_tokens: int = 0              # prompt tokens prefilled on device
+    queue_depth: int = 0                 # waiting requests (instantaneous)
+    active_slots: int = 0                # occupied slots (instantaneous)
+    prefilling_slots: int = 0            # slots mid-chunked-prefill
+
+    @property
+    def throughput_tok_s(self) -> float:
+        return tokens_per_second(self.n_tokens, self.elapsed_s)
+
+    @property
+    def spec_acceptance(self) -> float:
+        return self.accepted_tokens / max(self.draft_tokens, 1)
+
+    @property
+    def wasted_tokens(self) -> int:
+        return self.draft_tokens - self.accepted_tokens
+
+    def report(self) -> str:
+        lines = [
+            f"served {self.n_requests} requests, {self.n_tokens} tokens in "
+            f"{self.elapsed_s:.2f}s ({self.throughput_tok_s:.1f} tok/s, "
+            f"{self.n_steps} decode steps, {self.n_prefills} prefills"
+            + (f", {self.n_chunks} prefill chunks" if self.n_chunks else "")
+            + ")",
+            self.ttft.line("ttft"),
+            self.per_token.line("per-token"),
+            self.e2e.line("e2e"),
+            self.decode_step.line("decode step"),
+            self.decode_interval.line("decode interval"),
+            f"fff overflow_fraction mean {self.overflow_fraction_mean:.4f} "
+            f"(decode-only {self.overflow_decode_mean:.4f})",
+        ]
+        if self.draft_tokens:
+            lines.append(
+                f"speculative: {self.draft_tokens} drafted, "
+                f"{self.accepted_tokens} accepted "
+                f"(acceptance {self.spec_acceptance:.3f}, "
+                f"{self.wasted_tokens} wasted)")
+        if self.hint_mismatches:
+            lines.append(f"leaf_hint size mismatches dropped: "
+                         f"{self.hint_mismatches}")
+        return "\n".join(lines)
+
+
+def from_results(results: Iterable, *, elapsed_s: float, n_steps: int,
+                 n_prefills: int, decode_lat_s: Sequence[float],
+                 overflow_mean: float, overflow_decode_mean: float = 0.0,
+                 n_chunks: int = 0, decode_interval_s: Sequence[float] = (),
+                 hint_mismatches: int = 0, draft_tokens: int = 0,
+                 accepted_tokens: int = 0, prefill_tokens: int = 0
+                 ) -> EngineMetrics:
+    """Build an ``EngineMetrics`` from finished ``RequestResult`` records."""
+    rs = list(results)
+    return EngineMetrics(
+        n_requests=len(rs),
+        n_tokens=sum(r.n_generated for r in rs),
+        elapsed_s=elapsed_s, n_steps=n_steps, n_prefills=n_prefills,
+        n_chunks=n_chunks,
+        ttft=summarize([r.ttft for r in rs]),
+        per_token=summarize([r.per_token_latency() for r in rs]),
+        e2e=summarize([r.e2e_latency for r in rs]),
+        decode_step=summarize(decode_lat_s),
+        decode_interval=summarize(decode_interval_s),
+        overflow_fraction_mean=overflow_mean,
+        overflow_decode_mean=overflow_decode_mean,
+        hint_mismatches=hint_mismatches,
+        draft_tokens=draft_tokens,
+        accepted_tokens=accepted_tokens,
+        prefill_tokens=prefill_tokens)

@@ -84,7 +84,8 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
 def test_every_kernel_names_the_pallas_kernel_it_replaces():
     import repro_torch.core.api  # noqa: F401  (registers every kernel)
     assert set(common.KERNELS) == {"tree_router", "grouped_matmul",
-                                   "grouped_matmul_dual", "fused_forest_decode"}
+                                   "grouped_matmul_dual", "fused_forest_decode",
+                                   "gathered_matmul", "gathered_matmul_dual"}
     for k in common.KERNELS.values():
         src = common.CSRC / k.source
         assert src.is_file() and f"extern \"C\" int {k.symbol}(" in src.read_text()

@@ -298,7 +298,7 @@ def test_serve_eos_pins_finished_rows(model):
 
 
 def test_serve_cli_on_cpu(capsys):
-    serve_mod.main(["--device", "cpu", "--batch", "2", "--prompt-len", "8",
-                    "--gen", "2", "--fff-backend", "cuda"])
+    serve_mod.main(["--device", "cpu", "--engine", "off", "--batch", "2",
+                    "--prompt-len", "8", "--gen", "2", "--fff-backend", "cuda"])
     out = capsys.readouterr().out
     assert "prefill: 2x8" in out and "kernel launches:" in out
