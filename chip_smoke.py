@@ -516,11 +516,15 @@ def profile_report(label, prof, wall_s, steps) -> None:
     busy_us = sum(dev(e) for e in events)
     launches = sum(e.count for e in averages if e.key.startswith(
         ("cudaLaunchKernel", "cuLaunchKernel")))
+    # each blocking copy (.cpu(), float(t), a pageable upload) syncs the host
+    syncs = sum(e.count for e in averages if e.key == "cudaStreamSynchronize")
+    d2h = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
     top = sorted(events, key=dev, reverse=True)[:8]
     log(f"[profile] {label}: {wall_s / steps * 1e3:.2f} ms per step (host "
         f"clock, profiler on); device busy {busy_us / 1e3 / steps:.2f} ms "
         f"per step = {busy_us / 1e6 / wall_s:.1%} of the window; "
-        f"{launches / steps:.0f} kernel launches per step")
+        f"{launches / steps:.0f} kernel launches, {syncs / steps:.0f} stream "
+        f"syncs and {d2h / steps:.0f} device-to-host copies per step")
     for e in top:
         log(f"[profile]   {dev(e) / 1e3 / steps:8.3f} ms/step  {e.count // steps:4d}"
             f" calls/step  {e.key[:90]}")

@@ -15,6 +15,7 @@ import torch
 from repro_torch import utils
 from repro_torch.core import fff as fff_lib
 from repro_torch.core import routing as routing_lib
+from repro_torch.kernels.fused_decode import ops as fused_decode_ops
 from repro_torch.kernels.leaf_gemm import kernel as K
 from repro_torch.kernels.tree_router import ops as router_ops
 
@@ -112,14 +113,11 @@ def fff_infer(x: torch.Tensor, params: dict, cfg: fff_lib.FFFConfig, *,
     ``(y, leaf_idx (B, trees))`` with ``return_leaf_idx=True``."""
     if cfg.node_width != 1:
         raise ValueError("kernel path supports node_width == 1 (paper default)")
+    nw, nb = fused_decode_ops.collapse_nodes(params, cfg)
     out = None
     idxs = []
     for t in range(cfg.trees):
-        # collapse the <D, 1, 1> node net to a hyperplane (w2 * w1, w2*b1+b2)
-        nw = params["node_w1"][t, :, :, 0] * params["node_w2"][t, :, 0:1]
-        nb = params["node_b1"][t, :, 0] * params["node_w2"][t, :, 0] \
-            + params["node_b2"][t]
-        leaf_idx = router_ops.route(x, nw, nb, depth=cfg.depth,
+        leaf_idx = router_ops.route(x, nw[t], nb[t], depth=cfg.depth,
                                     dense_levels=dense_levels)
         tree_leaves = {k: v[t] for k, v in params.items()
                        if k.startswith("leaf_")}

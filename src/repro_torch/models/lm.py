@@ -136,14 +136,12 @@ def _chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def prefill_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                  valid_len: torch.Tensor, caches: list[dict],
-                  pos_offset=None):
+                  valid_len: torch.Tensor, caches: list[dict]):
     """One chunk of prefill for every row of a slot-pooled cache: tokens
     (B, C), a fixed shape for every call; row b's first ``valid_len[b]``
     tokens are real (0 = no prefill work this chunk) and continue its
-    sequence at its cache length.  ``pos_offset`` (kept for the JAX
-    signature) is unused: RoPE reads each row's start off its cache
-    length, which the caller keeps equal to it.  Returns (logits (B, V) at
+    sequence at its cache length, which is also where RoPE reads each
+    row's start position.  Returns (logits (B, V) at
     each row's last valid position, caches, routing stats of an active
     ``api.collect_routing`` tap or None)."""
     x, valid_len, caches, stats = _chunk(params, cfg, tokens, valid_len, caches)
@@ -153,8 +151,7 @@ def prefill_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def verify_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 valid_len: torch.Tensor, caches: list[dict],
-                 pos_offset=None):
+                 valid_len: torch.Tensor, caches: list[dict]):
     """The speculative verify slab: ``prefill_chunk``'s dispatch with the
     target's logits at every position, (B, C, V): ``logits[b, j]`` follows
     ``tokens[b, :j + 1]``.  K/V of all valid positions are appended

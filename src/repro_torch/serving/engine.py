@@ -30,7 +30,8 @@ decode kernel, slabs of at most 32 tokens (the verify slab at 8 slots and
 
 Admission policy is pluggable (``serving/scheduler.py``); ``leaf_aware``
 reads the per-slot FFF leaf occupancy the engine collects through
-``api.collect_routing``.  Sampling is host numpy, deterministic under
+``api.collect_routing``, reduced on the device and copied to the host
+with the dispatch's logits in one transfer.  Sampling is host numpy, deterministic under
 ``EngineConfig.seed``; the draft samples on the device from a seeded
 ``torch.Generator``.  Left for later slices: paging and prefix sharing,
 tenants and their profiles, capacity-factor and overflow-policy steering
@@ -57,6 +58,10 @@ from repro_torch.serving.request import Request, RequestResult, SlotState
 from repro_torch.serving.scheduler import Scheduler, SchedulerView, make_scheduler
 
 
+# weight of the newest routing histogram in a slot's occupancy average
+_OCCUPANCY_EWMA = 0.5
+
+
 def _pow2_buckets(lo: int, hi: int) -> Tuple[int, ...]:
     out, b = [], lo
     while b < hi:
@@ -66,11 +71,24 @@ def _pow2_buckets(lo: int, hi: int) -> Tuple[int, ...]:
     return tuple(sorted(set(out)))
 
 
+def _to_host(parts: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Copy a dispatch's outputs to the host in one transfer, the round's
+    one synchronization: every part goes as float32 (token ids and leaf
+    counts stay exact below 2**24) and comes back in its own shape."""
+    flat = torch.cat([p.reshape(-1).float() for p in parts]).cpu().numpy()
+    out, o = [], 0
+    for p in parts:
+        out.append(flat[o:o + p.numel()].reshape(tuple(p.shape)))
+        o += p.numel()
+    return out
+
+
 @dataclasses.dataclass
 class EngineConfig:
     """Engine shape and policy knobs.  ``max_len`` bounds prompt +
-    generation per slot; ``prefill_buckets`` is the static set of prompt
-    slab widths (default: powers of two from 16 up to ``max_prompt_len``).
+    generation per slot; monolithic prefill pads a prompt to the static
+    set of slab widths ``buckets()``: powers of two from 16 up to
+    ``max_prompt_len``.
 
     ``prefill_chunk``: 0 = monolithic prefill (one bucket-padded slab per
     admission); > 0 = chunked prefill through a shared ``(num_slots,
@@ -82,23 +100,17 @@ class EngineConfig:
     num_slots: int = 8
     max_len: int = 128
     max_prompt_len: int = 64
-    prefill_buckets: Tuple[int, ...] = ()
     max_prefills_per_step: int = 2
     prefill_chunk: int = 0
     prefill_budget: int = 1
     scheduler: str = "fcfs"
-    scheduler_kw: dict = dataclasses.field(default_factory=dict)
     fff_backend: str = "auto"
-    telemetry: bool = True               # collect FFF routing stats
-    occupancy_ewma: float = 0.5
     spec_k: int = 0
     draft_config: Optional[str] = None
     seed: int = 0
     device: str = "cuda"
 
     def buckets(self) -> Tuple[int, ...]:
-        if self.prefill_buckets:
-            return tuple(sorted(set(self.prefill_buckets)))
         return _pow2_buckets(min(16, self.max_prompt_len), self.max_prompt_len)
 
 
@@ -110,7 +122,7 @@ class ContinuousBatchingEngine:
         cfg:       the ``ModelConfig``: a decoder-only attention stack.
         ecfg:      shape and policy knobs (``EngineConfig``).
         scheduler: an admission ``Scheduler``; default built from
-                   ``ecfg.scheduler`` / ``ecfg.scheduler_kw``.
+                   ``ecfg.scheduler`` with its default knobs.
 
     Drive it with ``run(requests)`` (serve to completion; returns results
     and ``EngineMetrics``) or by hand: ``submit``, then ``step()`` while
@@ -124,9 +136,6 @@ class ContinuousBatchingEngine:
         if ecfg.max_prompt_len >= ecfg.max_len:
             raise ValueError("max_prompt_len must leave room to generate "
                              "(max_prompt_len < max_len)")
-        if ecfg.buckets()[-1] != ecfg.max_prompt_len:
-            raise ValueError(f"prefill_buckets {ecfg.buckets()} must top out "
-                             f"at max_prompt_len {ecfg.max_prompt_len}")
         if ecfg.prefill_chunk:
             c = ecfg.prefill_chunk
             if c < 1 or (c & (c - 1)):
@@ -153,8 +162,7 @@ class ContinuousBatchingEngine:
         self.num_leaves = next(
             (2 ** b.ffn.fff_depth for b in cfg.period if b.ffn.kind == "fff"),
             0)
-        self.scheduler = scheduler or make_scheduler(ecfg.scheduler,
-                                                     **ecfg.scheduler_kw)
+        self.scheduler = scheduler or make_scheduler(ecfg.scheduler)
         S, L = ecfg.num_slots, ecfg.max_len
         self.caches = lm.init_caches(cfg, S, L, device=self.device)
         # speculative decoding: the draft's cache rows live alongside the
@@ -249,8 +257,7 @@ class ContinuousBatchingEngine:
         if self.ecfg.fff_backend != "auto":
             es.enter_context(api.overrides(backend=self.ecfg.fff_backend,
                                            mode="infer"))
-        if self.ecfg.telemetry:
-            es.enter_context(api.collect_routing())
+        es.enter_context(api.collect_routing())
         return es
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -271,48 +278,62 @@ class ContinuousBatchingEngine:
 
     def _slab(self, name: str, toks: np.ndarray, valid: np.ndarray):
         """One prefill slab through the target (and the draft under spec):
-        returns (logits (S, V) on the host, target routing stats)."""
+        returns (logits (S, V), the target's per-row leaf counts (S, E) or
+        None), both on the host after one copy."""
         t, v = self._dev(toks), self._dev(valid)
         self._record_shape(name, t.shape)
+        dstats = None
         with self._ctx():
             if self.spec:
                 logits, self.caches, self.draft_caches, stats, dstats = \
                     spec_lib.chunk_both(self.params, self.cfg,
                                         self.draft_params, self.draft_cfg, t,
                                         v, self.caches, self.draft_caches)
-                self._stats_rows(dstats, "draft")
             else:
                 logits, self.caches, stats = lm.prefill_chunk(
                     self.params, self.cfg, t, v, self.caches)
-            return logits.float().cpu().numpy(), stats
+            sv, dv = self._reduce_stats(stats), self._reduce_stats(dstats)
+            host = _to_host([logits] + [p for p in (sv, dv) if p is not None])
+        logits, host = host[0], host[1:]
+        counts = self._fold_stats(host.pop(0), "prefill") if sv is not None \
+            else None
+        if dv is not None:
+            self._fold_stats(host.pop(0), "draft")
+        return logits, counts
 
     # -- telemetry -----------------------------------------------------------
 
-    def _stats_rows(self, stats, phase: str) -> Optional[np.ndarray]:
-        """Per-site routing stats -> per-row leaf counts (B, E) over the
-        sites of the engine's leaf count, folding the slot-weighted overflow
-        into the phase's running mean.  Slots count valid tokens only: the
-        validity mask sends filler rows to the sentinel leaf."""
+    def _reduce_stats(self, stats) -> Optional[torch.Tensor]:
+        """A dispatch's per-site routing stats, reduced on the device (no
+        sync) to one vector: per-row leaf counts (B, E) summed over the
+        sites of the engine's leaf count, flattened, then the sum over all
+        sites of overflow * slots and of slots.  Slots count valid tokens
+        only: the validity mask sends filler rows to the sentinel leaf."""
         if stats is None or self.num_leaves == 0:
             return None
-        counts = None
+        sites = [s for s in stats if s is not None]
+        counts = torch.stack([s.leaf_counts for s in sites
+                              if s.leaf_counts.shape[-1] == self.num_leaves]
+                             ).sum(0)
+        ovf = torch.stack([s.overflow.float().reshape(()) for s in sites])
+        w = torch.stack([s.slots.float().reshape(()) for s in sites])
+        return torch.cat([counts.reshape(-1).float(), (ovf * w).sum()[None],
+                          w.sum()[None]])
+
+    def _fold_stats(self, v: np.ndarray, phase: str) -> np.ndarray:
+        """``_reduce_stats``'s vector on the host: folds the slot-weighted
+        overflow into the phase's running mean; returns the per-row leaf
+        counts (B, E)."""
         acc = self._overflow[phase]
-        for s in stats:
-            if s is None:
-                continue
-            w = float(s.slots)
-            acc[0] += float(s.overflow) * w
-            acc[1] += w
-            c = s.leaf_counts.double().cpu().numpy()
-            if c.shape[-1] == self.num_leaves:
-                counts = c if counts is None else counts + c
-        return counts
+        acc[0] += float(v[-2])
+        acc[1] += float(v[-1])
+        return v[:-2].astype(np.float64).reshape(-1, self.num_leaves)
 
     def _update_occupancy(self, rows: Sequence[int],
                           counts: Optional[np.ndarray]) -> None:
         if counts is None:
             return
-        a = self.ecfg.occupancy_ewma
+        a = _OCCUPANCY_EWMA
         for r in rows:
             tot = counts[r].sum()
             if tot <= 0:
@@ -418,7 +439,7 @@ class ContinuousBatchingEngine:
         toks[slot, L:] = prompt[-1]
         valid = np.zeros((self.ecfg.num_slots,), np.int32)
         valid[slot] = L
-        logits, stats = self._slab(f"prefill_{bucket}", toks, valid)
+        logits, counts = self._slab(f"prefill_{bucket}", toks, valid)
         if self.spec:
             self._tlen[slot] = self._dlen[slot] = L
         self.n_prefills += 1
@@ -427,7 +448,6 @@ class ContinuousBatchingEngine:
         st = SlotState(request=req, admitted_time=t, first_token_time=t,
                        tokens=[], total_len=L, prefill_pos=L)
         self.slots[slot] = st
-        counts = self._stats_rows(stats, "prefill")
         if counts is not None and counts[slot].sum() > 0:
             self.occupancy[slot] = counts[slot] / counts[slot].sum()
         else:
@@ -461,9 +481,8 @@ class ContinuousBatchingEngine:
             toks[i, :n] = p[st.prefill_pos:st.prefill_pos + n]
             toks[i, n:] = p[st.prefill_pos + n - 1]
             valid[i] = n
-        logits, stats = self._slab("chunk", toks, valid)
+        logits, counts = self._slab("chunk", toks, valid)
         self.n_chunks += 1
-        counts = self._stats_rows(stats, "prefill")
         for i in prefilling:
             st = self.slots[i]
             st.prefill_pos += int(valid[i])
@@ -515,9 +534,12 @@ class ContinuousBatchingEngine:
             logits, self.caches, stats = lm.decode_step(
                 self.params, self.cfg, t, self.caches, write_mask=m,
                 token_valid=m, with_stats=True)
-            logits = logits.float().cpu().numpy()
+            sv = self._reduce_stats(stats)
+            host = _to_host([logits] + ([sv] if sv is not None else []))
+        logits = host[0]
         self._decode_done(t0)
-        self._update_occupancy(live, self._stats_rows(stats, "decode"))
+        if sv is not None:
+            self._update_occupancy(live, self._fold_stats(host[1], "decode"))
         for i in live:
             self._record_token(self.slots[i], self._sample(self.slots[i],
                                                            logits[i]))
@@ -558,15 +580,21 @@ class ContinuousBatchingEngine:
                 self._dev(lv), self._dev(temps) if temps.any() else None,
                 self._gen)
             self._record_shape("verify", p_logits.shape[:2])
-            p_logits = p_logits.float().cpu().numpy()           # (S, k+1, V)
-            drafts = drafts.cpu().numpy()                       # (k, S)
-            q_logits = (q_logits.float().cpu().numpy() if temps.any()
-                        else None)                              # (k+1, S, V)
+            dv, vv = self._reduce_stats(dstats), self._reduce_stats(vstats)
+            host = _to_host(
+                [p_logits, drafts]                     # (S, k+1, V), (k, S)
+                + ([q_logits] if temps.any() else [])  # (k+1, S, V)
+                + [p for p in (dv, vv) if p is not None])
+        p_logits, drafts = host[0], host[1].astype(np.int64)
+        q_logits = host[2] if temps.any() else None
+        host = host[3 if temps.any() else 2:]
         self._decode_done(t0)
         # the draft's histograms are a prior on the verify's routing; the
         # verify is the target's decode
-        self._update_occupancy(live, self._stats_rows(dstats, "draft"))
-        self._update_occupancy(live, self._stats_rows(vstats, "decode"))
+        if dv is not None:
+            self._update_occupancy(live, self._fold_stats(host.pop(0), "draft"))
+        if vv is not None:
+            self._update_occupancy(live, self._fold_stats(host.pop(0), "decode"))
         for i in live:
             st = self.slots[i]
             vl = int(vlen[i])

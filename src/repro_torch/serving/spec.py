@@ -18,8 +18,9 @@ draft (Leviathan et al., 2023).
 * ``rejection_sample`` — host numpy, per row, exact.
 
 The JAX package runs a round as one compiled dispatch; PyTorch runs it
-eagerly, and the round's only host synchronization is the copy of its
-logits for rejection sampling.  Only the ``self`` / ``self:N`` early-exit
+eagerly and reads nothing on the host: the engine copies the round's
+logits, drafts and routing stats off the device in one transfer, for
+rejection sampling.  Only the ``self`` / ``self:N`` early-exit
 draft is ported: an independent draft architecture needs the other archs.
 """
 from __future__ import annotations

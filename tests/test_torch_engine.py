@@ -13,6 +13,7 @@ logits and rollback, rejection sampling, the schedulers, EOS, the
 fixed-shape contract, the metrics and the CLI.
 """
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -379,6 +380,63 @@ def test_metrics_fields(model):
     assert m.wasted_tokens == m.draft_tokens - m.accepted_tokens
     assert m.throughput_tok_s > 0
     assert "speculative:" in m.report() and "prefill chunks" in m.report()
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_one_host_copy_per_dispatch(model, mode, monkeypatch):
+    """The serving layer copies logits, drafts and routing telemetry off the
+    device once per dispatch and reads no other tensor on the host (the
+    model's own backends are not its concern here).  The telemetry reduced
+    on the device equals the per-site sum."""
+    from repro_torch.serving import engine as engine_mod
+    copies, reads, quiet = [], [], [False]
+
+    def serving_read(name):
+        f = sys._getframe(2)
+        while f is not None and "repro_torch" not in f.f_code.co_filename:
+            f = f.f_back
+        if not quiet[0] and f is not None and "serving" in f.f_code.co_filename:
+            reads.append(f"{name} at {f.f_code.co_name}")
+
+    for name in ("cpu", "item", "tolist", "__float__", "__int__", "__bool__"):
+        fn = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name, lambda t, *a, _fn=fn, _n=name, **k: (
+            serving_read(_n), _fn(t, *a, **k))[1])
+    to_host = engine_mod._to_host
+
+    def counted(parts):
+        copies.append(len(parts))
+        quiet[0] = True
+        try:
+            return to_host(parts)
+        finally:
+            quiet[0] = False
+
+    monkeypatch.setattr(engine_mod, "_to_host", counted)
+    eng = engine(model, mode)
+    reduce_stats, folded = eng._reduce_stats, []
+
+    def checked(stats):
+        v = reduce_stats(stats)
+        if v is not None:
+            quiet[0] = True
+            E = eng.num_leaves
+            sites = [s for s in stats if s is not None]
+            want = sum(s.leaf_counts for s in sites if s.leaf_counts.shape[-1] == E)
+            np.testing.assert_array_equal(v[:-2].reshape(-1, E), want)
+            assert float(v[-1]) == sum(float(s.slots) for s in sites) > 0
+            quiet[0] = False
+            folded.append(True)
+        return v
+
+    eng._reduce_stats = checked
+    eng.run(requests(model))
+    assert len(copies) == eng.n_steps + eng.n_chunks + (
+        0 if mode == "chunked" else eng.n_prefills)
+    # logits + target telemetry; spec adds the draft's (slabs), then drafts (rounds)
+    assert sorted(set(copies)) == ([3, 4] if mode == "spec" else [2]), copies
+    assert folded and eng._overflow["decode"][1] > 0    # slots were folded in
+    assert not reads, f"host reads outside the dispatch copy: {sorted(set(reads))}"
 
 
 def test_sampled_spec_is_deterministic(model):
