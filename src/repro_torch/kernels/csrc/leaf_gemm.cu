@@ -4,25 +4,49 @@
 // act(x[e] @ w[e])) and ::grouped_matmul_dual (the SwiGLU up-projection
 // silu(x[e] @ wg[e]) * (x[e] @ wu[e])), Pallas TPU kernels.  x (E, C, D)
 // holds each leaf's routed tokens in its first group_sizes[e] rows (zeros
-// after); w (E, D, H).  A token tile with c * BM >= group_sizes[e] is
-// skipped: it writes zeros and reads no weights, as the Pallas kernel's
-// ragged early-out does (act(0) = 0 for every activation used).
+// after); w (E, D, H).  Rows at or past group_sizes[e] come out zero, and
+// a token tile with no live row reads no weights, as the Pallas kernel's
+// ragged early-out does.
 //
-// Bound on the H100: at internlm2-20b prefill (E = 16, C = 128, 1024
-// tokens) the weights dominate the bytes (201 MB per 6144x1024 weight set
-// in bf16) and the arithmetic intensity is ~C = 128 operations per weight
-// byte, so the card's limit is its memory rate, ~60 us per weight set.
-// Design (simple, exact first kernels; wgmma/TMA come later): one block
-// per (leaf e, 64-token tile, 64-column tile), the loop over D inside the
+// Bound on the H100: bytes.  At internlm2-20b prefill (E = 16, C = 128,
+// 1024 tokens) the weights dominate the traffic: 201 MB per 6144 x 1024
+// weight set in bf16, read once per live leaf, so ~68 us for the down
+// projection (1024 -> 6144, with 25 MB of output) and ~125 us for the
+// dual form (two weight sets, 6144 -> 1024).  The arithmetic intensity is
+// at most C = 128 operations per weight byte, below the ~295 where the
+// tensor cores would be the limit, yet at the bound the dual still needs
+// ~200 TFLOP/s of bf16 products: more than warp-level mma reaches from
+// small tiles, so bf16 runs on wgmma.
+//
+// float32 runs on the CUDA cores (off the bf16 main path): one block per
+// (leaf e, 64-token tile, 64-column tile), the loop over D inside the
 // block taking the place of the TPU's sequential k grid axis and its VMEM
-// accumulator.  float32 runs on the CUDA cores: 16-deep slices of x and w
-// staged in shared memory, each of 256 threads accumulating a 4x4 output
-// patch (two for the dual form) in f32 registers, so float32 inputs keep
-// full float32 products.  bfloat16 runs on the tensor cores (below).
-// Ragged edges (C, D, H not multiples of the tile, as in the tests' leaf
-// widths 4 and 8) are masked on load and store.
-#include <mma.h>
-
+// accumulator; 16-deep slices of x and w staged in shared memory, each of
+// 256 threads accumulating a 4x4 output patch (two for the dual form) in
+// f32 registers, so float32 inputs keep full float32 products.
+//
+// bfloat16 (one kernel template for both forms, below): one block per
+// (leaf, column tile) covers 128 token rows, the whole group at the main
+// path's capacity, so each weight tile crosses from memory once per leaf;
+// C > 128 adds a grid row axis (one block per 128 rows, each rereading the
+// weights; not on the measured path, where C = 128).  Each of the block's
+// two warpgroups owns a 64-row half and runs wgmma.mma_async (m64n64k16,
+// f32 accumulators in registers) with both operands in shared memory
+// through hand-built matrix descriptors: x K-major, w (D, H) MN-major
+// through the instruction's B-transpose flag, both in the 128-byte swizzle.
+// A half at or past the group's size issues no wgmma and stores zeros.
+// 64-deep k-steps (one 128-byte row of x) stream into a ring of stages
+// with 16-byte cp.async copies issued by every thread straight into the
+// swizzled layout wgmma reads; ragged or unaligned edges (the tests' leaf
+// widths 4 and 8, D or H off the tile) take masked element copies, and
+// rows past the group's size are zero-filled instead of read.  The
+// epilogue works on the accumulators in registers: the activation (or
+// silu(g) * u), bf16 rounding, a shuffle within each 4-lane quad that
+// gathers 8 adjacent columns per lane, and one 16-byte store per lane
+// where the row allows.  Copies are cp.async and not TMA: a TMA tensor
+// map is encoded on the host per call and pointer (a cost on a prefill
+// that is host-bound), and cannot describe the 8-byte row strides of
+// leaf width 4; warp specialisation and persistent blocks are later work.
 #include "common.cuh"
 
 namespace {
@@ -105,166 +129,295 @@ grouped_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// bfloat16: the same tiling on the tensor cores (warp-level mma through
-// the WMMA API, bf16 products accumulated in f32).  A block of four warps
-// owns a 64-token x 64-column tile; each warp a 32x32 quarter as 2x2
-// fragments of 16x16.  32-deep slices of x and w stream into a 3-stage
-// ring in shared memory with 16-byte cp.async copies (element-wise,
-// masked, at ragged or unaligned edges), so the loads of slices k+1 and
-// k+2 are in flight while slice k is multiplied.  The activation (or
-// silu(g) * u) is applied to the accumulator fragments, which share one
-// element mapping, and the tile leaves through shared memory (reusing the
-// ring) for the masked bf16 store.
-constexpr int TM = 64, TN = 64, TK = 32, kStages = 3, kTcThreads = 128;
-constexpr int kALd = TK + 8, kBLd = TN + 8, kCLd = TN + 4;  // padded rows
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma
+// ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+constexpr int kTileM = 128;       // token rows per block: two warpgroup halves
+constexpr int kTileK = 64;        // k-step: 64 bf16, one 128-byte row of x
+constexpr int kTcThreads = 256;   // two warpgroups
+constexpr int kRowBytes = 128;    // one swizzled row (and the swizzle's span)
+constexpr int kAtomBytes = 64 * kRowBytes;   // 64 rows: a half's x, or a
+                                             // 64-column weight atom
+constexpr int kSmemLimit = 232448;           // per block, sm_90
+
+#ifndef LEAF_GEMM_N_DOWN
+#define LEAF_GEMM_N_DOWN 128
+#endif
+#ifndef LEAF_GEMM_N_DUAL
+#define LEAF_GEMM_N_DUAL 64
+#endif
+#ifndef LEAF_GEMM_STAGES
+#define LEAF_GEMM_STAGES 3
+#endif
+
+template <bool kDual>
+struct TcTile {
+  static constexpr int kN = kDual ? LEAF_GEMM_N_DUAL : LEAF_GEMM_N_DOWN;  // columns per operand
+  static constexpr int kOps = kDual ? 2 : 1;     // weight operands
+  static constexpr int kAtoms = kN / 64;         // m64n64 products per operand and k16
+  static constexpr int kStages = LEAF_GEMM_STAGES;
+  static constexpr int kWBytes = kTileK * kN * 2;                // one operand's k-step
+  static constexpr int kStage = kTileM * kRowBytes + kOps * kWBytes;
+  static constexpr int kSmem = kStages * kStage + 1024;          // + alignment slack
+  // two blocks per SM where the accumulators fit 128 registers a thread
+  static constexpr int kMinBlocks =
+      (kOps * kN <= 128 && 2 * (kSmem + 1024) <= 228 * 1024) ? 2 : 1;
+  static_assert(kN % 64 == 0 && kStage % 1024 == 0, "swizzle atoms stay 1024-aligned");
+  static_assert(kSmem <= kSmemLimit, "ring exceeds shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 128-byte swizzle of a byte offset inside a 1024-aligned region: the
+// 16-byte chunk index (bits 4-6) XOR the row within the 8-row group
+// (bits 7-9), as wgmma's SW128 layout reads it
+__device__ __forceinline__ uint32_t swizzle128(uint32_t off) {
+  return off ^ ((off >> 3) & 0x70);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // 8 elements of row r, columns c..c+7 of a (rows x cols, leading dim ld)
 // matrix into shared memory: one async 16-byte copy when whole and
-// aligned, else masked element stores (zeros outside the matrix)
-__device__ __forceinline__ void load8(bf16* dst, const bf16* src, int r, int c,
+// aligned, zeros for a chunk wholly outside, else masked element stores
+__device__ __forceinline__ void load8(unsigned char* dst, const bf16* src, int r, int c,
                                       int rows, int cols, int ld) {
   const bf16* p = src + static_cast<size_t>(r) * ld + c;
   if (r < rows && c + 8 <= cols && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    cp_async16(dst, p);
+    cp_async16(smem_addr(dst), p);
+  } else if (r >= rows || c >= cols) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
   } else {
+    bf16* d = reinterpret_cast<bf16*>(dst);
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
-      dst[t] = (r < rows && c + t < cols) ? p[t] : __float2bfloat16(0.0f);
+    for (int t = 0; t < 8; ++t) d[t] = c + t < cols ? p[t] : __float2bfloat16(0.0f);
   }
 }
 
-template <bool kDual>
-struct TcSmem {
-  static constexpr int kA = TM * kALd, kB = TK * kBLd;      // elements
-  static constexpr int kStage = kA + kB * (kDual ? 2 : 1);  // elements
-  static constexpr int kBytes = kStages * kStage * 2;
-  static_assert(TM * kCLd * 4 <= kBytes, "the output tile reuses the ring");
-  static_assert((kA * 2) % 32 == 0 && (kB * 2) % 32 == 0, "wmma alignment");
-};
+// 8 bf16 (one uint4) into row r, columns c..c+7 of y (C x H), masked
+__device__ __forceinline__ void store8(bf16* y, int r, int c, int C, int H, uint4 v) {
+  if (r >= C || c >= H) return;
+  bf16* p = y + static_cast<size_t>(r) * H + c;
+  if (c + 8 <= H && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    *reinterpret_cast<uint4*>(p) = v;
+  } else {
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      if (c + t < H) p[t] = e[t];
+  }
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (all in 16-byte units)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 | static_cast<uint64_t>(sbo >> 4) << 32 |
+         1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, f32) += A (64 x 16, K-major) . B (16 x 64, MN-major)
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Within each quad of lanes, lane p holds v[t] = columns 8t + 2p, 2p + 1
+// of its row (t = 0..3, two bf16 each); afterwards lane q holds the 8
+// columns 8q..8q+7 in order: a 4x4 transpose in two shuffle rounds
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int lane) {
+  const bool odd = lane & 1, high = lane & 2;
+#pragma unroll
+  for (int p = 0; p < 4; p += 2) {
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? v[p] : v[p + 1], 1);
+    if (odd) v[p] = got; else v[p + 1] = got;
+  }
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const uint32_t got = __shfl_xor_sync(0xffffffffu, high ? v[p] : v[p + 2], 2);
+    if (high) v[p] = got; else v[p + 2] = got;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
 
 template <bool kDual>
-__global__ void __launch_bounds__(kTcThreads)
-grouped_matmul_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                         const bf16* __restrict__ w2, const int* __restrict__ gs,
-                         bf16* __restrict__ y, int C, int D, int H, int act) {
-  namespace wmma = nvcuda::wmma;
-  using L = TcSmem<kDual>;
-  const int e = blockIdx.z, c0 = blockIdx.y * TM, h0 = blockIdx.x * TN;
-  const int tid = threadIdx.x, warp = tid / 32;
+__global__ void __launch_bounds__(kTcThreads, TcTile<kDual>::kMinBlocks)
+grouped_matmul_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                            const bf16* __restrict__ w2, const int* __restrict__ gs,
+                            bf16* __restrict__ y, int C, int D, int H, int act) {
+  using T = TcTile<kDual>;
+  constexpr int kN = T::kN, kChunks = kN / 8;
+  const int e = blockIdx.z, c0 = blockIdx.y * kTileM, h0 = blockIdx.x * kN;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int rows = min(gs[e], C);   // the group's live rows
   bf16* yb = y + static_cast<size_t>(e) * C * H;
-  if (c0 >= gs[e]) {  // empty token tile: zeros, no weight traffic
-    for (int i = tid; i < TM * TN; i += kTcThreads) {
-      const int r = c0 + i / TN, c = h0 + i % TN;
-      if (r < C && c < H) yb[static_cast<size_t>(r) * H + c] = __float2bfloat16(0.0f);
-    }
+  if (c0 >= rows) {  // no live row: zeros, no weight traffic
+    for (int i = tid; i < kTileM * kChunks; i += kTcThreads)
+      store8(yb, c0 + i / kChunks, h0 + 8 * (i % kChunks), C, H, make_uint4(0, 0, 0, 0));
     return;
   }
-  __shared__ __align__(128) unsigned char smem[L::kBytes];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int halves = (min(rows - c0, kTileM) + 63) / 64;   // live 64-row halves
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const bf16* xb = x + static_cast<size_t>(e) * C * D;
-  const bf16* wb = w + static_cast<size_t>(e) * D * H;
-  const bf16* w2b = kDual ? w2 + static_cast<size_t>(e) * D * H : nullptr;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int nk = (D + TK - 1) / TK;
+  const bf16* wb[2] = {w + static_cast<size_t>(e) * D * H,
+                       kDual ? w2 + static_cast<size_t>(e) * D * H : nullptr};
+  const int nk = (D + kTileK - 1) / kTileK;
 
+  // stage layout: x rows (128 B each, swizzled), then per operand kN/64
+  // atoms of 64 k-rows x 64 columns (128 B per k-row, swizzled)
   auto load_stage = [&](int kt) {
-    bf16* As = ring + (kt % kStages) * L::kStage;
-    bf16* Bs = As + L::kA;
-    const int k0 = kt * TK;
-    for (int i = tid; i < TM * TK / 8; i += kTcThreads) {
-      const int r = i / (TK / 8), c = (i % (TK / 8)) * 8;
-      load8(As + r * kALd + c, xb, c0 + r, k0 + c, C, D, D);
+    unsigned char* st = smem + (kt % T::kStages) * T::kStage;
+    const int k0 = kt * kTileK;
+    for (int i = tid; i < halves * 64 * 8; i += kTcThreads) {
+      const int r = i / 8, c = i % 8;
+      load8(st + swizzle128(r * kRowBytes + c * 16), xb, c0 + r, k0 + 8 * c, rows, D, D);
     }
-    for (int i = tid; i < TK * TN / 8; i += kTcThreads) {
-      const int r = i / (TN / 8), c = (i % (TN / 8)) * 8;
-      load8(Bs + r * kBLd + c, wb, k0 + r, h0 + c, D, H, H);
-      if constexpr (kDual) load8(Bs + L::kB + r * kBLd + c, w2b, k0 + r, h0 + c, D, H, H);
+#pragma unroll
+    for (int op = 0; op < T::kOps; ++op) {
+      unsigned char* ws = st + kTileM * kRowBytes + op * T::kWBytes;
+      for (int i = tid; i < kTileK * kChunks; i += kTcThreads) {
+        const int k = i / kChunks, c = i % kChunks;
+        load8(ws + swizzle128((c / 8) * kAtomBytes + k * kRowBytes + (c % 8) * 16),
+              wb[op], k0 + k, h0 + 8 * c, D, H, H);
+      }
     }
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2], acc2[2][2];
+  float acc[T::kOps][T::kAtoms][32];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int op = 0; op < T::kOps; ++op)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc[i][j], 0.0f);
-      if constexpr (kDual) wmma::fill_fragment(acc2[i][j], 0.0f);
-    }
+    for (int j = 0; j < T::kAtoms; ++j)
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nk) load_stage(st);
+      for (int i = 0; i < 32; ++i) acc[op][j][i] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < T::kStages - 1; ++s) {
+    if (s < nk) load_stage(s);
     cp_async_commit();
   }
+  const bool live = wg < halves;   // uniform over the warpgroup
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of slice kt landed
-    __syncthreads();               // everyone's did; slice kt-1 is consumed
-    if (kt + kStages - 1 < nk) load_stage(kt + kStages - 1);
+    cp_async_wait<T::kStages - 2>();   // this thread's copies of step kt landed
+    // order them (generic proxy) before wgmma's reads (async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();                   // everyone's did; step kt-1 is consumed
+    if (kt + T::kStages - 1 < nk) load_stage(kt + T::kStages - 1);
     cp_async_commit();
-    const bf16* As = ring + (kt % kStages) * L::kStage;
-    const bf16* Bs = As + L::kA;
+    if (live) {
+      const uint32_t st = smem_addr(smem + (kt % T::kStages) * T::kStage);
+      // x: K-major, 8-row groups 1024 B apart; w: MN-major, 8-k-row groups
+      // 1024 B apart, 64-column atoms kAtomBytes apart
+      const uint64_t da = sw128_desc(st + wg * kAtomBytes, 16, 1024);
 #pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+      for (int op = 0; op < T::kOps; ++op)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], As + (wm + 16 * i) * kALd + kk, kALd);
+        for (int j = 0; j < T::kAtoms; ++j) fence_regs(acc[op][j]);
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], Bs + kk * kBLd + wn + 16 * j, kBLd);
+      for (int kk = 0; kk < kTileK / 16; ++kk)
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int op = 0; op < T::kOps; ++op)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      if constexpr (kDual) {
+          for (int j = 0; j < T::kAtoms; ++j) {
+            const uint64_t db = sw128_desc(
+                st + kTileM * kRowBytes + op * T::kWBytes + j * kAtomBytes, kAtomBytes, 1024);
+            // k16 step kk: 32 bytes along x's rows, 16 k-rows (2048 B) of w
+            wgmma_m64n64k16(acc[op][j], da + (kk * 32 >> 4), db + (kk * 2048 >> 4));
+          }
+      wgmma_commit();
+      wgmma_wait_all();
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], Bs + L::kB + kk * kBLd + wn + 16 * j, kBLd);
+      for (int op = 0; op < T::kOps; ++op)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc2[i][j], a[i], b[j], acc2[i][j]);
-      }
+        for (int j = 0; j < T::kAtoms; ++j) fence_regs(acc[op][j]);
     }
   }
   cp_async_wait<0>();
-  __syncthreads();  // the ring is free: reuse it for the output tile
-  float* Cs = reinterpret_cast<float*>(smem);
+
+  // epilogue from registers.  Accumulator layout (m64nNk16, f32): warp w
+  // of the warpgroup owns rows 16w + lane/4 (+8 for odd pairs); register
+  // 4t + 2i + {0, 1} holds columns 8t + 2 (lane % 4) + {0, 1} of row +8i
+  const int r0 = c0 + wg * 64 + (tid % 128) / 32 * 16 + lane / 4;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    const bool keep = r < rows;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < T::kAtoms; ++j)
 #pragma unroll
-      for (int t = 0; t < acc[i][j].num_elements; ++t) {
-        if constexpr (kDual) acc[i][j].x[t] = fff::silu(acc[i][j].x[t]) * acc2[i][j].x[t];
-        else acc[i][j].x[t] = fff::activate(acc[i][j].x[t], act);
+      for (int g = 0; g < 2; ++g) {   // 4 column groups of 8 per round
+        uint32_t v[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int idx = 4 * (4 * g + t) + 2 * i;
+          float a = acc[0][j][idx], b = acc[0][j][idx + 1];
+          if constexpr (kDual) {
+            a = fff::silu(a) * acc[T::kOps - 1][j][idx];
+            b = fff::silu(b) * acc[T::kOps - 1][j][idx + 1];
+          } else {
+            a = fff::activate(a, act);
+            b = fff::activate(b, act);
+          }
+          v[t] = keep ? pack_bf16x2(a, b) : 0u;
+        }
+        quad_transpose(v, lane);
+        store8(yb, r, h0 + 64 * j + 8 * (4 * g + lane % 4), C, H,
+               make_uint4(v[0], v[1], v[2], v[3]));
       }
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * kCLd + wn + 16 * j, acc[i][j], kCLd,
-                              wmma::mem_row_major);
-    }
-  __syncthreads();
-  for (int i = tid; i < TM * TN; i += kTcThreads) {
-    const int r = c0 + i / TN, c = h0 + i % TN;
-    if (r < C && c < H)
-      yb[static_cast<size_t>(r) * H + c] = __float2bfloat16(Cs[(i / TN) * kCLd + i % TN]);
   }
 }
 
 template <bool kDual>
 int launch(const void* x, const void* w, const void* w2, const int* gs,
            void* y, int E, int C, int D, int H, int act, int dtype,
-           void* stream) {
+           int device, void* stream) {
   if (E < 1 || C < 1 || D < 1 || H < 1) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == fff::kF32) {
@@ -273,8 +426,17 @@ int launch(const void* x, const void* w, const void* w2, const int* gs,
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<const float*>(w2), gs, static_cast<float*>(y), C, D, H, act);
   } else if (dtype == fff::kBF16) {
-    const dim3 grid((H + TN - 1) / TN, (C + TM - 1) / TM, E);
-    grouped_matmul_tc_kernel<kDual><<<grid, kTcThreads, 0, s>>>(
+    using T = TcTile<kDual>;
+    auto kernel = grouped_matmul_wgmma_kernel<kDual>;
+    static unsigned configured = 0;   // devices whose shared-memory limit is raised
+    if (device >= 32 || !(configured >> device & 1u)) {
+      if (const cudaError_t err = cudaFuncSetAttribute(
+              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem))
+        return static_cast<int>(err);
+      if (device < 32) configured |= 1u << device;
+    }
+    const dim3 grid((H + T::kN - 1) / T::kN, (C + kTileM - 1) / kTileM, E);
+    kernel<<<grid, kTcThreads, T::kSmem, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w),
         static_cast<const bf16*>(w2), gs, static_cast<bf16*>(y), C, D, H, act);
   } else {
@@ -292,7 +454,7 @@ extern "C" int grouped_matmul(const void* x, const void* w, const int* gs,
                               int dtype, int device, void* stream) {
   if (const cudaError_t err = cudaSetDevice(device)) return static_cast<int>(err);
   if (act < fff::kActNone || act > fff::kActSilu) return cudaErrorInvalidValue;
-  return launch<false>(x, w, nullptr, gs, y, E, C, D, H, act, dtype, stream);
+  return launch<false>(x, w, nullptr, gs, y, E, C, D, H, act, dtype, device, stream);
 }
 
 // SwiGLU up-projection: y = silu(x @ wg) * (x @ wu), grouped per leaf.
@@ -302,5 +464,5 @@ extern "C" int grouped_matmul_dual(const void* x, const void* wg,
                                    int device, void* stream) {
   if (const cudaError_t err = cudaSetDevice(device)) return static_cast<int>(err);
   return launch<true>(x, wg, wu, gs, y, E, C, D, H, fff::kActSwiglu, dtype,
-                      stream);
+                      device, stream);
 }
