@@ -19,9 +19,14 @@ Phases (any failure raises, and the exit code is non-zero):
               indices agree.  Times each kernel, its plain version and,
               where one PyTorch call computes the same function, that call
               (library_ms), with CUDA events.
+              The grouped kernels are also held and timed at a 256-token
+              admission slab (a line of its own; the table stays at 1024).
    ragged   — the same kernels at the CPU tests' small unaligned sizes,
-              which exercise their masked edge paths, and the gathered
-              kernels' guard for leaf indices outside [0, E).
+              which exercise their masked edge paths, the gathered
+              kernels' guard for leaf indices outside [0, E), and the
+              grouped kernels at their tile edges: group sizes 0, 1, 63,
+              64, 65, 127 and 128 in one call, capacity 256, and D and H
+              off the bf16 kernel's k-step and column tile.
 4. serve    — internlm2-20b FFF at full width (bf16) with 8 of its 48
               layers, random weights from a seeded CUDA generator: batch 8,
               prompt 128, 16 greedy decode steps through
@@ -77,7 +82,7 @@ NEAR_TIE = 1e-3
 # main-path shapes: internlm2-20b FFF at full width
 D, DEPTH, E, L_W, O = 6144, 4, 16, 1024, 6144
 N_NODES = 2 ** DEPTH - 1
-DECODE_B, PREFILL_B, PREFILL_S = 8, 8, 128
+DECODE_B, PREFILL_B, PREFILL_S, SLAB_B = 8, 8, 128, 256
 SERVE_LAYERS, GEN, PARITY_LAYERS, PARITY_B, PARITY_S, PARITY_STEPS = 8, 16, 2, 4, 32, 8
 # the engine: 8 slots x (spec_k 3 + 1) = the 32-token verify slab
 SLOTS, SPEC_K, ENGINE_REQS, ENGINE_PROMPT, ENGINE_MIN_PROMPT, ENGINE_GEN = 8, 3, 16, 128, 16, 32
@@ -244,6 +249,7 @@ def phase_kernels(gen) -> dict:
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
             library_ms=lib)
         del xg, h, y
+        grouped_slab(dtype, wg, wu, wd)
 
         # -- fused forest decode: batch 8, one tree of 16 SwiGLU leaves
         xd = randn(DECODE_B, D, dtype=dtype)
@@ -269,6 +275,40 @@ def phase_kernels(gen) -> dict:
         torch.cuda.empty_cache()
     log_rows(rows)
     return rows
+
+
+def grouped_slab(dtype, wg, wu, wd, tokens=SLAB_B) -> None:
+    """Both grouped kernels at an engine admission slab of 256 tokens in
+    the main path's capacity-128 groups (~16 tokens a leaf, so every block
+    has one live 64-row half): agreement and times, logged beside the
+    table's 1024-token rows.  Its own generator leaves the table's inputs
+    as they were."""
+    from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sz = 2 if dtype == torch.bfloat16 else 4
+    C = 128
+    leaf = torch.randint(0, E, (tokens,), generator=gen, device=dev)
+    gs = torch.bincount(leaf, minlength=E).clamp(max=C).to(torch.int32)
+    mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
+    xg = (torch.randn((E, C, D), generator=gen, device=dev) * mask).to(dtype)
+    live, n = int((gs > 0).sum()), int(gs.sum())
+    h = gk.grouped_matmul_dual(xg, wg, wu, gs)
+    err_d = compare("grouped_matmul_dual @256", h, gr.grouped_matmul_dual_ref(xg, wg, wu, gs), dtype)
+    err = compare("grouped_matmul @256", gk.grouped_matmul(h, wd, gs),
+                  gr.grouped_matmul_ref(h, wd, gs), dtype)
+    ms_d = time_ms(lambda: gk.grouped_matmul_dual(xg, wg, wu, gs))
+    ms = time_ms(lambda: gk.grouped_matmul(h, wd, gs))
+    lib = time_ms(lambda: torch.bmm(h, wd))
+    b_d, _ = bound(live * 2 * D * L_W * sz + n * D * sz + E * C * L_W * sz,
+                   2 * 2 * n * D * L_W, dtype)
+    b, _ = bound(live * L_W * O * sz + n * L_W * sz + E * C * O * sz,
+                 2 * n * L_W * O, dtype)
+    log(f"[kernels] grouped @{tokens} tokens {str(dtype):15s} (group sizes "
+        f"{min(gs.tolist())}-{max(gs.tolist())}): grouped_matmul_dual {ms_d:.4f} ms"
+        f" (bound {b_d:.4f}, kernel/bound {ms_d / b_d:.2f}, max|err| {err_d:.3e});"
+        f" grouped_matmul {ms:.4f} ms (bound {b:.4f}, kernel/bound {ms / b:.2f},"
+        f" max|err| {err:.3e}); torch.bmm {lib:.4f} ms")
 
 
 def phase_gathered(gen) -> dict:
@@ -443,9 +483,46 @@ def phase_ragged(gen) -> None:
                 raise AssertionError("gathered kernels: an index outside [0, E) "
                                      "did not give a zero row")
             checked += 2
+    checked += grouped_edges(gen)
     torch.cuda.synchronize()
     log(f"[ragged] {checked} small kernel cases agree with their plain "
         f"versions (fp32 and bf16)")
+
+
+def grouped_edges(gen) -> int:
+    """The grouped kernels at their tile edges: group sizes 0, 1, 63, 64,
+    65, 127 and 128 in one call at capacity 128 (empty, partial and full
+    64-row halves), capacity 256 (two row blocks), and widths off the
+    bf16 kernel's 64-deep k-steps and 128- (dual) or 256-column (down)
+    tiles, every activation, both dtypes.  Returns the cases checked."""
+    from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
+    dev = torch.device("cuda")
+    checked = 0
+    cases = [(128, [0, 1, 63, 64, 65, 127, 128], 256, 1024),   # tile-aligned
+             (128, [0, 1, 63, 64, 65, 127, 128], 136, 200),    # D, H off the tiles
+             (256, [0, 100, 200, 256], 192, 328)]              # two row blocks
+    for dtype in (torch.float32, torch.bfloat16):
+        for C, sizes, d, H in cases:
+            gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+            E_ = gs.numel()
+            mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
+            x = (torch.randn((E_, C, d), generator=gen, device=dev) * mask).to(dtype)
+            w, w2 = ((torch.randn((E_, d, H), generator=gen, device=dev) * d ** -0.5).to(dtype)
+                     for _ in range(2))
+            tag = f"C={C} D={d} H={H}"
+            y2 = gk.grouped_matmul_dual(x, w, w2, gs)
+            compare(f"grouped_matmul_dual (edges {tag})", y2,
+                    gr.grouped_matmul_dual_ref(x, w, w2, gs), dtype)
+            for act in ACTS:
+                y = gk.grouped_matmul(x, w, gs, act=act)
+                compare(f"grouped_matmul {act} (edges {tag})", y,
+                        gr.grouped_matmul_ref(x, w, gs, act=act), dtype)
+            rows_past = ~mask[..., 0]
+            if float(y2[rows_past].abs().max()) != 0.0 or float(y[rows_past].abs().max()) != 0.0:
+                raise AssertionError(f"grouped kernels ({tag}): a row past its "
+                                     f"group's size is not zero")
+            checked += 1 + len(ACTS)
+    return checked
 
 
 @contextlib.contextmanager

@@ -29,24 +29,34 @@
 // (leaf, column tile) covers 128 token rows, the whole group at the main
 // path's capacity, so each weight tile crosses from memory once per leaf;
 // C > 128 adds a grid row axis (one block per 128 rows, each rereading the
-// weights; not on the measured path, where C = 128).  Each of the block's
-// two warpgroups owns a 64-row half and runs wgmma.mma_async (m64n64k16,
-// f32 accumulators in registers) with both operands in shared memory
-// through hand-built matrix descriptors: x K-major, w (D, H) MN-major
-// through the instruction's B-transpose flag, both in the 128-byte swizzle.
-// A half at or past the group's size issues no wgmma and stores zeros.
-// 64-deep k-steps (one 128-byte row of x) stream into a ring of stages
-// with 16-byte cp.async copies issued by every thread straight into the
-// swizzled layout wgmma reads; ragged or unaligned edges (the tests' leaf
-// widths 4 and 8, D or H off the tile) take masked element copies, and
-// rows past the group's size are zero-filled instead of read.  The
-// epilogue works on the accumulators in registers: the activation (or
-// silu(g) * u), bf16 rounding, a shuffle within each 4-lane quad that
-// gathers 8 adjacent columns per lane, and one 16-byte store per lane
-// where the row allows.  Copies are cp.async and not TMA: a TMA tensor
-// map is encoded on the host per call and pointer (a cost on a prefill
-// that is host-bound), and cannot describe the 8-byte row strides of
-// leaf width 4; warp specialisation and persistent blocks are later work.
+// weights; not on the measured path, where C = 128).  A block is two
+// 64-row halves times 2 (dual) or 4 (down) column groups of 64 columns,
+// one warpgroup each, so the block's x tile feeds 128 (dual, per operand)
+// or 256 (down) columns.  Each warpgroup runs wgmma.mma_async with both
+// operands in shared memory through hand-built matrix descriptors, f32
+// accumulators in registers: x K-major, w (D, H) MN-major through the
+// instruction's B-transpose flag, both in the 128-byte swizzle; the dual
+// form's g and u atoms sit side by side, so one m64n128k16 computes both
+// from one read of x.  A half at or past the group's size issues no wgmma
+// and stores zeros.  64-deep k-steps (one 128-byte row of x) stream
+// through a 4-stage ring with 16-byte cp.async copies issued by every
+// thread straight into the swizzled layout; ragged or unaligned edges (the
+// tests' leaf widths 4 and 8, D or H off the tile) take masked element
+// copies, and rows past the group's size are zero-filled instead of read.
+// Copies run two k-steps ahead while the products of the step before
+// last drain (wgmma.wait_group 1).  The epilogue works on the accumulators
+// in registers: the activation (or silu(g) * u), bf16 rounding, a shuffle
+// within each 4-lane quad that gathers 8 adjacent columns per lane, and
+// one 16-byte store per lane where the row allows.
+// Copies are cp.async and not TMA: a TMA tensor map is encoded on the host
+// per call and pointer (a cost on a prefill that is host-bound), and
+// cannot describe the 8-byte row strides of leaf width 4.  On the H100 the
+// copies are what limits the down projection: with its products removed
+// its copies alone stream below the card's rate, most of all with its
+// 16 k-steps per block, whose ramp-up and drain are exposed (one block
+// per SM).  A TMA producer warp and persistent blocks are the next step.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -134,38 +144,29 @@ grouped_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
-constexpr int kTileM = 128;       // token rows per block: two warpgroup halves
+constexpr int kTileM = 128;       // token rows per block: two 64-row halves
 constexpr int kTileK = 64;        // k-step: 64 bf16, one 128-byte row of x
-constexpr int kTcThreads = 256;   // two warpgroups
 constexpr int kRowBytes = 128;    // one swizzled row (and the swizzle's span)
-constexpr int kAtomBytes = 64 * kRowBytes;   // 64 rows: a half's x, or a
+constexpr int kAtomBytes = 64 * kRowBytes;   // 64 rows: a half's x, or one
                                              // 64-column weight atom
-constexpr int kSmemLimit = 232448;           // per block, sm_90
+constexpr int kStages = 4;        // ring of k-steps; 2 in flight ahead of the
+                                  // one being multiplied, 1 being drained
 
-#ifndef LEAF_GEMM_N_DOWN
-#define LEAF_GEMM_N_DOWN 128
-#endif
-#ifndef LEAF_GEMM_N_DUAL
-#define LEAF_GEMM_N_DUAL 64
-#endif
-#ifndef LEAF_GEMM_STAGES
-#define LEAF_GEMM_STAGES 3
-#endif
-
+// A block is 2 x kCg warpgroups: two 64-row halves times kCg column groups
+// of 64 columns per operand.  The down projection takes 4 column groups
+// (1024 threads, 64 registers each: more threads keep more 16-byte copies
+// in flight), the dual form 2 (its 64 accumulators a thread allow 512).
 template <bool kDual>
 struct TcTile {
-  static constexpr int kN = kDual ? LEAF_GEMM_N_DUAL : LEAF_GEMM_N_DOWN;  // columns per operand
+  static constexpr int kCg = kDual ? 2 : 4;
+  static constexpr int kN = 64 * kCg;            // block columns per operand
+  static constexpr int kThreads = 256 * kCg;
   static constexpr int kOps = kDual ? 2 : 1;     // weight operands
-  static constexpr int kAtoms = kN / 64;         // m64n64 products per operand and k16
-  static constexpr int kStages = LEAF_GEMM_STAGES;
-  static constexpr int kWBytes = kTileK * kN * 2;                // one operand's k-step
-  static constexpr int kStage = kTileM * kRowBytes + kOps * kWBytes;
-  static constexpr int kSmem = kStages * kStage + 1024;          // + alignment slack
-  // two blocks per SM where the accumulators fit 128 registers a thread
-  static constexpr int kMinBlocks =
-      (kOps * kN <= 128 && 2 * (kSmem + 1024) <= 228 * 1024) ? 2 : 1;
-  static_assert(kN % 64 == 0 && kStage % 1024 == 0, "swizzle atoms stay 1024-aligned");
-  static_assert(kSmem <= kSmemLimit, "ring exceeds shared memory");
+  static constexpr int kInstrN = 64 * kOps;      // one wgmma spans [g | u]
+  static constexpr int kAcc = kInstrN / 2;       // accumulators a thread
+  static constexpr int kStage = kTileM * kRowBytes + kOps * kN * kRowBytes;   // bytes
+  static constexpr int kSmem = kStages * kStage + 1024;   // + alignment slack
+  static_assert(kSmem <= 232448, "ring exceeds a block's shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -235,30 +236,65 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 64, f32) += A (64 x 16, K-major) . B (16 x 64, MN-major)
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
+// d (64 x N, f32 accumulators of the warpgroup) += A (64 x 16, K-major)
+// . B (16 x N, MN-major: the transpose flag), both from shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(1));
 }
 
@@ -285,18 +321,20 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 template <bool kDual>
-__global__ void __launch_bounds__(kTcThreads, TcTile<kDual>::kMinBlocks)
+__global__ void __launch_bounds__(TcTile<kDual>::kThreads, 1)
 grouped_matmul_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                             const bf16* __restrict__ w2, const int* __restrict__ gs,
                             bf16* __restrict__ y, int C, int D, int H, int act) {
   using T = TcTile<kDual>;
-  constexpr int kN = T::kN, kChunks = kN / 8;
-  const int e = blockIdx.z, c0 = blockIdx.y * kTileM, h0 = blockIdx.x * kN;
+  constexpr int kChunks = T::kN / 8;       // 16-byte chunks in a weight row
+  constexpr int kAhead = kStages - 2;      // k-steps loaded ahead
+  const int e = blockIdx.z, c0 = blockIdx.y * kTileM, h0 = blockIdx.x * T::kN;
   const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
-  const int rows = min(gs[e], C);   // the group's live rows
+  const int half = wg % 2, cg = wg / 2;    // this warpgroup's rows and columns
+  const int rows = min(gs[e], C);          // the group's live rows
   bf16* yb = y + static_cast<size_t>(e) * C * H;
   if (c0 >= rows) {  // no live row: zeros, no weight traffic
-    for (int i = tid; i < kTileM * kChunks; i += kTcThreads)
+    for (int i = tid; i < kTileM * kChunks; i += T::kThreads)
       store8(yb, c0 + i / kChunks, h0 + 8 * (i % kChunks), C, H, make_uint4(0, 0, 0, 0));
     return;
   }
@@ -309,108 +347,102 @@ grouped_matmul_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__
                        kDual ? w2 + static_cast<size_t>(e) * D * H : nullptr};
   const int nk = (D + kTileK - 1) / kTileK;
 
-  // stage layout: x rows (128 B each, swizzled), then per operand kN/64
-  // atoms of 64 k-rows x 64 columns (128 B per k-row, swizzled)
+  // A stage: x's rows (128 B each, swizzled; rows of dead halves are not
+  // copied), then the weights as 64-column atoms of 64 k-rows (128 B per
+  // k-row, swizzled) in (column group, operand) order, so that a
+  // warpgroup's g and u atoms are adjacent and one wgmma reads both
   auto load_stage = [&](int kt) {
-    unsigned char* st = smem + (kt % T::kStages) * T::kStage;
+    unsigned char* st = smem + (kt % kStages) * T::kStage;
     const int k0 = kt * kTileK;
-    for (int i = tid; i < halves * 64 * 8; i += kTcThreads) {
+    for (int i = tid; i < halves * 64 * 8; i += T::kThreads) {
       const int r = i / 8, c = i % 8;
       load8(st + swizzle128(r * kRowBytes + c * 16), xb, c0 + r, k0 + 8 * c, rows, D, D);
     }
 #pragma unroll
-    for (int op = 0; op < T::kOps; ++op) {
-      unsigned char* ws = st + kTileM * kRowBytes + op * T::kWBytes;
-      for (int i = tid; i < kTileK * kChunks; i += kTcThreads) {
+    for (int op = 0; op < T::kOps; ++op)
+      for (int i = tid; i < kTileK * kChunks; i += T::kThreads) {
         const int k = i / kChunks, c = i % kChunks;
-        load8(ws + swizzle128((c / 8) * kAtomBytes + k * kRowBytes + (c % 8) * 16),
+        const int atom = (c / 8) * T::kOps + op;
+        load8(st + kTileM * kRowBytes + swizzle128(atom * kAtomBytes + k * kRowBytes + (c % 8) * 16),
               wb[op], k0 + k, h0 + 8 * c, D, H, H);
       }
-    }
   };
 
-  float acc[T::kOps][T::kAtoms][32];
+  float acc[T::kAcc];
 #pragma unroll
-  for (int op = 0; op < T::kOps; ++op)
-#pragma unroll
-    for (int j = 0; j < T::kAtoms; ++j)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[op][j][i] = 0.0f;
+  for (int i = 0; i < T::kAcc; ++i) acc[i] = 0.0f;
 
 #pragma unroll
-  for (int s = 0; s < T::kStages - 1; ++s) {
+  for (int s = 0; s < kAhead; ++s) {
     if (s < nk) load_stage(s);
     cp_async_commit();
   }
-  const bool live = wg < halves;   // uniform over the warpgroup
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<T::kStages - 2>();   // this thread's copies of step kt landed
-    // order them (generic proxy) before wgmma's reads (async proxy)
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();                   // everyone's did; step kt-1 is consumed
-    if (kt + T::kStages - 1 < nk) load_stage(kt + T::kStages - 1);
-    cp_async_commit();
-    if (live) {
-      const uint32_t st = smem_addr(smem + (kt % T::kStages) * T::kStage);
-      // x: K-major, 8-row groups 1024 B apart; w: MN-major, 8-k-row groups
-      // 1024 B apart, 64-column atoms kAtomBytes apart
-      const uint64_t da = sw128_desc(st + wg * kAtomBytes, 16, 1024);
+  // The k loop, with or without this warpgroup's products (a half past the
+  // group's size has none).  Each branch holds the whole wgmma pipeline: a
+  // pipeline that crosses a divergent branch is serialised by ptxas.
+  auto mainloop = [&](auto mma) {
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<kAhead - 1>();   // this thread's copies of step kt landed
+      // order them (generic proxy) before wgmma's reads (async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      // everyone's copies landed, and every warpgroup's step kt-2 products
+      // are done (its wait below), so step kt-2's stage can refill
+      __syncthreads();
+      if (kt + kAhead < nk) load_stage(kt + kAhead);
+      cp_async_commit();
+      if constexpr (decltype(mma)::value) {
+        const uint32_t st = smem_addr(smem + (kt % kStages) * T::kStage);
+        // x: K-major, 8-row groups 1024 B apart.  w: MN-major (the
+        // transpose flag), 8-k-row groups 1024 B apart (stride offset),
+        // 64-column atoms kAtomBytes apart (leading offset)
+        const uint64_t da = sw128_desc(st + half * kAtomBytes, 16, 1024);
+        const uint64_t db = sw128_desc(
+            st + kTileM * kRowBytes + cg * T::kOps * kAtomBytes, kAtomBytes, 1024);
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-      for (int op = 0; op < T::kOps; ++op)
-#pragma unroll
-        for (int j = 0; j < T::kAtoms; ++j) fence_regs(acc[op][j]);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kTileK / 16; ++kk)
-#pragma unroll
-        for (int op = 0; op < T::kOps; ++op)
-#pragma unroll
-          for (int j = 0; j < T::kAtoms; ++j) {
-            const uint64_t db = sw128_desc(
-                st + kTileM * kRowBytes + op * T::kWBytes + j * kAtomBytes, kAtomBytes, 1024);
-            // k16 step kk: 32 bytes along x's rows, 16 k-rows (2048 B) of w
-            wgmma_m64n64k16(acc[op][j], da + (kk * 32 >> 4), db + (kk * 2048 >> 4));
-          }
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int op = 0; op < T::kOps; ++op)
-#pragma unroll
-        for (int j = 0; j < T::kAtoms; ++j) fence_regs(acc[op][j]);
+        for (int kk = 0; kk < kTileK / 16; ++kk)   // k16: 32 B along x's rows,
+          wgmma_ss<T::kInstrN>(acc, da + (kk * 32 >> 4), db + (kk * 2048 >> 4));  // 16 k-rows of w
+        wgmma_commit();
+        wgmma_wait<1>();   // step kt-1's products are done; kt's run on
+      }
     }
-  }
+    if constexpr (decltype(mma)::value) wgmma_wait<0>();
+  };
+  if (half < halves) mainloop(std::true_type{});
+  else mainloop(std::false_type{});
   cp_async_wait<0>();
+  fence_regs(acc);
 
   // epilogue from registers.  Accumulator layout (m64nNk16, f32): warp w
   // of the warpgroup owns rows 16w + lane/4 (+8 for odd pairs); register
-  // 4t + 2i + {0, 1} holds columns 8t + 2 (lane % 4) + {0, 1} of row +8i
-  const int r0 = c0 + wg * 64 + (tid % 128) / 32 * 16 + lane / 4;
+  // 4t + 2i + {0, 1} holds columns 8t + 2 (lane % 4) + {0, 1} of row +8i;
+  // u's columns (dual) follow g's, 32 registers on
+  const int r0 = c0 + half * 64 + (tid % 128) / 32 * 16 + lane / 4;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
     const bool keep = r < rows;
 #pragma unroll
-    for (int j = 0; j < T::kAtoms; ++j)
+    for (int g = 0; g < 2; ++g) {   // 4 column groups of 8 per round
+      uint32_t v[4];
 #pragma unroll
-      for (int g = 0; g < 2; ++g) {   // 4 column groups of 8 per round
-        uint32_t v[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int idx = 4 * (4 * g + t) + 2 * i;
-          float a = acc[0][j][idx], b = acc[0][j][idx + 1];
-          if constexpr (kDual) {
-            a = fff::silu(a) * acc[T::kOps - 1][j][idx];
-            b = fff::silu(b) * acc[T::kOps - 1][j][idx + 1];
-          } else {
-            a = fff::activate(a, act);
-            b = fff::activate(b, act);
-          }
-          v[t] = keep ? pack_bf16x2(a, b) : 0u;
+      for (int t = 0; t < 4; ++t) {
+        const int idx = 4 * (4 * g + t) + 2 * i;
+        float a = acc[idx], b = acc[idx + 1];
+        if constexpr (kDual) {
+          a = fff::silu(a) * acc[idx + 32];
+          b = fff::silu(b) * acc[idx + 33];
+        } else {
+          a = fff::activate(a, act);
+          b = fff::activate(b, act);
         }
-        quad_transpose(v, lane);
-        store8(yb, r, h0 + 64 * j + 8 * (4 * g + lane % 4), C, H,
-               make_uint4(v[0], v[1], v[2], v[3]));
+        v[t] = keep ? pack_bf16x2(a, b) : 0u;
       }
+      quad_transpose(v, lane);
+      store8(yb, r, h0 + cg * 64 + 8 * (4 * g + lane % 4), C, H,
+             make_uint4(v[0], v[1], v[2], v[3]));
+    }
   }
 }
 
@@ -436,7 +468,7 @@ int launch(const void* x, const void* w, const void* w2, const int* gs,
       if (device < 32) configured |= 1u << device;
     }
     const dim3 grid((H + T::kN - 1) / T::kN, (C + kTileM - 1) / kTileM, E);
-    kernel<<<grid, kTcThreads, T::kSmem, s>>>(
+    kernel<<<grid, T::kThreads, T::kSmem, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w),
         static_cast<const bf16*>(w2), gs, static_cast<bf16*>(y), C, D, H, act);
   } else {
