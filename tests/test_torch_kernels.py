@@ -191,33 +191,56 @@ def _grouped_inputs(seed, H, dtype, E=3, C=16, D=32, sizes=None):
     return x, ws, (jnp.asarray(gs), torch.from_numpy(gs))
 
 
-@pytest.mark.parametrize("H", LEAF_WIDTHS)
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_grouped_matmul_matches_jax(dtype, H):
-    (jx, tx), ((jw, tw), _), (jgs, tgs) = _grouped_inputs(H, H, dtype)
+#: group sizes at the edges of the bf16 CUDA kernel's 64-row halves, all
+#: in one call at capacity 128: empty, one row, a half less one, a half, a
+#: half and one, full less one, full (chip_smoke.py's ragged phase holds
+#: the kernel to its plain version at these on the card)
+EDGE_SIZES = [0, 1, 63, 64, 65, 127, 128]
+# (dtype, H, sizes): random sizes at capacity 16, then EDGE_SIZES at 128
+GROUPED_CASES = (
+    [pytest.param(dt, H, None, id=f"{dt}-{H}") for dt in DTYPES for H in LEAF_WIDTHS]
+    + [pytest.param(dt, H, EDGE_SIZES, id=f"{dt}-{H}-edges")
+       for dt in DTYPES for H in LEAF_WIDTHS])
+
+
+def _case_inputs(seed, H, dtype, sizes):
+    """The grouped inputs of a GROUPED_CASES row and the Pallas row tile."""
+    if sizes is None:
+        return _grouped_inputs(seed, H, dtype), 16
+    return _grouped_inputs(seed, H, dtype, E=len(sizes), C=128, sizes=sizes), 64
+
+
+@pytest.mark.parametrize("dtype,H,sizes", GROUPED_CASES)
+def test_grouped_matmul_matches_jax(dtype, H, sizes):
+    ((jx, tx), ((jw, tw), _), (jgs, tgs)), bc = _case_inputs(H, H, dtype, sizes)
     got = gk.grouped_matmul(tx, tw, tgs, act="gelu")
-    close(got, jgk.grouped_matmul(jx, jw, jgs, act="gelu", block_c=16,
+    close(got, jgk.grouped_matmul(jx, jw, jgs, act="gelu", block_c=bc,
                                   block_h=8, block_k=32, interpret=True), dtype)
     close(got, jgr.grouped_matmul_ref(jx, jw, jgs, act="gelu"), dtype)
 
 
-@pytest.mark.parametrize("H", LEAF_WIDTHS)
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_grouped_matmul_dual_matches_jax(dtype, H):
-    (jx, tx), ((jg, tg), (ju, tu)), (jgs, tgs) = _grouped_inputs(10 + H, H, dtype)
+@pytest.mark.parametrize("dtype,H,sizes", GROUPED_CASES)
+def test_grouped_matmul_dual_matches_jax(dtype, H, sizes):
+    ((jx, tx), ((jg, tg), (ju, tu)), (jgs, tgs)), bc = _case_inputs(
+        10 + H, H, dtype, sizes)
     got = gk.grouped_matmul_dual(tx, tg, tu, tgs)
-    close(got, jgk.grouped_matmul_dual(jx, jg, ju, jgs, block_c=16, block_h=8,
+    close(got, jgk.grouped_matmul_dual(jx, jg, ju, jgs, block_c=bc, block_h=8,
                                        block_k=32, interpret=True), dtype)
     close(got, jgr.grouped_matmul_dual_ref(jx, jg, ju, jgs), dtype)
 
 
 def test_grouped_matmul_skew_one_group():
-    (jx, tx), ((jw, tw), _), (jgs, tgs) = _grouped_inputs(
-        9, 8, "float32", E=4, D=16, sizes=[16, 0, 0, 0])
-    got = gk.grouped_matmul(tx, tw, tgs, act="relu")
-    close(got, jgk.grouped_matmul(jx, jw, jgs, act="relu", block_c=16,
-                                  block_h=8, block_k=16, interpret=True))
-    assert float(got[1:].abs().max()) == 0.0
+    """All tokens in one group: at capacity 16, then at capacity 128 with
+    that group at each of EDGE_SIZES; every other group, and every row
+    past the group's size, comes out exactly zero."""
+    for C, sizes in [(16, [16, 0, 0, 0])] + [(128, [s, 0, 0, 0]) for s in EDGE_SIZES]:
+        (jx, tx), ((jw, tw), _), (jgs, tgs) = _grouped_inputs(
+            9, 8, "float32", E=4, C=C, D=16, sizes=sizes)
+        got = gk.grouped_matmul(tx, tw, tgs, act="relu")
+        close(got, jgk.grouped_matmul(jx, jw, jgs, act="relu", block_c=min(C, 64),
+                                      block_h=8, block_k=16, interpret=True))
+        assert float(got[1:].abs().max()) == 0.0
+        assert int(torch.count_nonzero(got[0, sizes[0]:])) == 0
 
 
 def test_scatter_gather_groups_match_jax():
