@@ -19,14 +19,23 @@ Phases (any failure raises, and the exit code is non-zero):
               indices agree.  Times each kernel, its plain version and,
               where one PyTorch call computes the same function, that call
               (library_ms), with CUDA events.
-              The grouped kernels are also held and timed at a 256-token
-              admission slab (a line of its own; the table stays at 1024).
+              The grouped kernels and the router are also held and timed
+              at a 256-token admission slab (lines of their own; the table
+              stays at 1024).  Each kernel's time (ms) is its device time:
+              CUDA events around replays of a CUDA graph of 20 calls, so
+              the wrapper's host cost is left out; the loop of 20 launches
+              that earlier tables used is logged beside it.  Each router
+              row also logs torch.addmm of its logits and zero_() of its
+              output, timed both ways.
    ragged   — the same kernels at the CPU tests' small unaligned sizes,
               which exercise their masked edge paths, the gathered
               kernels' guard for leaf indices outside [0, E), and the
               grouped kernels at their tile edges: group sizes 0, 1, 63,
               64, 65, 127 and 128 in one call, capacity 256, and D and H
               off the bf16 kernel's k-step and column tile.
+   router   — the router at depths 1-8, D = 6144, 20 and 24, B = 1, 31,
+              33, 65, 256 and 1031, an unaligned x, all-left and all-right
+              routings; both dtypes, every case twice and bit-identical.
 4. serve    — internlm2-20b FFF at full width (bf16) with 8 of its 48
               layers, random weights from a seeded CUDA generator: batch 8,
               prompt 128, 16 greedy decode steps through
@@ -113,6 +122,30 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time per call: CUDA events around replays of a CUDA graph that
+    holds ``reps`` calls.  A loop of launches (``time_ms``) times the host
+    instead once a call's Python, ctypes and launch cost exceeds the
+    kernel's run, as it does for the router."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -188,10 +221,37 @@ def phase_build(common) -> None:
         + " ".join(f"{k}={v:.1f}s" for k, v in took.items()))
 
 
+def router_row(label, x, nw, nb, depth=DEPTH) -> dict:
+    """The router on one input: leaf indices against the float32 plain
+    descent, two calls bit-identical, device and loop times, the plain
+    version, the bound; and on a line of its own two yardsticks, timed the
+    same ways: ``torch.addmm`` of the logits alone (no single PyTorch call
+    computes the descent, so the row has no library time) and ``zero_()`` of
+    the (B,) int32 output, the smallest launch."""
+    from repro_torch.kernels.tree_router import kernel as trk, ref as trr
+    B, d = x.shape
+    N = nw.shape[0]
+    sz = x.element_size()
+    got = trk.tree_router(x, nw, nb, depth=depth)
+    if not torch.equal(got, trk.tree_router(x, nw, nb, depth=depth)):
+        raise AssertionError(f"{label}: two calls on one input differ")
+    want, margin = margins(x, nw, nb, depth)
+    _, ties, err = compare_idx(label, got, want, margin)
+    call = lambda: trk.tree_router(x, nw, nb, depth=depth)
+    b, by = bound(B * d * sz + N * (d + 1) * sz + B * 4, 2 * B * N * d, x.dtype)
+    out = torch.empty(B, dtype=torch.int32, device=x.device)
+    logits = lambda: torch.addmm(nb, x, nw.T)
+    log(f"[kernels] {label} yardsticks {str(x.dtype):15s} torch.addmm logits "
+        f"{device_ms(logits):.4f} ms (loop {time_ms(logits):.4f}); zero_ of the "
+        f"output {device_ms(out.zero_):.4f} ms (loop {time_ms(out.zero_):.4f})")
+    return dict(max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call),
+                plain_ms=time_ms(lambda: trr.tree_router_ref(x, nw, nb, depth=depth)),
+                bound_ms=b, bound_by=by, library_ms=None, near_ties=ties)
+
+
 def phase_kernels(gen) -> dict:
     from repro_torch.kernels.fused_decode import kernel as fdk, ref as fdr
     from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
-    from repro_torch.kernels.tree_router import kernel as trk, ref as trr
 
     dev = torch.device("cuda")
     rows = {}
@@ -206,16 +266,7 @@ def phase_kernels(gen) -> dict:
         x = randn(B, D, dtype=dtype)
         nw = randn(N_NODES, D, scale=D ** -0.5, dtype=dtype)
         nb = randn(N_NODES, scale=0.1, dtype=dtype)
-        got = trk.tree_router(x, nw, nb, depth=DEPTH)
-        want, margin = margins(x, nw, nb, DEPTH)
-        _, ties, err = compare_idx("tree_router", got, want, margin)
-        ms = time_ms(lambda: trk.tree_router(x, nw, nb, depth=DEPTH))
-        plain = time_ms(lambda: trr.tree_router_ref(x, nw, nb, depth=DEPTH))
-        b, by = bound(B * D * sz + N_NODES * D * sz + N_NODES * sz + B * 4,
-                      2 * B * N_NODES * D, dtype)
-        rows[("tree_router", dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                            bound_ms=b, bound_by=by, library_ms=None,
-                                            near_ties=ties)
+        rows[("tree_router", dtype)] = router_row("tree_router", x, nw, nb)
 
         # -- grouped GEMMs: 1024 routed tokens in 16 capacity-128 groups
         C = max(128, math.ceil(2 * math.ceil(B / E) / 128) * 128)   # leaf_gemm capacity
@@ -230,26 +281,27 @@ def phase_kernels(gen) -> dict:
         live = int((gs > 0).sum())
         h = gk.grouped_matmul_dual(xg, wg, wu, gs)
         err = compare("grouped_matmul_dual", h, gr.grouped_matmul_dual_ref(xg, wg, wu, gs), dtype)
-        ms = time_ms(lambda: gk.grouped_matmul_dual(xg, wg, wu, gs))
+        call = lambda: gk.grouped_matmul_dual(xg, wg, wu, gs)
         plain = time_ms(lambda: gr.grouped_matmul_dual_ref(xg, wg, wu, gs))
         b, by = bound(live * 2 * D * L_W * sz + tokens * D * sz + E * C * L_W * sz,
                       2 * 2 * tokens * D * L_W, dtype)
         rows[("grouped_matmul_dual", dtype)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-            library_ms=None)
+            max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call), plain_ms=plain,
+            bound_ms=b, bound_by=by, library_ms=None)
 
         y = gk.grouped_matmul(h, wd, gs)
         err = compare("grouped_matmul", y, gr.grouped_matmul_ref(h, wd, gs), dtype)
-        ms = time_ms(lambda: gk.grouped_matmul(h, wd, gs))
+        call = lambda: gk.grouped_matmul(h, wd, gs)
         plain = time_ms(lambda: gr.grouped_matmul_ref(h, wd, gs))
-        lib = time_ms(lambda: torch.bmm(h, wd))
+        lib = device_ms(lambda: torch.bmm(h, wd))
         b, by = bound(live * L_W * O * sz + tokens * L_W * sz + E * C * O * sz,
                       2 * tokens * L_W * O, dtype)
         rows[("grouped_matmul", dtype)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-            library_ms=lib)
+            max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call), plain_ms=plain,
+            bound_ms=b, bound_by=by, library_ms=lib)
         del xg, h, y
         grouped_slab(dtype, wg, wu, wd)
+        router_slab(dtype, nw, nb)
 
         # -- fused forest decode: batch 8, one tree of 16 SwiGLU leaves
         xd = randn(DECODE_B, D, dtype=dtype)
@@ -260,8 +312,8 @@ def phase_kernels(gen) -> dict:
         _, margin = margins(xd, nw, nb, DEPTH)
         agree, ties, _ = compare_idx("fused_forest_decode", idx[:, 0], idx_ref[:, 0], margin)
         err = compare("fused_forest_decode", y, y_ref, dtype, rows=agree)
-        ms = time_ms(lambda: fdk.fused_forest_decode(xd, nwf, nbf, leaves,
-                                                     depth=DEPTH, act="swiglu"))
+        call = lambda: fdk.fused_forest_decode(xd, nwf, nbf, leaves, depth=DEPTH,
+                                               act="swiglu")
         plain = time_ms(lambda: fdr.fused_decode_ref(xd, nwf, nbf, leaves,
                                                      depth=DEPTH, act="swiglu"))
         distinct = int(torch.unique(idx).numel())
@@ -269,8 +321,9 @@ def phase_kernels(gen) -> dict:
                       + DECODE_B * (D + O) * sz,
                       2 * DECODE_B * (N_NODES * D + 3 * D * L_W), dtype)
         rows[("fused_forest_decode", dtype)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-            library_ms=None, near_ties=ties, distinct_leaves=distinct)
+            max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call), plain_ms=plain,
+            bound_ms=b, bound_by=by, library_ms=None, near_ties=ties,
+            distinct_leaves=distinct)
         del wg, wu, wd, leaves
         torch.cuda.empty_cache()
     log_rows(rows)
@@ -297,9 +350,9 @@ def grouped_slab(dtype, wg, wu, wd, tokens=SLAB_B) -> None:
     err_d = compare("grouped_matmul_dual @256", h, gr.grouped_matmul_dual_ref(xg, wg, wu, gs), dtype)
     err = compare("grouped_matmul @256", gk.grouped_matmul(h, wd, gs),
                   gr.grouped_matmul_ref(h, wd, gs), dtype)
-    ms_d = time_ms(lambda: gk.grouped_matmul_dual(xg, wg, wu, gs))
-    ms = time_ms(lambda: gk.grouped_matmul(h, wd, gs))
-    lib = time_ms(lambda: torch.bmm(h, wd))
+    ms_d = device_ms(lambda: gk.grouped_matmul_dual(xg, wg, wu, gs))
+    ms = device_ms(lambda: gk.grouped_matmul(h, wd, gs))
+    lib = device_ms(lambda: torch.bmm(h, wd))
     b_d, _ = bound(live * 2 * D * L_W * sz + n * D * sz + E * C * L_W * sz,
                    2 * 2 * n * D * L_W, dtype)
     b, _ = bound(live * L_W * O * sz + n * L_W * sz + E * C * O * sz,
@@ -311,6 +364,19 @@ def grouped_slab(dtype, wg, wu, wd, tokens=SLAB_B) -> None:
         f" max|err| {err:.3e}); torch.bmm {lib:.4f} ms")
 
 
+def router_slab(dtype, nw, nb, tokens=SLAB_B) -> None:
+    """The router at an engine admission slab of 256 tokens (4 token tiles,
+    32 blocks), logged beside the grouped slab line; its own generator
+    leaves the table's inputs as they were."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((tokens, D), generator=gen, device="cuda").to(dtype)
+    r = router_row(f"tree_router@{tokens}", x, nw, nb)
+    log(f"[kernels] tree_router @{tokens} tokens {str(dtype):15s} {r['ms']:.4f} ms "
+        f"(loop {r['loop_ms']:.4f}; bound {r['bound_ms']:.4f}, kernel/bound "
+        f"{r['ms'] / r['bound_ms']:.2f}; plain {r['plain_ms']:.4f}; near-ties "
+        f"{r['near_ties']})")
+
+
 def phase_gathered(gen) -> dict:
     """The verify slab's kernels: the gathered leaf matmuls at 32 tokens,
     6144 -> 1024 (the SwiGLU up-projection, and gathered_matmul with every
@@ -320,7 +386,6 @@ def phase_gathered(gen) -> dict:
     routed leaf once; and the tree router at 32 tokens (a row of its own,
     "tree_router@32", beside the prefill-shape row)."""
     from repro_torch.kernels.fused_fff import kernel as fk, ref as fr
-    from repro_torch.kernels.tree_router import kernel as trk, ref as trr
 
     dev = torch.device("cuda")
     rows = {}
@@ -333,16 +398,7 @@ def phase_gathered(gen) -> dict:
         x = randn(VERIFY_B, D, dtype=dtype)
         nw = randn(N_NODES, D, scale=D ** -0.5, dtype=dtype)
         nb = randn(N_NODES, scale=0.1, dtype=dtype)
-        want, margin = margins(x, nw, nb, DEPTH)
-        _, ties, err = compare_idx("tree_router@32",
-                                   trk.tree_router(x, nw, nb, depth=DEPTH), want, margin)
-        ms = time_ms(lambda: trk.tree_router(x, nw, nb, depth=DEPTH))
-        plain = time_ms(lambda: trr.tree_router_ref(x, nw, nb, depth=DEPTH))
-        b, by = bound(VERIFY_B * D * sz + N_NODES * (D + 1) * sz + VERIFY_B * 4,
-                      2 * VERIFY_B * N_NODES * D, dtype)
-        rows[("tree_router@32", dtype)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-            library_ms=None, near_ties=ties)
+        rows[("tree_router@32", dtype)] = router_row("tree_router@32", x, nw, nb)
         wg = randn(E, D, L_W, scale=D ** -0.5, dtype=dtype)
         wu = randn(E, D, L_W, scale=D ** -0.5, dtype=dtype)
         wd = randn(E, L_W, O, scale=L_W ** -0.5, dtype=dtype)
@@ -368,22 +424,22 @@ def phase_gathered(gen) -> dict:
         h = fk.gathered_matmul_dual(x, wg, wu, idx)
         err = compare("gathered_matmul_dual", h,
                       fr.gathered_matmul_dual_ref(x, wg, wu, idx), dtype)
-        ms = time_ms(lambda: fk.gathered_matmul_dual(x, wg, wu, idx))
+        call = lambda: fk.gathered_matmul_dual(x, wg, wu, idx)
         plain = time_ms(lambda: fr.gathered_matmul_dual_ref(x, wg, wu, idx))
         b, by = bound(distinct * 2 * D * L_W * sz + VERIFY_B * (D + L_W) * sz
                       + VERIFY_B * 4, 2 * 2 * VERIFY_B * D * L_W, dtype)
         rows[("gathered_matmul_dual", dtype)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-            library_ms=None, distinct_leaves=distinct)
+            max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call), plain_ms=plain,
+            bound_ms=b, bound_by=by, library_ms=None, distinct_leaves=distinct)
         y = fk.gathered_matmul(h, wd, idx)
         err = compare("gathered_matmul", y, fr.gathered_matmul_ref(h, wd, idx), dtype)
-        ms = time_ms(lambda: fk.gathered_matmul(h, wd, idx))
+        call = lambda: fk.gathered_matmul(h, wd, idx)
         plain = time_ms(lambda: fr.gathered_matmul_ref(h, wd, idx))
         b, by = bound(distinct * L_W * O * sz + VERIFY_B * (L_W + O) * sz
                       + VERIFY_B * 4, 2 * VERIFY_B * L_W * O, dtype)
         rows[("gathered_matmul", dtype)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-            library_ms=None, distinct_leaves=distinct)
+            max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call), plain_ms=plain,
+            bound_ms=b, bound_by=by, library_ms=None, distinct_leaves=distinct)
         del wg, wu, wd
         torch.cuda.empty_cache()
     log_rows(rows)
@@ -395,7 +451,8 @@ def phase_gathered(gen) -> dict:
 def log_rows(rows) -> None:
     for (name, dtype), r in rows.items():
         log(f"[kernels] {name:20s} {str(dtype):15s} max|err| {r['max_abs_err']:.3e}"
-            f"  kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+            f"  kernel {r['ms']:.4f} ms (loop {r['loop_ms']:.4f})  plain "
+            f"{r['plain_ms']:.4f} ms  bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}, kernel/bound "
             f"{r['ms'] / r['bound_ms']:.2f})  library "
             + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "n/a")
@@ -487,6 +544,63 @@ def phase_ragged(gen) -> None:
     torch.cuda.synchronize()
     log(f"[ragged] {checked} small kernel cases agree with their plain "
         f"versions (fp32 and bf16)")
+
+
+def phase_router(gen) -> None:
+    """The router wherever its design branches: every depth 1-8 (one 8-node
+    tile per warp up to depth 4, up to 8 tiles at depths 5-7, 16 at depth
+    8), D = 6144 and the CPU tests' 20 (element-wise copies) and 24
+    (16-byte copies), B = 1, 31, 33, 65, 256 and 1031 (partial 64-token
+    tiles, one and several clusters), an x one element off its alignment
+    (element-wise copies at full width), and all-left and all-right
+    routings (zero node weights, bias -1 or +1); both dtypes, each case
+    called twice and bit-identical (the cluster reduction runs in a fixed
+    order)."""
+    from repro_torch.kernels.tree_router import kernel as trk
+    dev = torch.device("cuda")
+    checked = ties = 0
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def check(label, x, nw, nb, depth):
+        got = trk.tree_router(x, nw, nb, depth=depth)
+        if not torch.equal(got, trk.tree_router(x, nw, nb, depth=depth)):
+            raise AssertionError(f"{label}: two calls on one input differ")
+        want, margin = margins(x, nw, nb, depth)
+        return got, compare_idx(label, got, want, margin)[1]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for depth in range(1, 9):
+            N = 2 ** depth - 1
+            for d in (D, 20, 24):
+                nw = randn(N, d, scale=d ** -0.5, dtype=dtype)
+                nb = randn(N, scale=0.1, dtype=dtype)
+                for B in (1, 31, 33, 65, 256, 1031):
+                    _, t = check(f"tree_router (depth {depth}, D {d}, B {B}, {dtype})",
+                                 randn(B, d, dtype=dtype), nw, nb, depth)
+                    ties += t
+                    checked += 1
+        for depth in (4, 8):
+            N = 2 ** depth - 1
+            nw = randn(N, D, scale=D ** -0.5, dtype=dtype)
+            nb = randn(N, scale=0.1, dtype=dtype)
+            x = randn(33 * D + 1, dtype=dtype)[1:].view(33, D)
+            _, t = check(f"tree_router (unaligned x, depth {depth}, {dtype})", x, nw, nb, depth)
+            ties += t
+            x = randn(1031, D, dtype=dtype)
+            for bias, leaf in ((-1.0, 0), (1.0, 2 ** depth - 1)):
+                nw = torch.zeros(N, D, dtype=dtype, device=dev)
+                nb = torch.full((N,), bias, dtype=dtype, device=dev)
+                got, _ = check(f"tree_router (bias {bias}, depth {depth}, {dtype})",
+                               x, nw, nb, depth)
+                if not bool((got == leaf).all()):
+                    raise AssertionError(f"tree_router: zero weights and bias {bias} "
+                                         f"must send every token to leaf {leaf}")
+            checked += 3
+    torch.cuda.synchronize()
+    log(f"[router] {checked} router cases agree with the plain descent ({ties} "
+        f"near-tie differences), each called twice with bit-identical outputs")
 
 
 def grouped_edges(gen) -> int:
@@ -602,7 +716,8 @@ def profile_report(label, prof, wall_s, steps) -> None:
         f"per step = {busy_us / 1e6 / wall_s:.1%} of the window; "
         f"{launches / steps:.0f} kernel launches, {syncs / steps:.0f} stream "
         f"syncs and {d2h / steps:.0f} device-to-host copies per step")
-    for e in top:
+    router = [e for e in events if "tree_router" in e.key]
+    for e in top + [e for e in router if e not in top]:
         log(f"[profile]   {dev(e) / 1e3 / steps:8.3f} ms/step  {e.count // steps:4d}"
             f" calls/step  {e.key[:90]}")
 
@@ -880,6 +995,7 @@ def main() -> int:
         rows = phase_kernels(gen)
         rows.update(phase_gathered(gen))
         phase_ragged(gen)
+        phase_router(gen)
     cfg = dataclasses.replace(FFF_CONFIG, n_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     params = lm.init(cfg, seed=0, device="cuda")

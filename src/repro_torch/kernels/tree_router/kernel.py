@@ -1,8 +1,11 @@
 """Wrapper of the CUDA tree_router kernel (``csrc/tree_router.cu``), which
 replaces the Pallas TPU kernel ``repro/kernels/tree_router/kernel.py::
 tree_router``: every collapsed node logit for a token batch, f32
-accumulation, then the hard descent in registers.  CPU tensors run the
-plain version in ``ref.py``."""
+accumulation, then the hard descent.  One thread-block cluster per 64-token
+tile splits D over its blocks and sums their partial logits through
+distributed shared memory; one launch per call, and a launch the card
+refuses (a cluster or tensor map it cannot take) raises here.  CPU tensors
+run the plain version in ``ref.py``."""
 from __future__ import annotations
 
 import torch

@@ -30,8 +30,11 @@ def route(x: torch.Tensor, node_w: torch.Tensor, node_b: torch.Tensor, *,
     idx = K.tree_router(x.to(dt).contiguous(),
                         node_w[:n_dense].to(dt).contiguous(),
                         node_b[:n_dense].to(dt).contiguous(),
-                        depth=dense_levels).long()
-    # finish deep levels with the gather path
+                        depth=dense_levels)
+    if dense_levels == depth:
+        return idx               # the kernel's int32 leaf indices, as they are
+    # finish deep levels with the gather path (int64 indices for the gathers)
+    idx = idx.long()
     for m in range(dense_levels, depth):
         g = (2 ** m - 1) + idx
         logit = (x.float() * node_w[g].float()).sum(-1) + node_b[g].float()

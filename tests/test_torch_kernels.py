@@ -168,6 +168,35 @@ def test_router_all_one_leaf():
         assert bool((got == target).all())
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 33, 65])
+@pytest.mark.parametrize("dim", [20, 24])
+@pytest.mark.parametrize("depth", [5, 8])
+def test_router_deep_trees_match_jax(depth, dim, B, dtype):
+    """Depths past one 16-node tile (the CUDA kernel's 8-tile and 16-tile
+    variants), D on and off the 16-byte vector, partial and multiple
+    64-token tiles."""
+    (jx, tx), (jw, tw), (jb, tb) = _router_inputs(depth * 1000 + dim * 10 + B, B,
+                                                  depth, dim=dim, dtype=dtype)
+    got = router.route(tx, tw, tb, depth=depth)
+    assert got.dtype == torch.int32
+    same(got, jrouter.route(jx, jw, jb, depth=depth, interpret=True))
+    same(got, jrouter_ref.tree_router_ref(jx, jw, jb, depth=depth))
+
+
+def test_route_hands_back_the_kernel_output(monkeypatch):
+    """With every level dense, ``route`` returns the kernel's int32 tensor
+    itself: no widening and narrowing launches around it."""
+    from repro_torch.kernels.tree_router import kernel as trk
+    out = torch.tensor([3, 1, 0], dtype=torch.int32)
+    monkeypatch.setattr(trk, "tree_router",
+                        lambda x, w, b, *, depth: out if depth == 2 else out % 2)
+    (_, tx), (_, tw), (_, tb) = _router_inputs(9, 3, 2)
+    assert router.route(tx, tw, tb, depth=2) is out
+    got = router.route(tx, tw, tb, depth=2, dense_levels=1)   # gathers past level 1
+    assert got is not out and got.dtype == torch.int32
+
+
 def test_route_forest_matches_jax():
     r = rng(6)
     jx, tx = both(r.normal(size=(7, 16)))
