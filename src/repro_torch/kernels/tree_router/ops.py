@@ -8,7 +8,6 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.tree_router import kernel as K
-from repro_torch.kernels.tree_router import ref as R
 
 
 def route(x: torch.Tensor, node_w: torch.Tensor, node_b: torch.Tensor, *,
@@ -24,17 +23,18 @@ def route(x: torch.Tensor, node_w: torch.Tensor, node_b: torch.Tensor, *,
         dense_levels = min(depth, 8)
     dense_levels = min(dense_levels, depth)
     if dense_levels == 0:
-        return R.tree_router_ref(x, node_w, node_b, depth=depth)
-    dt = torch.promote_types(x.dtype, node_w.dtype)
-    n_dense = 2 ** dense_levels - 1
-    idx = K.tree_router(x.to(dt).contiguous(),
-                        node_w[:n_dense].to(dt).contiguous(),
-                        node_b[:n_dense].to(dt).contiguous(),
-                        depth=dense_levels)
-    if dense_levels == depth:
-        return idx               # the kernel's int32 leaf indices, as they are
-    # finish deep levels with the gather path (int64 indices for the gathers)
-    idx = idx.long()
+        idx = torch.zeros(x.shape[0], dtype=torch.long, device=x.device)
+    else:
+        dt = torch.promote_types(x.dtype, node_w.dtype)
+        n_dense = 2 ** dense_levels - 1
+        idx = K.tree_router(x.to(dt).contiguous(),
+                            node_w[:n_dense].to(dt).contiguous(),
+                            node_b[:n_dense].to(dt).contiguous(),
+                            depth=dense_levels)
+        if dense_levels == depth:
+            return idx           # the kernel's int32 leaf indices, as they are
+        idx = idx.long()         # int64 for the gathers
+    # the levels past the dense ones descend by per-token gathers
     for m in range(dense_levels, depth):
         g = (2 ** m - 1) + idx
         logit = (x.float() * node_w[g].float()).sum(-1) + node_b[g].float()

@@ -156,6 +156,13 @@ def test_router_dense_levels_split():
          jrouter.route(jx, jw, jb, depth=4, dense_levels=2, interpret=True))
 
 
+def test_router_all_gather_levels_match_jax():
+    """``dense_levels=0``: every level by per-token gathers, no kernel."""
+    (jx, tx), (jw, tw), (jb, tb) = _router_inputs(8, 37, 4)
+    same(router.route(tx, tw, tb, depth=4, dense_levels=0),
+         jrouter.route(jx, jw, jb, depth=4, dense_levels=0, interpret=True))
+
+
 def test_router_all_one_leaf():
     depth, dim, B = 3, 16, 37
     N, E = 2 ** depth - 1, 2 ** depth
