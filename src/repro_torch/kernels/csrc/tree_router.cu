@@ -292,7 +292,8 @@ tree_router_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found once through the runtime
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime (the
+// libraries link no CUDA library beyond the runtime)
 PFN_cuTensorMapEncodeTiled encoder() {
   static const PFN_cuTensorMapEncodeTiled fn = [] {
     void* p = nullptr;
