@@ -18,7 +18,14 @@ Phases (any failure raises, and the exit code is non-zero):
               which are counted; outputs are compared on tokens whose
               indices agree.  Times each kernel, its plain version and,
               where one PyTorch call computes the same function, that call
-              (library_ms), with CUDA events.
+              (library_ms), with CUDA events.  The gathered kernels are also
+              held at the per-leaf token counts where their per-pass cap of
+              32 tokens a leaf shows (one leaf holding 0, 1, 31, 32, 33 and
+              all 64 tokens of a 64-token slab, and a 33-token slab), and
+              timed on the one-leaf and distinct routings beside a read-rate
+              yardstick (torch.sum over the same weight bytes).  Every
+              gathered and fused decode case is called twice and must come
+              out bit-identical (no atomics in either sum).
               The grouped kernels and the router are also held and timed
               at a 256-token admission slab (lines of their own; the table
               stays at 1024).  Each kernel's time (ms) is its device time:
@@ -29,7 +36,8 @@ Phases (any failure raises, and the exit code is non-zero):
               output, timed both ways.
    ragged   — the same kernels at the CPU tests' small unaligned sizes,
               which exercise their masked edge paths, the gathered
-              kernels' guard for leaf indices outside [0, E), and the
+              kernels' guard for leaf indices outside [0, E) and their
+              per-leaf token-count edges, and the
               grouped kernels at their tile edges: group sizes 0, 1, 63,
               64, 65, 127 and 128 in one call, capacity 256, and D and H
               off the bf16 kernel's k-step and column tile.
@@ -98,6 +106,9 @@ SLOTS, SPEC_K, ENGINE_REQS, ENGINE_PROMPT, ENGINE_MIN_PROMPT, ENGINE_GEN = 8, 3,
 ENGINE_CHUNK, DRAFT_LAYERS = 16, 1
 VERIFY_B = SLOTS * (SPEC_K + 1)
 ACTS = ("none", "relu", "gelu", "silu")
+# tokens on one leaf of a 64-token slab around the gathered kernels' per-pass
+# cap of 32 tokens a leaf (csrc/fused_fff.cu kMaxTok)
+LEAF_EDGES, EDGE_B = (0, 1, 31, 32, 33, 64), 64
 
 
 def log(msg: str) -> None:
@@ -177,6 +188,26 @@ def compare_idx(name, got, want, margin):
                              f"differently away from any near-tie")
     diff = (got.long() - want.long()).abs()[margin >= NEAR_TIE]
     return agree, int((~agree).sum()), float(diff.max()) if diff.numel() else 0.0
+
+
+def twice(name, fn):
+    """fn() called twice: the two outputs must be equal bit for bit."""
+    first, again = fn(), fn()
+    for a, b in zip(first if isinstance(first, tuple) else (first,),
+                    again if isinstance(again, tuple) else (again,)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: two calls on one input differ")
+    return first
+
+
+def edge_routing(gen, n, leaf=5, B=EDGE_B, num_leaves=E):
+    """B int32 leaf indices in [0, num_leaves), exactly n of them `leaf`."""
+    dev = torch.device("cuda")
+    idx = torch.randint(0, num_leaves - 1, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx[idx >= leaf] += 1
+    idx[torch.randperm(B, generator=gen, device=dev)[:n]] = leaf
+    return idx
 
 
 def compare(name, got, want, dtype, rows=None):
@@ -307,7 +338,8 @@ def phase_kernels(gen) -> dict:
         xd = randn(DECODE_B, D, dtype=dtype)
         nwf, nbf = nw[None], nb[None]
         leaves = (wg[None], wu[None], wd[None])
-        y, idx = fdk.fused_forest_decode(xd, nwf, nbf, leaves, depth=DEPTH, act="swiglu")
+        y, idx = twice("fused_forest_decode", lambda: fdk.fused_forest_decode(
+            xd, nwf, nbf, leaves, depth=DEPTH, act="swiglu"))
         y_ref, idx_ref = fdr.fused_decode_ref(xd, nwf, nbf, leaves, depth=DEPTH, act="swiglu")
         _, margin = margins(xd, nw, nb, DEPTH)
         agree, ties, _ = compare_idx("fused_forest_decode", idx[:, 0], idx_ref[:, 0], margin)
@@ -381,10 +413,14 @@ def phase_gathered(gen) -> dict:
     """The verify slab's kernels: the gathered leaf matmuls at 32 tokens,
     6144 -> 1024 (the SwiGLU up-projection, and gathered_matmul with every
     activation) and 1024 -> 6144 (the down-projection), E = 16, under a
-    random routing, every token on one leaf, and 16 tokens on 16 distinct
-    leaves, timed on the random routing, whose bound counts each distinct
-    routed leaf once; and the tree router at 32 tokens (a row of its own,
-    "tree_router@32", beside the prefill-shape row)."""
+    random routing, every token on one leaf, 16 tokens on 16 distinct
+    leaves, a 64-token slab with 0, 1, 31, 32, 33 or 64 tokens on one leaf
+    and a 33-token slab, each call twice and bit-identical; the table rows
+    are timed on the random routing, whose bound counts each distinct
+    routed leaf once, and the one-leaf and distinct routings and a
+    read-rate yardstick are logged beside them; and the tree router at 32
+    tokens (a row of its own, "tree_router@32", beside the prefill-shape
+    row)."""
     from repro_torch.kernels.fused_fff import kernel as fk, ref as fr
 
     dev = torch.device("cuda")
@@ -407,18 +443,32 @@ def phase_gathered(gen) -> dict:
             "random": torch.randint(0, E, (VERIFY_B,), generator=gen, **i32),
             "one leaf": torch.full((VERIFY_B,), 5, **i32),
             "distinct": torch.randperm(E, generator=gen, device=dev).to(torch.int32)}
+        # the count edges draw from a generator of their own, which leaves
+        # the next dtype's table inputs as they were
+        egen = torch.Generator(device=dev).manual_seed(5)
+        xe = (torch.randn((EDGE_B, D), generator=egen, device=dev)).to(dtype)
+        for n in LEAF_EDGES:
+            routings[f"{n} of {EDGE_B} on one leaf"] = edge_routing(egen, n)
+        routings["33 tokens"] = torch.randint(0, E, (33,), generator=egen, **i32)
+        times = {}
         for rname, idx in routings.items():
-            xb = x[:idx.numel()]
-            h = fk.gathered_matmul_dual(xb, wg, wu, idx)
+            xb = (x if idx.numel() <= VERIFY_B else xe)[:idx.numel()]
+            h = twice(f"gathered_matmul_dual ({rname})",
+                      lambda: fk.gathered_matmul_dual(xb, wg, wu, idx))
             compare(f"gathered_matmul_dual ({rname})", h,
                     fr.gathered_matmul_dual_ref(xb, wg, wu, idx), dtype)
             for act in ACTS:
                 compare(f"gathered_matmul {act} 6144->1024 ({rname})",
-                        fk.gathered_matmul(xb, wg, idx, act=act),
+                        twice(f"gathered_matmul {act} ({rname})",
+                              lambda: fk.gathered_matmul(xb, wg, idx, act=act)),
                         fr.gathered_matmul_ref(xb, wg, idx, act=act), dtype)
             compare(f"gathered_matmul 1024->6144 ({rname})",
-                    fk.gathered_matmul(h, wd, idx),
+                    twice(f"gathered_matmul 1024->6144 ({rname})",
+                          lambda: fk.gathered_matmul(h, wd, idx)),
                     fr.gathered_matmul_ref(h, wd, idx), dtype)
+            if rname in ("one leaf", "distinct"):
+                times[rname] = (device_ms(lambda: fk.gathered_matmul_dual(xb, wg, wu, idx)),
+                                device_ms(lambda: fk.gathered_matmul(h, wd, idx)))
         idx = routings["random"]
         distinct = int(torch.unique(idx).numel())
         h = fk.gathered_matmul_dual(x, wg, wu, idx)
@@ -440,11 +490,30 @@ def phase_gathered(gen) -> dict:
         rows[("gathered_matmul", dtype)] = dict(
             max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call), plain_ms=plain,
             bound_ms=b, bound_by=by, library_ms=None, distinct_leaves=distinct)
-        del wg, wu, wd
+        # read-rate yardstick: one library read of the same weight bytes (the
+        # first `distinct` leaves); no single PyTorch call computes a
+        # gathered matmul, so this is no library_ms
+        flat_g, flat_u = wg[:distinct].reshape(-1), wu[:distinct].reshape(-1)
+        flat_d = wd[:distinct].reshape(-1)
+        read_d = device_ms(lambda: (flat_g.sum(), flat_u.sum()))
+        read = device_ms(flat_d.sum)
+        dual_b, down_b = 2 * flat_g.numel() * sz, flat_d.numel() * sz
+        log(f"[kernels] gathered {str(dtype):15s} device ms by routing: dual random "
+            f"{rows[('gathered_matmul_dual', dtype)]['ms']:.4f} / one leaf "
+            f"{times['one leaf'][0]:.4f} / distinct {times['distinct'][0]:.4f}; down "
+            f"{rows[('gathered_matmul', dtype)]['ms']:.4f} / {times['one leaf'][1]:.4f} / "
+            f"{times['distinct'][1]:.4f}; read-rate yardstick torch.sum over the "
+            f"{distinct} routed leaves' bytes: wg+wu {dual_b / 1e6:.1f} MB {read_d:.4f} ms "
+            f"({dual_b / read_d / 1e9:.2f} TB/s; dual kernel "
+            f"{dual_b / rows[('gathered_matmul_dual', dtype)]['ms'] / 1e9:.2f}), wd "
+            f"{down_b / 1e6:.1f} MB {read:.4f} ms ({down_b / read / 1e9:.2f} TB/s; down "
+            f"kernel {down_b / rows[('gathered_matmul', dtype)]['ms'] / 1e9:.2f})")
+        del wg, wu, wd, flat_g, flat_u, flat_d
         torch.cuda.empty_cache()
     log_rows(rows)
     log(f"[kernels] gathered kernels agree in {len(routings)} routings x "
-        f"{len(ACTS) + 2} products per dtype")
+        f"{len(ACTS) + 2} products per dtype, each called twice with "
+        f"bit-identical outputs")
     return rows
 
 
@@ -458,6 +527,17 @@ def log_rows(rows) -> None:
             + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "n/a")
             + (f"  near-ties {r['near_ties']}" if "near_ties" in r else "")
             + (f"  distinct leaves {r['distinct_leaves']}" if "distinct_leaves" in r else ""))
+
+
+def gathered_pair(label, x, w, w2, idx, act, dtype):
+    """Both gathered kernels on one input against their plain versions,
+    each called twice with bit-identical outputs."""
+    from repro_torch.kernels.fused_fff import kernel as fk, ref as fr
+    y = twice(f"gathered_matmul {label}", lambda: fk.gathered_matmul(x, w, idx, act=act))
+    compare(f"gathered_matmul {label}", y, fr.gathered_matmul_ref(x, w, idx, act=act), dtype)
+    y2 = twice(f"gathered_matmul_dual {label}", lambda: fk.gathered_matmul_dual(x, w, w2, idx))
+    compare(f"gathered_matmul_dual {label}", y2, fr.gathered_matmul_dual_ref(x, w, w2, idx), dtype)
+    return y, y2
 
 
 def phase_ragged(gen) -> None:
@@ -511,7 +591,8 @@ def phase_ragged(gen) -> None:
             mw = 5
             mst = (tuple(randn(d, mw, scale=d ** -0.5, dtype=dtype) for _ in range(n_up))
                    + (randn(mw, d, scale=mw ** -0.5, dtype=dtype),)) if master else None
-            y, idx = fdk.fused_forest_decode(x, nw, nb, leaves, depth=depth, act=act, master_w=mst)
+            y, idx = twice("fused_forest_decode (ragged)", lambda: fdk.fused_forest_decode(
+                x, nw, nb, leaves, depth=depth, act=act, master_w=mst))
             y_ref, idx_ref = fdr.fused_decode_ref(x, nw, nb, leaves, depth=depth, act=act, master_w=mst)
             agree = torch.ones(B, dtype=torch.bool, device=dev)
             for t in range(T):
@@ -530,16 +611,25 @@ def phase_ragged(gen) -> None:
             idx = torch.randint(0, E, (B,), generator=gen, device=dev, dtype=torch.int32)
             if B == 7:
                 idx[0], idx[-1] = -1, E
-            y = fk.gathered_matmul(x, w, idx, act=act)
-            compare("gathered_matmul (ragged)", y, fr.gathered_matmul_ref(x, w, idx, act=act), dtype)
-            y2 = fk.gathered_matmul_dual(x, w, w2, idx)
-            compare("gathered_matmul_dual (ragged)", y2,
-                    fr.gathered_matmul_dual_ref(x, w, w2, idx), dtype)
+            y, y2 = gathered_pair("(ragged)", x, w, w2, idx, act, dtype)
             if B == 7 and (float(y[[0, -1]].abs().max()) != 0.0
                            or float(y2[[0, -1]].abs().max()) != 0.0):
                 raise AssertionError("gathered kernels: an index outside [0, E) "
                                      "did not give a zero row")
             checked += 2
+        # the per-leaf token counts at the per-pass cap: 64 tokens with 0,
+        # 1, 31, 32, 33 or 64 of them on one leaf, and a 33-token slab; H = 8
+        # (16-byte loads in both dtypes) and 13 (element-wise)
+        for H in (8, 13):
+            w, w2 = (randn(4, d, H, scale=d ** -0.5, dtype=dtype) for _ in range(2))
+            cases = [(f"{n} on one leaf", edge_routing(gen, n, leaf=2, num_leaves=4))
+                     for n in LEAF_EDGES]
+            cases.append(("33 tokens", torch.randint(0, 4, (33,), generator=gen, device=dev,
+                                                     dtype=torch.int32)))
+            for label, idx in cases:
+                gathered_pair(f"(ragged, {label}, H {H})", randn(idx.numel(), d, dtype=dtype),
+                              w, w2, idx, "gelu", dtype)
+                checked += 2
     checked += grouped_edges(gen)
     torch.cuda.synchronize()
     log(f"[ragged] {checked} small kernel cases agree with their plain "
@@ -727,8 +817,10 @@ def phase_profile(cfg, params, lm) -> None:
     host-clock step time, device busy share (kernel time over the window)
     and the kernels with the most device time, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-    prompt = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
-                           device="cuda", dtype=torch.int32)
+    # a seeded prompt: its overflow repairs, launches and syncs repeat from run to run
+    prompt = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(4),
+                           dtype=torch.int32)
     max_len = PREFILL_S + GEN + 1
 
     def prefill():

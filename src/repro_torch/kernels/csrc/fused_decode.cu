@@ -24,13 +24,14 @@
 //      applies the activation and rounds h to the element type, as the
 //      Pallas kernel does;
 //   4. multiplies them into the matching 32 rows of the (l, O) down slab
-//      (threads over O, 16-byte reads) and adds its partial output into an
-//      f32 accumulator with atomics.
-// The last block to finish a token (a per-token arrival counter) converts
-// that token's f32 sum to the output type, so the launch is the only one.
-// The atomics make the order of the per-slice partial sums vary from run
-// to run: float32 results agree with the plain version to ~1e-6 relative,
-// inside the 1e-4 kernel tolerance.
+//      (threads over O, 16-byte reads) and stores its partial output, in
+//      f32, into a slot of its own: slot s of token b, part[s][b][:].
+// The last block to finish a token (a per-token arrival counter, the only
+// atomic) sums that token's slots in slot order, 0 to S - 1 (S = gridDim.x:
+// trees x ceil(l/32) + ceil(mw/32)), with all its threads over O and
+// 16-byte loads from L2, and rounds to the output type once; so the launch
+// is the only one, and the sum takes the same order on every run: the
+// outputs are bit-identical from call to call.
 #include "common.cuh"
 
 namespace {
@@ -49,7 +50,7 @@ fused_decode_kernel(const T* __restrict__ x, const T* __restrict__ nw,
                     const T* __restrict__ w3, const T* __restrict__ w2,
                     const T* __restrict__ m1, const T* __restrict__ m3,
                     const T* __restrict__ m2, T* __restrict__ y,
-                    float* __restrict__ yacc, int* __restrict__ counter,
+                    float* __restrict__ part, int* __restrict__ counter,
                     int* __restrict__ leaf_idx, int D, int T_, int depth,
                     int E, int l, int O, int mw, int act) {
   constexpr int kTpr = kHS / V;           // threads across one row's 32 units
@@ -150,9 +151,11 @@ fused_decode_kernel(const T* __restrict__ x, const T* __restrict__ nw,
   }
   __syncthreads();
 
-  // this slice's share of the down-projection, summed across blocks in f32
+  // this slice's share of the down-projection, stored in f32 into slot s
   const int nj = min(kHS, width - j0);
   const T* dn = down + static_cast<size_t>(j0) * O;
+  const int B = gridDim.y, S = gridDim.x;
+  float* slot = part + (static_cast<size_t>(s) * B + b) * O;
   for (int o = tid * V; o < O; o += kThreads * V) {
     float acc[V] = {};
     for (int jj = 0; jj < nj; ++jj) {
@@ -160,20 +163,49 @@ fused_decode_kernel(const T* __restrict__ x, const T* __restrict__ nw,
 #pragma unroll
       for (int v = 0; v < V; ++v) acc[v] += hs[jj] * w[v];
     }
+    if constexpr (V > 1) {   // O % V == 0: whole float4s
 #pragma unroll
-    for (int v = 0; v < V; ++v) atomicAdd(&yacc[static_cast<size_t>(b) * O + o + v], acc[v]);
+      for (int v = 0; v < V; v += 4)
+        *reinterpret_cast<float4*>(slot + o + v) =
+            make_float4(acc[v], acc[v + 1], acc[v + 2], acc[v + 3]);
+    } else {
+      slot[o] = acc[0];
+    }
   }
 
-  // the last block of token b writes its output row
+  // the last block of token b sums its S slots in slot order and writes
+  // the output row
   __threadfence();
   __syncthreads();
-  if (tid == 0) s_last = atomicAdd(&counter[b], 1) == static_cast<int>(gridDim.x) - 1;
+  if (tid == 0) s_last = atomicAdd(&counter[b], 1) == S - 1;
   __syncthreads();
-  if (s_last) {
-    __threadfence();
-    for (int o = tid; o < O; o += kThreads)
-      y[static_cast<size_t>(b) * O + o] =
-          fff::from_f32<T>(__ldcg(&yacc[static_cast<size_t>(b) * O + o]));
+  if (!s_last) return;
+  __threadfence();
+  const float* col = part + static_cast<size_t>(b) * O;   // slot 0 of token b
+  const size_t stride = static_cast<size_t>(B) * O;       // to the next slot
+  T* yr = y + static_cast<size_t>(b) * O;
+  if constexpr (V > 1) {
+    for (int o = tid * 4; o < O; o += kThreads * 4) {
+      float4 sum = __ldcg(reinterpret_cast<const float4*>(col + o));
+#pragma unroll 8
+      for (int k = 1; k < S; ++k) {
+        const float4 p = __ldcg(reinterpret_cast<const float4*>(col + k * stride + o));
+        sum.x += p.x;
+        sum.y += p.y;
+        sum.z += p.z;
+        sum.w += p.w;
+      }
+      yr[o] = fff::from_f32<T>(sum.x);
+      yr[o + 1] = fff::from_f32<T>(sum.y);
+      yr[o + 2] = fff::from_f32<T>(sum.z);
+      yr[o + 3] = fff::from_f32<T>(sum.w);
+    }
+  } else {
+    for (int o = tid; o < O; o += kThreads) {
+      float sum = __ldcg(col + o);
+      for (int k = 1; k < S; ++k) sum += __ldcg(col + k * stride + o);
+      yr[o] = fff::from_f32<T>(sum);
+    }
   }
 }
 
@@ -182,7 +214,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 template <typename T>
 int launch(const void* x, const void* nw, const void* nb, const void* w1,
            const void* w3, const void* w2, const void* m1, const void* m3,
-           const void* m2, void* y, float* yacc, int* counter, int* leaf_idx,
+           const void* m2, void* y, float* part, int* counter, int* leaf_idx,
            int B, int D, int T_, int depth, int E, int l, int O, int mw,
            int act, cudaStream_t s) {
   constexpr int V = fff::kVec<T>;
@@ -206,7 +238,7 @@ int launch(const void* x, const void* nw, const void* nb, const void* w1,
       static_cast<const T*>(x), static_cast<const T*>(nw), static_cast<const T*>(nb),
       static_cast<const T*>(w1), static_cast<const T*>(w3), static_cast<const T*>(w2),
       static_cast<const T*>(m1), static_cast<const T*>(m3), static_cast<const T*>(m2),
-      static_cast<T*>(y), yacc, counter, leaf_idx, D, T_, depth, E, l, O, mw, act);
+      static_cast<T*>(y), part, counter, leaf_idx, D, T_, depth, E, l, O, mw, act);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -215,12 +247,14 @@ int launch(const void* x, const void* nw, const void* nb, const void* w1,
 // x (B, D); collapsed nodes nw (T, N, D), nb (T, N); leaves w1 (T, E, D, l)
 // [gate for SwiGLU], w3 (T, E, D, l) [SwiGLU up, else null],
 // w2 (T, E, l, O); optional master m1/m3 (D, mw), m2 (mw, O) (null when
-// absent); all one dtype.  Scratch yacc (B, O) f32 and counter (B,) int32
-// must be zero.  Writes y (B, O) and leaf_idx (B, T) int32.
+// absent); all one dtype.  Scratch: part (S, B, O) f32, one slot per block
+// of a token, S = T * ceil(l / 32) + ceil(mw / 32) (mw = 0 without a master
+// leaf), needs no fill; counter (B,) int32 must be zero.  Writes y (B, O)
+// and leaf_idx (B, T) int32.
 extern "C" int fused_forest_decode(const void* x, const void* nw, const void* nb,
                                    const void* w1, const void* w3, const void* w2,
                                    const void* m1, const void* m3, const void* m2,
-                                   void* y, float* yacc, int* counter,
+                                   void* y, float* part, int* counter,
                                    int* leaf_idx, int B, int D, int T, int depth,
                                    int E, int l, int O, int mw, int act,
                                    int dtype, int device, void* stream) {
@@ -232,10 +266,10 @@ extern "C" int fused_forest_decode(const void* x, const void* nw, const void* nb
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == fff::kF32)
-    return launch<float>(x, nw, nb, w1, w3, w2, m1, m3, m2, y, yacc, counter,
+    return launch<float>(x, nw, nb, w1, w3, w2, m1, m3, m2, y, part, counter,
                          leaf_idx, B, D, T, depth, E, l, O, mw, act, s);
   if (dtype == fff::kBF16)
-    return launch<__nv_bfloat16>(x, nw, nb, w1, w3, w2, m1, m3, m2, y, yacc,
+    return launch<__nv_bfloat16>(x, nw, nb, w1, w3, w2, m1, m3, m2, y, part,
                                  counter, leaf_idx, B, D, T, depth, E, l, O,
                                  mw, act, s);
   return cudaErrorInvalidValue;

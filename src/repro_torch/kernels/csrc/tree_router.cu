@@ -48,48 +48,14 @@
 // floats of pushed partials (64 KB at depth 8).  D off the 16-byte vector,
 // or a base pointer off 16 bytes, which a tensor map cannot describe, takes
 // element-wise copies by every thread into the same layout, zero past D.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
-#include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;                 // 8 warps
 constexpr int kTokens = 64;                   // token tile = one cluster
-constexpr int kRowBytes = 128;                // a row's bytes in one column chunk
 constexpr int kSmallGrid = 8;                 // up to this many tiles: 16-block clusters
 constexpr int kMaxDevices = 16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// byte offset of row r's 16-byte piece j in the 128-byte swizzle (rows of
-// 128 bytes from a 1024-byte aligned base; piece j sits at j ^ (r mod 8))
-__device__ __forceinline__ int swz(int r, int j) { return r * kRowBytes + ((j ^ (r & 7)) << 4); }
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 " selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-}
-// the box at (column c0, row c1) of a 2-D tensor map into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, int c0, int c1,
-                                         uint32_t bar) {
-  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-               "[%0], [%1, {%3, %4}], [%2];\n"
-               ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(c0), "r"(c1)
-               : "memory");
-}
 
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -105,19 +71,6 @@ __device__ __forceinline__ void store_peer(uint32_t addr, uint32_t rank, float v
   uint32_t peer;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(peer) : "r"(addr), "r"(rank));
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(peer), "f"(v) : "memory");
-}
-
-__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, column-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Element-wise copy of one column chunk into a ring stage, in the layout TMA
@@ -290,21 +243,6 @@ tree_router_kernel(const __grid_constant__ CUtensorMap xmap,
     }
     out[tile0 + own0 + tid] = idx;
   }
-}
-
-// cuTensorMapEncodeTiled, looked up once through the CUDA runtime (the
-// libraries link no CUDA library beyond the runtime)
-PFN_cuTensorMapEncodeTiled encoder() {
-  static const PFN_cuTensorMapEncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // a (rows, cols) row-major matrix, boxes of 128 bytes x box_rows, 128-byte swizzle

@@ -37,6 +37,13 @@ def fused_forest_decode(x: torch.Tensor, nw: torch.Tensor, nb: torch.Tensor,
     return _launch(x, nw, nb, leaf_w, depth, act, master_w)
 
 
+def slots(trees: int, leaf_width: int, master_width: int) -> int:
+    """The kernel's blocks per token, each owning 32 hidden units of one
+    tree's routed leaf or of the master leaf (``master_width`` 0 when
+    absent): the partial-output slots the wrapper allocates."""
+    return trees * -(-leaf_width // 32) + -(-master_width // 32)
+
+
 def _launch(x, nw, nb, leaf_w, depth, act, master_w):
     """The CUDA branch: operand checks, output and scratch allocation, the
     launch."""
@@ -74,11 +81,14 @@ def _launch(x, nw, nb, leaf_w, depth, act, master_w):
     leaf_idx = torch.empty((B, T), dtype=torch.int32, device=x.device)
     if B == 0:
         return y, leaf_idx
-    yacc = torch.zeros((B, O), dtype=torch.float32, device=x.device)
+    # one f32 slot per block of a token (32 hidden units of a tree's leaf
+    # or of the master leaf), summed in slot order by the token's last block
+    part = torch.empty((slots(T, l, mw), B, O), dtype=torch.float32,
+                       device=x.device)
     counter = torch.zeros(B, dtype=torch.int32, device=x.device)
     p = common.ptr
     KERNEL.launch(p(x), p(nw), p(nb), p(up), p(up3), p(leaf_w[-1]),
-                  p(m_up), p(m_up3), p(m_down), p(y), p(yacc), p(counter),
+                  p(m_up), p(m_up3), p(m_down), p(y), p(part), p(counter),
                   p(leaf_idx), B, D, T, depth, E, l, O, mw,
                   common.ACT_CODES[act], common.dtype_code(x),
                   *common.stream_of(x))

@@ -103,6 +103,47 @@ def test_gathered_all_one_leaf(dtype):
           jfr.gathered_matmul_ref(jx, jg, ji, act="relu"), dtype)
 
 
+# one leaf holding n of a 64-token slab's tokens, around the CUDA kernel's
+# per-pass cap of 32 tokens a leaf (csrc/fused_fff.cu kMaxTok), the other
+# tokens spread over the other leaves; and a 33-token slab, one past the
+# 32-token verify slab
+EDGES = [(64, n) for n in (0, 1, 31, 32, 33, 64)] + [(33, None)]
+
+
+def _edge_inputs(seed, B, n, dtype, E=4, leaf=2, D=24, H=8):
+    r = rng(seed)
+    x = both(r.normal(size=(B, D)), dtype)
+    ws = [both(r.normal(size=(E, D, H)) / np.sqrt(D), dtype) for _ in range(2)]
+    idx = r.integers(0, E, B)
+    if n is not None:
+        idx = r.integers(0, E - 1, B)
+        idx[idx >= leaf] += 1
+        idx[r.permutation(B)[:n]] = leaf
+        assert (idx == leaf).sum() == n
+    idx = idx.astype(np.int32)
+    return x, ws, (jnp.asarray(idx), torch.from_numpy(idx))
+
+
+@pytest.mark.parametrize("B,n", EDGES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gathered_per_leaf_token_counts_match_jax(dtype, B, n):
+    """Both plain versions, which chip_smoke.py holds the CUDA kernels
+    against at these counts, agree with the Pallas kernels (interpret mode)
+    and the JAX oracles."""
+    (jx, tx), ((jg, tg), (ju, tu)), (ji, ti) = _edge_inputs(B + (n or 0), B, n,
+                                                           dtype)
+    got = fk.gathered_matmul_dual(tx, tg, tu, ti)
+    close(got, jax.jit(lambda x, g, u, i: jfk.gathered_matmul_dual(
+        x, g, u, i, block_h=8, block_k=24, interpret=True))(jx, jg, ju, ji),
+        dtype)
+    close(got, jfr.gathered_matmul_dual_ref(jx, jg, ju, ji), dtype)
+    got = fk.gathered_matmul(tx, tg, ti, act="gelu")
+    close(got, jax.jit(lambda x, w, i: jfk.gathered_matmul(
+        x, w, i, act="gelu", block_h=8, block_k=24, interpret=True))(jx, jg, ji),
+        dtype)
+    close(got, jfr.gathered_matmul_ref(jx, jg, ji, act="gelu"), dtype)
+
+
 def test_gathered_index_guard():
     """An index outside [0, E) yields a zero row and never reads past w,
     in the plain version as in the kernel's guard."""

@@ -497,3 +497,38 @@ def test_cuda_branches_marshal_their_c_signatures(stub_launch):
                            "fused_forest_decode", "fused_forest_decode"]
     with pytest.raises(ValueError, match="expected shape"):
         gk._launch(gk.GMM, x, (torch.zeros(3, 9, 4),), gs, (0,))
+
+
+@pytest.mark.parametrize("master", [False, True])
+def test_fused_decode_marshals_its_slots_and_counter(stub_launch, monkeypatch,
+                                                     master):
+    """The fused decode wrapper's CUDA branch hands the kernel one float32
+    partial-output slot per block of a token, S x B x O with S = trees x
+    ceil(l / 32) + ceil(mw / 32) (mw = 0 without a master leaf), which the
+    kernel sums in slot order and which needs no fill, and a zeroed int32
+    arrival counter of B."""
+    made = {}
+    for name in ("empty", "zeros"):
+        def record(*a, _fn=getattr(torch, name), **kw):
+            t = _fn(*a, **kw)
+            made[t.data_ptr()] = t
+            return t
+        monkeypatch.setattr(torch, name, record)
+    args = []
+    monkeypatch.setattr(common.Kernel, "launch", lambda self, *a: args.append(a))
+    trees, leaf, B = 2, 40, 6
+    _, _, tp, tcfg = fff_pair(41, act="swiglu", trees=trees, leaf=leaf,
+                              master=master)
+    nw, nb = fd_ops.collapse_nodes(tp, tcfg)
+    leaf_w, _ = fd_ops._leaf_weights(tp, tcfg)
+    master_w = fd_ops._master_weights(tp, tcfg)
+    mw = master_w[0].shape[1] if master else 0
+    fdk._launch(torch.zeros(B, 16), nw, nb, leaf_w, 3, "swiglu", master_w)
+    (call,) = args
+    part, counter = made[call[10]], made[call[11]]
+    slots = trees * -(-leaf // 32) + -(-mw // 32)
+    assert slots == (6 if master else 4)
+    assert part.dtype == torch.float32 and part.shape == (slots, B, 16)
+    assert counter.dtype == torch.int32 and counter.shape == (B,)
+    assert not counter.any()
+    assert call[-5] == mw
