@@ -30,18 +30,19 @@
 // mbarrier, while every thread copies 16-byte pieces of the listed tokens'
 // x rows (the matching kRows elements, zeros past D) with cp.async, one
 // commit group a stage, into rows padded to 144 bytes against bank
-// conflicts.  D or H off the 16-byte vector, or a
-// base pointer off 16 bytes, which the copies cannot describe, takes
-// element-wise copies by every thread into the same layout, zero past D
-// and H.
+// conflicts.  (On the H100 a bulk copy per token row, and an mbarrier
+// arrival per thread for its copies, both ran slower.)  D or H off the
+// 16-byte vector, or a base pointer off 16 bytes, which the copies cannot
+// describe, takes element-wise copies by every thread into the same
+// layout, zero past D and H.
 //   bf16: tensor cores, mma.sync m16n8k16 with the weights as A (ldmatrix
 //   .trans of 16 columns x 16 rows of D) and the tokens as N in tiles of 8;
 //   each of the 4 warps owns 16 columns and runs every row of D, so its
 //   fragments are the finished sums.
 //   float32: CUDA cores in full float32 (no TF32): thread = (column, warp q),
 //   warp q takes the row quads q and q + 4 of each stage, reading x four
-//   rows at a time; the 4 warps' partials are summed in warp order through
-//   shared memory.
+//   rows at a time and skipping the empty slots of the last token tile;
+//   the 4 warps' partials are summed in warp order through shared memory.
 // The activation is applied in f32 and the result rounds to the element
 // type once.  No atomics: each output element is written by one thread, and
 // every sum runs in a fixed order, so two calls give bit-identical outputs.
@@ -235,6 +236,7 @@ gathered_kernel(const __grid_constant__ CUtensorMap wmap,
 #pragma unroll
               for (int u = 0; u < 8; ++u) {
                 const int s = nt * 8 + u;
+                if (s >= ntok) break;   // no work for the tile's empty slots
                 const float4 xv = *reinterpret_cast<const float4*>(xs + s * kXPitch + 16 * j);
                 float& a = acc[0][s];
                 a = fmaf(xv.x, wv[0], a);

@@ -21,8 +21,8 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // 128 bytes from a 1024-byte aligned base; piece j sits at j ^ (r mod 8))
 __device__ __forceinline__ int swz(int r, int j) { return r * kRowBytes + ((j ^ (r & 7)) << 4); }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals = 1) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals) : "memory");
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
 }
 __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
