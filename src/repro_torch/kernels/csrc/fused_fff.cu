@@ -41,8 +41,9 @@
 //   fragments are the finished sums.
 //   float32: CUDA cores in full float32 (no TF32): thread = (column, warp q),
 //   warp q takes the row quads q and q + 4 of each stage, reading x four
-//   rows at a time and skipping the empty slots of the last token tile;
-//   the 4 warps' partials are summed in warp order through shared memory.
+//   rows at a time and skipping an empty second half of the last 8-token
+//   tile; the 4 warps' partials are summed in warp order through shared
+//   memory.
 // The activation is applied in f32 and the result rounds to the element
 // type once.  No atomics: each output element is written by one thread, and
 // every sum runs in a fixed order, so two calls give bit-identical outputs.
@@ -236,7 +237,7 @@ gathered_kernel(const __grid_constant__ CUtensorMap wmap,
 #pragma unroll
               for (int u = 0; u < 8; ++u) {
                 const int s = nt * 8 + u;
-                if (s >= ntok) break;   // no work for the tile's empty slots
+                if (u == 4 && s >= ntok) break;   // the tile's second half is empty
                 const float4 xv = *reinterpret_cast<const float4*>(xs + s * kXPitch + 16 * j);
                 float& a = acc[0][s];
                 a = fmaf(xv.x, wv[0], a);
