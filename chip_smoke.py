@@ -70,6 +70,22 @@ Phases (any failure raises, and the exit code is non-zero):
               chunked) must give every request lm.generate's greedy tokens,
               except where a deciding margin (a node logit or the top-2
               logit gap) is under 1e-3.
+7. grouped  — the capacity-bounded grouped backends.  The grouped GEMMs at
+              the JAX grouped path's capacities (C = 8, 16, 136 and 264,
+              group sizes 0, 1, C-1 and C in one call) against their plain
+              versions at full width in both dtypes, timed beside the C =
+              128 table row.  The 8-layer bf16 model served through the
+              engine with fff_backend="grouped" (the engine phase's 16
+              requests, spec_k 3), once with the default policy ("drop", cf
+              2.0) and once with "exact_dense" at cf 0.5: asserts the
+              grouped kernels' launch counts (one call each per layer per
+              dispatch, no other kernel), that the reference never ran, and
+              overflow with repairs at cf 0.5; logs the overflow means and
+              each run's device-busy share over one profiled spec round.
+              Then float32 at 2 layers: lm.generate through grouped
+              ("exact_dense", cf 0.5) and one-process grouped_ep must give
+              the reference backend's greedy tokens, and so must the engine
+              on grouped ("exact_dense", cf 0.5), except at near-ties.
 
 Prints the kernel table as one JSON line (launches from the monolithic
 engine run), the card's name and power limit, and, last,
@@ -109,6 +125,8 @@ ACTS = ("none", "relu", "gelu", "silu")
 # tokens on one leaf of a 64-token slab around the gathered kernels' per-pass
 # cap of 32 tokens a leaf (csrc/fused_fff.cu kMaxTok)
 LEAF_EDGES, EDGE_B = (0, 1, 31, 32, 33, 64), 64
+# the capacities of the JAX grouped path (multiples of 8, not of 128)
+GROUPED_CAPS = (8, 16, 136, 264)
 
 
 def log(msg: str) -> None:
@@ -967,16 +985,18 @@ def phase_engine(common, api, serve_mod, cfg, params) -> dict:
     return out["monolithic"]
 
 
-def phase_engine_profile(cfg, params) -> None:
+def phase_engine_profile(cfg, params, steps=3, label="", **ecfg_kw) -> None:
     """Where a warm speculative round's time goes: a warm engine with every
-    slot live and no admission pending, three rounds under torch.profiler."""
+    slot live and no admission pending, ``steps`` rounds under
+    torch.profiler; ``ecfg_kw`` adds engine knobs (the grouped phase's
+    backend and policy)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
     from repro_torch.serving.request import Request
     ecfg = EngineConfig(num_slots=SLOTS, max_len=ENGINE_PROMPT + ENGINE_GEN + 1,
                         max_prompt_len=ENGINE_PROMPT, spec_k=SPEC_K,
                         draft_config=f"self:{DRAFT_LAYERS}", max_prefills_per_step=SLOTS,
-                        device="cuda")
+                        device="cuda", **ecfg_kw)
     eng = ContinuousBatchingEngine(params, cfg, ecfg)
     gen = torch.Generator().manual_seed(3)
     for i in range(SLOTS):
@@ -985,7 +1005,6 @@ def phase_engine_profile(cfg, params) -> None:
             max_new_tokens=ENGINE_GEN))
     eng.step()                       # admit every slot, then one warm round
     eng.step()
-    steps = 3
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -995,7 +1014,8 @@ def phase_engine_profile(cfg, params) -> None:
         wall = time.perf_counter() - t0
     if eng.n_steps != steps + 2 or eng.queue:
         raise AssertionError("[engine profile] the window was not spec rounds alone")
-    profile_report("spec round (4 draft steps + 32-token verify)", prof, wall, steps)
+    profile_report(f"spec round (4 draft steps + 32-token verify){label}", prof,
+                   wall, steps)
 
 
 def phase_engine_parity(api, fff, lm, serve_mod, FFF_CONFIG) -> None:
@@ -1012,6 +1032,49 @@ def phase_engine_parity(api, fff, lm, serve_mod, FFF_CONFIG) -> None:
     reqs = serve_mod.build_requests(cfg.vocab_size, 8, prompt, steps, seed=2,
                                     min_prompt_len=8)
     max_len = prompt + steps + 1
+    want, margin = generate_with_margins(api, fff, lm, cfg, params, reqs, steps, max_len)
+    ties = 0
+    for spec_k in (0, SPEC_K):
+        for chunk in (0, 16):
+            ecfg = EngineConfig(num_slots=slots, max_len=max_len,
+                                max_prompt_len=prompt, prefill_chunk=chunk,
+                                spec_k=spec_k, device="cuda")
+            results, _ = ContinuousBatchingEngine(params, cfg, ecfg).run(reqs)
+            ties += near_tie_check(f"[engine parity] spec_k {spec_k} chunk {chunk}",
+                                   {r.rid: r.tokens for r in results}, want, margin)
+    log(f"[engine parity] {cfg.n_layers} layers fp32, {slots} slots, {len(reqs)} "
+        f"requests x {steps} greedy tokens: the plain and speculative (spec_k "
+        f"{SPEC_K}, a {slots * (SPEC_K + 1)}-token verify slab) engines, "
+        f"monolithic and chunked, equal lm.generate for every request "
+        f"({ties} near-tie differences allowed); smallest deciding margin "
+        f"{min(margin.values()):.3e}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def near_tie_check(label, got, want, margin) -> int:
+    """Greedy tokens per request against ``want``: a request may differ only
+    where the run that made ``want`` met a deciding margin under NEAR_TIE.
+    Returns how many differed."""
+    ties = 0
+    for rid, toks in got.items():
+        if (toks == want[rid]).all():
+            continue
+        if margin[rid] >= NEAR_TIE:
+            raise AssertionError(
+                f"{label} rid {rid}: {toks.tolist()} != {want[rid].tolist()} "
+                f"with no deciding margin under {NEAR_TIE} (smallest "
+                f"{margin[rid]:.3e})")
+        ties += 1
+    return ties
+
+
+def generate_with_margins(api, fff, lm, cfg, params, reqs, steps, max_len,
+                          **overrides):
+    """lm.generate's greedy tokens for each request alone (under
+    ``api.overrides(**overrides)`` when given), and the smallest deciding
+    margin each met: a node logit on a routed path, or the gap between the
+    two largest logits."""
     smallest = {}
     apply_fn, head_fn = api.apply, lm._head
 
@@ -1036,7 +1099,8 @@ def phase_engine_parity(api, fff, lm, serve_mod, FFF_CONFIG) -> None:
     want, margin = {}, {}
     api.apply, lm._head = recording_apply, recording_head
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(), (api.overrides(**overrides) if overrides
+                                      else contextlib.nullcontext()):
             for r in reqs:
                 smallest["now"] = math.inf
                 out = lm.generate(params, cfg, torch.from_numpy(r.prompt)[None].cuda(),
@@ -1045,28 +1109,152 @@ def phase_engine_parity(api, fff, lm, serve_mod, FFF_CONFIG) -> None:
                 margin[r.rid] = smallest["now"]
     finally:
         api.apply, lm._head = apply_fn, head_fn
-    ties = 0
+    return want, margin
+
+
+def grouped_capacities(rows) -> None:
+    """Both grouped kernels at the JAX grouped path's capacities, full width,
+    both dtypes: C = 8, 16, 136 and 264 with group sizes 0, 1, C-1 and C
+    (four leaves each) in one call, against their plain versions, rows past
+    a group's size zero; device times and bounds logged beside the table's C
+    = 128 row.  Its own generator leaves the earlier phases' inputs as they
+    were."""
+    from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        sz = 2 if dtype == torch.bfloat16 else 4
+        wg = randn(E, D, L_W, scale=D ** -0.5, dtype=dtype)
+        wu = randn(E, D, L_W, scale=D ** -0.5, dtype=dtype)
+        wd = randn(E, L_W, O, scale=L_W ** -0.5, dtype=dtype)
+        table = (rows[("grouped_matmul_dual", dtype)]["ms"],
+                 rows[("grouped_matmul", dtype)]["ms"])
+        for C in GROUPED_CAPS:
+            gs = torch.tensor([0, 1, C - 1, C] * (E // 4), dtype=torch.int32, device=dev)
+            mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
+            xg = randn(E, C, D, dtype=dtype) * mask
+            h = gk.grouped_matmul_dual(xg, wg, wu, gs)
+            err_d = compare(f"grouped_matmul_dual (C={C})", h,
+                            gr.grouped_matmul_dual_ref(xg, wg, wu, gs), dtype)
+            y = gk.grouped_matmul(h, wd, gs)
+            err = compare(f"grouped_matmul (C={C})", y, gr.grouped_matmul_ref(h, wd, gs), dtype)
+            past = ~mask[..., 0]
+            if float(h[past].abs().max()) != 0.0 or float(y[past].abs().max()) != 0.0:
+                raise AssertionError(f"grouped kernels (C={C}): a row past its "
+                                     f"group's size is not zero")
+            live, n = int((gs > 0).sum()), int(gs.sum())
+            b_d, _ = bound(live * 2 * D * L_W * sz + n * D * sz + E * C * L_W * sz,
+                           2 * 2 * n * D * L_W, dtype)
+            b, by = bound(live * L_W * O * sz + n * L_W * sz + E * C * O * sz,
+                          2 * n * L_W * O, dtype)
+            ms_d = device_ms(lambda: gk.grouped_matmul_dual(xg, wg, wu, gs))
+            ms = device_ms(lambda: gk.grouped_matmul(h, wd, gs))
+            log(f"[grouped] C={C:3d} {str(dtype):15s} ({n} tokens in {live} live "
+                f"leaves): grouped_matmul_dual {ms_d:.4f} ms (bound {b_d:.4f}, "
+                f"kernel/bound {ms_d / b_d:.2f}, max|err| {err_d:.3e}); grouped_matmul "
+                f"{ms:.4f} ms (bound {b:.4f} {by}, kernel/bound {ms / b:.2f}, max|err| "
+                f"{err:.3e}); table row C=128: {table[0]:.4f} / {table[1]:.4f} ms")
+        del wg, wu, wd
+        torch.cuda.empty_cache()
+
+
+def phase_grouped_serving(common, api, serve_mod, cfg, params) -> None:
+    """The full-width bf16 model served through the engine on the grouped
+    backend: the engine phase's requests, monolithic admission, spec_k 3,
+    with the default policy ("drop", cf 2.0) and with "exact_dense" at cf
+    0.5; each run's launch counts reset just before it and read just after,
+    then one profiled spec round of a warm engine with the same knobs."""
+    from repro_torch.serving.engine import EngineConfig
+    reqs = serve_mod.build_requests(cfg.vocab_size, ENGINE_REQS, ENGINE_PROMPT,
+                                    ENGINE_GEN, seed=0,
+                                    min_prompt_len=ENGINE_MIN_PROMPT)
+    n_layers = cfg.n_layers
+    for label, kw in (("drop, cf 2.0 (the defaults)", {}),
+                      ("exact_dense, cf 0.5", dict(overflow_policy="exact_dense",
+                                                   capacity_factor=0.5))):
+        ecfg = EngineConfig(num_slots=SLOTS, max_len=ENGINE_PROMPT + ENGINE_GEN + 1,
+                            max_prompt_len=ENGINE_PROMPT, spec_k=SPEC_K,
+                            draft_config=f"self:{DRAFT_LAYERS}", scheduler="fcfs",
+                            seed=0, device="cuda", fff_backend="grouped", **kw)
+        with no_reference(api):
+            common.reset_launch_counts()
+            run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
+            counts = common.launch_counts()
+        m = run.metrics
+        rounds, slabs = m.n_steps, m.n_prefills
+        # every FFF dispatch on the grouped backend, one call of each kernel
+        # per layer: the verify slab and the admission slabs through the
+        # target's layers and the draft's, each draft step through the draft's
+        per_kernel = (n_layers * (rounds + slabs)
+                      + DRAFT_LAYERS * ((SPEC_K + 1) * rounds + slabs))
+        want = {k: 0 for k in counts}
+        want["grouped_matmul"] = want["grouped_matmul_dual"] = per_kernel
+        if counts != want:
+            raise AssertionError(f"[grouped] {label}: launch counts {counts} != "
+                                 f"expected {want}")
+        bad = [r.rid for r in run.results
+               if len(r.tokens) != ENGINE_GEN or r.finish_reason != "length"
+               or not ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()]
+        if len(run.results) != len(reqs) or bad:
+            raise AssertionError(f"[grouped] {label}: bad results for rids {bad}")
+        if kw and not (m.overflow_fraction_mean > 0 and m.overflow_repairs > 0):
+            raise AssertionError(f"[grouped] {label}: no overflow repaired "
+                                 f"(overflow mean {m.overflow_fraction_mean})")
+        log(f"[grouped] engine, {label}: overflow mean {m.overflow_fraction_mean:.4f}"
+            f" (decode-side {m.overflow_decode_mean:.4f}), ~{m.overflow_repairs} "
+            f"slots repaired; TTFT p50 {m.ttft.p50_ms:.2f} ms; per-token p50 "
+            f"{m.per_token.p50_ms:.2f} ms; {m.throughput_tok_s:.1f} tok/s; {rounds} "
+            f"spec rounds (p50 {m.decode_step.p50_ms:.2f} ms), {slabs} admission "
+            f"slabs; launches {counts} (as expected: each grouped kernel once per "
+            f"layer per dispatch); reference backend never ran")
+        phase_engine_profile(cfg, params, steps=1, label=f", grouped {label}",
+                             fff_backend="grouped", **kw)
+
+
+def phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG) -> None:
+    """float32, full width, 2 layers: lm.generate through grouped
+    ("exact_dense", cf 0.5) and through one-process grouped_ep (its default
+    "exact_dense", cf 1.25), and the engine on grouped ("exact_dense", cf
+    0.5, plain and speculative), all against the reference backend's
+    lm.generate, request by request, except at near-ties."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
+    cfg = dataclasses.replace(FFF_CONFIG, n_layers=PARITY_LAYERS,
+                              param_dtype=torch.float32,
+                              accum_dtype=torch.float32)
+    params = lm.init(cfg, seed=1, device="cuda")
+    slots, prompt, steps = 4, 32, 8
+    reqs = serve_mod.build_requests(cfg.vocab_size, 8, prompt, steps, seed=2,
+                                    min_prompt_len=8)
+    max_len = prompt + steps + 1
+    want, margin = generate_with_margins(api, fff, lm, cfg, params, reqs, steps,
+                                         max_len, backend="reference", mode="infer")
+    exact = dict(capacity_factor=0.5, overflow_policy="exact_dense")
+    ties = {}
+    for label, kw in (("grouped exact_dense cf 0.5", dict(backend="grouped", **exact)),
+                      ("grouped_ep", dict(backend="grouped_ep"))):
+        got, _ = generate_with_margins(api, fff, lm, cfg, params, reqs, steps,
+                                       max_len, mode="infer", **kw)
+        ties[label] = near_tie_check(f"[grouped parity] lm.generate {label}", got,
+                                     want, margin)
     for spec_k in (0, SPEC_K):
-        for chunk in (0, 16):
-            ecfg = EngineConfig(num_slots=slots, max_len=max_len,
-                                max_prompt_len=prompt, prefill_chunk=chunk,
-                                spec_k=spec_k, device="cuda")
-            results, _ = ContinuousBatchingEngine(params, cfg, ecfg).run(reqs)
-            for r in results:
-                if (r.tokens == want[r.rid]).all():
-                    continue
-                if margin[r.rid] >= NEAR_TIE:
-                    raise AssertionError(
-                        f"[engine parity] spec_k {spec_k} chunk {chunk} rid "
-                        f"{r.rid}: {r.tokens.tolist()} != lm.generate "
-                        f"{want[r.rid].tolist()} with no deciding margin under "
-                        f"{NEAR_TIE} (smallest {margin[r.rid]:.3e})")
-                ties += 1
-    log(f"[engine parity] {cfg.n_layers} layers fp32, {slots} slots, {len(reqs)} "
-        f"requests x {steps} greedy tokens: the plain and speculative (spec_k "
-        f"{SPEC_K}, a {slots * (SPEC_K + 1)}-token verify slab) engines, "
-        f"monolithic and chunked, equal lm.generate for every request "
-        f"({ties} near-tie differences allowed); smallest deciding margin "
+        ecfg = EngineConfig(num_slots=slots, max_len=max_len, max_prompt_len=prompt,
+                            spec_k=spec_k, fff_backend="grouped", device="cuda",
+                            **exact)
+        results, m = ContinuousBatchingEngine(params, cfg, ecfg).run(reqs)
+        label = f"engine spec_k {spec_k}"
+        ties[label] = near_tie_check(f"[grouped parity] {label}",
+                                     {r.rid: r.tokens for r in results}, want, margin)
+        ties[label + " overflow"] = m.overflow_fraction_mean
+    log(f"[grouped parity] {cfg.n_layers} layers fp32, {len(reqs)} requests x "
+        f"{steps} greedy tokens: lm.generate on grouped (exact_dense, cf 0.5) and "
+        f"on grouped_ep (one process, exact_dense, cf 1.25), and the engine on "
+        f"grouped (exact_dense, cf 0.5; plain and spec_k {SPEC_K}), equal the "
+        f"reference backend's lm.generate for every request; near-tie "
+        f"differences and engine overflow means {ties}; smallest deciding margin "
         f"{min(margin.values()):.3e}")
     del params
     torch.cuda.empty_cache()
@@ -1097,10 +1285,14 @@ def main() -> int:
         f"init {time.perf_counter() - t0:.1f}s")
     phase_serve(common, api, serve_mod, cfg, params)
     counts = phase_engine(common, api, serve_mod, cfg, params)
-    del params
-    torch.cuda.empty_cache()
     phase_parity(api, fff, lm, FFF_CONFIG)
     phase_engine_parity(api, fff, lm, serve_mod, FFF_CONFIG)
+    with torch.inference_mode():
+        grouped_capacities(rows)
+    phase_grouped_serving(common, api, serve_mod, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG)
 
     table = []
     for kname, k in common.KERNELS.items():

@@ -3,9 +3,17 @@
 
     y, out = api.apply(params, cfg, x, api.ExecutionSpec(mode="infer"))
 
-Backends in this slice (inference only):
+Backends (inference; the training backends arrive with the training slice):
 
 * ``reference``   — hard descent + exact per-token leaf evaluation;
+* ``grouped``     — capacity-bounded grouped dispatch: per-leaf buffers of
+  ``max(8, round_up(cf * tokens / leaves, 8))`` slots, the leaves run by the
+  CUDA grouped GEMMs on the card; over-capacity tokens take the spec's
+  overflow policy (default "drop");
+* ``grouped_ep``  — expert-parallel: tokens travel over the model process
+  group (``distributed/act``) to the rank owning their leaf and back;
+  exact by default ("exact_dense"); one process runs it as local grouped
+  dispatch plus the same repair;
 * ``cuda``        — the CUDA kernel path for token batches: tree_router,
   then per-token gathered leaf matmuls for slabs of at most
   ``PALLAS_DECODE_MAX_TOKENS`` tokens and the grouped SwiGLU/MLP GEMMs
@@ -13,36 +21,73 @@ Backends in this slice (inference only):
 * ``cuda_decode`` — the one-launch fused decode kernel for seq-len-1
   batches (counterpart of JAX ``pallas_decode``).
 
-``backend="auto"`` resolves from the input tensor: CUDA tensors take the
-kernel backends, CPU tensors the reference.  ``overrides(backend=...)``
-steers every auto call site in its dynamic extent.  The grouped and
-expert-parallel backends and the training backends are queued in
-ROADMAP.md.
+``backend="auto"`` resolves in the JAX package's order: ``grouped_ep``
+when a model group of more than one rank is installed, the kernel backends
+for CUDA tensors, ``grouped`` for wide sites (``AUTO_GROUPED_MIN_WIDTH``),
+else the reference.  ``overrides(backend=, capacity_factor=,
+overflow_policy=)`` steers every call in its dynamic extent and nests
+(inner wins per field); ``use_backend``, ``use_capacity_factor`` and
+``use_overflow_policy`` are its deprecated single-field aliases.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import threading
+import warnings
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch import utils
 from repro_torch.core import fff as fff_lib
+from repro_torch.distributed import act as dist_act
 from repro_torch.kernels.fused_decode import ops as fd_ops
 from repro_torch.kernels.fused_fff import ops as fused_ops
 from repro_torch.kernels.leaf_gemm import ops as gemm_ops
 
 MODES = ("train", "infer")
 
-#: serving capacity factor of the capacity-bounded kernel path
+#: capacity defaults per backend (ExecutionSpec.capacity_factor=None means
+#: "the backend's own default")
+DEFAULT_CAPACITY_TRAIN_ST = 1.5
 DEFAULT_CAPACITY_INFER = 2.0
+#: grouped_ep runs Switch-style tight capacity: every slot crosses the
+#: exchange twice, and exactness comes from the overflow repair
+DEFAULT_CAPACITY_EP = 1.25
 
 #: token count at or below which the cuda backend takes the per-token
 #: gathered kernels instead of the sorted-dispatch grouped GEMMs (the JAX
 #: package's value for its pallas backend)
 PALLAS_DECODE_MAX_TOKENS = 32
+
+#: what a capacity-bounded backend does with the tokens it drops:
+#: "exact_dense" repairs them with their exact leaf output (all_gather
+#: traffic under EP), "master_leaf" lets the always-on master-leaf term
+#: stand in (approximate, no repair traffic, needs cfg.master_leaf), "drop"
+#: leaves them at zero output
+OVERFLOW_POLICIES = ("exact_dense", "master_leaf", "drop")
+
+#: leaves x leaf width at which "auto" inference off the card switches from
+#: the exact per-token evaluation to capacity-bounded grouped dispatch
+AUTO_GROUPED_MIN_WIDTH = 4096
+
+
+def default_capacity_factor(backend: str, mode: str = "infer") -> float:
+    """The capacity factor a capacity-bounded backend runs with when
+    ``ExecutionSpec.capacity_factor`` is None; consumers that predict
+    dispatch behaviour (the scheduler's overflow proxy) read it here."""
+    if mode == "train":
+        return DEFAULT_CAPACITY_TRAIN_ST
+    return DEFAULT_CAPACITY_EP if backend == "grouped_ep" \
+        else DEFAULT_CAPACITY_INFER
+
+
+def default_overflow_policy(backend: str) -> str:
+    """The overflow policy a capacity-bounded backend runs with when
+    ``ExecutionSpec.overflow_policy`` is None: grouped_ep repairs exactly,
+    grouped drops."""
+    return "exact_dense" if backend == "grouped_ep" else "drop"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,24 +96,39 @@ class ExecutionSpec:
 
     mode:            "train" | "infer" (only "infer" has backends so far)
     backend:         registered backend name, or "auto"
-    capacity_factor: per-leaf capacity multiplier of the grouped kernel
-                     path (None = 2.0); outputs are exact regardless
+    capacity_factor: per-leaf capacity multiplier of the capacity-bounded
+                     backends (grouped, grouped_ep, and the cuda backend's
+                     grouped GEMMs, which are exact regardless); None = the
+                     backend's default (``default_capacity_factor``)
+    overflow_policy: what a capacity-bounded backend does with the tokens
+                     it drops, one of ``OVERFLOW_POLICIES``; None = the
+                     backend's default (``default_overflow_policy``).
+                     "master_leaf" needs ``cfg.master_leaf``.  Exact
+                     backends ignore it.
     dense_levels:    tree levels routed from dense logits before per-token
                      gathers take over
     valid:           optional boolean per-token validity mask (broadcastable
-                     to x's leading shape); the kernel backends report
-                     invalid rows at the sentinel leaf so they stay out of routing
-                     telemetry.  Outputs are per-token exact regardless.
+                     to x's leading shape).  The capacity-bounded backends
+                     route invalid tokens to the sentinel leaf, so they use
+                     no capacity and count in no overflow; the kernel
+                     backends only report them at the sentinel leaf.  Exact
+                     backends' outputs are per-token exact regardless.
     """
     mode: str = "infer"
     backend: str = "auto"
     capacity_factor: Optional[float] = None
+    overflow_policy: Optional[str] = None
     dense_levels: int = 8
     valid: Optional[torch.Tensor] = None
 
     def validate(self) -> "ExecutionSpec":
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
+        if (self.overflow_policy is not None
+                and self.overflow_policy not in OVERFLOW_POLICIES):
+            raise ValueError(
+                f"overflow_policy must be one of {OVERFLOW_POLICIES} or None, "
+                f"got {self.overflow_policy!r}")
         return self
 
 
@@ -184,11 +244,23 @@ def list_backends(mode: Optional[str] = None) -> list[str]:
     return sorted(n for m, n in _REGISTRY if m == mode)
 
 
-def overrides(*, backend: Optional[str] = None, mode: Optional[str] = None):
-    """Steer every ``backend="auto"`` apply() in this thread to ``backend``
-    for the dynamic extent of the context (restricted to ``mode`` when
-    given).  Ineligible sites fall through to the auto heuristics; a name
-    registered for no mode raises up front.  Contexts nest."""
+def overrides(*, backend: Optional[str] = None, mode: Optional[str] = None,
+              capacity_factor: Optional[float] = None,
+              overflow_policy: Optional[str] = None):
+    """One composable override context for ``apply()`` in this thread.
+
+    ``backend`` steers every ``backend="auto"`` apply() to the named
+    backend (restricted to ``mode`` when given); explicit specs are
+    unaffected, and sites where the backend is missing or fails its
+    ``supports`` predicate fall through to the auto heuristics.  A name
+    registered for no mode raises up front.  ``capacity_factor`` and
+    ``overflow_policy`` fill in every spec that leaves its own unset;
+    explicit per-spec values win (the engine's verify slab scales its
+    capacity this way).
+
+    Contexts nest: each saves and restores exactly the fields it sets, so
+    an inner context wins per field and unrelated fields compose.
+    Validation is eager: bad arguments raise at the call."""
     if mode is not None and mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode is not None and backend is None:
@@ -197,18 +269,58 @@ def overrides(*, backend: Optional[str] = None, mode: Optional[str] = None):
     if backend is not None and not any(n == backend for _, n in _REGISTRY):
         raise KeyError(f"no backend {backend!r} registered for any mode; "
                        f"available: {list_backends()}")
+    if capacity_factor is not None:
+        capacity_factor = float(capacity_factor)
+        if capacity_factor <= 0:
+            raise ValueError(
+                f"capacity factor must be positive, got {capacity_factor}")
+    if overflow_policy is not None and overflow_policy not in OVERFLOW_POLICIES:
+        raise ValueError(f"overflow_policy must be one of {OVERFLOW_POLICIES},"
+                         f" got {overflow_policy!r}")
+    sets = []
+    if backend is not None:
+        sets.append(("override", (backend, mode)))
+    if capacity_factor is not None:
+        sets.append(("capacity_override", capacity_factor))
+    if overflow_policy is not None:
+        sets.append(("overflow_override", overflow_policy))
 
     @contextlib.contextmanager
     def _installed():
-        prev = getattr(_thread_state, "override", None)
-        if backend is not None:
-            _thread_state.override = (backend, mode)
+        prev = [(a, getattr(_thread_state, a, None)) for a, _ in sets]
+        for a, v in sets:
+            setattr(_thread_state, a, v)
         try:
             yield
         finally:
-            _thread_state.override = prev
+            for a, v in prev:
+                setattr(_thread_state, a, v)
 
     return _installed()
+
+
+def _deprecated_alias(old: str, new: str) -> None:
+    warnings.warn(f"api.{old} is deprecated; use api.{new}",
+                  DeprecationWarning, stacklevel=3)
+
+
+def use_backend(name: str, mode: Optional[str] = None):
+    """Deprecated alias for ``overrides(backend=name, mode=mode)``."""
+    _deprecated_alias("use_backend(name)", "overrides(backend=name)")
+    return overrides(backend=name, mode=mode)
+
+
+def use_capacity_factor(cf: float):
+    """Deprecated alias for ``overrides(capacity_factor=cf)``."""
+    _deprecated_alias("use_capacity_factor(cf)", "overrides(capacity_factor=cf)")
+    return overrides(capacity_factor=cf)
+
+
+def use_overflow_policy(policy: str):
+    """Deprecated alias for ``overrides(overflow_policy=policy)``."""
+    _deprecated_alias("use_overflow_policy(policy)",
+                      "overrides(overflow_policy=policy)")
+    return overrides(overflow_policy=policy)
 
 
 def _kernel_supported(params: dict, cfg: fff_lib.FFFConfig) -> bool:
@@ -229,12 +341,13 @@ def _kernels_native(x_device: Optional[torch.device]) -> bool:
 def _resolve_auto(params: dict, cfg: fff_lib.FFFConfig, mode: str,
                   x_shape: Optional[tuple] = None,
                   x_device: Optional[torch.device] = None) -> str:
-    """Backend choice for ``backend="auto"``: an override when eligible;
-    for inference on a CUDA tensor the fused decode kernel for seq-len-1
-    shapes and the kernel path otherwise; the exact reference for CPU
-    tensors and depth-0 sites.  (JAX picks its ``grouped`` backend for wide
-    sites off the TPU; that backend is not ported yet, so such sites run the
-    reference here.)"""
+    """Backend choice for ``backend="auto"``, in the JAX package's order:
+    an eligible override; for inference, ``grouped_ep`` when a model group
+    of more than one rank is installed and the leaves divide over it; on a
+    CUDA tensor the fused decode kernel for seq-len-1 shapes and the kernel
+    path otherwise (neither under an installed group); ``grouped`` for wide
+    sites (``num_leaves * leaf_width >= AUTO_GROUPED_MIN_WIDTH``); the exact
+    reference for the rest and for depth-0 sites."""
     override = getattr(_thread_state, "override", None)
     if override is not None:
         o_name, o_mode = override
@@ -245,6 +358,9 @@ def _resolve_auto(params: dict, cfg: fff_lib.FFFConfig, mode: str,
         return "grouped" if (cfg.st_training and cfg.depth > 0) else "reference"
     if cfg.depth == 0:
         return "reference"
+    if (dist_act.model_shard_count() > 1
+            and _backend_supported("infer", "grouped_ep", params, cfg)):
+        return "grouped_ep"
     on_cuda = _kernels_native(x_device)
     if (on_cuda and x_shape is not None and len(x_shape) >= 3
             and x_shape[-2] == 1
@@ -252,6 +368,8 @@ def _resolve_auto(params: dict, cfg: fff_lib.FFFConfig, mode: str,
         return "cuda_decode"
     if on_cuda and _backend_supported("infer", "cuda", params, cfg):
         return "cuda"
+    if cfg.num_leaves * cfg.leaf_width >= AUTO_GROUPED_MIN_WIDTH:
+        return "grouped"
     return "reference"
 
 
@@ -268,10 +386,22 @@ def apply(params: dict, cfg: fff_lib.FFFConfig, x: torch.Tensor,
           ) -> tuple[torch.Tensor, FFFOutput]:
     """Apply one FFF layer: x (..., dim_in) -> (..., dim_out), FFFOutput.
 
-    The master-leaf term is added here, after backend dispatch, for every
-    backend except the fused decode kernel, which computes it in its single
-    launch."""
+    Installed capacity and overflow overrides fill in the spec's unset
+    fields.  The master-leaf term is added here, after backend dispatch,
+    for every backend except the fused decode kernel, which computes it in
+    its single launch."""
+    cf = getattr(_thread_state, "capacity_override", None)
+    if cf is not None and spec.capacity_factor is None:
+        spec = dataclasses.replace(spec, capacity_factor=cf)
+    op = getattr(_thread_state, "overflow_override", None)
+    if op is not None and spec.overflow_policy is None:
+        spec = dataclasses.replace(spec, overflow_policy=op)
     spec.validate()
+    if spec.overflow_policy == "master_leaf" and not cfg.master_leaf:
+        raise ValueError(
+            'overflow_policy="master_leaf" requires cfg.master_leaf=True: '
+            "without the always-on master term, dropped tokens would "
+            'silently degrade to zeros (use "drop" to ask for that)')
     name = spec.backend
     if name == "auto":
         name = _resolve_auto(params, cfg, spec.mode, x_shape=tuple(x.shape),
@@ -295,6 +425,36 @@ def _infer_reference(params, cfg, x, spec):
     y, aux = fff_lib._forward_hard_gather(params, cfg, x,
                                           dense_levels=spec.dense_levels)
     return y, FFFOutput(leaf_idx=aux["leaf_idx"], overflow_fraction=_zero(x))
+
+
+def _infer_grouped(params, cfg, x, spec):
+    """FORWARD_I via capacity-bounded grouped dispatch;
+    ``spec.overflow_policy`` governs dropped tokens (default "drop")."""
+    cf = (spec.capacity_factor if spec.capacity_factor is not None
+          else default_capacity_factor("grouped"))
+    policy = (spec.overflow_policy if spec.overflow_policy is not None
+              else default_overflow_policy("grouped"))
+    y, aux = fff_lib._forward_hard_grouped(
+        params, cfg, x, capacity_factor=cf, dense_levels=spec.dense_levels,
+        valid=spec.valid, overflow_policy=policy)
+    return y, FFFOutput(leaf_idx=aux["leaf_idx"],
+                        overflow_fraction=aux["overflow_fraction"])
+
+
+def _infer_grouped_ep(params, cfg, x, spec):
+    """FORWARD_I via expert-parallel all_to_all dispatch over the installed
+    model group.  Exact under the default "exact_dense"; "master_leaf" and
+    "drop" skip the repair round.  One process (no group installed) runs
+    local grouped dispatch with the same policy."""
+    cf = (spec.capacity_factor if spec.capacity_factor is not None
+          else default_capacity_factor("grouped_ep"))
+    policy = (spec.overflow_policy if spec.overflow_policy is not None
+              else default_overflow_policy("grouped_ep"))
+    y, aux = fff_lib._forward_hard_ep(
+        params, cfg, x, capacity_factor=cf, dense_levels=spec.dense_levels,
+        valid=spec.valid, overflow_policy=policy)
+    return y, FFFOutput(leaf_idx=aux["leaf_idx"],
+                        overflow_fraction=aux["overflow_fraction"])
 
 
 def _infer_cuda(params, cfg, x, spec):
@@ -346,8 +506,20 @@ def _kernel_output(cfg, x, y, leaf_idx, lead, valid):
 
 
 register_backend("infer", "reference", _infer_reference)
-register_backend("infer", "cuda", _infer_cuda, supports=_kernel_supported)
+register_backend("infer", "grouped", _infer_grouped)
+register_backend(
+    "infer", "grouped_ep", _infer_grouped_ep,
+    # auto and overrides: a model group to exchange over and leaves that
+    # divide across it (an explicit spec still runs, on one process)
+    supports=lambda params, cfg: (
+        cfg.depth > 0 and dist_act.model_shard_count() > 1
+        and cfg.num_leaves % dist_act.model_shard_count() == 0))
+# the kernel backends are single-device: never under an installed group
+register_backend("infer", "cuda", _infer_cuda,
+                 supports=lambda params, cfg: (_kernel_supported(params, cfg)
+                                               and not dist_act.mesh_installed()))
 register_backend(
     "infer", "cuda_decode", _infer_cuda_decode,
     # the fused kernel's routing phase needs a tree to descend
-    supports=lambda params, cfg: cfg.depth > 0 and _kernel_supported(params, cfg))
+    supports=lambda params, cfg: (cfg.depth > 0 and _kernel_supported(params, cfg)
+                                  and not dist_act.mesh_installed()))

@@ -8,20 +8,23 @@ global index of node ``N[m, k]`` is ``2^m - 1 + k``; its children are
 ``>= 0``).
 
 The single entry point is :func:`repro_torch.core.api.apply`; this module
-holds the config, init and the node/leaf math the reference backend runs.
-FORWARD_T, the straight-through and grouped paths and the losses arrive
-with the training slice.
+holds the config, init, the node/leaf math the reference backend runs, and
+the capacity-bounded inference paths of the ``grouped`` and ``grouped_ep``
+backends with their overflow policies.  FORWARD_T, the straight-through
+path and the losses arrive with the training slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import utils
+from repro_torch.core import routing as routing_lib
+from repro_torch.distributed import act as dist_act
 
 Params = dict
 
@@ -255,3 +258,164 @@ def _forward_hard_gather(params: Params, cfg: FFFConfig, x: torch.Tensor,
     y = _leaf_forward_gather(params, cfg, xf, leaf_idx).sum(dim=1)
     return (utils.unflatten_leading(y, lead),
             {"leaf_idx": leaf_idx.reshape(*lead, cfg.trees)})
+
+
+# ---------------------------------------------------------------------------
+# capacity-bounded inference: the grouped and grouped_ep backends
+# ---------------------------------------------------------------------------
+
+def _pad_for_dispatch(xf: torch.Tensor, multiple: int
+                      ) -> tuple[torch.Tensor, int]:
+    """Pad flat tokens up to ``multiple`` before routing, so every shard of
+    the dispatch holds the same token count.  Returns (padded tokens, true
+    token count); callers route the pads to the capacity-neutral sentinel
+    leaf and slice outputs back to the true count."""
+    B = xf.shape[0]
+    Bp = utils.round_up(max(B, 1), multiple)
+    if Bp == B:
+        return xf, B
+    buf = torch.zeros((Bp,) + tuple(xf.shape[1:]), dtype=xf.dtype,
+                      device=xf.device)
+    buf[:B] = xf
+    return buf, B
+
+
+def _sentinel_pads(leaf_idx: torch.Tensor, true_count: int, num_leaves: int
+                   ) -> torch.Tensor:
+    """leaf_idx (Bp, T) with rows >= true_count sent to the sentinel leaf E
+    (a virtual group that never occupies real capacity)."""
+    rows = torch.arange(leaf_idx.shape[0], device=leaf_idx.device)[:, None]
+    return torch.where(rows < true_count, leaf_idx,
+                       torch.full_like(leaf_idx, num_leaves))
+
+
+def _sentinel_invalid(leaf_idx: torch.Tensor, valid: Optional[torch.Tensor],
+                      lead: tuple, B: int, num_leaves: int
+                      ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Route caller-declared invalid tokens to the sentinel leaf, so phantom
+    rows (a serving engine's free slots) use no capacity and stay out of the
+    routing telemetry.  ``valid`` is broadcastable to the leading shape;
+    returns the masked (Bp, T) leaf_idx and the flat (Bp,) validity (pads
+    invalid), or (leaf_idx, None) without a mask."""
+    if valid is None:
+        return leaf_idx, None
+    vf = torch.broadcast_to(valid.to(leaf_idx.device), lead).reshape(-1)
+    vfp = torch.zeros(leaf_idx.shape[0], dtype=torch.bool,
+                      device=leaf_idx.device)
+    vfp[:B] = vf
+    return (torch.where(vfp[:, None], leaf_idx,
+                        torch.full_like(leaf_idx, num_leaves)), vfp)
+
+
+def _overflow_from_kept(kept_all: list, vfp: Optional[torch.Tensor], B: int,
+                        accum_dtype) -> torch.Tensor:
+    """Dropped fraction over real routed slots: invalid and sentinel rows
+    are never ``kept``, so they leave the denominator."""
+    kept = torch.stack(kept_all).to(accum_dtype)              # (T, B)
+    if vfp is None:
+        return 1.0 - kept.mean()
+    w = vfp[:B].to(accum_dtype)
+    denom = (w.sum() * kept.shape[0]).clamp(min=1.0)
+    return 1.0 - (kept * w[None, :]).sum() / denom
+
+
+def _dispatch_dtype(params: Params, x: torch.Tensor, accum_dtype):
+    """The dtype of the capacity buffers.  On the CPU, JAX's: tokens cast to
+    ``accum_dtype``.  On the card, the leaves' dtype (promoted with the
+    tokens'), as the cuda backend feeds the grouped GEMMs, which accumulate
+    in float32; the output then comes back in the tokens' dtype, as the
+    cuda backend's does, so a bf16 residual stream stays bf16.  For bf16
+    leaves a deliberate deviation within the bf16 tolerance; for float32
+    the two agree."""
+    if x.device.type != "cuda":
+        return accum_dtype
+    w = params["leaf_wd"] if "leaf_wd" in params else params["leaf_w2"]
+    return torch.promote_types(x.dtype, w.dtype)
+
+
+def _forward_hard_capacity(params: Params, cfg: FFFConfig, x: torch.Tensor,
+                           multiple: int, valid: Optional[torch.Tensor],
+                           dense_levels: int, leaf_fn) -> tuple[torch.Tensor, dict]:
+    """The frame both capacity-bounded paths share: flatten, pad to
+    ``multiple``, route (the plain descent, as JAX's grouped paths do), send
+    pads and invalid tokens to the sentinel leaf, run ``leaf_fn(xf,
+    leaf_idx, tree_leaves) -> (y, kept)`` per tree, sum the trees and
+    report the dropped fraction over real slots."""
+    xf, lead = utils.flatten_leading(x)
+    xf = xf.to(_dispatch_dtype(params, xf, cfg.accum_dtype))
+    xf, B = _pad_for_dispatch(xf, multiple)
+    leaf_idx = route_hard(params, cfg, xf,
+                          dense_levels=dense_levels).reshape(xf.shape[0],
+                                                             cfg.trees)
+    leaf_idx = _sentinel_pads(leaf_idx, B, cfg.num_leaves)
+    leaf_idx, vfp = _sentinel_invalid(leaf_idx, valid, lead, B,
+                                      cfg.num_leaves)
+    out = None
+    kept_all = []
+    for t in range(cfg.trees):
+        tree_leaves = {k: v[t] for k, v in params.items()
+                       if k.startswith("leaf_")}
+        y, kept = leaf_fn(xf, leaf_idx[:, t], tree_leaves)
+        out = y if out is None else out + y
+        kept_all.append(kept[:B])
+    overflow = _overflow_from_kept(kept_all, vfp, B, cfg.accum_dtype)
+    aux = {"leaf_idx": leaf_idx[:B].reshape(*lead, cfg.trees),
+           "overflow_fraction": overflow}
+    y = out[:B]
+    if x.device.type == "cuda":      # the tokens' dtype, as the cuda backend
+        y = y.to(x.dtype)
+    return utils.unflatten_leading(y, lead), aux
+
+
+def _forward_hard_grouped(params: Params, cfg: FFFConfig, x: torch.Tensor,
+                          capacity_factor: float = 2.0, dense_levels: int = 8,
+                          valid: Optional[torch.Tensor] = None,
+                          overflow_policy: str = "drop"
+                          ) -> tuple[torch.Tensor, dict]:
+    """FORWARD_I via capacity-bounded grouped dispatch.  ``valid``
+    (broadcastable to x's leading shape) routes phantom tokens to the
+    sentinel leaf: no capacity used, zero output, no overflow counted.
+
+    ``overflow_policy``: "drop" (over-capacity tokens contribute zeros),
+    "exact_dense" (the dropped tokens, and only those, get their exact leaf
+    output) or "master_leaf" (as "drop" at this layer: the master term
+    ``api.apply`` adds to every token is what dropped tokens fall back to).
+    ``overflow_fraction`` reports the true over-capacity rate under every
+    policy."""
+    E = cfg.num_leaves
+
+    def leaves(xf, idx, tl):
+        y, kept = routing_lib.grouped_leaf_apply(
+            xf, idx, tl, cfg.activation, capacity_factor=capacity_factor,
+            accum_dtype=cfg.accum_dtype, serving=True, return_kept=True)
+        if overflow_policy == "exact_dense":
+            # only real overflow: sentinel pads and invalid rows need none
+            y = routing_lib._repair(y, ~kept & (idx < E), xf, idx, tl,
+                                    cfg.activation, cfg.accum_dtype)
+        return y, kept
+
+    return _forward_hard_capacity(params, cfg, x, dist_act.data_shard_count(),
+                                  valid, dense_levels, leaves)
+
+
+def _forward_hard_ep(params: Params, cfg: FFFConfig, x: torch.Tensor,
+                     capacity_factor: float = 1.25, dense_levels: int = 8,
+                     valid: Optional[torch.Tensor] = None,
+                     overflow_policy: str = "exact_dense"
+                     ) -> tuple[torch.Tensor, dict]:
+    """FORWARD_I via expert-parallel all_to_all dispatch
+    (``routing.grouped_leaf_apply_ep``): routing runs on every rank, and
+    tokens travel to the rank owning their leaf.  Under the default
+    "exact_dense" over-capacity tokens are repaired, so outputs match the
+    reference backend; "master_leaf" and "drop" skip the repair round.
+    ``overflow_fraction`` reports the true over-capacity rate either way."""
+    def leaves(xf, idx, tl):
+        return routing_lib.grouped_leaf_apply_ep(
+            xf, idx, tl, cfg.activation, capacity_factor=capacity_factor,
+            accum_dtype=cfg.accum_dtype, overflow_policy=overflow_policy,
+            return_kept=True)
+
+    return _forward_hard_capacity(
+        params, cfg, x,
+        dist_act.data_shard_count() * dist_act.model_shard_count(),
+        valid, dense_levels, leaves)

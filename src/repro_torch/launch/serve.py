@@ -10,6 +10,9 @@ chunked prefill (N tokens per slab, at most ``--prefill-budget`` slabs per
 step); ``--spec-k K`` turns on speculative decoding, the draft
 (``--draft-config self:N``, default the target's first period) proposing K
 tokens per slot per round and the target verifying them in one slab.
+``--fff-backend grouped`` (or ``grouped_ep``) serves every FFF site through
+capacity-bounded grouped dispatch, ``--capacity-factor`` sets its per-leaf
+capacity and ``--overflow-policy`` what over-capacity tokens get.
 ``--engine off`` keeps the fixed-batch loop: one batched prefill, then a
 greedy decode loop.  Both print latency percentiles, tokens/s and how many
 times each CUDA kernel launched.
@@ -24,7 +27,9 @@ runs the plain PyTorch versions on the host::
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --engine continuous --batch 4 --prompt-len 32 --gen 8 --spec-k 2
   PYTHONPATH=src python -m repro_torch.launch.serve --engine off --batch 4 \
-      --prompt-len 32 --gen 16 [--fff-backend auto|reference|cuda|cuda_decode]
+      --prompt-len 32 --gen 16 [--fff-backend auto|reference|grouped|...]
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --fff-backend grouped --capacity-factor 0.5 --overflow-policy exact_dense
 """
 from __future__ import annotations
 
@@ -67,11 +72,15 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
-          gen: int = 16, fff_backend: str = "auto", eos_id: int = -1,
+          gen: int = 16, fff_backend: str = "auto",
+          capacity_factor: Optional[float] = None,
+          overflow_policy: Optional[str] = None, eos_id: int = -1,
           seed: int = 0, device="cuda", params=None) -> ServeResult:
     """Prefill ``batch`` Markov-source prompts of ``prompt_len`` tokens and
     decode up to ``gen`` tokens greedily.  ``params`` defaults to
-    ``lm.init(cfg, seed=seed)`` on ``device``."""
+    ``lm.init(cfg, seed=seed)`` on ``device``.  ``fff_backend``,
+    ``capacity_factor`` and ``overflow_policy`` steer every FFF site
+    (``api.overrides``)."""
     dev = utils.resolve_device(device)
     if params is None:
         params = lm.init(cfg, seed=seed, device=dev)
@@ -83,9 +92,14 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
 
     def backend_ctx():
         # mode="infer": a serving override never redirects train-mode math
-        if fff_backend == "auto":
-            return contextlib.nullcontext()
-        return api.overrides(backend=fff_backend, mode="infer")
+        kw = {}
+        if fff_backend != "auto":
+            kw.update(backend=fff_backend, mode="infer")
+        if capacity_factor is not None:
+            kw["capacity_factor"] = capacity_factor
+        if overflow_policy is not None:
+            kw["overflow_policy"] = overflow_policy
+        return api.overrides(**kw) if kw else contextlib.nullcontext()
 
     before = common.launch_counts()
     caches = lm.init_caches(cfg, batch, max_len, device=dev)
@@ -191,7 +205,10 @@ def serve_engine(cfg: ModelConfig, ecfg: EngineConfig, requests: list, *,
           f"lens {min(len(r.prompt) for r in requests)}-"
           f"{max(len(r.prompt) for r in requests)}, scheduler="
           f"{ecfg.scheduler}, {mode}{spec}, fff backend={ecfg.fff_backend} "
-          f"requested")
+          f"requested" + (f", capacity factor {ecfg.capacity_factor}"
+                          if ecfg.capacity_factor is not None else "")
+          + (f", overflow policy {ecfg.overflow_policy}"
+             if ecfg.overflow_policy is not None else ""))
     before = common.launch_counts()
     results, m = engine.run(requests)
     _sync(engine.device)
@@ -216,6 +233,19 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["auto"] + api.list_backends("infer"),
                     help="execution backend for every FFF site (auto = "
                          "per-site resolution; see core/api.py)")
+    ap.add_argument("--capacity-factor", type=float, default=None,
+                    help="capacity factor of the capacity-bounded FFF "
+                         "backends (grouped / grouped_ep): per-(shard, leaf) "
+                         "slots scale with cf * tokens / leaves; < 1.0 "
+                         "under-provisions on purpose, pair it with "
+                         "--overflow-policy (default: the backend's own)")
+    ap.add_argument("--overflow-policy", default=None,
+                    choices=list(api.OVERFLOW_POLICIES),
+                    help="what over-capacity tokens get under a capacity-"
+                         "bounded backend: exact_dense = their exact leaf "
+                         "output, master_leaf = the always-on master term "
+                         "alone (needs a model built with fff_master_leaf), "
+                         "drop = zeros (default: the backend's own)")
     ap.add_argument("--engine", default="continuous",
                     choices=["continuous", "off"],
                     help="continuous = the batching engine "
@@ -260,14 +290,17 @@ def main(argv=None) -> None:
     cfg = cfg.reduced(seq=max(64, args.prompt_len + args.gen + 1))
     if args.engine == "off":
         serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
-              fff_backend=args.fff_backend, eos_id=args.eos_id,
+              fff_backend=args.fff_backend,
+              capacity_factor=args.capacity_factor,
+              overflow_policy=args.overflow_policy, eos_id=args.eos_id,
               seed=args.seed, device=args.device)
         return
     ecfg = EngineConfig(
         num_slots=args.batch, max_len=args.prompt_len + args.gen + 1,
         max_prompt_len=args.prompt_len, scheduler=args.scheduler,
         prefill_chunk=args.prefill_chunk, prefill_budget=args.prefill_budget,
-        fff_backend=args.fff_backend, spec_k=args.spec_k,
+        fff_backend=args.fff_backend, capacity_factor=args.capacity_factor,
+        overflow_policy=args.overflow_policy, spec_k=args.spec_k,
         draft_config=args.draft_config or None, seed=args.seed,
         device=args.device)
     reqs = build_requests(cfg.vocab_size, args.requests or 2 * args.batch,

@@ -33,9 +33,11 @@ reads the per-slot FFF leaf occupancy the engine collects through
 ``api.collect_routing``, reduced on the device and copied to the host
 with the dispatch's logits in one transfer.  Sampling is host numpy, deterministic under
 ``EngineConfig.seed``; the draft samples on the device from a seeded
-``torch.Generator``.  Left for later slices: paging and prefix sharing,
-tenants and their profiles, capacity-factor and overflow-policy steering
-(which need the grouped backends), the cluster.
+``torch.Generator``.  ``capacity_factor`` and ``overflow_policy`` steer the
+live FFF dispatch (``api.overrides``) of capacity-bounded backends
+(``grouped``, ``grouped_ep``); the scheduler's overflow proxy and the
+overflow-policy metrics read the same values.  Left for later slices:
+paging and prefix sharing, tenants and their profiles, the cluster.
 """
 from __future__ import annotations
 
@@ -51,7 +53,9 @@ import torch
 
 from repro_torch import utils
 from repro_torch.core import api
+from repro_torch.distributed import act as dist_act
 from repro_torch.models import lm
+from repro_torch.nn import mlp as mlp_lib
 from repro_torch.serving import metrics as metrics_lib
 from repro_torch.serving import spec as spec_lib
 from repro_torch.serving.request import Request, RequestResult, SlotState
@@ -96,7 +100,16 @@ class EngineConfig:
     power of two <= ``max_prompt_len``.  ``spec_k`` > 0 turns on
     speculative decoding with the ``draft_config`` draft (None = "self",
     the target's first period).  ``fff_backend`` other than "auto" steers
-    every FFF site (``api.overrides``)."""
+    every FFF site (``api.overrides``).
+
+    ``capacity_factor``: None = the configured backend's default; a value
+    steers the live dispatch of capacity-bounded backends (cf < 1.0
+    under-provisions per-leaf capacity on purpose) and the scheduler's
+    overflow proxy.  ``overflow_policy``: what such a dispatch does with
+    over-capacity tokens, "exact_dense" (their exact leaf output),
+    "master_leaf" (the master term alone; needs FFF sites built with
+    ``fff_master_leaf``) or "drop" (zeros); None = the backend's default
+    (``api.default_overflow_policy``)."""
     num_slots: int = 8
     max_len: int = 128
     max_prompt_len: int = 64
@@ -105,6 +118,8 @@ class EngineConfig:
     prefill_budget: int = 1
     scheduler: str = "fcfs"
     fff_backend: str = "auto"
+    capacity_factor: Optional[float] = None
+    overflow_policy: Optional[str] = None
     spec_k: int = 0
     draft_config: Optional[str] = None
     seed: int = 0
@@ -152,6 +167,11 @@ class ContinuousBatchingEngine:
             raise ValueError(f"spec_k {ecfg.spec_k} must be >= 0")
         if ecfg.draft_config is not None and not ecfg.spec_k:
             raise ValueError("draft_config is set but spec_k == 0")
+        if (ecfg.overflow_policy is not None
+                and ecfg.overflow_policy not in api.OVERFLOW_POLICIES):
+            raise ValueError(
+                f"overflow_policy {ecfg.overflow_policy!r} not in "
+                f"{api.OVERFLOW_POLICIES}")
         want = utils.resolve_device(ecfg.device)
         self.device = params["embed"]["tok"].device
         if self.device.type != want.type or want.index not in (
@@ -162,6 +182,23 @@ class ContinuousBatchingEngine:
         self.num_leaves = next(
             (2 ** b.ffn.fff_depth for b in cfg.period if b.ffn.kind == "fff"),
             0)
+        fff_spec = next((b.ffn for b in cfg.period if b.ffn.kind == "fff"),
+                        None)
+        # the first FFF site's layer config, to predict what the auto
+        # resolver dispatches (the scheduler's capacity proxy)
+        self._site_cfg = None if fff_spec is None else mlp_lib.make_fff_config(
+            fff_spec, cfg.d_model, param_dtype=cfg.param_dtype,
+            accum_dtype=cfg.accum_dtype)
+        if (ecfg.overflow_policy == "master_leaf"
+                and self._site_cfg is not None
+                and not self._site_cfg.master_leaf):
+            # fail at construction, not at the first dispatch
+            raise ValueError(
+                'overflow_policy="master_leaf" needs FFF sites built with '
+                "fff_master_leaf=True: this model has no master term to "
+                "stand in for dropped tokens")
+        self._topology: Optional[Tuple[int, Optional[float]]] = None
+        self._policy: Optional[str] = None    # set alongside _topology
         self.scheduler = scheduler or make_scheduler(ecfg.scheduler)
         S, L = ecfg.num_slots, ecfg.max_len
         self.caches = lm.init_caches(cfg, S, L, device=self.device)
@@ -251,14 +288,92 @@ class ContinuousBatchingEngine:
 
     # -- device plumbing -----------------------------------------------------
 
+    def _overrides(self) -> dict:
+        """The ``api.overrides`` arguments the engine's dispatches run
+        under: the backend, and the capacity factor and overflow policy that
+        steer the live dispatch (not just the scheduler proxy)."""
+        kw = {}
+        if self.ecfg.fff_backend != "auto":
+            kw.update(backend=self.ecfg.fff_backend, mode="infer")
+        if self.ecfg.capacity_factor is not None:
+            kw["capacity_factor"] = self.ecfg.capacity_factor
+        if self.ecfg.overflow_policy is not None:
+            kw["overflow_policy"] = self.ecfg.overflow_policy
+        return kw
+
     def _ctx(self):
         es = contextlib.ExitStack()
         es.enter_context(torch.inference_mode())
-        if self.ecfg.fff_backend != "auto":
-            es.enter_context(api.overrides(backend=self.ecfg.fff_backend,
-                                           mode="infer"))
+        kw = self._overrides()
+        if kw:
+            es.enter_context(api.overrides(**kw))
         es.enter_context(api.collect_routing())
         return es
+
+    def _dispatch_topology(self) -> Tuple[int, Optional[float]]:
+        """(token-axis shard count, capacity factor) the live FFF dispatch
+        runs with, which the scheduler's overflow proxy must match.
+        ``auto`` resolves through ``api.resolve_backend`` under the engine's
+        overrides and installed groups, for a slab on the engine's device;
+        cached, since neither changes over the engine's life.  Capacity
+        factor None = an exact backend, no bound to predict against."""
+        if self._topology is None:
+            backend = self.ecfg.fff_backend
+            kw = self._overrides()
+            with api.overrides(**kw) if kw else contextlib.nullcontext():
+                g = dist_act.data_shard_count()
+                m = dist_act.model_shard_count()
+                if backend == "auto":
+                    backend = (api.resolve_backend({}, self._site_cfg,
+                                                   x_device=self.device)
+                               if self._site_cfg is not None else "reference")
+            if backend in ("reference", "cuda", "cuda_decode"):
+                self._topology = (1, None)     # exact: no capacity bound
+                self._policy = None
+            else:
+                shards = g * m if backend == "grouped_ep" else g
+                cf = (self.ecfg.capacity_factor
+                      if self.ecfg.capacity_factor is not None
+                      else api.default_capacity_factor(backend))
+                self._topology = (shards, cf)
+                self._policy = (self.ecfg.overflow_policy
+                                if self.ecfg.overflow_policy is not None
+                                else api.default_overflow_policy(backend))
+        return self._topology
+
+    def _overflow_policy(self) -> Optional[str]:
+        """The overflow policy the live dispatch runs with; None when no
+        capacity bound exists (exact backends never drop)."""
+        self._dispatch_topology()
+        return self._policy
+
+    def _repair_counters(self, ovf0: Optional[dict] = None
+                         ) -> Tuple[int, float]:
+        """Overflow-policy accounting from the slot-weighted overflow
+        accumulators: (estimated repaired (token, tree) slots, fraction of
+        slots served by the master leaf alone).  ``ovf0`` rebases onto a
+        per-run snapshot of ``self._overflow``.  Repairs are 0 under "drop"
+        (nothing stands in); the master fraction is nonzero only under
+        "master_leaf"."""
+        policy = self._overflow_policy()
+        if policy in (None, "drop"):
+            return 0, 0.0
+        w = n = 0.0
+        for k, acc in self._overflow.items():
+            base = ovf0[k] if ovf0 else (0.0, 0.0)
+            w += acc[0] - base[0]
+            n += acc[1] - base[1]
+        frac = (w / n if n else 0.0) if policy == "master_leaf" else 0.0
+        return int(round(w)), frac
+
+    def _verify_cf(self) -> Optional[float]:
+        """Capacity factor of the speculative round's dispatches: the decode
+        capacity factor times the slab width ``k + 1``, so each verify token
+        sees the per-leaf capacity it would have in plain decode and
+        speculation batches serving numerics instead of changing them.
+        None for exact backends."""
+        _, cf = self._dispatch_topology()
+        return None if cf is None else float(cf) * (self.ecfg.spec_k + 1)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -345,8 +460,9 @@ class ContinuousBatchingEngine:
 
     def overflow_mean(self, phase: Optional[str] = None) -> float:
         """Slot-weighted mean overflow_fraction; ``phase`` in {"prefill",
-        "decode", "draft", None = all}.  Every backend of the port is exact,
-        so this stays 0 until the capacity-bounded ones are ported."""
+        "decode", "draft", None = all}.  0 under exact backends; under
+        ``grouped`` and ``grouped_ep`` the share of real slots over
+        capacity, whatever the overflow policy then did with them."""
         keys = [phase] if phase else list(self._overflow)
         w = sum(self._overflow[k][0] for k in keys)
         n = sum(self._overflow[k][1] for k in keys)
@@ -411,11 +527,12 @@ class ContinuousBatchingEngine:
         if not free or not self.queue:
             return
         n = min(len(free), self.ecfg.max_prefills_per_step)
+        shards, cf = self._dispatch_topology()
         view = SchedulerView(
             occupancy=self.occupancy,
             active=np.asarray([s is not None for s in self.slots]),
-            num_leaves=self.num_leaves, capacity_factor=None,
-            num_slots=self.ecfg.num_slots,
+            num_leaves=self.num_leaves, capacity_factor=cf,
+            num_slots=self.ecfg.num_slots, dispatch_shards=shards,
             tokens_per_slot=self.ecfg.spec_k + 1)
         for req in self.scheduler.select(list(self.queue), n, view):
             self.queue.remove(req)
@@ -578,7 +695,7 @@ class ContinuousBatchingEngine:
                 tok0, self.caches, self.draft_caches, self._dev(self._tlen),
                 self._dev(self._dlen), self._dev(wm), self._dev(vlen),
                 self._dev(lv), self._dev(temps) if temps.any() else None,
-                self._gen)
+                self._gen, verify_cf=self._verify_cf())
             self._record_shape("verify", p_logits.shape[:2])
             dv, vv = self._reduce_stats(dstats), self._reduce_stats(vstats)
             host = _to_host(
@@ -684,11 +801,13 @@ class ContinuousBatchingEngine:
             n = sum(self._overflow[k][1] - ovf0[k][1] for k in keys)
             return w / n if n else 0.0
 
+        repairs, m_frac = self._repair_counters(ovf0)
         m = metrics_lib.from_results(
             results, elapsed_s=elapsed, n_steps=self.n_steps - n_steps0,
             n_prefills=self.n_prefills - n_prefills0, decode_lat_s=lat,
             overflow_mean=ovf_delta(list(self._overflow)),
             overflow_decode_mean=ovf_delta(["decode"]),
+            overflow_repairs=repairs, master_leaf_fraction=m_frac,
             n_chunks=self.n_chunks - n_chunks0, decode_interval_s=intervals,
             hint_mismatches=self._hint_mismatches - hints0,
             draft_tokens=self.n_draft_tokens - draft0,
@@ -700,11 +819,13 @@ class ContinuousBatchingEngine:
         """Live telemetry since construction (or since ``run`` last drained
         its slice), plus instantaneous queue depth, active and prefilling
         slots.  Host only: no device work."""
+        repairs, m_frac = self._repair_counters()
         m = metrics_lib.from_results(
             self.results, elapsed_s=self.now(), n_steps=self.n_steps,
             n_prefills=self.n_prefills, decode_lat_s=self.decode_lat,
             overflow_mean=self.overflow_mean(),
             overflow_decode_mean=self.overflow_mean("decode"),
+            overflow_repairs=repairs, master_leaf_fraction=m_frac,
             n_chunks=self.n_chunks, decode_interval_s=self.decode_interval_s,
             hint_mismatches=self._hint_mismatches,
             draft_tokens=self.n_draft_tokens,

@@ -1,7 +1,7 @@
 """Latency/throughput summaries and the engine's metrics (port of
 ``repro/serving/metrics.py``, less the per-tenant breakdown, the paging
-counters and the overflow-policy accounting, which arrive with their
-slices).  Inputs are seconds; summaries render in milliseconds."""
+counters and the JSON view, which arrive with their slices).  Inputs are
+seconds; summaries render in milliseconds."""
 from __future__ import annotations
 
 import dataclasses
@@ -76,6 +76,12 @@ class EngineMetrics:
         default_factory=lambda: summarize(()))
     overflow_fraction_mean: float = 0.0
     overflow_decode_mean: float = 0.0
+    # overflow-policy accounting: estimated (token, tree) slots that took
+    # the configured overflow path instead of dropping to zeros, and the
+    # fraction of slots served by the master leaf alone (nonzero only under
+    # overflow_policy="master_leaf")
+    overflow_repairs: int = 0
+    master_leaf_fraction: float = 0.0
     hint_mismatches: int = 0             # leaf_hints dropped for size mismatch
     # speculative decoding: draft tokens proposed and accepted
     # (spec_acceptance = accepted / drafted, 0 when speculation is off)
@@ -113,6 +119,10 @@ class EngineMetrics:
             f"fff overflow_fraction mean {self.overflow_fraction_mean:.4f} "
             f"(decode-only {self.overflow_decode_mean:.4f})",
         ]
+        if self.overflow_repairs:
+            lines.append(
+                f"overflow policy: ~{self.overflow_repairs} slots repaired "
+                f"(master-leaf fraction {self.master_leaf_fraction:.4f})")
         if self.draft_tokens:
             lines.append(
                 f"speculative: {self.draft_tokens} drafted, "
@@ -128,6 +138,7 @@ class EngineMetrics:
 def from_results(results: Iterable, *, elapsed_s: float, n_steps: int,
                  n_prefills: int, decode_lat_s: Sequence[float],
                  overflow_mean: float, overflow_decode_mean: float = 0.0,
+                 overflow_repairs: int = 0, master_leaf_fraction: float = 0.0,
                  n_chunks: int = 0, decode_interval_s: Sequence[float] = (),
                  hint_mismatches: int = 0, draft_tokens: int = 0,
                  accepted_tokens: int = 0, prefill_tokens: int = 0
@@ -146,6 +157,8 @@ def from_results(results: Iterable, *, elapsed_s: float, n_steps: int,
         decode_interval=summarize(decode_interval_s),
         overflow_fraction_mean=overflow_mean,
         overflow_decode_mean=overflow_decode_mean,
+        overflow_repairs=overflow_repairs,
+        master_leaf_fraction=master_leaf_fraction,
         hint_mismatches=hint_mismatches,
         draft_tokens=draft_tokens,
         accepted_tokens=accepted_tokens,

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from repro_torch import utils
+from repro_torch.distributed import dispatch as dispatch_lib
 from repro_torch.serving.request import Request
 
 
@@ -38,9 +39,13 @@ class SchedulerView:
     num_leaves: E of the telemetry (0 = no FFF telemetry; leaf_aware then
                degrades to FCFS)
     capacity_factor: the capacity factor of the decode-side dispatch, or
-               None for an exact backend with no capacity bound (every
-               backend of the port so far: reference, cuda, cuda_decode)
+               None for an exact backend with no capacity bound
+               (reference, cuda, cuda_decode)
     num_slots: total cache slots (the decode batch is always this size)
+    dispatch_shards: how many ways the dispatch splits the token axis: the
+               data-shard count G for grouped dispatch, G * M for
+               grouped_ep (capacity is per source shard there); 1 on one
+               process
     tokens_per_slot: tokens each active slot adds to one decode-side
                dispatch: 1 for plain decode, ``spec_k + 1`` for a
                speculative verify slab
@@ -50,20 +55,23 @@ class SchedulerView:
     num_leaves: int
     capacity_factor: Optional[float]
     num_slots: int
+    dispatch_shards: int = 1
     tokens_per_slot: int = 1
 
     def leaf_capacity(self) -> float:
-        """Per-leaf capacity of one decode-side dispatch in units of slot
-        footprints: the dispatch's law ``max(8, round_up(cf * ceil(tokens /
-        E), 8))`` over its ``num_slots * tokens_per_slot`` tokens, divided
-        back by ``tokens_per_slot``.  Infinite without a capacity bound:
-        the leaf_aware objective then reduces to its max-load term."""
+        """Whole-batch per-leaf capacity of one decode-side dispatch in
+        units of slot footprints: the dispatch's per-(shard, leaf) law
+        (``dispatch.ep_capacity``) on the per-shard share of its ``num_slots
+        * tokens_per_slot`` tokens, times the shard count, divided back by
+        ``tokens_per_slot``.  Infinite without a capacity bound: the
+        leaf_aware objective then reduces to its max-load term."""
         if self.num_leaves <= 0 or self.capacity_factor is None:
             return float("inf")
+        shards = max(self.dispatch_shards, 1)
         tps = max(self.tokens_per_slot, 1)
-        per_leaf = utils.cdiv(self.num_slots * tps, self.num_leaves)
-        cap = max(8, utils.round_up(int(self.capacity_factor * per_leaf), 8))
-        return float(cap) / tps
+        per_shard = utils.cdiv(self.num_slots * tps, shards)
+        return float(dispatch_lib.ep_capacity(
+            per_shard, self.num_leaves, self.capacity_factor) * shards) / tps
 
 
 class Scheduler:

@@ -25,6 +25,7 @@ draft is ported: an independent draft architecture needs the other archs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional, Tuple
 
@@ -150,20 +151,26 @@ def spec_round(params: Params, cfg, draft_params: Params, dcfg,
                target_len: torch.Tensor, draft_len: torch.Tensor,
                write_masks: torch.Tensor, verify_len: torch.Tensor,
                live: torch.Tensor, temps: torch.Tensor,
-               generator: torch.Generator):
+               generator: torch.Generator, verify_cf: Optional[float] = None):
     """One speculative round: the draft rollout, then the target's verify of
     the ``(S, k + 1)`` slab ``[pending, d_1 .. d_k]``, which reads the drafts
     on the device.  ``verify_len`` (S,) int32 in [0, k + 1] is how many slab
     tokens each row scores and appends (0 = free slot; rows at the cache
-    edge clip, as ``write_masks`` does).  Returns ``(drafts (k, S),
-    q_logits (k+1, S, V), p_logits (S, k+1, V), caches, draft_caches,
-    draft_stats, verify_stats)``."""
-    drafts, q_logits, caches, draft_caches, dstats = draft_rollout(
-        draft_params, dcfg, tok0, caches, draft_caches, target_len, draft_len,
-        write_masks, live, temps, generator)
-    vtoks = torch.cat([tok0, drafts.t()], dim=1)              # (S, k+1)
-    p_logits, caches, vstats = lm.verify_chunk(params, cfg, vtoks, verify_len,
-                                               caches)
+    edge clip, as ``write_masks`` does).  ``verify_cf``: the capacity factor
+    of the round's dispatches (``api.overrides``, nested inside and winning
+    over the engine's own), which the engine scales by ``k + 1``; the
+    rollout runs at it too, since draft capacity drops only cost acceptance.
+    None = the backends' defaults.  Returns ``(drafts (k, S), q_logits
+    (k+1, S, V), p_logits (S, k+1, V), caches, draft_caches, draft_stats,
+    verify_stats)``."""
+    with (api.overrides(capacity_factor=verify_cf) if verify_cf is not None
+          else contextlib.nullcontext()):
+        drafts, q_logits, caches, draft_caches, dstats = draft_rollout(
+            draft_params, dcfg, tok0, caches, draft_caches, target_len,
+            draft_len, write_masks, live, temps, generator)
+        vtoks = torch.cat([tok0, drafts.t()], dim=1)          # (S, k+1)
+        p_logits, caches, vstats = lm.verify_chunk(params, cfg, vtoks,
+                                                   verify_len, caches)
     return drafts, q_logits, p_logits, caches, draft_caches, dstats, vstats
 
 

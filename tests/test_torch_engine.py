@@ -8,9 +8,11 @@ float32) carries the same numpy-drawn weights into both packages
 the port's greedy tokens must equal it request for request in monolithic,
 chunked and speculative modes, and equal the port's own ``lm.generate``
 under auto resolution and with the resolver driven down its CUDA branches
-(whose wrappers run the plain versions here).  Also: the chunk slabs'
-logits and rollback, rejection sampling, the schedulers, EOS, the
-fixed-shape contract, the metrics and the CLI.
+(whose wrappers run the plain versions here).  Both engines also run on
+their ``grouped`` backend (the default "drop" at cf 2.0, and "exact_dense"
+at cf 0.5): the same tokens, overflow means and repair counts.  Also: the
+chunk slabs' logits and rollback, rejection sampling, the schedulers, EOS,
+the fixed-shape contract, the metrics and the CLI.
 """
 import dataclasses
 import sys
@@ -474,3 +476,78 @@ def test_serve_cli_engine_on_cpu(capsys):
     assert "served 4 requests, 16 tokens" in out
     assert "dispatch shapes: chunk=[(2, 8)] draft=[(2, 1)] verify=[(2, 3)]" in out
     assert "kernel launches:" in out
+
+
+# ---------------------------------------------------------------------------
+# capacity-bounded dispatch: the grouped backend and its overflow policies
+# ---------------------------------------------------------------------------
+
+GROUPED = {"drop": {},
+           "exact_dense-cf0.5": {"overflow_policy": "exact_dense",
+                                 "capacity_factor": 0.5}}
+
+
+@pytest.mark.parametrize("mode", ["monolithic", "spec"])
+@pytest.mark.parametrize("policy", list(GROUPED))
+def test_grouped_engine_matches_jax_engine(model, mode, policy):
+    """Both engines on their ``grouped`` backend (default policy "drop" at
+    cf 2.0, and "exact_dense" at cf 0.5): the same greedy tokens, the same
+    overflow means and repair counts."""
+    kw = dict(fff_backend="grouped", **GROUPED[policy])
+    jeng = jengine.ContinuousBatchingEngine(
+        model["jp"], model["jcfg"], jengine.EngineConfig(
+            num_slots=SLOTS, max_len=MAX_LEN, max_prompt_len=PROMPT,
+            **MODES[mode], **kw))
+    jres, jm = jeng.run(requests(model, JRequest))
+    res, m = engine(model, mode, **kw).run(requests(model))
+    want = {r.rid: np.asarray(r.tokens) for r in jres}
+    for r in res:
+        np.testing.assert_array_equal(r.tokens, want[r.rid], err_msg=f"rid {r.rid}")
+    assert m.overflow_fraction_mean == pytest.approx(jm.overflow_fraction_mean, abs=1e-6)
+    assert m.overflow_decode_mean == pytest.approx(jm.overflow_decode_mean, abs=1e-6)
+    assert m.overflow_repairs == jm.overflow_repairs
+    assert m.master_leaf_fraction == jm.master_leaf_fraction == 0.0
+    if policy == "drop":
+        assert m.overflow_repairs == 0
+    else:                                   # cf 0.5 overflows, and is repaired
+        assert m.overflow_fraction_mean > 0 and m.overflow_repairs > 0
+
+
+def test_engine_capacity_knobs_steer_the_dispatch(model, monkeypatch):
+    """The engine's capacity factor and policy reach every FFF call, the
+    speculative round's capacity scaled by k + 1; the scheduler sees the
+    bound."""
+    seen = []
+    fn = api.get_backend("infer", "grouped")
+    monkeypatch.setitem(api._REGISTRY, ("infer", "grouped"), lambda p, c, x, s: (
+        seen.append((x.shape[1], s.capacity_factor, s.overflow_policy)), fn(p, c, x, s))[1])
+    eng = engine(model, "spec", fff_backend="grouped", capacity_factor=0.5,
+                 overflow_policy="exact_dense")
+    eng.run(requests(model))
+    assert {(cf, pol) for t, cf, pol in seen if t in (1, 3)} == {(1.5, "exact_dense")}
+    assert {(cf, pol) for t, cf, pol in seen if t > 3} == {(0.5, "exact_dense")}
+    assert eng._dispatch_topology() == (1, 0.5)
+    assert eng._overflow_policy() == "exact_dense"
+    assert engine(model)._dispatch_topology() == (1, None)     # reference: exact
+
+
+def test_engine_overflow_policy_validation(model):
+    with pytest.raises(ValueError, match="overflow_policy"):
+        engine(model, overflow_policy="dense")
+    with pytest.raises(ValueError, match="master_leaf"):
+        engine(model, fff_backend="grouped", overflow_policy="master_leaf")
+
+
+@pytest.mark.parametrize("driver", ["continuous", "off"])
+def test_serve_cli_grouped_on_cpu(capsys, driver):
+    serve_mod.main(["--device", "cpu", "--engine", driver, "--batch", "2",
+                    "--prompt-len", "16", "--gen", "4", "--fff-backend",
+                    "grouped", "--capacity-factor", "0.5",
+                    "--overflow-policy", "exact_dense"])
+    out = capsys.readouterr().out
+    assert "fff backend=grouped requested" in out
+    if driver == "continuous":
+        assert "capacity factor 0.5, overflow policy exact_dense" in out
+        assert "served 4 requests, 16 tokens" in out
+    else:
+        assert "decode: 4 steps" in out
