@@ -151,7 +151,8 @@ class EPRun:
         self.d = d
         _draw_inputs(d)
         env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   XLA_FLAGS="--xla_force_host_platform_device_count=4",
+                   XLA_FLAGS="--xla_force_host_platform_device_count=4 "
+                             "--xla_cpu_multi_thread_eigen=false",
                    PYTHONPATH=str(REPO / "src"))
         self.jax_proc = subprocess.Popen(
             [sys.executable, "-c", JAX_CODE, str(d), repr(CFG), repr(LAYOUTS),
