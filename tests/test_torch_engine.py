@@ -538,15 +538,15 @@ def test_engine_overflow_policy_validation(model):
         engine(model, fff_backend="grouped", overflow_policy="master_leaf")
 
 
-@pytest.mark.parametrize("driver", ["continuous", "off"])
-def test_serve_cli_grouped_on_cpu(capsys, driver):
-    serve_mod.main(["--device", "cpu", "--engine", driver, "--batch", "2",
+@pytest.mark.parametrize("engine_flag", ["continuous", "off"])
+def test_serve_cli_grouped_on_cpu(capsys, engine_flag):
+    serve_mod.main(["--device", "cpu", "--engine", engine_flag, "--batch", "2",
                     "--prompt-len", "16", "--gen", "4", "--fff-backend",
                     "grouped", "--capacity-factor", "0.5",
                     "--overflow-policy", "exact_dense"])
     out = capsys.readouterr().out
     assert "fff backend=grouped requested" in out
-    if driver == "continuous":
+    if engine_flag == "continuous":
         assert "capacity factor 0.5, overflow policy exact_dense" in out
         assert "served 4 requests, 16 tokens" in out
     else:
