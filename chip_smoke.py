@@ -86,6 +86,27 @@ Phases (any failure raises, and the exit code is non-zero):
               ("exact_dense", cf 0.5) and one-process grouped_ep must give
               the reference backend's greedy tokens, and so must the engine
               on grouped ("exact_dense", cf 0.5), except at near-ties.
+8. train    — the training path (repro_torch.launch.train, lm.loss_fn, the
+              train backends, plain PyTorch under autograd: the JAX package
+              trains through einsums, no Pallas kernel).  First the card
+              against the CPU: FFF_CONFIG.reduced() in float32, one seeded
+              param tree on both, loss, metrics and every gradient within
+              1e-3 under train/reference and train/grouped, each with remat
+              "none" and "full" (whose recompute runs in autograd's own
+              thread on the card).  Then internlm2-20b FFF at full width,
+              bf16, remat "full", 4 of 48 layers: 20 steps of
+              launch.train.train, batch 8 x seq 128, lr 3e-4; every loss
+              finite, every gradient finite and nonzero at step 0, no
+              kernel launched, the mean loss of the last 5 steps at least
+              TRAIN_MARGIN below step 0's; logs the step time p50 (CUDA
+              events), peak memory, hardening, balance and the decisive
+              fraction before and after, and profiles one warm step (the
+              update of step 16 and the loss and gradient of step 17).  Last, 2 layers in float32 trained
+              3 steps, then served: lm.generate (batch 4, prompt 32, 8
+              greedy tokens) through the kernel backends (router, grouped
+              GEMMs, fused decode; their launches asserted) must equal the
+              reference backend's tokens, except where a row met a deciding
+              margin under 1e-3.
 
 Prints the kernel table as one JSON line (launches from the monolithic
 engine run), the card's name and power limit, and, last,
@@ -127,6 +148,10 @@ ACTS = ("none", "relu", "gelu", "silu")
 LEAF_EDGES, EDGE_B = (0, 1, 31, 32, 33, 64), 64
 # the capacities of the JAX grouped path (multiples of 8, not of 128)
 GROUPED_CAPS = (8, 16, 136, 264)
+# the train phase: full width, 4 layers, the JAX driver's defaults; the loss
+# must fall by TRAIN_MARGIN (nats, last 5 steps' mean against step 0)
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_MARGIN = 4, 20, 8, 128, 3e-4, 1.0
+TRAIN_SERVE_LAYERS, TRAIN_SERVE_STEPS = 2, 3
 
 
 def log(msg: str) -> None:
@@ -808,11 +833,15 @@ def phase_serve(common, api, serve_mod, cfg, params) -> dict:
 
 def profile_report(label, prof, wall_s, steps) -> None:
     averages = prof.key_averages()
-    events = [e for e in averages
-              if str(e.device_type).endswith("CUDA")]   # kernels, memsets, copies
+    # kernels, memsets, copies; not the device span a scheduled profiler's
+    # step annotation (ProfilerStep#) reports over them
+    events = [e for e in averages if str(e.device_type).endswith("CUDA")
+              and not e.key.startswith("ProfilerStep")]
     dev = lambda e: getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0))
     busy_us = sum(dev(e) for e in events)
+    mm_us = sum(dev(e) for e in events if any(
+        n in e.key.lower() for n in ("gemm", "nvjet", "xmma", "cutlass", "matmul")))
     launches = sum(e.count for e in averages if e.key.startswith(
         ("cudaLaunchKernel", "cuLaunchKernel")))
     # each blocking copy (.cpu(), float(t), a pageable upload) syncs the host
@@ -823,7 +852,9 @@ def profile_report(label, prof, wall_s, steps) -> None:
         f"clock, profiler on); device busy {busy_us / 1e3 / steps:.2f} ms "
         f"per step = {busy_us / 1e6 / wall_s:.1%} of the window; "
         f"{launches / steps:.0f} kernel launches, {syncs / steps:.0f} stream "
-        f"syncs and {d2h / steps:.0f} device-to-host copies per step")
+        f"syncs and {d2h / steps:.0f} device-to-host copies per step; matmul "
+        f"kernels {mm_us / 1e3 / steps:.2f} ms, the rest "
+        f"{(busy_us - mm_us) / 1e3 / steps:.2f} ms per step")
     router = [e for e in events if "tree_router" in e.key]
     for e in top + [e for e in router if e not in top]:
         log(f"[profile]   {dev(e) / 1e3 / steps:8.3f} ms/step  {e.count // steps:4d}"
@@ -1260,6 +1291,225 @@ def phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG) -> None:
     torch.cuda.empty_cache()
 
 
+def train_card_vs_cpu(api, lm, FFF_CONFIG) -> None:
+    """FFF_CONFIG.reduced() in float32: loss, metrics and every gradient of
+    lm.loss_fn on the card against the port's own CPU result (1e-3)."""
+    from repro_torch import optim, utils
+    from repro_torch.data import tokens as tokens_lib
+    cfg = FFF_CONFIG.reduced()
+    cpu = lm.init(cfg, seed=3, device="cpu")
+    card = utils.tree_map(lambda p: p.to("cuda"), cpu)
+    batch = tokens_lib.MarkovTokenSource(cfg.vocab_size, seed=3).batch(4, 32, seed=3)
+    worst = {}
+    for backend in ("reference", "grouped"):
+        for remat in ("none", "full"):
+            c = dataclasses.replace(cfg, remat=remat)
+            vg = optim.value_and_grad(lambda p, b: lm.loss_fn(p, c, b))
+            with api.overrides(backend=backend, mode="train"):
+                (_, want_m), want_g = vg(cpu, batch)
+                (_, got_m), got_g = vg(card, batch)
+            pairs = [(f"metric {k}", got_m[k], want_m[k]) for k in want_m]
+            pairs += [(f"grad {i}", g, w) for i, (g, w) in enumerate(
+                zip(utils.tree_leaves(got_g), utils.tree_leaves(want_g)))]
+            err = 0.0
+            for name, g, w in pairs:
+                g, w = g.float().cpu(), w.float()
+                e = (g - w).abs()
+                if not bool(torch.isfinite(g).all()) or bool((e > 1e-3 + 1e-3 * w.abs()).any()):
+                    raise AssertionError(f"[train] card vs CPU, {backend} remat {remat}: "
+                                         f"{name} max |err| {float(e.max()):.3e} "
+                                         f"exceeds rtol=atol=1e-3")
+                err = max(err, float(e.max()))
+            worst[f"{backend}/{remat}"] = err
+    log(f"[train] card vs CPU, {cfg.arch_id} reduced fp32 ({lm.param_count(cpu)} "
+        f"params): loss, metrics and every gradient within 1e-3 under "
+        f"train/reference and train/grouped, remat none and full; max |err| "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())}")
+
+
+def decisive_fractions(api, fff, lm, cfg, params, batch) -> list:
+    """Per layer, the fraction of decisive node decisions (entropy < 0.10)
+    of one training forward on ``batch``."""
+    fracs, apply_fn = [], api.apply
+
+    def recording_apply(p, c, x, spec=api.ExecutionSpec()):
+        y, out = apply_fn(p, c, x, spec)
+        fracs.append(float(fff.decisive_fraction(out.node_probs)))
+        return y, out
+
+    api.apply = recording_apply
+    try:
+        with torch.no_grad():
+            lm.loss_fn(params, cfg, batch)
+    finally:
+        api.apply = apply_fn
+    return fracs
+
+
+def train_full_width(common, api, fff, lm, FFF_CONFIG) -> None:
+    """internlm2-20b FFF, full width, bf16, remat "full", TRAIN_LAYERS layers:
+    TRAIN_STEPS steps of launch.train.train from seeded weights."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch import utils
+    from repro_torch.data import tokens as tokens_lib
+    from repro_torch.launch import train as train_mod
+    cfg = dataclasses.replace(FFF_CONFIG, n_layers=TRAIN_LAYERS)
+    params = lm.init(cfg, seed=0, device="cuda")
+    probe = tokens_lib.MarkovTokenSource(cfg.vocab_size, seed=0).batch(
+        TRAIN_B, TRAIN_S, seed=0)
+    before = decisive_fractions(api, fff, lm, cfg, params, probe)
+    bad_grads = []
+    # the profiler's steps end at each inspect call: its active step runs
+    # from the gradient of step W to that of step W + 1
+    W = TRAIN_STEPS - 4
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=W, warmup=1, active=1, repeat=1))
+    marks = {}
+
+    def inspect(i, grads, metrics):
+        if i == 0:
+            for k, g in enumerate(utils.tree_leaves(grads)):
+                if g is None or not bool(torch.isfinite(g).all()) or not bool(g.any()):
+                    bad_grads.append(k)
+        if i in (W, W + 1):
+            torch.cuda.synchronize()
+            marks[i] = time.perf_counter()
+        prof.step()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launch_counts()
+    prof.start()
+    try:
+        res = train_mod.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                              lr=TRAIN_LR, seed=0, device="cuda", params=params,
+                              inspect=inspect, log=lambda line: log(f"[train]   {line}"))
+    finally:
+        prof.stop()
+    counts = common.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    if any(counts.values()):
+        raise AssertionError(f"[train] kernels launched during training: {counts}")
+    if bad_grads:
+        raise AssertionError(f"[train] step 0: {len(bad_grads)} parameters with a "
+                             f"non-finite or all-zero gradient (leaves {bad_grads})")
+    losses = res.losses
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[train] non-finite loss: {losses}")
+    tail = sum(losses[-5:]) / 5
+    if not tail < losses[0] - TRAIN_MARGIN:
+        raise AssertionError(f"[train] loss fell from {losses[0]:.4f} to a last-5 "
+                             f"mean of {tail:.4f}, not by {TRAIN_MARGIN}")
+    after = decisive_fractions(api, fff, lm, cfg, res.params, probe)
+    ms = sorted(res.step_ms)
+    last = res.metrics[-1]
+    log(f"[train] {cfg.arch_id} FFF full width, {cfg.n_layers} of 48 layers, "
+        f"{lm.param_count(res.params) / 1e9:.2f}B params {cfg.param_dtype}, remat "
+        f"{cfg.remat}, batch {TRAIN_B} x seq {TRAIN_S}, {TRAIN_STEPS} steps, lr "
+        f"{TRAIN_LR}: loss {losses[0]:.4f} -> last-5 mean {tail:.4f} (drop "
+        f"{losses[0] - tail:.4f}, margin {TRAIN_MARGIN}); ce {res.metrics[0]['ce']:.4f}"
+        f" -> {last['ce']:.4f}; hardening {res.metrics[0]['hardening']:.4f} -> "
+        f"{last['hardening']:.4f}; balance {last['balance']:.4f}; step time p50 "
+        f"{ms[len(ms) // 2]:.2f} ms (min {ms[0]:.2f}, max {ms[-1]:.2f}; CUDA "
+        f"events, loss + gradient + update); peak memory {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated); decisive fraction per layer "
+        f"{[round(f, 4) for f in before]} -> {[round(f, 4) for f in after]}; "
+        f"every gradient finite and nonzero at step 0; kernel launches {counts}")
+    profile_report(f"train step (update {W}, loss and gradient {W + 1})", prof,
+                   marks[W + 1] - marks[W], 1)
+    del res
+    torch.cuda.empty_cache()
+
+
+def generate_batch_with_margins(api, fff, lm, cfg, params, prompt, steps, max_len,
+                                **overrides):
+    """lm.generate on the whole batch (under ``api.overrides(**overrides)``
+    when given), and per row the smallest deciding margin it met: a node
+    logit on a routed path, or the gap between the two largest logits."""
+    B = prompt.shape[0]
+    row_min = torch.full((B,), math.inf, device="cuda")
+    apply_fn, head_fn = api.apply, lm._head
+
+    def recording_apply(p, c, x, spec=api.ExecutionSpec()):
+        xf = x.reshape(B, -1, x.shape[-1]).to(c.accum_dtype)
+        logits = fff._node_logits_all(p, c, xf.reshape(-1, x.shape[-1]))[:, 0]
+        idx = torch.zeros(logits.shape[0], dtype=torch.long, device=x.device)
+        off = 0
+        for m in range(c.depth):
+            cur = logits[:, off:off + 2 ** m].gather(1, idx[:, None])[:, 0]
+            row_min.copy_(torch.minimum(row_min, cur.abs().reshape(B, -1).amin(1)))
+            idx = 2 * idx + (cur >= 0).long()
+            off += 2 ** m
+        return apply_fn(p, c, x, spec)
+
+    def recording_head(p, c, x):
+        out = head_fn(p, c, x)
+        top2 = out.topk(2, dim=-1).values
+        gap = (top2[..., 0] - top2[..., 1]).reshape(B, -1).amin(1)
+        row_min.copy_(torch.minimum(row_min, gap))
+        return out
+
+    api.apply, lm._head = recording_apply, recording_head
+    try:
+        with torch.inference_mode(), (api.overrides(**overrides) if overrides
+                                      else contextlib.nullcontext()):
+            out = lm.generate(params, cfg, prompt, steps, max_len)
+    finally:
+        api.apply, lm._head = apply_fn, head_fn
+    return out[:, prompt.shape[1]:], row_min.tolist()
+
+
+def train_then_serve(common, api, fff, lm, FFF_CONFIG) -> None:
+    """float32, full width, TRAIN_SERVE_LAYERS layers trained
+    TRAIN_SERVE_STEPS steps, then served through the kernel backends and the
+    reference backend: greedy tokens equal off near-ties."""
+    from repro_torch.launch import train as train_mod
+    cfg = dataclasses.replace(FFF_CONFIG, n_layers=TRAIN_SERVE_LAYERS,
+                              param_dtype=torch.float32, accum_dtype=torch.float32)
+    res = train_mod.train(cfg, steps=TRAIN_SERVE_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                          lr=TRAIN_LR, seed=1, device="cuda",
+                          log=lambda line: log(f"[train]   {line}"))
+    params = res.params
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (PARITY_B, PARITY_S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    max_len = PARITY_S + PARITY_STEPS + 1
+    common.reset_launch_counts()
+    kern, _ = generate_batch_with_margins(api, fff, lm, cfg, params, prompt,
+                                          PARITY_STEPS, max_len)
+    counts = common.launch_counts()
+    used = ("tree_router", "grouped_matmul", "grouped_matmul_dual", "fused_forest_decode")
+    if not all(counts[k] > 0 for k in used):
+        raise AssertionError(f"[train] serving the trained model: kernel launches {counts}")
+    ref, margin = generate_batch_with_margins(api, fff, lm, cfg, params, prompt,
+                                              PARITY_STEPS, max_len,
+                                              backend="reference", mode="infer")
+    ties = 0
+    for b in range(PARITY_B):
+        if torch.equal(kern[b], ref[b]):
+            continue
+        if margin[b] >= NEAR_TIE:
+            raise AssertionError(
+                f"[train] trained model, row {b}: kernel tokens {kern[b].tolist()} != "
+                f"reference {ref[b].tolist()} with no deciding margin under "
+                f"{NEAR_TIE} (smallest {margin[b]:.3e})")
+        ties += 1
+    log(f"[train] {cfg.n_layers} layers fp32 trained {TRAIN_SERVE_STEPS} steps (loss "
+        f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f}), then batch {PARITY_B} x "
+        f"prompt {PARITY_S}, {PARITY_STEPS} greedy tokens: kernel backends equal the "
+        f"reference backend ({ties} near-tie rows); kernel launches {counts}; "
+        f"smallest deciding margin per row {[f'{m:.3e}' for m in margin]}")
+    del params, res
+    torch.cuda.empty_cache()
+
+
+def phase_train(common, api, fff, lm, FFF_CONFIG) -> None:
+    train_card_vs_cpu(api, lm, FFF_CONFIG)
+    train_full_width(common, api, fff, lm, FFF_CONFIG)
+    train_then_serve(common, api, fff, lm, FFF_CONFIG)
+
+
 def main() -> int:
     name, smi = phase_device()
     sys.path.insert(0, str(SRC))
@@ -1293,6 +1543,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG)
+    phase_train(common, api, fff, lm, FFF_CONFIG)
 
     table = []
     for kname, k in common.KERNELS.items():

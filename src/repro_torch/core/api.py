@@ -3,7 +3,14 @@
 
     y, out = api.apply(params, cfg, x, api.ExecutionSpec(mode="infer"))
 
-Backends (inference; the training backends arrive with the training slice):
+Training backends (``mode="train"``, plain PyTorch under autograd):
+
+* ``reference``   — FORWARD_T, the paper's soft mixture over every leaf;
+* ``grouped``     — the straight-through top-1 estimator over
+  capacity-bounded grouped dispatch, with the differentiable einsums (the
+  forward-only kernels never run in a graph).
+
+Inference backends:
 
 * ``reference``   — hard descent + exact per-token leaf evaluation;
 * ``grouped``     — capacity-bounded grouped dispatch: per-leaf buffers of
@@ -94,12 +101,13 @@ def default_overflow_policy(backend: str) -> str:
 class ExecutionSpec:
     """How to execute one FFF layer application.
 
-    mode:            "train" | "infer" (only "infer" has backends so far)
+    mode:            "train" (FORWARD_T semantics) | "infer" (FORWARD_I)
     backend:         registered backend name, or "auto"
     capacity_factor: per-leaf capacity multiplier of the capacity-bounded
                      backends (grouped, grouped_ep, and the cuda backend's
                      grouped GEMMs, which are exact regardless); None = the
-                     backend's default (``default_capacity_factor``)
+                     backend's default (``default_capacity_factor``: 1.5
+                     for the straight-through estimator, 2.0 for serving)
     overflow_policy: what a capacity-bounded backend does with the tokens
                      it drops, one of ``OVERFLOW_POLICIES``; None = the
                      backend's default (``default_overflow_policy``).
@@ -113,6 +121,9 @@ class ExecutionSpec:
                      no capacity and count in no overflow; the kernel
                      backends only report them at the sentinel leaf.  Exact
                      backends' outputs are per-token exact regardless.
+    gen:             generator for the stochastic training feature (child
+                     transposition, ``cfg.transposition_prob``) on x's
+                     device; unused by inference backends (JAX ``rng``)
     """
     mode: str = "infer"
     backend: str = "auto"
@@ -120,6 +131,7 @@ class ExecutionSpec:
     overflow_policy: Optional[str] = None
     dense_levels: int = 8
     valid: Optional[torch.Tensor] = None
+    gen: Optional[torch.Generator] = None
 
     def validate(self) -> "ExecutionSpec":
         if self.mode not in MODES:
@@ -135,14 +147,20 @@ class ExecutionSpec:
 @dataclasses.dataclass(frozen=True)
 class FFFOutput:
     """Structured aux returned by every backend; fields a backend cannot
-    produce are None.  (The training slice adds FORWARD_T's node_probs,
-    mixture and entropy.)
+    produce are None (hard inference has no node probabilities, FORWARD_T
+    no leaf indices).
 
     leaf_idx:          (..., trees) int32 — routed leaf per (token, tree)
+    node_probs:        (B, trees, num_nodes) — sigmoid node outputs
+    mixture:           (B, trees, num_leaves) — FORWARD_T leaf weights
+    entropy:           scalar — mean Bernoulli entropy of node decisions
     overflow_fraction: scalar — fraction of slots dropped by a capacity
                        bound (0 for exact paths)
     """
     leaf_idx: Optional[torch.Tensor] = None
+    node_probs: Optional[torch.Tensor] = None
+    mixture: Optional[torch.Tensor] = None
+    entropy: Optional[torch.Tensor] = None
     overflow_fraction: Optional[torch.Tensor] = None
 
 
@@ -299,6 +317,34 @@ def overrides(*, backend: Optional[str] = None, mode: Optional[str] = None,
     return _installed()
 
 
+_CONTEXT_FIELDS = ("override", "capacity_override", "overflow_override",
+                   "routing")
+
+
+def thread_context() -> tuple:
+    """This thread's overrides, routing tap and installed process groups,
+    for ``context_installed`` to reinstate in another thread: autograd runs
+    a CUDA backward, and with it the recompute of a checkpointed layer, in
+    a thread of its own, where these thread-local settings are unset."""
+    return ({f: getattr(_thread_state, f, None) for f in _CONTEXT_FIELDS},
+            dist_act.current_groups() if dist_act.mesh_installed() else None)
+
+
+@contextlib.contextmanager
+def context_installed(ctx: tuple):
+    """Install a ``thread_context()`` for the dynamic extent of the block."""
+    fields, groups = ctx
+    prev = {f: getattr(_thread_state, f, None) for f in _CONTEXT_FIELDS}
+    for f, v in fields.items():
+        setattr(_thread_state, f, v)
+    try:
+        with dist_act.groups_installed(groups):
+            yield
+    finally:
+        for f, v in prev.items():
+            setattr(_thread_state, f, v)
+
+
 def _deprecated_alias(old: str, new: str) -> None:
     warnings.warn(f"api.{old} is deprecated; use api.{new}",
                   DeprecationWarning, stacklevel=3)
@@ -420,6 +466,26 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _train_reference(params, cfg, x, spec):
+    """FORWARD_T: the soft mixture over all leaves (paper Algorithm 1)."""
+    y, aux = fff_lib._forward_soft_mixture(params, cfg, x, gen=spec.gen)
+    return y, FFFOutput(node_probs=aux["node_probs"], mixture=aux["mixture"],
+                        entropy=aux["entropy"])
+
+
+def _train_grouped(params, cfg, x, spec):
+    """Straight-through top-1 training over capacity-bounded grouped
+    dispatch (O(l) leaf cost per token), on the differentiable einsums."""
+    cf = (spec.capacity_factor if spec.capacity_factor is not None
+          else DEFAULT_CAPACITY_TRAIN_ST)
+    y, aux = fff_lib._forward_st_grouped(params, cfg, x, gen=spec.gen,
+                                         capacity_factor=cf)
+    return y, FFFOutput(leaf_idx=aux["leaf_idx"],
+                        node_probs=aux["node_probs"], mixture=aux["mixture"],
+                        entropy=aux["entropy"],
+                        overflow_fraction=aux["overflow_fraction"])
+
+
 def _infer_reference(params, cfg, x, spec):
     """FORWARD_I: hard descent + exact per-token leaf evaluation."""
     y, aux = fff_lib._forward_hard_gather(params, cfg, x,
@@ -505,6 +571,8 @@ def _kernel_output(cfg, x, y, leaf_idx, lead, valid):
                       overflow_fraction=_zero(x)))
 
 
+register_backend("train", "reference", _train_reference)
+register_backend("train", "grouped", _train_grouped)
 register_backend("infer", "reference", _infer_reference)
 register_backend("infer", "grouped", _infer_grouped)
 register_backend(

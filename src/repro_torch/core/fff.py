@@ -1,17 +1,25 @@
-"""Fast Feedforward (FFF) layer, inference half (port of ``repro/core/fff.py``).
+"""Fast Feedforward (FFF) layer (port of ``repro/core/fff.py``).
 
 A balanced binary tree of depth ``d`` with ``2^d - 1`` node networks and
-``2^d`` leaf networks.  FORWARD_I follows one root-to-leaf path per token
-and evaluates exactly one leaf per tree.  Nodes are stored level-major: the
-global index of node ``N[m, k]`` is ``2^m - 1 + k``; its children are
-``N[m+1, 2k]`` (left) and ``N[m+1, 2k+1]`` (right, taken when the logit is
+``2^d`` leaf networks, in the paper's two modes:
+
+* FORWARD_T (``mode="train"``): every node emits a Bernoulli probability,
+  each leaf's mixture weight is the product of the branch probabilities on
+  its root-to-leaf path, and all leaves are evaluated and mixed.
+* FORWARD_I (``mode="infer"``): each node decision is rounded, one
+  root-to-leaf path is followed and exactly one leaf per tree is evaluated.
+
+Nodes are stored level-major: the global index of node ``N[m, k]`` is
+``2^m - 1 + k``; its children are ``N[m+1, 2k]`` (left, weight ``1 - p``)
+and ``N[m+1, 2k+1]`` (right, weight ``p``, taken when the logit is
 ``>= 0``).
 
 The single entry point is :func:`repro_torch.core.api.apply`; this module
-holds the config, init, the node/leaf math the reference backend runs, and
-the capacity-bounded inference paths of the ``grouped`` and ``grouped_ep``
-backends with their overflow policies.  FORWARD_T, the straight-through
-path and the losses arrive with the training slice.
+holds the config, init, the node/leaf math, the soft mixture and the
+straight-through grouped estimator the training backends run (plain
+PyTorch under autograd), the hardening and balance losses, and the
+capacity-bounded inference paths of the ``grouped`` and ``grouped_ep``
+backends with their overflow policies.
 """
 from __future__ import annotations
 
@@ -147,6 +155,20 @@ def _node_logit_at(params: Params, cfg: FFFConfig, x: torch.Tensor,
     return torch.stack(out, dim=1)
 
 
+def mixture_weights(node_probs: torch.Tensor, depth: int) -> torch.Tensor:
+    """Leaf mixture weights from level-major node probabilities:
+    (..., 2^d - 1) -> (..., 2^d), w[leaf] = product over its path of p
+    (right) or 1 - p (left); a distribution over leaves by construction."""
+    lead = tuple(node_probs.shape[:-1])
+    w = torch.ones(lead + (1,), dtype=node_probs.dtype, device=node_probs.device)
+    off = 0
+    for m in range(depth):
+        p = node_probs[..., off:off + 2 ** m]
+        w = torch.stack([w * (1.0 - p), w * p], dim=-1).reshape(lead + (2 ** (m + 1),))
+        off += 2 ** m
+    return w
+
+
 def route_hard(params: Params, cfg: FFFConfig, x: torch.Tensor,
                dense_levels: int = 8) -> torch.Tensor:
     """FORWARD_I descent only: x (..., dim_in) -> leaf indices (..., trees).
@@ -179,6 +201,25 @@ def route_hard(params: Params, cfg: FFFConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # leaf math
 # ---------------------------------------------------------------------------
+
+def _leaf_forward_all(params: Params, cfg: FFFConfig, x: torch.Tensor
+                      ) -> torch.Tensor:
+    """Every leaf of every tree: x (B, D) -> (B, T, L, dim_out)."""
+    ad = cfg.accum_dtype
+    if cfg.activation == "swiglu":
+        g = utils.einsum_as("bd,tldh->btlh", x, params["leaf_wg"], out_dtype=ad)
+        u = utils.einsum_as("bd,tldh->btlh", x, params["leaf_wu"], out_dtype=ad)
+        return utils.einsum_as("btlh,tlho->btlo", F.silu(g) * u,
+                               params["leaf_wd"], out_dtype=ad)
+    h = utils.einsum_as("bd,tldh->btlh", x, params["leaf_w1"], out_dtype=ad)
+    if "leaf_b1" in params:
+        h = h + params["leaf_b1"][None].to(ad)
+    h = utils.get_activation(cfg.activation)(h)
+    y = utils.einsum_as("btlh,tlho->btlo", h, params["leaf_w2"], out_dtype=ad)
+    if "leaf_b2" in params:
+        y = y + params["leaf_b2"][None].to(ad)
+    return y
+
 
 def leaf_mlp(w: dict, x: torch.Tensor, activation: str, accum_dtype,
              prefix: str = "leaf_") -> torch.Tensor:
@@ -258,6 +299,109 @@ def _forward_hard_gather(params: Params, cfg: FFFConfig, x: torch.Tensor,
     y = _leaf_forward_gather(params, cfg, xf, leaf_idx).sum(dim=1)
     return (utils.unflatten_leading(y, lead),
             {"leaf_idx": leaf_idx.reshape(*lead, cfg.trees)})
+
+
+# ---------------------------------------------------------------------------
+# training: FORWARD_T's soft mixture and the straight-through grouped
+# estimator (the train backends; autograd differentiates both)
+# ---------------------------------------------------------------------------
+
+def _soft_stats(params: Params, cfg: FFFConfig, xf: torch.Tensor,
+                gen: Optional[torch.Generator]
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Soft routing statistics of flat tokens xf (B, D): node probabilities
+    (B, T, N), leaf mixture (B, T, L) and the mean decision entropy.
+    ``cfg.freeze_tree`` (the paper's h = inf) stops the node gradients;
+    ``cfg.transposition_prob`` swaps a node's children (p -> 1 - p) with
+    that probability, drawn from ``gen`` (no swaps without one)."""
+    B, ad = xf.shape[0], cfg.accum_dtype
+    if cfg.depth == 0:
+        return (torch.zeros((B, cfg.trees, 0), dtype=ad, device=xf.device),
+                torch.ones((B, cfg.trees, 1), dtype=ad, device=xf.device),
+                torch.zeros((), dtype=ad, device=xf.device))
+    logits = _node_logits_all(params, cfg, xf)            # (B, T, N)
+    if cfg.freeze_tree:
+        logits = logits.detach()
+    probs = torch.sigmoid(logits)
+    if cfg.transposition_prob > 0.0 and gen is not None:
+        flip = torch.rand(probs.shape, generator=gen,
+                          device=probs.device) < cfg.transposition_prob
+        probs = torch.where(flip, 1.0 - probs, probs)
+    mix = mixture_weights(probs, cfg.depth)               # (B, T, L)
+    return probs, mix, bernoulli_entropy(probs).mean()
+
+
+def _forward_soft_mixture(params: Params, cfg: FFFConfig, x: torch.Tensor,
+                          gen: Optional[torch.Generator] = None
+                          ) -> tuple[torch.Tensor, dict]:
+    """FORWARD_T: the soft mixture over all leaves (the training reference).
+    x (..., dim_in) -> (..., dim_out), aux {node_probs (B, T, N), mixture
+    (B, T, L), entropy}."""
+    xf, lead = utils.flatten_leading(x)
+    xf = xf.to(cfg.accum_dtype)
+    probs, mix, ent = _soft_stats(params, cfg, xf, gen)
+    leaf_out = _leaf_forward_all(params, cfg, xf)         # (B, T, L, O)
+    y = torch.einsum("btl,btlo->bo", mix, leaf_out)
+    aux = {"node_probs": probs, "mixture": mix, "entropy": ent}
+    return utils.unflatten_leading(y, lead), aux
+
+
+def _st_descend(cfg: FFFConfig, probs: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hard top-1 descent with a straight-through path-probability scale:
+    probs (B, T, N) -> (leaf_idx (B, T) int32, scale (B, T)), the scale
+    exactly 1 in value while its gradient flows into the path
+    probabilities.  Ties (p = 0.5) go right, as in inference."""
+    B, T = probs.shape[:2]
+    idx = torch.zeros((B, T), dtype=torch.int64, device=probs.device)
+    path_prob = torch.ones((B, T), dtype=cfg.accum_dtype, device=probs.device)
+    off = 0
+    for m in range(cfg.depth):
+        p_here = torch.gather(probs[:, :, off:off + 2 ** m], 2, idx[..., None])[..., 0]
+        bit = (p_here >= 0.5).detach()
+        path_prob = path_prob * torch.where(bit, p_here, 1.0 - p_here)
+        idx = 2 * idx + bit.long()
+        off += 2 ** m
+    scale = path_prob + (1.0 - path_prob).detach()
+    return idx.to(torch.int32), scale
+
+
+def _forward_st_grouped(params: Params, cfg: FFFConfig, x: torch.Tensor,
+                        gen: Optional[torch.Generator] = None,
+                        capacity_factor: float = 1.5
+                        ) -> tuple[torch.Tensor, dict]:
+    """Beyond the paper: top-1 training at O(l) leaf cost.  The hard path
+    is followed and each tree's routed leaf output is scaled by
+    ``path_prob + sg(1 - path_prob)``, so the value is the leaf output and
+    the gradient reaches the path probabilities.  The leaves run the
+    capacity-bounded grouped dispatch with the differentiable einsums
+    (``serving=False``, never the forward-only kernels); tokens over a
+    leaf's capacity get zeros and no leaf gradient."""
+    xf, lead = utils.flatten_leading(x)
+    xf = xf.to(cfg.accum_dtype)
+    xf, B = _pad_for_dispatch(xf, dist_act.data_shard_count())
+    probs, mix, ent = _soft_stats(params, cfg, xf, gen)
+    if xf.shape[0] != B:      # keep the entropy monitor over real tokens only
+        ent = bernoulli_entropy(probs[:B]).mean()
+    idx, scale = _st_descend(cfg, probs)
+    idx = _sentinel_pads(idx, B, cfg.num_leaves)
+    out = None
+    kept_all = []
+    for t in range(cfg.trees):
+        tree_leaves = {k: v[t] for k, v in params.items()
+                       if k.startswith("leaf_")}
+        y, kept = routing_lib.grouped_leaf_apply(
+            xf, idx[:, t], tree_leaves, cfg.activation,
+            capacity_factor=capacity_factor, accum_dtype=cfg.accum_dtype,
+            serving=False, return_kept=True)
+        y = y * scale[:, t:t + 1]
+        out = y if out is None else out + y
+        kept_all.append(kept[:B])
+    overflow = 1.0 - torch.stack(kept_all).to(cfg.accum_dtype).mean()
+    aux = {"node_probs": probs[:B], "mixture": mix[:B], "entropy": ent,
+           "leaf_idx": idx[:B].reshape(*lead, cfg.trees),
+           "overflow_fraction": overflow}
+    return utils.unflatten_leading(out[:B], lead), aux
 
 
 # ---------------------------------------------------------------------------
@@ -419,3 +563,75 @@ def _forward_hard_ep(params: Params, cfg: FFFConfig, x: torch.Tensor,
         params, cfg, x,
         dist_act.data_shard_count() * dist_act.model_shard_count(),
         valid, dense_levels, leaves)
+
+
+# ---------------------------------------------------------------------------
+# hardening (paper §Hardening), balance and the routing diagnostics
+# ---------------------------------------------------------------------------
+
+def bernoulli_entropy(p: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """H(Bernoulli(p)) in nats, elementwise, with p clipped to [eps, 1 - eps].
+
+    Evaluated in float32 and returned in p's dtype.  For float32 p this is
+    the JAX package's arithmetic; for bfloat16 p it is a deliberate
+    deviation: 1 - 1e-7 rounds to 1 in bfloat16, so the JAX package's clip
+    cannot keep a saturated p (a node logit above ~6.2) below 1 and its
+    entropy is 0 * log(0), NaN."""
+    q = p.float().clamp(eps, 1.0 - eps)
+    return (-(q * torch.log(q) + (1.0 - q) * torch.log1p(-q))).to(p.dtype)
+
+
+def hardening_loss(node_probs: torch.Tensor, reduction: str = "mean"
+                   ) -> torch.Tensor:
+    """L_harden: the decision entropies summed (the paper) or, by default,
+    averaged (scale-invariant across depths; the scale is ``h``)."""
+    ent = bernoulli_entropy(node_probs)
+    return ent.sum() if reduction == "sum" else ent.mean()
+
+
+def balance_loss(node_probs: torch.Tensor, depth: int) -> torch.Tensor:
+    """Load balancing over soft leaf usage: (B, T, N) -> scalar
+    ``E * sum_e mean_batch(P)_e^2 - 1``, mean over trees, P each token's
+    soft leaf mixture.  0 exactly at uniform mean usage, growing with skew."""
+    if depth == 0:
+        return torch.zeros((), dtype=node_probs.dtype, device=node_probs.device)
+    mix = mixture_weights(node_probs, depth)           # (B, T, E)
+    usage = mix.mean(dim=0)                            # (T, E)
+    return (mix.shape[-1] * torch.square(usage).sum(dim=-1) - 1.0).mean()
+
+
+def leaf_usage(node_probs: torch.Tensor, depth: int) -> torch.Tensor:
+    """Mean soft leaf usage per tree: (B, T, N) -> (T, 2^depth)."""
+    return mixture_weights(node_probs, depth).mean(dim=0)
+
+
+def decision_entropy_per_node(node_probs: torch.Tensor) -> torch.Tensor:
+    """Batch-mean Bernoulli entropy per node: (B, T, N) -> (T, N); below
+    ~0.10 rounding is nearly lossless (the paper's hardening monitor)."""
+    return bernoulli_entropy(node_probs).mean(dim=0)
+
+
+def decisive_fraction(node_probs: torch.Tensor, threshold: float = 0.10
+                      ) -> torch.Tensor:
+    """Fraction of (token, node) decisions whose entropy is below threshold."""
+    return (bernoulli_entropy(node_probs) < threshold).float().mean()
+
+
+# ---------------------------------------------------------------------------
+# equivalence helper (paper §Size and width)
+# ---------------------------------------------------------------------------
+
+def as_dense_ff_params(params: Params, cfg: FFFConfig) -> Params:
+    """An FFF with all node weights zero is a vanilla FF of 2^d * l neurons,
+    up to the uniform output scale 2^-d; returns that dense parameter set
+    (single tree, MLP leaves)."""
+    if cfg.trees != 1 or cfg.activation == "swiglu":
+        raise ValueError("dense equivalence defined for single-tree MLP leaves")
+    L = cfg.num_leaves
+    w1 = params["leaf_w1"][0].permute(1, 0, 2).reshape(cfg.dim_in, L * cfg.leaf_width)
+    w2 = (params["leaf_w2"][0] * (1.0 / L)).reshape(L * cfg.leaf_width, cfg.dim_out)
+    out: Params = {"w1": w1, "w2": w2}
+    if "leaf_b1" in params:
+        out["b1"] = params["leaf_b1"][0].reshape(L * cfg.leaf_width)
+        out["b2"] = params["leaf_b2"][0].sum(dim=0) * (1.0 / L)
+    return out

@@ -5,10 +5,12 @@
 * Switch-style capacity-bounded dispatch: each leaf gets ``C`` slots per
   (data shard, leaf); tokens past them are dropped, and the caller's
   overflow policy decides what they get (``core/fff.py``).
-* ``grouped_leaf_apply``: the ``grouped`` backend's leaf execution over
-  capacity-padded ``(E, C, D)`` buffers.  On a CUDA tensor it runs the
-  hand-written grouped GEMMs of ``kernels/leaf_gemm`` (or raises); on the
-  CPU the JAX package's einsums.
+* ``grouped_leaf_apply``: the leaf execution of the ``grouped`` backends
+  over capacity-padded ``(E, C, D)`` buffers.  Serving (``serving=True``)
+  on a CUDA tensor runs the hand-written grouped GEMMs of
+  ``kernels/leaf_gemm`` (or raises); training (``serving=False``, the
+  straight-through estimator) and the CPU run the JAX package's einsums,
+  which autograd differentiates.  The kernels are forward-only.
 * ``grouped_leaf_apply_ep``: the ``grouped_ep`` backend's expert-parallel
   form over the model process group that ``distributed/act`` installs:
   tokens travel to the rank owning their leaf by ``all_to_all`` and back.
@@ -154,13 +156,20 @@ def _leaf_mlp_on_buffers(xbuf: torch.Tensor, params: dict, activation: str,
     C, O).  ``params`` holds one tree's leaf weights on the same leading E
     axis as ``xbuf``.
 
-    On a CUDA tensor this runs the grouped GEMMs of ``kernels/leaf_gemm``
-    in the buffer's dtype (float32 accumulation inside), skipping rows at
-    or past ``group_sizes`` (..., E) (None = every row); if a kernel does
-    not build or launch, this raises.  On the CPU it is the JAX package's
-    einsums in ``accum_dtype``."""
+    The serving paths' form.  On a CUDA tensor this runs the grouped GEMMs
+    of ``kernels/leaf_gemm`` in the buffer's dtype (float32 accumulation
+    inside), skipping rows at or past ``group_sizes`` (..., E) (None =
+    every row); if a kernel does not build or launch, this raises.  On the
+    CPU it is ``_leaf_mlp_einsums``."""
     if xbuf.device.type == "cuda":
         return _leaf_mlp_kernels(xbuf, params, activation, group_sizes)
+    return _leaf_mlp_einsums(xbuf, params, activation, accum_dtype)
+
+
+def _leaf_mlp_einsums(xbuf: torch.Tensor, params: dict, activation: str,
+                      accum_dtype) -> torch.Tensor:
+    """The JAX package's per-leaf MLP einsums in ``accum_dtype`` on either
+    device: (..., E, C, D) -> (..., E, C, O), differentiable."""
     ad = accum_dtype
     if "leaf_wg" in params:
         g = utils.einsum_as("...ecd,edh->...ech", xbuf, params["leaf_wg"], out_dtype=ad)
@@ -239,8 +248,10 @@ def grouped_leaf_apply(x: torch.Tensor, leaf_idx: torch.Tensor, params: dict,
     capacity-neutral tokens when B % G != 0), so capacity is per (shard,
     leaf): ``max(8, round_up(int(cf * ceil(B/G / E)), 8))``.  Tokens over
     their shard's capacity contribute zeros; the caller's overflow policy
-    decides what they get instead.  ``serving`` is the JAX signature's
-    layout switch, which eager PyTorch has no use for.
+    decides what they get instead.  ``serving`` picks the leaf MLP: True
+    (the inference backends) lets a CUDA buffer run the forward-only
+    grouped GEMMs; False (the straight-through training backend) keeps the
+    differentiable einsums on every device.
 
     x (B, D); params: one tree's leaf weights {leaf_w1/leaf_w2} or
     {leaf_wg/leaf_wu/leaf_wd}.  Returns (B, dim_out) in ``accum_dtype``, or
@@ -266,8 +277,11 @@ def grouped_leaf_apply(x: torch.Tensor, leaf_idx: torch.Tensor, params: dict,
     xbuf = torch.zeros((G * n + 1, D), dtype=x.dtype, device=x.device)
     xbuf[flat] = x
     xbuf = xbuf[:-1].view(G, E, capacity, D)
-    sizes = _counts(torch.where(kept, shard * E + idx_g, G * E), G * E).view(G, E)
-    yg = _leaf_mlp_on_buffers(xbuf, params, activation, accum_dtype, sizes)
+    if serving:
+        sizes = _counts(torch.where(kept, shard * E + idx_g, G * E), G * E).view(G, E)
+        yg = _leaf_mlp_on_buffers(xbuf, params, activation, accum_dtype, sizes)
+    else:
+        yg = _leaf_mlp_einsums(xbuf, params, activation, accum_dtype)
     O = yg.shape[-1]
     kept = kept.reshape(-1)
     y = yg.reshape(G * n, O)[torch.where(kept, flat, 0)]

@@ -39,3 +39,7 @@ class MarkovTokenSource:
                            nxt)
             out[:, t] = nxt
         return out
+
+    def batch(self, batch: int, seq_len: int, seed: int) -> dict:
+        toks = self.sample(batch, seq_len, seed)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -41,6 +41,19 @@ def use_groups(model, data=None):
         _state.groups = prev
 
 
+@contextlib.contextmanager
+def groups_installed(groups: Optional[tuple]):
+    """Install exactly ``groups`` (a ``(model, data)`` pair, or None for
+    none) for this thread: how a state read with ``current_groups`` in one
+    thread is carried into another.  Contexts nest."""
+    prev = _groups()
+    _state.groups = groups
+    try:
+        yield
+    finally:
+        _state.groups = prev
+
+
 def mesh_installed() -> bool:
     """Whether process groups are installed in this thread (the JAX
     package's "a mesh is installed")."""

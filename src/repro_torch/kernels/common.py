@@ -186,6 +186,24 @@ def check(t: torch.Tensor, name: str, *, like: Optional[torch.Tensor] = None,
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
 
 
+def forward_only(name: str, *tensors) -> None:
+    """Every kernel is forward-only (the JAX package has no backward for its
+    Pallas kernels either): raise when grad mode is on and an input requires
+    grad, on either device, so a kernel's output never stands in an autograd
+    graph with its inputs' gradients silently missing.  ``tensors`` may hold
+    None and tuples of tensors."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            forward_only(name, *t)
+        elif t is not None and t.requires_grad:
+            raise RuntimeError(
+                f"{name}: the kernel is forward-only and an input requires "
+                f"grad; run it under torch.no_grad() or inference_mode, and "
+                f"train through the einsum backends (mode='train')")
+
+
 def dtype_code(t: torch.Tensor) -> int:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")

@@ -31,6 +31,7 @@ def fused_forest_decode(x: torch.Tensor, nw: torch.Tensor, nb: torch.Tensor,
     with ``act="swiglu"``, (wg, wu (T, E, D, l), wd (T, E, l, O));
     ``master_w`` optional, the same minus the (T, E) axes.  All one dtype.
     Returns ``(y (B, O) in x's dtype, leaf_idx (B, T) int32)``."""
+    common.forward_only("fused_forest_decode", x, nw, nb, leaf_w, master_w)
     if x.device.type == "cpu":
         return R.fused_decode_ref(x, nw, nb, leaf_w, depth=depth, act=act,
                                   master_w=master_w)

@@ -29,6 +29,7 @@ def gathered_matmul(x: torch.Tensor, w: torch.Tensor, leaf_idx: torch.Tensor,
     (B,) int32 -> (B, H) in x's dtype; act in none/relu/gelu/silu.  Unlike
     the Pallas kernel, D and H need no tiles that divide them: the kernel
     masks its ragged edges."""
+    common.forward_only("gathered_matmul", x, w)
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}; have {sorted(ACTS)}")
     if x.device.type == "cpu":
@@ -40,6 +41,7 @@ def gathered_matmul_dual(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                          leaf_idx: torch.Tensor) -> torch.Tensor:
     """SwiGLU up with per-token leaves: silu(x @ wg[i]) * (x @ wu[i]) ->
     (B, H)."""
+    common.forward_only("gathered_matmul_dual", x, wg, wu)
     if x.device.type == "cpu":
         return R.gathered_matmul_dual_ref(x, wg, wu, leaf_idx)
     return _launch(GATHERED_DUAL, x, (wg, wu), leaf_idx, ())

@@ -27,6 +27,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                    ) -> torch.Tensor:
     """x (E, C, D) @ w (E, D, H) -> act(.) (E, C, H), skipping token tiles
     at or past ``group_sizes`` (E,) int32; act in none/relu/gelu/silu."""
+    common.forward_only("grouped_matmul", x, w)
     if act not in R.ACTS:
         raise ValueError(f"unknown act {act!r}; have {sorted(R.ACTS)}")
     if x.device.type == "cpu":
@@ -37,6 +38,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
 def grouped_matmul_dual(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                         group_sizes: torch.Tensor) -> torch.Tensor:
     """SwiGLU up: silu(x @ wg) * (x @ wu), grouped per leaf: -> (E, C, H)."""
+    common.forward_only("grouped_matmul_dual", x, wg, wu)
     if x.device.type == "cpu":
         return R.grouped_matmul_dual_ref(x, wg, wu, group_sizes)
     return _launch(GMM_DUAL, x, (wg, wu), group_sizes, ())

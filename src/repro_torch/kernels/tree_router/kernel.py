@@ -27,6 +27,7 @@ def tree_router(x: torch.Tensor, node_w: torch.Tensor, node_b: torch.Tensor,
     (float32 or bfloat16) -> (B,) int32 leaf indices.  Unlike the Pallas
     kernel, B need not be a multiple of a tile: the kernel masks its ragged
     last tile itself."""
+    common.forward_only("tree_router", x, node_w, node_b)
     if x.device.type == "cpu":
         return R.tree_router_ref(x, node_w, node_b, depth=depth)
     return _launch(x, node_w, node_b, depth)

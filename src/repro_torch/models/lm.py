@@ -1,7 +1,10 @@
-"""Causal LM wrapper (port of ``repro/models/lm.py``): init, KV caches,
-prefill, one decode step, the fixed-shape chunk slabs of the serving
-engine (chunked prefill, speculative verify), per-row cache surgery and
-the greedy/temperature generate loop."""
+"""Causal LM wrapper (port of ``repro/models/lm.py``): init, the training
+loss (``loss_fn``: cross-entropy plus the FFF hardening and balance aux
+terms), KV caches, prefill, one decode step, the fixed-shape chunk slabs
+of the serving engine (chunked prefill, speculative verify), per-row cache
+surgery and the greedy/temperature generate loop.  Serving builds no
+autograd graph: ``generate`` runs under ``torch.no_grad``, and the serving
+drivers under ``inference_mode``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -54,6 +57,43 @@ def _device(params: Params) -> torch.device:
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = norms.norm_apply(cfg.norm, params["final_norm"], x)
     return embeddings.logits(params["embed"], x)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean cross-entropy over positions whose label is not
+    ``ignore_index``, the log-softmax in float32; returns (loss, accuracy)."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    denom = valid.sum().clamp(min=1)
+    loss = -(ll * valid).sum() / denom
+    acc = ((logits.argmax(-1) == labels) & valid).sum() / denom
+    return loss, acc
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict,
+            gen: Optional[torch.Generator] = None
+            ) -> tuple[torch.Tensor, dict]:
+    """Training loss: cross-entropy plus the FFF hardening and balance aux
+    terms (and the MoE one, zero until MoE sites are ported), summed over
+    layers.  ``batch`` holds ``tokens`` and ``labels`` (B, S), tensors or
+    numpy arrays; ``gen`` drives the FFF sites' stochastic training
+    feature.  Returns (loss, metrics) with the JAX package's metric names:
+    loss, ce, accuracy, hardening, moe_aux, balance."""
+    dev = _device(params)
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    x = embeddings.embed(params["embed"], tokens, cfg.accum_dtype)
+    x, _, aux = transformer.stack_forward(params["stack"], cfg, x,
+                                          mode="train", gen=gen)
+    ce, acc = cross_entropy(_head(params, cfg, x), labels)
+    loss = ce + aux["hardening"] + aux["moe_aux"] + aux["balance"]
+    metrics = {"loss": loss, "ce": ce, "accuracy": acc,
+               "hardening": aux["hardening"], "moe_aux": aux["moe_aux"],
+               "balance": aux["balance"]}
+    return loss, metrics
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: dict, caches: list[dict]
@@ -161,6 +201,7 @@ def verify_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return _head(params, cfg, x), caches, stats
 
 
+@torch.no_grad()
 def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
              steps: int, max_len: int, generator: Optional[torch.Generator] = None,
              temperature: float = 0.0, eos_id: Optional[int] = None

@@ -1,14 +1,16 @@
 """Attention (port of ``repro/nn/attention.py``): GQA with RoPE, plain
-materialized-score attention, and the KV cache for decode, chunked
-prefill and speculative verify.
+materialized-score attention (full-sequence self-attention for training
+and eval), and the KV cache for decode, chunked prefill and speculative
+verify.
 
 Attention is plain PyTorch, as the JAX package computes it outside Pallas.
 The blocked ``flash_attention`` the JAX package uses above 2048 tokens is
-not ported yet, so prompts longer than that raise.  The KV cache keeps the
-JAX fields (page pools, page table, lengths) in the contiguous layout only:
-one ``max_len`` page per row and an identity table.  Unlike the JAX
-package, cache writes update the pools in place (the returned cache shares
-them), which saves a copy of every layer's cache per step.
+not ported yet, so prompts and training sequences longer than that raise.
+The KV cache keeps the JAX fields (page pools, page table, lengths) in the
+contiguous layout only: one ``max_len`` page per row and an identity
+table.  Unlike the JAX package, cache writes update the pools in place
+(the returned cache shares them), which saves a copy of every layer's
+cache per step.
 """
 from __future__ import annotations
 
@@ -93,8 +95,10 @@ def _expand_kv(kv: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool = True) -> torch.Tensor:
-    """Materialized-score attention.  q (B, S, H, hd); k, v (B, Sk, K, hd)."""
+                   causal: bool = True,
+                   bias_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Materialized-score attention.  q (B, S, H, hd); k, v (B, Sk, K, hd);
+    ``bias_mask`` (S, Sk) bool, False = masked (a sliding-window band)."""
     B, S, H, hd = q.shape
     Sk = k.shape[1]
     G = H // k.shape[2]
@@ -104,6 +108,8 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal:
         mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device).tril(Sk - S)
         s = s.masked_fill(~mask, NEG_INF)
+    if bias_mask is not None:
+        s = s.masked_fill(~bias_mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqp,bphd->bqhd", p, vf).to(q.dtype)
 
@@ -260,13 +266,36 @@ def chunk_attend(q: torch.Tensor, cache: KVCache, start: torch.Tensor, *,
 # block-level entry points
 # ---------------------------------------------------------------------------
 
+def _check_len(S: int) -> None:
+    if S > FLASH_ABOVE:
+        raise NotImplementedError(
+            f"sequences over {FLASH_ABOVE} tokens need the blocked flash "
+            f"attention, which is not ported yet")
+
+
+def forward(params: Params, cfg: AttnConfig, x: torch.Tensor,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention over a full sequence without a cache (train and
+    eval): x (B, S, D) -> (B, S, D), RoPE at positions 0..S-1 unless
+    ``positions`` (B, S) are given, a sliding-window band when
+    ``cfg.sliding_window`` is shorter than S."""
+    B, S, _ = x.shape
+    _check_len(S)
+    if positions is None and cfg.use_rope:
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    q, k, v = qkv(params, cfg, x, positions)
+    band = None
+    if cfg.sliding_window > 0 and S > cfg.sliding_window:
+        i = torch.arange(S, device=x.device)
+        band = (i[:, None] - i[None, :]) < cfg.sliding_window
+    o = full_attention(q, k, v, causal=cfg.causal, bias_mask=band)
+    return out_proj(params, cfg, o)
+
+
 def forward_prefill(params: Params, cfg: AttnConfig, x: torch.Tensor,
                     cache: KVCache) -> tuple[torch.Tensor, KVCache]:
     B, S, _ = x.shape
-    if S > FLASH_ABOVE:
-        raise NotImplementedError(
-            f"prompts over {FLASH_ABOVE} tokens need the blocked flash "
-            f"attention, which is not ported yet")
+    _check_len(S)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = qkv(params, cfg, x, positions if cfg.use_rope else None)
     cache = prefill_into_cache(cache, k, v)

@@ -1,6 +1,8 @@
 """FFN sites (port of ``repro/nn/mlp.py``): the dispatch point for the
-paper's technique.  This slice carries the ``fff`` kind at inference; the
-dense and MoE baselines and the training aux losses arrive later."""
+paper's technique.  This slice carries the ``fff`` kind, in training
+(FORWARD_T or the straight-through estimator, with the hardening and
+balance aux losses) and at inference; the dense and MoE baselines arrive
+later."""
 from __future__ import annotations
 
 from typing import Optional
@@ -42,14 +44,19 @@ def init(gen: torch.Generator, spec: FFNSpec, d_model: int, *, param_dtype,
 
 def forward(params: Params, spec: FFNSpec, d_model: int, x: torch.Tensor, *,
             param_dtype, accum_dtype, train: bool = False,
+            gen: Optional[torch.Generator] = None,
             valid: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, dict]:
-    """x (..., D) -> (..., D), aux: {'routing': RoutingStats} when an
-    ``api.collect_routing`` tap is active, else empty (the training terms
-    of the JAX aux dict arrive with the training slice).  ``valid`` marks
-    phantom tokens for the FFF dispatch (ExecutionSpec.valid)."""
-    if train:
-        raise NotImplementedError("FFN training arrives with the training slice")
+    """x (..., D) -> (..., D), aux.  In training, aux is the JAX package's
+    {'hardening', 'moe_aux', 'balance'} (float32 scalars); at inference it
+    holds 'routing' (RoutingStats) when an ``api.collect_routing`` tap is
+    active, else nothing (the serving path allocates no zero scalars).
+    ``gen`` drives the stochastic training feature (ExecutionSpec.gen);
+    ``valid`` marks phantom tokens for the FFF dispatch
+    (ExecutionSpec.valid)."""
     aux = {}
+    if train:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = {"hardening": zero, "moe_aux": zero, "balance": zero}
     if spec.kind == "none":
         return x, aux
     if spec.kind != "fff":
@@ -58,8 +65,15 @@ def forward(params: Params, spec: FFNSpec, d_model: int, x: torch.Tensor, *,
                           accum_dtype=accum_dtype)
     # one entry point; backend="auto" picks the execution strategy per site
     # (and the launch layer can steer it with api.overrides)
-    y, out = api.apply(params, cfg, x, api.ExecutionSpec(mode="infer",
-                                                         valid=valid))
-    if api.routing_enabled():
+    y, out = api.apply(params, cfg, x, api.ExecutionSpec(
+        mode="train" if train else "infer", gen=gen, valid=valid))
+    if train:
+        aux["hardening"] = (spec.hardening_scale
+                            * fff.hardening_loss(out.node_probs)).float()
+        # the soft node_probs exist in both the FORWARD_T and ST train paths
+        if spec.balance_scale:
+            aux["balance"] = (spec.balance_scale
+                              * fff.balance_loss(out.node_probs, cfg.depth)).float()
+    elif api.routing_enabled():
         aux["routing"] = api.routing_stats_from(out, cfg)
     return y, aux

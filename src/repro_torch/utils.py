@@ -1,6 +1,7 @@
 """Small shared utilities (port of ``repro/utils.py``): shape helpers, the
-activation table, initializers on an explicit ``torch.Generator`` and the
-device check every entry point runs."""
+activation table, initializers on an explicit ``torch.Generator``, the
+pytree helpers the optimizers walk parameter trees with, and the device
+check every entry point runs."""
 from __future__ import annotations
 
 import math
@@ -35,6 +36,34 @@ def einsum_as(eq: str, *operands: torch.Tensor, out_dtype) -> torch.Tensor:
     for o in operands:
         ct = torch.promote_types(ct, o.dtype)
     return torch.einsum(eq, *(o.to(ct) for o in operands)).to(out_dtype)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict/list/tuple, in a fixed order (dicts in
+    insertion order)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of same-shaped ``rest`` trees,
+    keeping the structure (``jax.tree_util.tree_map`` for dicts, lists and
+    tuples; a None leaf stays None)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return None if tree is None else fn(tree, *rest)
+
+
+def tree_global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32."""
+    leaves = tree_leaves(tree)
+    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in leaves))
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

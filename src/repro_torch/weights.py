@@ -45,7 +45,10 @@ def from_jax(params_np: dict, cfg: ModelConfig, device="cuda") -> dict:
 
     JAX keeps the stack as one entry per period position whose leaves carry
     a leading ``n_periods`` axis; the port keeps one dict per layer, layer
-    ``i`` being period ``i // len(period)``, position ``i % len(period)``."""
+    ``i`` being period ``i // len(period)``, position ``i % len(period)``.
+    Any tree of that layout maps the same way: the tests carry JAX
+    gradients and optimizer moments over with it to compare them with the
+    port's leaf by leaf."""
     n_pos = len(cfg.period)
 
     def layer(i):

@@ -17,6 +17,7 @@ import repro_torch
 from repro_torch.configs import registry
 from repro_torch.kernels import common
 from repro_torch.launch import serve as serve_mod
+from repro_torch.launch import train as train_mod
 from repro_torch.models import lm
 from repro_torch import weights
 
@@ -25,6 +26,11 @@ PORT = REPO / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tools" / "kernel_ab.py"]
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, prefix="repro_torch."))
+#: the training slice's modules, which the walk above must find
+TRAINING_MODULES = ("repro_torch.optim", "repro_torch.optim.accum",
+                    "repro_torch.optim.adamw", "repro_torch.optim.common",
+                    "repro_torch.optim.schedules", "repro_torch.optim.sgd",
+                    "repro_torch.launch.train")
 
 
 def test_every_module_imports_without_jax():
@@ -41,7 +47,8 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
-    assert len(MODULES) >= 25
+    assert set(TRAINING_MODULES) <= set(MODULES)
+    assert len(MODULES) >= 57
 
 
 def _imports(path):
@@ -68,6 +75,7 @@ def test_entry_points_default_to_the_card():
     for call in (lambda: lm.init(cfg),
                  lambda: lm.init_caches(cfg, 1, 8),
                  lambda: serve_mod.serve(cfg, batch=1, prompt_len=4, gen=1),
+                 lambda: train_mod.train(cfg, steps=1, batch=1, seq=4),
                  lambda: weights.tensor(np.ones(1, np.float32))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
