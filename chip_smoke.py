@@ -107,6 +107,32 @@ Phases (any failure raises, and the exit code is non-zero):
               GEMMs, fused decode; their launches asserted) must equal the
               reference backend's tokens, except where a row met a deciding
               margin under 1e-3.
+9. ckpt     — checkpoint/restart training (repro_torch.checkpoint, the fault
+              supervisor): internlm2-20b FFF at full width, bf16, remat
+              "full", 1 of 48 layers (1.53B parameters; ~15 GB a checkpoint,
+              so the phase fails unless the temporary directory's disk holds
+              two).  (a) a blocking save_tree and restore_tree of {params,
+              opt} after one step, bit-identical; (b) 6 uninterrupted steps
+              of launch.train.train; (c) the same 6 steps under the
+              supervisor (a checkpoint every 3 steps, async, keep 2, a
+              failure injected at step 4): it ends at step 6 with 1 restart,
+              its losses and final parameters equal (b)'s; (d) the step-6
+              checkpoint restored into a fresh model and served (batch 8,
+              prompt 128, 8 greedy tokens) through the kernels: the
+              in-memory model's tokens.  Prints the free disk, the checkpoint
+              bytes, the snapshot time on the caller's thread and the
+              background write and restore times.  Then the command line on
+              the card (--reduced): killed after step 4 and run again, it
+              resumes at step 3 with the uninterrupted run's losses; and the
+              data Prefetcher's card path.
+10. dense   — the paper's FF baseline: internlm2-20b native (dense SwiGLU,
+              d_ff 16384) at full width, bf16, 8 layers (4.26B parameters,
+              as the serve phase): the fixed-batch loop (batch 8, prompt 128,
+              16 decode steps; no kernel launches), then one warm prefill
+              and one warm decode step of it and of the 8-layer FFF model,
+              profiled, with the FFN sites' device time side by side; then
+              the reduced native LM's loss and gradients on the card against
+              the CPU (1e-3).
 
 Prints the kernel table as one JSON line (launches from the monolithic
 engine run), the card's name and power limit, and, last,
@@ -116,8 +142,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -152,6 +180,11 @@ GROUPED_CAPS = (8, 16, 136, 264)
 # must fall by TRAIN_MARGIN (nats, last 5 steps' mean against step 0)
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_MARGIN = 4, 20, 8, 128, 3e-4, 1.0
 TRAIN_SERVE_LAYERS, TRAIN_SERVE_STEPS = 2, 3
+# the ckpt phase: full width, 1 of 48 layers (bf16 params and float32 moments,
+# ~10 bytes a parameter: ~15 GB a checkpoint, CKPT_KEEP of them on disk); a
+# failure injected at CKPT_FAIL_AT; the restored model serves CKPT_GEN tokens
+CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT, CKPT_KEEP, CKPT_GEN = 1, 6, 3, 4, 2, 8
+CKPT_RTOL = 1e-6          # replayed losses, should a nondeterministic op show
 
 
 def log(msg: str) -> None:
@@ -1291,17 +1324,19 @@ def phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG) -> None:
     torch.cuda.empty_cache()
 
 
-def train_card_vs_cpu(api, lm, FFF_CONFIG) -> None:
-    """FFF_CONFIG.reduced() in float32: loss, metrics and every gradient of
-    lm.loss_fn on the card against the port's own CPU result (1e-3)."""
+def train_card_vs_cpu(api, lm, base_cfg, backends=("reference", "grouped"),
+                      label="train") -> None:
+    """base_cfg.reduced() in float32: loss, metrics and every gradient of
+    lm.loss_fn on the card against the port's own CPU result (1e-3), under
+    each train backend (they steer FFF sites only), remat none and full."""
     from repro_torch import optim, utils
     from repro_torch.data import tokens as tokens_lib
-    cfg = FFF_CONFIG.reduced()
+    cfg = base_cfg.reduced()
     cpu = lm.init(cfg, seed=3, device="cpu")
     card = utils.tree_map(lambda p: p.to("cuda"), cpu)
     batch = tokens_lib.MarkovTokenSource(cfg.vocab_size, seed=3).batch(4, 32, seed=3)
     worst = {}
-    for backend in ("reference", "grouped"):
+    for backend in backends:
         for remat in ("none", "full"):
             c = dataclasses.replace(cfg, remat=remat)
             vg = optim.value_and_grad(lambda p, b: lm.loss_fn(p, c, b))
@@ -1316,14 +1351,15 @@ def train_card_vs_cpu(api, lm, FFF_CONFIG) -> None:
                 g, w = g.float().cpu(), w.float()
                 e = (g - w).abs()
                 if not bool(torch.isfinite(g).all()) or bool((e > 1e-3 + 1e-3 * w.abs()).any()):
-                    raise AssertionError(f"[train] card vs CPU, {backend} remat {remat}: "
+                    raise AssertionError(f"[{label}] card vs CPU, {backend} remat {remat}: "
                                          f"{name} max |err| {float(e.max()):.3e} "
                                          f"exceeds rtol=atol=1e-3")
                 err = max(err, float(e.max()))
             worst[f"{backend}/{remat}"] = err
-    log(f"[train] card vs CPU, {cfg.arch_id} reduced fp32 ({lm.param_count(cpu)} "
-        f"params): loss, metrics and every gradient within 1e-3 under "
-        f"train/reference and train/grouped, remat none and full; max |err| "
+    log(f"[{label}] card vs CPU, {cfg.arch_id} {cfg.period[0].ffn.kind} reduced fp32 "
+        f"({lm.param_count(cpu)} params): loss, metrics and every gradient within "
+        f"1e-3 under {', '.join('train/' + b for b in backends)}, remat none and "
+        f"full; max |err| "
         f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())}")
 
 
@@ -1510,10 +1546,359 @@ def phase_train(common, api, fff, lm, FFF_CONFIG) -> None:
     train_then_serve(common, api, fff, lm, FFF_CONFIG)
 
 
+# ---------------------------------------------------------------------------
+# checkpoint/restart training, and the dense FF baseline
+# ---------------------------------------------------------------------------
+
+class Killed(BaseException):
+    """A process dying mid-run: nothing in the supervisor catches it."""
+
+
+def same_or_close(label, got, want) -> str:
+    """Equal, or (naming it) within CKPT_RTOL relative; raises otherwise."""
+    if got == want:
+        return "bit-identical"
+    rel = max(abs(g - w) / max(abs(w), 1e-30) for g, w in zip(got, want))
+    if len(got) != len(want) or not rel <= CKPT_RTOL:
+        raise AssertionError(f"[ckpt] {label}: {got} != {want}")
+    return f"NOT bit-identical, max rel diff {rel:.3e} (within {CKPT_RTOL})"
+
+
+def trees_equal(a, b, utils) -> tuple[bool, float]:
+    """(every leaf torch.equal, max relative difference)."""
+    eq, rel = True, 0.0
+    for x, y in zip(utils.tree_leaves(a), utils.tree_leaves(b)):
+        if not torch.equal(x, y):
+            eq = False
+            d = (x.float() - y.float()).abs().max() / y.float().abs().max().clamp(min=1e-30)
+            rel = max(rel, float(d))
+    return eq, rel
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def ckpt_round_trip(lm, cfg, params, root: Path, need: int) -> None:
+    """(a) one real train step from ``params``, then a blocking save_tree and
+    restore_tree of {"params", "opt"}: every leaf bit-identical, the AdamW
+    step intact."""
+    from repro_torch import checkpoint, optim, utils
+    from repro_torch.data import tokens as tokens_lib
+    opt = optim.chain_clip(optim.adamw(optim.cosine_warmup(TRAIN_LR, 1, CKPT_STEPS)), 1.0)
+    batch = tokens_lib.MarkovTokenSource(cfg.vocab_size, seed=0).batch(TRAIN_B, TRAIN_S, seed=0)
+    (_, _), grads = optim.value_and_grad(lambda p, b: lm.loss_fn(p, cfg, b))(params, batch)
+    opt_state = opt.init(params)
+    updates, opt_state = opt.update(grads, opt_state, params)
+    del grads
+    state = {"params": optim.apply_updates(params, updates), "opt": opt_state}
+    del params, updates
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_tree(str(root / "a"), state, step=1)
+    save_s = time.perf_counter() - t0
+    nbytes = dir_bytes(root / "a")
+    t0 = time.perf_counter()
+    got, step, _ = checkpoint.restore_tree(str(root / "a"), state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    leaves = list(zip(utils.tree_leaves(got), utils.tree_leaves(state)))
+    bad = [i for i, (g, w) in enumerate(leaves) if not (
+        (g.device, g.dtype) == (w.device, w.dtype) and torch.equal(g, w)
+        if isinstance(w, torch.Tensor) else g == w)]
+    if bad or step != 1 or got["opt"].step != 1 or type(got["opt"].step) is not int:
+        raise AssertionError(f"[ckpt] (a) round trip: leaves {bad} differ, step "
+                             f"{step}, AdamW step {got['opt'].step!r}")
+    log(f"[ckpt] (a) blocking save_tree + restore_tree of {{params, opt}} after one "
+        f"step: {len(leaves)} leaves bit-identical (torch.equal), on cuda in their "
+        f"dtypes, AdamW step 1 (int); checkpoint bytes {nbytes} "
+        f"({nbytes / 1e9:.2f} GB; the phase reserved {need / 1e9:.2f} GB for "
+        f"{CKPT_KEEP} of them); save_tree {save_s:.2f} s, restore_tree "
+        f"{restore_s:.2f} s (host clock)")
+    shutil.rmtree(root / "a")
+
+
+def ckpt_supervised(common, lm, cfg, root: Path):
+    """(b) CKPT_STEPS uninterrupted steps; (c) the same steps under the
+    supervisor (async manager, a checkpoint every CKPT_EVERY, keep
+    CKPT_KEEP) with a failure injected at step CKPT_FAIL_AT: the same
+    losses and final parameters.  Returns (c)'s result."""
+    from repro_torch import checkpoint, utils
+    from repro_torch.launch import train as train_mod
+    kw = dict(steps=CKPT_STEPS, batch=TRAIN_B, seq=TRAIN_S, lr=TRAIN_LR, seed=0,
+              device="cuda")
+    common.reset_launch_counts()
+    plain = train_mod.train(cfg, log=lambda line: log(f"[ckpt]   (b) {line}"), **kw)
+    tripped = []
+
+    def fail_once(i):
+        if i == CKPT_FAIL_AT and not tripped:
+            tripped.append(i)
+            log(f"[ckpt]   (c) injected failure at step {i}")
+            return True
+        return False
+
+    sup = train_mod.train(cfg, ckpt_dir=str(root / "c"), ckpt_every=CKPT_EVERY,
+                          keep=CKPT_KEEP, failure_hook=fail_once,
+                          log=lambda line: log(f"[ckpt]   (c) {line}"), **kw)
+    counts = common.launch_counts()
+    steps = checkpoint.CheckpointManager(str(root / "c")).steps()
+    if (sup.end, sup.restarts, steps) != (CKPT_STEPS, 1, [CKPT_EVERY, CKPT_STEPS]):
+        raise AssertionError(f"[ckpt] (c) ended at step {sup.end} with "
+                             f"{sup.restarts} restarts, checkpoints {steps}")
+    if any(counts.values()):
+        raise AssertionError(f"[ckpt] kernels launched during training: {counts}")
+    losses = same_or_close("(c) losses vs (b)", sup.losses, plain.losses)
+    eq, rel = trees_equal(sup.params, plain.params, utils)
+    if not eq and not rel <= CKPT_RTOL:
+        raise AssertionError(f"[ckpt] (c) final parameters differ from (b)'s: max rel {rel:.3e}")
+    t = sup.ckpt_timings
+    nbytes = dir_bytes(root / "c" / f"step_{CKPT_STEPS}")
+    log(f"[ckpt] (b) {CKPT_STEPS} uninterrupted steps, losses "
+        f"{[round(x, 4) for x in plain.losses]}; (c) under the supervisor, "
+        f"checkpoints every {CKPT_EVERY} (async, keep {CKPT_KEEP}), failure at "
+        f"step {CKPT_FAIL_AT}: ended at step {sup.end}, restarts {sup.restarts}, "
+        f"checkpoints {steps}; losses {losses}; final parameters "
+        f"{'bit-identical' if eq else f'max rel diff {rel:.3e}'}; kernel launches "
+        f"{counts}")
+    log(f"[ckpt] checkpoint bytes {nbytes} ({nbytes / 1e9:.2f} GB) at step {CKPT_STEPS}")
+    log(f"[ckpt] snapshot on the caller's thread {t['snapshot_s'] * 1e3:.1f} ms "
+        f"(step {CKPT_STEPS}, device to host)")
+    log(f"[ckpt] background write {t['write_s']:.2f} s (serialize + commit, "
+        f"step {CKPT_STEPS}); restore {t['restore_s']:.2f} s (step {CKPT_EVERY}, "
+        f"after the failure)")
+    del plain
+    return sup
+
+
+def ckpt_serve_restored(common, lm, serve_mod, cfg, root: Path, trained) -> None:
+    """(d) the newest checkpoint restored into a fresh model on the card,
+    served through the kernels: the in-memory model's tokens."""
+    from repro_torch import checkpoint
+    fresh = {"params": lm.init(cfg, seed=1, device="cuda")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, step, _ = checkpoint.restore_tree(str(root / "c" / f"step_{CKPT_STEPS}"), fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del fresh
+    runs = {}
+    for name, params in (("restored", got["params"]), ("in memory", trained)):
+        common.reset_launch_counts()
+        res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S, gen=CKPT_GEN,
+                              device="cuda", params=params)
+        runs[name] = (res.tokens, common.launch_counts())
+    (toks, counts), (want, _) = runs["restored"], runs["in memory"]
+    used = ("tree_router", "grouped_matmul", "grouped_matmul_dual", "fused_forest_decode")
+    if not all(counts[k] > 0 for k in used):
+        raise AssertionError(f"[ckpt] (d) serving the restored model: launches {counts}")
+    if step != CKPT_STEPS or not torch.equal(toks, want):
+        raise AssertionError(f"[ckpt] (d) restored step {step}: tokens "
+                             f"{toks.tolist()} != in-memory {want.tolist()}")
+    log(f"[ckpt] (d) step {step} restored into a fresh model on the card "
+        f"({restore_s:.2f} s, params only) and served, batch {PREFILL_B} x prompt "
+        f"{PREFILL_S}, {CKPT_GEN} greedy tokens: the in-memory model's tokens; "
+        f"kernel launches {counts}")
+
+
+def ckpt_cli_resume() -> None:
+    """The command line on the card (--reduced): a run killed after step 4
+    and started again resumes at step 3 with the uninterrupted run's losses;
+    then the Prefetcher's card path against shard_batch."""
+    import tempfile
+    from repro_torch.configs import registry
+    from repro_torch.data import pipeline
+    from repro_torch.data import tokens as tokens_lib
+    from repro_torch.launch import train as train_mod
+    d = Path(tempfile.mkdtemp(prefix="ckpt_cli_"))
+    try:
+        argv = ["--reduced", "--steps", "6", "--batch", "2", "--seq", "16"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            full = train_mod.main(argv)
+
+        def kill(i):
+            if i == 5:
+                for _ in range(6000):
+                    if (d / "step_3" / "manifest.json").exists():
+                        raise Killed()
+                    time.sleep(0.01)
+            return False
+
+        try:
+            train_mod.train(registry.get_config("internlm2-20b").reduced(), steps=6,
+                            batch=2, seq=16, ckpt_dir=str(d), ckpt_every=3,
+                            failure_hook=kill, log=lambda line: None)
+            raise AssertionError("[ckpt] the killed CLI run was not killed")
+        except Killed:
+            pass
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = train_mod.main(argv + ["--ckpt-dir", str(d), "--ckpt-every", "3"])
+        if res.start != 3 or res.end != 6:
+            raise AssertionError(f"[ckpt] CLI resumed at {res.start}, ended at {res.end}")
+        verdict = same_or_close("CLI resumed losses", res.losses, full.losses[3:])
+        log(f"[ckpt] CLI on the card (--reduced --steps 6 --ckpt-every 3): killed "
+            f"after step 4, run again: resumed at step 3, steps 3-5 losses "
+            f"{[round(x, 4) for x in res.losses]} against the uninterrupted run's "
+            f"{[round(x, 4) for x in full.losses[3:]]}: {verdict}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    src = tokens_lib.MarkovTokenSource(1000, seed=0)
+    pf = pipeline.Prefetcher(lambda i: src.batch(TRAIN_B, TRAIN_S, seed=i), device="cuda")
+    try:
+        for i in range(3):
+            got, want = next(pf), pipeline.shard_batch(src.batch(TRAIN_B, TRAIN_S, seed=i))
+            if got.keys() != want.keys() or not all(
+                    got[k].is_cuda and torch.equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"[ckpt] Prefetcher batch {i} != shard_batch's")
+    finally:
+        pf.close()
+    log("[ckpt] Prefetcher on the card (pinned, side-stream copies): 3 batches "
+        "equal shard_batch's")
+
+
+def phase_ckpt(common, lm, serve_mod, FFF_CONFIG) -> None:
+    import tempfile
+    cfg = dataclasses.replace(FFF_CONFIG, n_layers=CKPT_LAYERS)
+    root = Path(tempfile.mkdtemp(prefix="ckpt_smoke_"))
+    try:
+        free = shutil.disk_usage(root).free
+        params = lm.init(cfg, seed=0, device="cuda")
+        n = lm.param_count(params)
+        # bf16 params (2 bytes) and float32 moments (8) a parameter, CKPT_KEEP kept
+        need = CKPT_KEEP * n * (torch.finfo(cfg.param_dtype).bits // 8 + 8)
+        log(f"[ckpt] {cfg.arch_id} FFF full width, {cfg.n_layers} of 48 layers, "
+            f"{n / 1e9:.2f}B params {cfg.param_dtype}, remat {cfg.remat}; free disk "
+            f"{free} bytes ({free / 1e9:.2f} GB) at {root} before the phase "
+            f"(shutil.disk_usage); needs {need / 1e9:.2f} GB")
+        if free < need:
+            raise AssertionError(f"[ckpt] the disk holds {free / 1e9:.2f} GB free at "
+                                 f"{root}; the phase needs {need / 1e9:.2f} GB")
+        ckpt_round_trip(lm, cfg, params, root, need)
+        del params
+        torch.cuda.empty_cache()
+        sup = ckpt_supervised(common, lm, cfg, root)
+        torch.cuda.empty_cache()
+        ckpt_serve_restored(common, lm, serve_mod, cfg, root, sup.params)
+        del sup
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ckpt_cli_resume()
+
+
+def ffn_site_times(lm, mlp, cfg, params) -> dict:
+    """One warm prefill (PREFILL_B x PREFILL_S) and one warm decode step of
+    ``cfg`` under torch.profiler, every FFN site inside a
+    record_function("ffn_site") range and a pair of CUDA events.  Per phase:
+    (device busy ms, FFN-site device ms: the kernels that start inside the
+    ranges' device-side spans, the same as the profiler links kernels to the
+    ranges (which misses the ctypes launches of the CUDA kernels), FFN-site
+    CUDA-event span ms, sites).  A span holds the device's idle gaps too;
+    the device times do not."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    forward, spans = mlp.forward, []
+
+    def timed(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with record_function("ffn_site"):
+            start.record()
+            out = forward(*a, **kw)
+            end.record()
+        spans.append((start, end))
+        return out
+
+    prompt = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(4),
+                           dtype=torch.int32)
+
+    def prefill():
+        caches = lm.init_caches(cfg, PREFILL_B, PREFILL_S + 2, device="cuda")
+        return lm.prefill(params, cfg, {"tokens": prompt}, caches)
+
+    tot = lambda e: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+    on_card = lambda e: str(e.device_type).endswith("CUDA")
+    out = {}
+    mlp.forward = timed
+    try:
+        with torch.inference_mode():
+            logits, caches = prefill()                       # warm both
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+            lm.decode_step(params, cfg, tok, caches, PREFILL_S)
+            _, caches = prefill()
+            torch.cuda.synchronize()
+            for phase, fn in (("prefill", prefill), ("decode", lambda: lm.decode_step(
+                    params, cfg, tok, caches, PREFILL_S))):
+                spans.clear()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                # the range shows twice: a CPU op, whose device time sums the
+                # kernels linked to it, and a device-side annotation span
+                evs = prof.events()
+                ranges = [(e.time_range.start, e.time_range.end) for e in evs
+                          if on_card(e) and e.name == "ffn_site"]
+                work = [(e.time_range.start, e.time_range.end) for e in evs
+                        if on_card(e) and e.name != "ffn_site"]
+                inside = sum(t1 - t0 for t0, t1 in work
+                             if any(r0 <= t0 < r1 for r0, r1 in ranges))
+                linked = sum(tot(e) for e in evs if not on_card(e) and e.name == "ffn_site")
+                out[phase] = (sum(t1 - t0 for t0, t1 in work) / 1e3, inside / 1e3,
+                              linked / 1e3, sum(a.elapsed_time(b) for a, b in spans),
+                              len(spans))
+    finally:
+        mlp.forward = forward
+    return out
+
+
+def phase_dense(common, api, lm, serve_mod, FFF_CONFIG, CONFIG) -> None:
+    """internlm2-20b native (dense SwiGLU, d_ff 16384) at full width, bf16,
+    SERVE_LAYERS layers: the serve phase's fixed-batch loop (no kernel), then
+    the FFN sites' device time against FFF's in a warm prefill and decode
+    step; then the dense LM's loss and gradients on the card against the CPU."""
+    from repro_torch.nn import mlp
+    dense_cfg = dataclasses.replace(CONFIG, n_layers=SERVE_LAYERS)
+    fff_cfg = dataclasses.replace(FFF_CONFIG, n_layers=SERVE_LAYERS)
+    params = lm.init(dense_cfg, seed=0, device="cuda")
+    spec = dense_cfg.period[0].ffn
+    log(f"[dense] {dense_cfg.arch_id} native ({spec.kind} {spec.activation}, d_ff "
+        f"{spec.d_ff}) full width, {dense_cfg.n_layers} of 48 layers, "
+        f"{lm.param_count(params) / 1e9:.2f}B params {dense_cfg.param_dtype}")
+    common.reset_launch_counts()
+    res = serve_mod.serve(dense_cfg, batch=PREFILL_B, prompt_len=PREFILL_S, gen=GEN,
+                          device="cuda", params=params)
+    counts = common.launch_counts()
+    toks = res.tokens
+    if any(counts.values()) or tuple(toks.shape) != (PREFILL_B, GEN + 1) or not bool(
+            ((toks >= 0) & (toks < dense_cfg.vocab_size)).all()):
+        raise AssertionError(f"[dense] serve: launches {counts}, tokens {tuple(toks.shape)}")
+    log(f"[dense] serve batch {PREFILL_B} x prompt {PREFILL_S}, {GEN} decode steps: "
+        f"prefill {res.prefill_s * 1e3:.2f} ms (first call); decode p50 "
+        f"{res.steady.p50_ms:.2f} ms p90 {res.steady.p90_ms:.2f} ms; "
+        f"{res.tokens_per_s:.1f} tok/s; kernel launches {counts} (none: dense)")
+    times = {"dense": ffn_site_times(lm, mlp, dense_cfg, params)}
+    del params, res
+    torch.cuda.empty_cache()
+    params = lm.init(fff_cfg, seed=0, device="cuda")
+    times["fff"] = ffn_site_times(lm, mlp, fff_cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    for phase, what in (("prefill", f"{PREFILL_B}x{PREFILL_S} tokens"),
+                        ("decode", f"one step, batch {PREFILL_B}")):
+        d, f = times["dense"][phase], times["fff"][phase]
+        for name, (busy, inside, linked, span, n) in (("dense FF", d), ("FFF", f)):
+            log(f"[dense] warm {phase} ({what}), {name}: FFN sites {inside:.3f} ms "
+                f"device time (kernels inside the {n} sites' device-side spans; "
+                f"{linked:.3f} ms linked to their ranges); CUDA-event span "
+                f"{span:.3f} ms; device busy {busy:.3f} ms")
+        log(f"[dense] warm {phase}: FFN sites' device time dense/FFF "
+            f"{d[1] / max(f[1], 1e-9):.2f}x (event spans {d[3] / max(f[3], 1e-9):.2f}x)")
+    train_card_vs_cpu(api, lm, CONFIG, backends=("reference",), label="dense")
+
+
 def main() -> int:
     name, smi = phase_device()
     sys.path.insert(0, str(SRC))
-    from repro_torch.configs.internlm2_20b import FFF_CONFIG
+    from repro_torch.configs.internlm2_20b import CONFIG, FFF_CONFIG
     from repro_torch.core import api, fff
     from repro_torch.kernels import common
     from repro_torch.launch import serve as serve_mod
@@ -1544,6 +1929,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG)
     phase_train(common, api, fff, lm, FFF_CONFIG)
+    phase_ckpt(common, lm, serve_mod, FFF_CONFIG)
+    phase_dense(common, api, lm, serve_mod, FFF_CONFIG, CONFIG)
 
     table = []
     for kname, k in common.KERNELS.items():

@@ -227,8 +227,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-20b",
                     choices=list(registry.ARCH_IDS))
-    # dense/native FFN sites are not ported yet
-    ap.add_argument("--ffn", default="fff", choices=["fff"])
+    ap.add_argument("--ffn", default="fff", choices=["fff", "native", "dense"],
+                    help="fff = the paper's FFF sites; native/dense = the "
+                         "arch's dense FFN (the vanilla FF baseline: no "
+                         "kernel, no routing telemetry; leaf_aware admits "
+                         "as fcfs)")
     ap.add_argument("--fff-backend", default="auto",
                     choices=["auto"] + api.list_backends("infer"),
                     help="execution backend for every FFF site (auto = "

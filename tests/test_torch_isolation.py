@@ -1,7 +1,7 @@
 """The port stands alone: ``src/repro_torch/`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package, entry points never fall back
-to the CPU behind the caller's back, and every kernel names the Pallas
-kernel it replaces."""
+neither JAX, ``ml_dtypes`` nor anything of the JAX package, entry points
+never fall back to the CPU behind the caller's back, and every kernel
+names the Pallas kernel it replaces."""
 import ast
 import os
 import pathlib
@@ -23,7 +23,8 @@ from repro_torch import weights
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tools" / "kernel_ab.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tools" / "kernel_ab.py",
+                                         REPO / "tools" / "ckpt_io_probe.py"]
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, prefix="repro_torch."))
 #: the training slice's modules, which the walk above must find
@@ -31,12 +32,21 @@ TRAINING_MODULES = ("repro_torch.optim", "repro_torch.optim.accum",
                     "repro_torch.optim.adamw", "repro_torch.optim.common",
                     "repro_torch.optim.schedules", "repro_torch.optim.sgd",
                     "repro_torch.launch.train")
+#: the checkpoint/restart slice's modules and the dense baseline's
+CHECKPOINT_MODULES = ("repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+                      "repro_torch.checkpoint.manager",
+                      "repro_torch.checkpoint.elastic",
+                      "repro_torch.distributed.fault",
+                      "repro_torch.distributed.straggler",
+                      "repro_torch.core.ff", "repro_torch.core.regions",
+                      "repro_torch.data.synthetic", "repro_torch.data.pipeline")
 
 
 def test_every_module_imports_without_jax():
-    """Each module imports in a fresh interpreter where ``jax`` and
-    ``repro`` cannot be imported at all."""
-    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+    """Each module imports in a fresh interpreter where ``jax``,
+    ``ml_dtypes`` and ``repro`` cannot be imported at all."""
+    code = ("import sys\n"
+            "for m in ('jax', 'ml_dtypes', 'repro'): sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"
@@ -48,7 +58,8 @@ def test_every_module_imports_without_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
     assert set(TRAINING_MODULES) <= set(MODULES)
-    assert len(MODULES) >= 57
+    assert set(CHECKPOINT_MODULES) <= set(MODULES)
+    assert len(MODULES) >= 67
 
 
 def _imports(path):
@@ -62,7 +73,7 @@ def _imports(path):
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_source_imports_jax_or_repro(path):
     bad = [m for m in _imports(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+           if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro", "flax")]
     assert not bad, f"{path.name} imports {bad}"
 
 

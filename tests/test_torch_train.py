@@ -497,7 +497,7 @@ def test_train_cli_on_cpu(capsys, flags):
     res = train_mod.main(["--reduced", "--steps", "2", "--batch", "2", "--seq", "16",
                           "--device", "cpu", *flags])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[0].startswith("internlm2-20b: ") and lines[-1] == "done at step 2"
+    assert lines[0].startswith("internlm2-20b: ") and lines[-1] == "done at step 2 (restarts=0)"
     assert all(STEP_LINE.match(line) for line in lines[1:-1]), lines
     assert all(np.isfinite(res.losses))
     assert (res.metrics[0]["balance"] > 0) == ("--balance-weight" in flags)
