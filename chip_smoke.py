@@ -111,26 +111,28 @@ Phases (any failure raises, and the exit code is non-zero):
               supervisor): internlm2-20b FFF at full width, bf16, remat
               "full", 1 of 48 layers (1.53B parameters; ~15 GB a checkpoint,
               so the phase fails unless the temporary directory's disk holds
-              two).  (a) a blocking save_tree and restore_tree of {params,
-              opt} after one step, bit-identical; (b) 6 uninterrupted steps
-              of launch.train.train; (c) the same 6 steps under the
-              supervisor (a checkpoint every 3 steps, async, keep 2, a
-              failure injected at step 4): it ends at step 6 with 1 restart,
-              its losses and final parameters equal (b)'s; (d) the step-6
-              checkpoint restored into a fresh model and served (batch 8,
-              prompt 128, 8 greedy tokens) through the kernels: the
-              in-memory model's tokens.  Prints the free disk, the checkpoint
-              bytes, the snapshot time on the caller's thread and the
-              background write and restore times.  Then the command line on
-              the card (--reduced): killed after step 4 and run again, it
-              resumes at step 3 with the uninterrupted run's losses; and the
-              data Prefetcher's card path.
+              two).  (b) 6 uninterrupted steps of launch.train.train; (c) the
+              same 6 steps under the supervisor (a checkpoint every 3 steps,
+              async, keep 2, a failure injected at step 4): it ends at step
+              6 with 1 restart, its losses and final parameters bit-identical
+              to (b)'s; (a) a blocking save_tree and restore_tree of (c)'s
+              final {params, opt}, bit-identical; (d) the step-6 checkpoint
+              restored into a fresh model and served (batch 8, prompt 128, 8
+              greedy tokens) through the kernels: the in-memory model's
+              tokens.  Prints the free disk, the checkpoint bytes, the
+              snapshot time on the caller's thread and the background write
+              and restore times, each with its rate.  Then the command line
+              on the card (--reduced), each run its own process: killed with
+              SIGKILL after step 4 and run again, it resumes at step 3, and
+              its step-5 line and step-6 checkpoint are the uninterrupted
+              run's; and the data Prefetcher's card path.
 10. dense   — the paper's FF baseline: internlm2-20b native (dense SwiGLU,
               d_ff 16384) at full width, bf16, 8 layers (4.26B parameters,
               as the serve phase): the fixed-batch loop (batch 8, prompt 128,
               16 decode steps; no kernel launches), then one warm prefill
               and one warm decode step of it and of the 8-layer FFF model,
-              profiled, with the FFN sites' device time side by side; then
+              profiled, with the FFN sites' device time (the kernels inside
+              the 8 sites' device-side ranges) side by side; then
               the reduced native LM's loss and gradients on the card against
               the CPU (1e-3).
 
@@ -142,7 +144,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import io
 import json
 import math
 import shutil
@@ -184,7 +185,6 @@ TRAIN_SERVE_LAYERS, TRAIN_SERVE_STEPS = 2, 3
 # ~10 bytes a parameter: ~15 GB a checkpoint, CKPT_KEEP of them on disk); a
 # failure injected at CKPT_FAIL_AT; the restored model serves CKPT_GEN tokens
 CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT, CKPT_KEEP, CKPT_GEN = 1, 6, 3, 4, 2, 8
-CKPT_RTOL = 1e-6          # replayed losses, should a nondeterministic op show
 
 
 def log(msg: str) -> None:
@@ -1550,79 +1550,27 @@ def phase_train(common, api, fff, lm, FFF_CONFIG) -> None:
 # checkpoint/restart training, and the dense FF baseline
 # ---------------------------------------------------------------------------
 
-class Killed(BaseException):
-    """A process dying mid-run: nothing in the supervisor catches it."""
-
-
-def same_or_close(label, got, want) -> str:
-    """Equal, or (naming it) within CKPT_RTOL relative; raises otherwise."""
-    if got == want:
-        return "bit-identical"
-    rel = max(abs(g - w) / max(abs(w), 1e-30) for g, w in zip(got, want))
-    if len(got) != len(want) or not rel <= CKPT_RTOL:
-        raise AssertionError(f"[ckpt] {label}: {got} != {want}")
-    return f"NOT bit-identical, max rel diff {rel:.3e} (within {CKPT_RTOL})"
-
-
-def trees_equal(a, b, utils) -> tuple[bool, float]:
-    """(every leaf torch.equal, max relative difference)."""
-    eq, rel = True, 0.0
-    for x, y in zip(utils.tree_leaves(a), utils.tree_leaves(b)):
-        if not torch.equal(x, y):
-            eq = False
-            d = (x.float() - y.float()).abs().max() / y.float().abs().max().clamp(min=1e-30)
-            rel = max(rel, float(d))
-    return eq, rel
+def trees_equal(a, b, utils) -> bool:
+    """Every leaf torch.equal (tensors) or equal (ints), in one structure."""
+    la, lb = utils.tree_leaves(a), utils.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(y, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
 
 
 def dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
-def ckpt_round_trip(lm, cfg, params, root: Path, need: int) -> None:
-    """(a) one real train step from ``params``, then a blocking save_tree and
-    restore_tree of {"params", "opt"}: every leaf bit-identical, the AdamW
-    step intact."""
-    from repro_torch import checkpoint, optim, utils
-    from repro_torch.data import tokens as tokens_lib
-    opt = optim.chain_clip(optim.adamw(optim.cosine_warmup(TRAIN_LR, 1, CKPT_STEPS)), 1.0)
-    batch = tokens_lib.MarkovTokenSource(cfg.vocab_size, seed=0).batch(TRAIN_B, TRAIN_S, seed=0)
-    (_, _), grads = optim.value_and_grad(lambda p, b: lm.loss_fn(p, cfg, b))(params, batch)
-    opt_state = opt.init(params)
-    updates, opt_state = opt.update(grads, opt_state, params)
-    del grads
-    state = {"params": optim.apply_updates(params, updates), "opt": opt_state}
-    del params, updates
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    checkpoint.save_tree(str(root / "a"), state, step=1)
-    save_s = time.perf_counter() - t0
-    nbytes = dir_bytes(root / "a")
-    t0 = time.perf_counter()
-    got, step, _ = checkpoint.restore_tree(str(root / "a"), state)
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    leaves = list(zip(utils.tree_leaves(got), utils.tree_leaves(state)))
-    bad = [i for i, (g, w) in enumerate(leaves) if not (
-        (g.device, g.dtype) == (w.device, w.dtype) and torch.equal(g, w)
-        if isinstance(w, torch.Tensor) else g == w)]
-    if bad or step != 1 or got["opt"].step != 1 or type(got["opt"].step) is not int:
-        raise AssertionError(f"[ckpt] (a) round trip: leaves {bad} differ, step "
-                             f"{step}, AdamW step {got['opt'].step!r}")
-    log(f"[ckpt] (a) blocking save_tree + restore_tree of {{params, opt}} after one "
-        f"step: {len(leaves)} leaves bit-identical (torch.equal), on cuda in their "
-        f"dtypes, AdamW step 1 (int); checkpoint bytes {nbytes} "
-        f"({nbytes / 1e9:.2f} GB; the phase reserved {need / 1e9:.2f} GB for "
-        f"{CKPT_KEEP} of them); save_tree {save_s:.2f} s, restore_tree "
-        f"{restore_s:.2f} s (host clock)")
-    shutil.rmtree(root / "a")
+def rate(nbytes: int, seconds: float) -> str:
+    return f"{seconds:.2f} s at {nbytes / seconds / 1e9:.2f} GB/s"
 
 
-def ckpt_supervised(common, lm, cfg, root: Path):
+def ckpt_supervised(common, cfg, root: Path):
     """(b) CKPT_STEPS uninterrupted steps; (c) the same steps under the
     supervisor (async manager, a checkpoint every CKPT_EVERY, keep
     CKPT_KEEP) with a failure injected at step CKPT_FAIL_AT: the same
-    losses and final parameters.  Returns (c)'s result."""
+    losses and final parameters, bit for bit.  Returns (c)'s result."""
     from repro_torch import checkpoint, utils
     from repro_torch.launch import train as train_mod
     kw = dict(steps=CKPT_STEPS, batch=TRAIN_B, seq=TRAIN_S, lr=TRAIN_LR, seed=0,
@@ -1648,27 +1596,57 @@ def ckpt_supervised(common, lm, cfg, root: Path):
                              f"{sup.restarts} restarts, checkpoints {steps}")
     if any(counts.values()):
         raise AssertionError(f"[ckpt] kernels launched during training: {counts}")
-    losses = same_or_close("(c) losses vs (b)", sup.losses, plain.losses)
-    eq, rel = trees_equal(sup.params, plain.params, utils)
-    if not eq and not rel <= CKPT_RTOL:
-        raise AssertionError(f"[ckpt] (c) final parameters differ from (b)'s: max rel {rel:.3e}")
+    if sup.losses != plain.losses:
+        raise AssertionError(f"[ckpt] (c) losses {sup.losses} != (b)'s {plain.losses}")
+    if not trees_equal(sup.params, plain.params, utils):
+        raise AssertionError("[ckpt] (c) final parameters differ from (b)'s")
     t = sup.ckpt_timings
     nbytes = dir_bytes(root / "c" / f"step_{CKPT_STEPS}")
     log(f"[ckpt] (b) {CKPT_STEPS} uninterrupted steps, losses "
         f"{[round(x, 4) for x in plain.losses]}; (c) under the supervisor, "
         f"checkpoints every {CKPT_EVERY} (async, keep {CKPT_KEEP}), failure at "
         f"step {CKPT_FAIL_AT}: ended at step {sup.end}, restarts {sup.restarts}, "
-        f"checkpoints {steps}; losses {losses}; final parameters "
-        f"{'bit-identical' if eq else f'max rel diff {rel:.3e}'}; kernel launches "
-        f"{counts}")
+        f"checkpoints {steps}; losses and final parameters bit-identical to (b)'s; "
+        f"kernel launches {counts}")
     log(f"[ckpt] checkpoint bytes {nbytes} ({nbytes / 1e9:.2f} GB) at step {CKPT_STEPS}")
     log(f"[ckpt] snapshot on the caller's thread {t['snapshot_s'] * 1e3:.1f} ms "
-        f"(step {CKPT_STEPS}, device to host)")
-    log(f"[ckpt] background write {t['write_s']:.2f} s (serialize + commit, "
-        f"step {CKPT_STEPS}); restore {t['restore_s']:.2f} s (step {CKPT_EVERY}, "
-        f"after the failure)")
-    del plain
+        f"({nbytes / t['snapshot_s'] / 1e9:.2f} GB/s; step {CKPT_STEPS}, device to host)")
+    log(f"[ckpt] background write {rate(nbytes, t['write_s'])} (serialize + commit, "
+        f"step {CKPT_STEPS}); restore {rate(nbytes, t['restore_s'])} (step "
+        f"{CKPT_EVERY}, after the failure)")
     return sup
+
+
+def ckpt_round_trip(trained, root: Path) -> None:
+    """(a) a blocking save_tree and restore_tree of (c)'s final {params,
+    opt}: every leaf bit-identical, on the card in its dtype, the AdamW
+    step intact.  It takes the room of (c)'s step-3 checkpoint."""
+    from repro_torch import checkpoint, utils
+    shutil.rmtree(root / "c" / f"step_{CKPT_EVERY}")
+    state = {"params": trained.params, "opt": trained.opt_state}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_tree(str(root / "a"), state, step=CKPT_STEPS)
+    save_s = time.perf_counter() - t0
+    nbytes = dir_bytes(root / "a")
+    t0 = time.perf_counter()
+    got, step, _ = checkpoint.restore_tree(str(root / "a"), state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    placed = all((g.device, g.dtype) == (w.device, w.dtype)
+                 for g, w in zip(utils.tree_leaves(got), utils.tree_leaves(state))
+                 if isinstance(w, torch.Tensor))
+    adam = got["opt"].step
+    if not (placed and trees_equal(got, state, utils)) or step != CKPT_STEPS or \
+            type(adam) is not int or adam != CKPT_STEPS:
+        raise AssertionError(f"[ckpt] (a) round trip: placed {placed}, step {step}, "
+                             f"AdamW step {adam!r}")
+    log(f"[ckpt] (a) blocking save_tree + restore_tree of (c)'s final {{params, opt}}: "
+        f"{len(utils.tree_leaves(state))} leaves bit-identical (torch.equal), on cuda "
+        f"in their dtypes, AdamW step {adam} (int); {nbytes} bytes; save_tree "
+        f"{rate(nbytes, save_s)}, restore_tree {rate(nbytes, restore_s)} (host clock)")
+    del got
+    shutil.rmtree(root / "a")
 
 
 def ckpt_serve_restored(common, lm, serve_mod, cfg, root: Path, trained) -> None:
@@ -1701,45 +1679,110 @@ def ckpt_serve_restored(common, lm, serve_mod, cfg, root: Path, trained) -> None
         f"kernel launches {counts}")
 
 
+#: the training command line, held once it has printed the line that starts
+#: with argv[1] (its next step never starts) until it is killed
+HELD_CLI = """
+import sys, threading
+from repro_torch.launch import train
+hold = sys.argv[1]
+
+class Held:
+    def __init__(self, out):
+        self.out, self.line = out, ""
+    def write(self, s):
+        self.out.write(s)
+        self.out.flush()
+        *done, self.line = (self.line + s).split("\\n")
+        if any(line.startswith(hold) for line in done):
+            threading.Event().wait()
+        return len(s)
+    def flush(self):
+        self.out.flush()
+
+sys.stdout = Held(sys.stdout)
+train.main(sys.argv[2:])
+"""
+
+
+def same_checkpoint(a: Path, b: Path) -> bool:
+    """The same manifest and the same arrays, bit for bit."""
+    import numpy as np
+    ma, mb = (json.loads((d / "manifest.json").read_text()) for d in (a, b))
+    if ma != mb:
+        return False
+    for shard in ma["shards"]:
+        with np.load(a / shard) as za, np.load(b / shard) as zb:
+            if za.files != zb.files or not all(
+                    za[k].dtype == zb[k].dtype and np.array_equal(za[k], zb[k])
+                    for k in za.files):
+                return False
+    return True
+
+
 def ckpt_cli_resume() -> None:
-    """The command line on the card (--reduced): a run killed after step 4
-    and started again resumes at step 3 with the uninterrupted run's losses;
-    then the Prefetcher's card path against shard_batch."""
+    """The command line on the card, each run in its own process:
+    ``python -m repro_torch.launch.train --reduced --steps 6 --ckpt-every 3
+    --ckpt-dir D`` killed with SIGKILL after step 4 (held once it printed
+    its step-4 line, killed when the step-3 checkpoint has committed), then
+    run again: it resumes at step 3, and its step-5 line and step-6
+    checkpoint are an uninterrupted run's.  Then the Prefetcher's card path
+    against shard_batch."""
+    import os
+    import signal
     import tempfile
-    from repro_torch.configs import registry
     from repro_torch.data import pipeline
     from repro_torch.data import tokens as tokens_lib
-    from repro_torch.launch import train as train_mod
     d = Path(tempfile.mkdtemp(prefix="ckpt_cli_"))
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    args = ["--reduced", "--steps", "6", "--batch", "2", "--seq", "16", "--ckpt-every", "3"]
+    cli = [sys.executable, "-m", "repro_torch.launch.train", *args]
+    no_ms = lambda line: line.rsplit(None, 1)[0]
+
+    def run(ckpt_dir):
+        out = subprocess.run(cli + ["--ckpt-dir", str(ckpt_dir)], env=env, cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        if out.returncode:
+            raise AssertionError(f"[ckpt] CLI exit {out.returncode}: {out.stderr[-2000:]}")
+        return out.stdout.strip().splitlines()
+
     try:
-        argv = ["--reduced", "--steps", "6", "--batch", "2", "--seq", "16"]
-        with contextlib.redirect_stdout(io.StringIO()):
-            full = train_mod.main(argv)
-
-        def kill(i):
-            if i == 5:
-                for _ in range(6000):
-                    if (d / "step_3" / "manifest.json").exists():
-                        raise Killed()
-                    time.sleep(0.01)
-            return False
-
+        full = run(d / "full")
+        child = subprocess.Popen([sys.executable, "-c", HELD_CLI, "step    4 ", *args,
+                                  "--ckpt-dir", str(d / "killed")], env=env, cwd=ROOT,
+                                 stdout=subprocess.PIPE, text=True)
         try:
-            train_mod.train(registry.get_config("internlm2-20b").reduced(), steps=6,
-                            batch=2, seq=16, ckpt_dir=str(d), ckpt_every=3,
-                            failure_hook=kill, log=lambda line: None)
-            raise AssertionError("[ckpt] the killed CLI run was not killed")
-        except Killed:
-            pass
-        with contextlib.redirect_stdout(io.StringIO()):
-            res = train_mod.main(argv + ["--ckpt-dir", str(d), "--ckpt-every", "3"])
-        if res.start != 3 or res.end != 6:
-            raise AssertionError(f"[ckpt] CLI resumed at {res.start}, ended at {res.end}")
-        verdict = same_or_close("CLI resumed losses", res.losses, full.losses[3:])
-        log(f"[ckpt] CLI on the card (--reduced --steps 6 --ckpt-every 3): killed "
-            f"after step 4, run again: resumed at step 3, steps 3-5 losses "
-            f"{[round(x, 4) for x in res.losses]} against the uninterrupted run's "
-            f"{[round(x, 4) for x in full.losses[3:]]}: {verdict}")
+            seen = ""
+            for line in child.stdout:
+                if line.startswith("step    4 "):
+                    seen = line
+                    break
+            deadline = time.monotonic() + 300
+            while seen and not (d / "killed" / "step_3" / "manifest.json").exists():
+                if child.poll() is not None or time.monotonic() > deadline:
+                    break
+                time.sleep(0.01)
+            child.send_signal(signal.SIGKILL)
+            rc = child.wait(timeout=60)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+            child.stdout.close()
+        left = sorted(p.name for p in (d / "killed").iterdir())
+        if not seen or rc != -signal.SIGKILL or left != ["step_3"]:
+            raise AssertionError(f"[ckpt] CLI kill: step-4 line {seen!r}, exit {rc}, "
+                                 f"directory {left}")
+        res = run(d / "killed")
+        if (res[1] != f"resuming from step 3 ({d / 'killed'})"
+                or [int(x.split()[1]) for x in res[2:5]] != [3, 4, 5]
+                or no_ms(res[4]) != no_ms(full[6])
+                or res[-1] != "done at step 6 (restarts=0)"
+                or not same_checkpoint(d / "killed" / "step_6", d / "full" / "step_6")):
+            raise AssertionError(f"[ckpt] CLI resumed: {res}; uninterrupted: {full}")
+        log(f"[ckpt] CLI on the card (--reduced --steps 6 --ckpt-every 3, each run "
+            f"its own process): SIGKILL after step 4 (exit {rc}), run again: "
+            f"resumed at step 3; step 5 {no_ms(res[4])!r}, the uninterrupted "
+            f"run's; step-6 checkpoints bit-identical")
     finally:
         shutil.rmtree(d, ignore_errors=True)
     src = tokens_lib.MarkovTokenSource(1000, seed=0)
@@ -1764,6 +1807,7 @@ def phase_ckpt(common, lm, serve_mod, FFF_CONFIG) -> None:
         free = shutil.disk_usage(root).free
         params = lm.init(cfg, seed=0, device="cuda")
         n = lm.param_count(params)
+        del params
         # bf16 params (2 bytes) and float32 moments (8) a parameter, CKPT_KEEP kept
         need = CKPT_KEEP * n * (torch.finfo(cfg.param_dtype).bits // 8 + 8)
         log(f"[ckpt] {cfg.arch_id} FFF full width, {cfg.n_layers} of 48 layers, "
@@ -1773,10 +1817,9 @@ def phase_ckpt(common, lm, serve_mod, FFF_CONFIG) -> None:
         if free < need:
             raise AssertionError(f"[ckpt] the disk holds {free / 1e9:.2f} GB free at "
                                  f"{root}; the phase needs {need / 1e9:.2f} GB")
-        ckpt_round_trip(lm, cfg, params, root, need)
-        del params
+        sup = ckpt_supervised(common, cfg, root)
         torch.cuda.empty_cache()
-        sup = ckpt_supervised(common, lm, cfg, root)
+        ckpt_round_trip(sup, root)
         torch.cuda.empty_cache()
         ckpt_serve_restored(common, lm, serve_mod, cfg, root, sup.params)
         del sup
@@ -1789,23 +1832,16 @@ def phase_ckpt(common, lm, serve_mod, FFF_CONFIG) -> None:
 def ffn_site_times(lm, mlp, cfg, params) -> dict:
     """One warm prefill (PREFILL_B x PREFILL_S) and one warm decode step of
     ``cfg`` under torch.profiler, every FFN site inside a
-    record_function("ffn_site") range and a pair of CUDA events.  Per phase:
-    (device busy ms, FFN-site device ms: the kernels that start inside the
-    ranges' device-side spans, the same as the profiler links kernels to the
-    ranges (which misses the ctypes launches of the CUDA kernels), FFN-site
-    CUDA-event span ms, sites).  A span holds the device's idle gaps too;
-    the device times do not."""
+    record_function("ffn_site") range.  Per phase: (device busy ms, FFN
+    sites' device ms: the kernels that start inside the ranges' device-side
+    spans).  Raises unless every layer's site ran inside its range."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    forward, spans = mlp.forward, []
+    forward, sites = mlp.forward, []
 
     def timed(*a, **kw):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        sites.append(1)
         with record_function("ffn_site"):
-            start.record()
-            out = forward(*a, **kw)
-            end.record()
-        spans.append((start, end))
-        return out
+            return forward(*a, **kw)
 
     prompt = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(4),
@@ -1815,7 +1851,6 @@ def ffn_site_times(lm, mlp, cfg, params) -> dict:
         caches = lm.init_caches(cfg, PREFILL_B, PREFILL_S + 2, device="cuda")
         return lm.prefill(params, cfg, {"tokens": prompt}, caches)
 
-    tot = lambda e: getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
     on_card = lambda e: str(e.device_type).endswith("CUDA")
     out = {}
     mlp.forward = timed
@@ -1828,23 +1863,22 @@ def ffn_site_times(lm, mlp, cfg, params) -> dict:
             torch.cuda.synchronize()
             for phase, fn in (("prefill", prefill), ("decode", lambda: lm.decode_step(
                     params, cfg, tok, caches, PREFILL_S))):
-                spans.clear()
+                sites.clear()
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     fn()
                     torch.cuda.synchronize()
-                # the range shows twice: a CPU op, whose device time sums the
-                # kernels linked to it, and a device-side annotation span
                 evs = prof.events()
                 ranges = [(e.time_range.start, e.time_range.end) for e in evs
                           if on_card(e) and e.name == "ffn_site"]
                 work = [(e.time_range.start, e.time_range.end) for e in evs
                         if on_card(e) and e.name != "ffn_site"]
+                if not len(sites) == len(ranges) == cfg.n_layers:
+                    raise AssertionError(f"[dense] {phase}: {len(sites)} FFN sites ran, "
+                                         f"{len(ranges)} device-side ranges, "
+                                         f"{cfg.n_layers} layers")
                 inside = sum(t1 - t0 for t0, t1 in work
                              if any(r0 <= t0 < r1 for r0, r1 in ranges))
-                linked = sum(tot(e) for e in evs if not on_card(e) and e.name == "ffn_site")
-                out[phase] = (sum(t1 - t0 for t0, t1 in work) / 1e3, inside / 1e3,
-                              linked / 1e3, sum(a.elapsed_time(b) for a, b in spans),
-                              len(spans))
+                out[phase] = (sum(t1 - t0 for t0, t1 in work) / 1e3, inside / 1e3)
     finally:
         mlp.forward = forward
     return out
@@ -1885,13 +1919,12 @@ def phase_dense(common, api, lm, serve_mod, FFF_CONFIG, CONFIG) -> None:
     for phase, what in (("prefill", f"{PREFILL_B}x{PREFILL_S} tokens"),
                         ("decode", f"one step, batch {PREFILL_B}")):
         d, f = times["dense"][phase], times["fff"][phase]
-        for name, (busy, inside, linked, span, n) in (("dense FF", d), ("FFF", f)):
+        for name, (busy, inside) in (("dense FF", d), ("FFF", f)):
             log(f"[dense] warm {phase} ({what}), {name}: FFN sites {inside:.3f} ms "
-                f"device time (kernels inside the {n} sites' device-side spans; "
-                f"{linked:.3f} ms linked to their ranges); CUDA-event span "
-                f"{span:.3f} ms; device busy {busy:.3f} ms")
+                f"device time (kernels inside the {SERVE_LAYERS} sites' device-side "
+                f"spans); device busy {busy:.3f} ms")
         log(f"[dense] warm {phase}: FFN sites' device time dense/FFF "
-            f"{d[1] / max(f[1], 1e-9):.2f}x (event spans {d[3] / max(f[3], 1e-9):.2f}x)")
+            f"{d[1] / max(f[1], 1e-9):.2f}x")
     train_card_vs_cpu(api, lm, CONFIG, backends=("reference",), label="dense")
 
 

@@ -63,6 +63,7 @@ def step_generator(seed: int, i: int, device) -> torch.Generator:
 @dataclasses.dataclass
 class TrainResult:
     params: dict                   # the trained parameters
+    opt_state: object              # the optimizer state after the last step
     metrics: list                  # per step run: the loss_fn metrics as floats
     step_ms: list                  # per step run: loss, gradient and update (CUDA
                                    # events on the card, host clock on the CPU)
@@ -158,11 +159,13 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
             ckpt_every=ckpt_every, keep=keep))
         result = sup.run({"params": params, "opt": opt.init(params)}, do_step,
                          steps, failure_hook=failure_hook)
-        params, end, restarts = result.state["params"], result.step, result.restarts
+        params, opt_state = result.state["params"], result.state["opt"]
+        end, restarts = result.step, result.restarts
         timings = dict(manager.timings)
     log(f"done at step {end} (restarts={restarts})")
     done = sorted(runs)
-    return TrainResult(params=params, metrics=[runs[i][0] for i in done],
+    return TrainResult(params=params, opt_state=opt_state,
+                       metrics=[runs[i][0] for i in done],
                        step_ms=[runs[i][1] for i in done], start=start, end=end,
                        restarts=restarts, ckpt_timings=timings)
 

@@ -23,8 +23,7 @@ from repro_torch import weights
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tools" / "kernel_ab.py",
-                                         REPO / "tools" / "ckpt_io_probe.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tools" / "kernel_ab.py"]
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, prefix="repro_torch."))
 #: the training slice's modules, which the walk above must find

@@ -2,12 +2,17 @@
 
 * The fault supervisor and the straggler policy: every case of
   ``tests/test_fault.py`` and the supervisor and straggler cases of
-  ``tests/test_substrates.py``, on torch states.
+  ``tests/test_substrates.py``, on torch states; and against the JAX
+  package's on the same random step-time streams and the same random
+  failure, ejection and resume schedules (outcome, steps run, sleeps and
+  checkpoints alike).
 * ``launch.train.train`` with a checkpoint directory on a reduced config:
-  a run with an injected failure, and a run killed after step 4 and
-  started again over its directory, equal an uninterrupted run (losses
-  and final parameters bit for bit), also with ``transposition_prob=0.1``
-  drawing from each step's generator; the command line resumes at step 3.
+  a run with an injected failure equals an uninterrupted run (losses and
+  final parameters bit for bit), also with ``transposition_prob=0.1``
+  drawing from each step's generator, and replays the steps JAX's
+  supervisor replays; the command line in a child process killed with
+  SIGKILL after step 4 and run again resumes at step 3 and ends in the
+  uninterrupted run's state.
 * The dense FFN baseline: ``core/ff.forward`` against JAX ``ff.forward``
   (relu, gelu, silu, swiglu, with and without bias; the ``kernel``
   tolerance), and the reduced ``native`` LM's ``loss_fn``, every gradient
@@ -17,7 +22,14 @@
   ``epoch_batches`` exactly equal; the ``Prefetcher``.
 """
 import dataclasses
+import json
+import os
+import re
+import signal
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,14 +38,17 @@ import pytest
 import torch
 
 from conftest import dtype_tol
+from repro.checkpoint import CheckpointManager as JCheckpointManager
 from repro.configs import registry as jregistry
 from repro.core import ff as jff
 from repro.core import fff as jfff
 from repro.core import regions as jregions
 from repro.data import pipeline as jpipeline
 from repro.data import synthetic as jsynthetic
+from repro.distributed import fault as jfault
+from repro.distributed import straggler as jstraggler
 from repro.models import lm as jlm
-from repro_torch import optim, utils, weights
+from repro_torch import checkpoint, optim, utils, weights
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import registry
 from repro_torch.core import ff, fff, regions
@@ -229,11 +244,199 @@ def test_straggler_escalation_ladder():
 
 
 # ---------------------------------------------------------------------------
+# the supervisor and the straggler policy against the JAX package's
+# ---------------------------------------------------------------------------
+
+def _time_streams(seed):
+    """Per-host step times (a shared drift, host noise, slow stretches on
+    random hosts) and a random StragglerConfig."""
+    r = rng(seed)
+    hosts, steps = int(r.integers(2, 7)), 80
+    times = (np.exp(r.normal(0, 0.05, (steps, 1)))
+             * np.exp(r.normal(0, 0.1, (steps, hosts))))
+    for _ in range(int(r.integers(1, 4))):
+        h, a = int(r.integers(hosts)), int(r.integers(steps))
+        times[a:a + int(r.integers(10, 50)), h] *= float(r.uniform(1.5, 4.0))
+    window = int(r.integers(4, 32))
+    cfg = dict(window=window, slow_factor=float(r.uniform(1.1, 2.0)),
+               eject_after=int(r.integers(1, 20)),
+               min_history=int(r.integers(1, window + 1)))
+    return times.tolist(), cfg
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_mitigation_policy_matches_jax(seed):
+    """The same random per-host step times through JAX's policy and the
+    port's: the same action and hosts, streaks and medians at every step."""
+    times, cfg = _time_streams(seed)
+    hosts = len(times[0])
+    jpol = jstraggler.MitigationPolicy(jstraggler.StepTimeTracker(
+        hosts, jstraggler.StragglerConfig(**cfg)))
+    pol = straggler.MitigationPolicy(straggler.StepTimeTracker(
+        hosts, straggler.StragglerConfig(**cfg)))
+    actions = set()
+    for i, row in enumerate(times):
+        want, got = jpol.step(row), pol.step(row)
+        assert (got.action, got.hosts) == (want.action, want.hosts), i
+        np.testing.assert_array_equal(pol.tracker.flagged_streak, jpol.tracker.flagged_streak)
+        assert pol.tracker.global_p50() == jpol.tracker.global_p50()
+        assert [pol.tracker.host_p50(h) for h in range(hosts)] == \
+            [jpol.tracker.host_p50(h) for h in range(hosts)]
+        actions.add(got.action)
+    assert actions - {"none"}, "the stream never flagged a host"
+
+
+def _schedule(seed):
+    """A supervised run: steps, config and manager, failures (a step may
+    fail more than once) and an ejection drawn from ``seed``; sleeps,
+    async saves and an earlier run to resume from on a share of seeds."""
+    r = rng(100 + seed)
+    n = int(r.integers(4, 14))
+    fails = {}
+    for s in r.integers(0, n, int(r.integers(0, 4))):
+        fails[int(s)] = fails.get(int(s), 0) + int(r.integers(1, 3))
+    return dict(
+        steps=n, fails=fails,
+        eject={int(r.integers(1, n + 1)): [int(h) for h in r.choice(4, 2, replace=False)]}
+        if r.random() < 0.3 else {},
+        cfg=dict(ckpt_every=int(r.integers(1, 5)), max_restarts=int(r.integers(1, 5)),
+                 backoff_base=0.25 * (seed % 3 == 1), backoff_factor=1.5 + seed % 2 / 2),
+        keep=int(r.integers(1, 4)), async_save=seed % 2 == 0,
+        resume_from=n // 2 if seed % 4 == 3 else None)
+
+
+def _jax_step(s, i):
+    return {"w": s["w"] * 0.5 + (i + 1), "b": s["b"] + jnp.bfloat16(i), "n": s["n"] + 1}
+
+
+def _torch_step(s, i):
+    return {"w": s["w"] * 0.5 + (i + 1), "b": s["b"] + i, "n": s["n"] + 1}
+
+
+def _bits(tree):
+    """A state's leaves as (dtype, shape, bytes), bf16 as its uint16 bits."""
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            x = x.view(torch.uint16) if x.dtype == torch.bfloat16 else x
+            a = x.numpy()
+        else:
+            a = np.asarray(x)
+            a = a.view(np.uint16) if a.dtype == jnp.bfloat16 else a
+        return str(a.dtype), a.shape, a.tobytes()
+    return {k: one(v) for k, v in tree.items()}
+
+
+def _supervise(fault_mod, manager_cls, state, step_fn, root, sched, steps):
+    """One supervised run: (outcome, step indices run, sleeps, committed
+    steps).  The outcome is the end (step, restarts, ejections, the final
+    state's bits), the ejection or the give-up."""
+    calls, sleeps, left = [], [], dict(sched["fails"])
+    mgr = manager_cls(str(root), keep=sched["keep"], async_save=sched["async_save"])
+    sup = fault_mod.TrainSupervisor(mgr, fault_mod.SupervisorConfig(**sched["cfg"]),
+                                    sleep_fn=sleeps.append)
+
+    def failure(i):
+        if left.get(i, 0):
+            left[i] -= 1
+            return True
+        return False
+
+    def step(s, i):
+        calls.append(i)
+        return step_fn(s, i)
+
+    try:
+        res = sup.run(state, step, steps, failure_hook=failure,
+                      straggler_hook=lambda i: sched["eject"].get(i))
+        out = ("done", res.step, res.restarts, res.ejections, _bits(res.state))
+    except fault_mod.ElasticRemesh as e:
+        out = ("remesh", e.surviving_hosts, str(e))
+    except RuntimeError as e:
+        out = ("gave up", str(e), str(e.__cause__))
+    mgr.wait()
+    return out, calls, sleeps, mgr.steps()
+
+
+def _same_checkpoint(a, b):
+    """Two checkpoint directories hold the same manifest and the same
+    arrays, bit for bit."""
+    ma, mb = (json.loads((d / "manifest.json").read_text()) for d in (a, b))
+    assert ma == mb
+    for shard in ma["shards"]:
+        with np.load(a / shard) as za, np.load(b / shard) as zb:
+            assert za.files == zb.files
+            for k in za.files:
+                assert za[k].dtype == zb[k].dtype
+                np.testing.assert_array_equal(za[k], zb[k])
+
+
+@pytest.mark.parametrize("seed", range(10))
+def test_supervisor_matches_jax(tmp_path, seed):
+    """JAX's TrainSupervisor and the port's over the same deterministic
+    step, failure and ejection schedules (after an earlier run over the
+    directory, for some): the same outcome (step, restarts, ejections and
+    the final state bit for bit; or the same ejection or give-up), the
+    same step indices run (so each replay starts where JAX's does), the
+    same sleeps, the same committed checkpoints holding the same arrays."""
+    sched = _schedule(seed)
+    w0 = np.arange(12, dtype=np.float32).reshape(3, 4) / 4
+    b0 = np.array([0.5, 1.0, 2.0, 3.0], np.float32)
+    runs = {}
+    for name, fault_mod, manager_cls, state, step_fn in (
+            ("jax", jfault, JCheckpointManager,
+             lambda: {"w": jnp.asarray(w0), "b": jnp.asarray(b0, jnp.bfloat16),
+                      "n": jnp.zeros((), jnp.int32)}, _jax_step),
+            ("port", fault, CheckpointManager,
+             lambda: {"w": t(w0), "b": t(b0).to(torch.bfloat16),
+                      "n": torch.zeros((), dtype=torch.int32)}, _torch_step)):
+        root, run = tmp_path / name, []
+        if sched["resume_from"] is not None:
+            run.append(_supervise(fault_mod, manager_cls, state(), step_fn, root,
+                                  dict(sched, fails={}, eject={}), sched["resume_from"]))
+        run.append(_supervise(fault_mod, manager_cls, state(), step_fn, root, sched,
+                              sched["steps"]))
+        runs[name] = run
+    assert runs["port"] == runs["jax"]
+    for s in runs["port"][-1][-1]:
+        _same_checkpoint(tmp_path / "port" / f"step_{s}", tmp_path / "jax" / f"step_{s}")
+
+# ---------------------------------------------------------------------------
 # the training driver under the supervisor
 # ---------------------------------------------------------------------------
 
-class Killed(BaseException):
-    """The process dying: nothing in the supervisor catches it."""
+REPO = Path(__file__).resolve().parent.parent
+ENV = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="2")
+#: the command line in a child process (argv: transposition_prob, the
+#: prefix of the line after which the child is held until it is killed
+#: ("" never), then the driver's arguments)
+HELD_CLI = """
+import dataclasses, sys, threading
+import torch
+from repro_torch.launch import train
+from repro_torch.nn import mlp
+torch.set_num_threads(2)
+prob, hold = float(sys.argv[1]), sys.argv[2]
+if prob:
+    make = mlp.make_fff_config
+    mlp.make_fff_config = lambda *a, **kw: dataclasses.replace(
+        make(*a, **kw), transposition_prob=prob)
+
+class Held:
+    def __init__(self, out):
+        self.out, self.line = out, ""
+    def write(self, s):
+        self.out.write(s)
+        self.out.flush()
+        *done, self.line = (self.line + s).split("\\n")
+        if hold and any(line.startswith(hold) for line in done):
+            threading.Event().wait()
+        return len(s)
+    def flush(self):
+        self.out.flush()
+
+sys.stdout = Held(sys.stdout)
+train.main(sys.argv[3:])
+"""
 
 
 @pytest.fixture(params=[0.0, 0.1], ids=["plain", "transposition"])
@@ -250,9 +453,9 @@ def _cfg():
     return registry.get_config("internlm2-20b").reduced()
 
 
-def _run(**kw):
+def _run(log=lambda s: None, **kw):
     return train_mod.train(_cfg(), steps=6, batch=BATCH, seq=SEQ, seed=0,
-                           device="cpu", log=lambda s: None, **kw)
+                           device="cpu", log=log, **kw)
 
 
 def _same_run(got, want, first=0):
@@ -261,16 +464,51 @@ def _same_run(got, want, first=0):
                                                  utils.tree_leaves(want.params)))
 
 
-def _kill_at_5(ckpt_dir):
-    def hook(i):
-        if i == 5:             # after step 4; the step-3 save committed
-            for _ in range(3000):
-                if (ckpt_dir / "step_3" / "manifest.json").exists():
-                    break
-                time.sleep(0.01)
-            raise Killed()
-        return False
-    return hook
+CLI_ARGS = ["--reduced", "--steps", "6", "--batch", str(BATCH), "--seq", str(SEQ),
+            "--device", "cpu"]
+
+
+def _cli(ckpt_dir, prob=0.0):
+    """The command line over ``ckpt_dir`` in a fresh interpreter, to its
+    end: its output lines."""
+    out = subprocess.run([sys.executable, "-c", HELD_CLI, str(prob), "", *CLI_ARGS,
+                          "--ckpt-dir", str(ckpt_dir), "--ckpt-every", "3"],
+                         env=ENV, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip().splitlines()
+
+
+def _cli_killed_after_step_4(ckpt_dir, prob=0.0):
+    """The command line over ``ckpt_dir`` in a child process, held once it
+    has printed its step-4 line (steps 5 on never start) and sent SIGKILL
+    as soon as the step-3 checkpoint has committed."""
+    child = subprocess.Popen([sys.executable, "-c", HELD_CLI, str(prob), "step    4 ",
+                              *CLI_ARGS, "--ckpt-dir", str(ckpt_dir), "--ckpt-every", "3"],
+                             env=ENV, cwd=REPO, stdout=subprocess.PIPE, text=True)
+    try:
+        lines = []
+        for line in child.stdout:
+            lines.append(line)
+            if line.startswith("step    4 "):
+                break
+        assert lines and lines[-1].startswith("step    4 "), lines
+        deadline = time.monotonic() + 120
+        while not (ckpt_dir / "step_3" / "manifest.json").exists():
+            assert child.poll() is None and time.monotonic() < deadline
+            time.sleep(0.01)
+        child.send_signal(signal.SIGKILL)
+        assert child.wait(timeout=60) == -signal.SIGKILL
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        child.stdout.close()
+    assert CheckpointManager(str(ckpt_dir)).steps() == [3]
+
+
+def _no_ms(line):
+    """A step line without its time."""
+    return re.sub(r"\s+[\d.]+ms$", "", line)
 
 
 def test_train_with_an_injected_failure_equals_an_uninterrupted_run(tmp_path, transposition):
@@ -291,12 +529,48 @@ def test_train_with_an_injected_failure_equals_an_uninterrupted_run(tmp_path, tr
 
 
 def test_train_killed_and_restarted_equals_an_uninterrupted_run(tmp_path, transposition):
-    full = _run()
-    with pytest.raises(Killed):
-        _run(ckpt_dir=str(tmp_path), ckpt_every=3, failure_hook=_kill_at_5(tmp_path))
-    res = _run(ckpt_dir=str(tmp_path), ckpt_every=3)
-    assert (res.start, res.end, res.restarts) == (3, 6, 0)
-    _same_run(res, full, first=3)
+    """A child process killed after step 4 and the command line run again
+    over its directory: steps 3-5 print the uninterrupted run's lines, and
+    the step-6 checkpoint holds its parameters and optimizer state."""
+    lines = []
+    full = _run(log=lines.append)
+    _cli_killed_after_step_4(tmp_path, transposition)
+    out = _cli(tmp_path, transposition)
+    assert out[1] == f"resuming from step 3 ({tmp_path})"
+    assert [_no_ms(x) for x in out[2:5]] == [_no_ms(x) for x in lines[4:7]]
+    assert out[-1] == "done at step 6 (restarts=0)"
+    like = {"params": full.params, "opt": full.opt_state}
+    got, step, _ = checkpoint.restore_tree(str(tmp_path / "step_6"), like)
+    assert step == 6
+    for a, b in zip(utils.tree_leaves(got), utils.tree_leaves(like)):
+        assert torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b
+
+
+@pytest.mark.parametrize("every,fails", [(3, {4: 1}), (2, {1: 1, 5: 2})],
+                         ids=["fail_4", "fail_1_5_twice"])
+def test_train_replays_the_steps_jax_replays(tmp_path, every, fails):
+    """The driver under failures runs the step indices, restarts and
+    checkpoints that JAX's supervisor runs as the JAX driver configures it
+    (``SupervisorConfig(ckpt_every)``, a manager keeping 2)."""
+    def schedule():
+        left = dict(fails)
+
+        def hook(i):
+            if left.get(i, 0):
+                left[i] -= 1
+                return True
+            return False
+        return hook
+
+    ran = []
+    res = _run(ckpt_dir=str(tmp_path / "port"), ckpt_every=every,
+               failure_hook=schedule(), inspect=lambda i, g, m: ran.append(i))
+    jran, jmgr = [], JCheckpointManager(str(tmp_path / "jax"), keep=2)
+    want = jfault.TrainSupervisor(jmgr, jfault.SupervisorConfig(ckpt_every=every)).run(
+        {"x": jnp.zeros(())}, lambda s, i: jran.append(i) or {"x": s["x"] + 1}, 6,
+        failure_hook=schedule())
+    assert ran == jran and (res.end, res.restarts) == (want.step, want.restarts)
+    assert CheckpointManager(str(tmp_path / "port")).steps() == jmgr.steps()
 
 
 def test_transposition_draws_change_the_trajectory(monkeypatch):
@@ -313,19 +587,27 @@ def test_transposition_draws_change_the_trajectory(monkeypatch):
     assert torch.equal(draws[0], draws[1]) and not torch.equal(draws[0], draws[2])
 
 
-def test_train_cli_resumes_after_a_kill(tmp_path, capsys):
-    argv = ["--reduced", "--steps", "6", "--batch", str(BATCH), "--seq", str(SEQ),
-            "--device", "cpu"]
-    full = train_mod.main(argv)
-    with pytest.raises(Killed):
-        _run(ckpt_dir=str(tmp_path), ckpt_every=3, failure_hook=_kill_at_5(tmp_path))
-    capsys.readouterr()
-    res = train_mod.main(argv + ["--ckpt-dir", str(tmp_path), "--ckpt-every", "3"])
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[1] == f"resuming from step 3 ({tmp_path})"
-    assert [int(x.split()[1]) for x in lines[2:5]] == [3, 4, 5]
-    assert lines[-1] == "done at step 6 (restarts=0)"
-    assert (res.start, res.end) == (3, 6) and res.losses[-1] == full.losses[5]
+def test_train_cli_resumes_after_a_kill(tmp_path):
+    """``python -m repro_torch.launch.train --reduced --steps 6 --ckpt-every
+    3 --ckpt-dir D``, killed with SIGKILL after step 4 and run again,
+    resumes at step 3; its step-5 line and step-6 checkpoint are the
+    uninterrupted run's."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *CLI_ARGS, "--ckpt-every", "3"]
+
+    def run(d):
+        out = subprocess.run(cmd + ["--ckpt-dir", str(d)], env=ENV, cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+        return out.stdout.strip().splitlines()
+
+    full = run(tmp_path / "full")
+    _cli_killed_after_step_4(tmp_path / "killed")
+    res = run(tmp_path / "killed")
+    assert res[1] == f"resuming from step 3 ({tmp_path / 'killed'})"
+    assert [int(x.split()[1]) for x in res[2:5]] == [3, 4, 5]
+    assert _no_ms(res[4]) == _no_ms(full[6])
+    assert res[-1] == full[-1] == "done at step 6 (restarts=0)"
+    _same_checkpoint(tmp_path / "killed" / "step_6", tmp_path / "full" / "step_6")
 
 
 # ---------------------------------------------------------------------------
