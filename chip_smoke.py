@@ -64,12 +64,26 @@ Phases (any failure raises, and the exit code is non-zero):
               the grouped kernels once per layer per admission slab), the
               fixed dispatch shapes, and that the reference never ran.
    engine profile — three warm speculative rounds under torch.profiler.
+   paged    — the same model and weights through the engine on the paged KV
+              cache: 16 requests with a shared 64-token system prompt
+              (prompts 65-128 tokens, 32 new tokens each, two tenants), 8
+              slots, spec_k 3 with the self:1 draft, max_len 176; (a) the
+              contiguous cache, fcfs; (b) pages of 16, prefix sharing off;
+              (c) sharing on, monolithic; (d) sharing on, chunked (16),
+              weighted_leaf_aware at a=3,b=1.  (b)'s tokens must equal
+              (a)'s exactly; (c) and (d) must hit shared pages, and every
+              run's prefilled plus shared tokens must equal the prompt
+              tokens.  Each run's launch counts and dispatch shapes are
+              asserted as in the engine phase.  Prints TTFT, per-token
+              latency, the paging counters, each tenant's tokens/s, and how
+              many of (c)'s requests give (a)'s tokens.
 6. parity   — the same width with 2 layers in float32: 8 greedy tokens from
               the kernel backends must equal those of the reference backend;
               then the engine (plain and speculative, monolithic and
-              chunked) must give every request lm.generate's greedy tokens,
-              except where a deciding margin (a node logit or the top-2
-              logit gap) is under 1e-3.
+              chunked; contiguous, and paged with prefix sharing on
+              shared-prefix and copy-on-write requests) must give every
+              request lm.generate's greedy tokens, except where a deciding
+              margin (a node logit or the top-2 logit gap) is under 1e-3.
 7. grouped  — the capacity-bounded grouped backends.  The grouped GEMMs at
               the JAX grouped path's capacities (C = 8, 16, 136 and 264,
               group sizes 0, 1, C-1 and C in one call) against their plain
@@ -171,6 +185,9 @@ SERVE_LAYERS, GEN, PARITY_LAYERS, PARITY_B, PARITY_S, PARITY_STEPS = 8, 16, 2, 4
 SLOTS, SPEC_K, ENGINE_REQS, ENGINE_PROMPT, ENGINE_MIN_PROMPT, ENGINE_GEN = 8, 3, 16, 128, 16, 32
 ENGINE_CHUNK, DRAFT_LAYERS = 16, 1
 VERIFY_B = SLOTS * (SPEC_K + 1)
+# the paged phase: a shared system prompt of 4 pages, a max_len that is a
+# whole number of pages, two tenants
+PAGED_PREFIX, PAGE, PAGED_MAX_LEN, PAGED_WEIGHTS = 64, 16, 176, {"a": 3.0, "b": 1.0}
 ACTS = ("none", "relu", "gelu", "silu")
 # tokens on one leaf of a 64-token slab around the gathered kernels' per-pass
 # cap of 32 tokens a leaf (csrc/fused_fff.cu kMaxTok)
@@ -827,9 +844,9 @@ def phase_serve(common, api, serve_mod, cfg, params) -> dict:
     scatter = gemm_ops.scatter_to_groups
     layouts = []
 
-    def recording_scatter(x, leaf_idx, num_leaves, capacity):
+    def recording_scatter(x, leaf_idx, num_leaves, capacity, valid=None):
         # keeps each prefill layer's kept mask (a device tensor: no sync)
-        out = scatter(x, leaf_idx, num_leaves, capacity)
+        out = scatter(x, leaf_idx, num_leaves, capacity, valid)
         layouts.append(out.kept)
         return out
 
@@ -979,6 +996,43 @@ def phase_parity(api, fff, lm, FFF_CONFIG) -> None:
         f"reference); smallest deciding |node logit| {smallest[0]:.3e}")
 
 
+def check_engine_run(tag, cfg, run, counts, chunk, n_reqs) -> tuple[int, int]:
+    """Asserts a speculative engine run's launch counts, dispatch shapes and
+    results (spec_k SPEC_K, the self:DRAFT_LAYERS draft, ENGINE_GEN new
+    tokens a request); returns (spec rounds, admission slabs)."""
+    n_layers = cfg.n_layers
+    m = run.metrics
+    rounds = m.n_steps
+    slabs = m.n_chunks if chunk else m.n_prefills
+    # a verify round: every target layer once through the gathered
+    # kernels (and the router); a draft step: the fused decode kernel
+    # per draft layer; an admission slab (> 32 tokens): the grouped
+    # kernels and the router per target and draft layer
+    want = {"gathered_matmul": n_layers * rounds,
+            "gathered_matmul_dual": n_layers * rounds,
+            "fused_forest_decode": DRAFT_LAYERS * (SPEC_K + 1) * rounds,
+            "grouped_matmul": (n_layers + DRAFT_LAYERS) * slabs,
+            "grouped_matmul_dual": (n_layers + DRAFT_LAYERS) * slabs,
+            "tree_router": n_layers * rounds + (n_layers + DRAFT_LAYERS) * slabs}
+    if counts != want:
+        raise AssertionError(f"{tag}: launch counts {counts} != expected {want}")
+    shapes = run.shapes
+    want_shapes = {"draft": {(SLOTS, 1)}, "verify": {(SLOTS, SPEC_K + 1)}}
+    if chunk:
+        want_shapes["chunk"] = {(SLOTS, chunk)}
+    else:
+        want_shapes.update({k: {(SLOTS, int(k.split("_")[1]))}
+                            for k in shapes if k.startswith("prefill_")})
+    if shapes != want_shapes:
+        raise AssertionError(f"{tag}: dispatch shapes {shapes} != {want_shapes}")
+    bad = [r.rid for r in run.results
+           if len(r.tokens) != ENGINE_GEN or r.finish_reason != "length"
+           or not ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()]
+    if len(run.results) != n_reqs or bad:
+        raise AssertionError(f"{tag}: bad results for rids {bad}")
+    return rounds, slabs
+
+
 def phase_engine(common, api, serve_mod, cfg, params) -> dict:
     """The continuous-batching engine with speculative decoding at full
     width: monolithic, then chunked admission, each run's launch counts
@@ -1005,36 +1059,9 @@ def phase_engine(common, api, serve_mod, cfg, params) -> dict:
             run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
             counts = common.launch_counts()
         m = run.metrics
-        rounds = m.n_steps
-        slabs = m.n_chunks if chunk else m.n_prefills
-        # a verify round: every target layer once through the gathered
-        # kernels (and the router); a draft step: the fused decode kernel
-        # per draft layer; an admission slab (> 32 tokens): the grouped
-        # kernels and the router per target and draft layer
-        want = {"gathered_matmul": n_layers * rounds,
-                "gathered_matmul_dual": n_layers * rounds,
-                "fused_forest_decode": DRAFT_LAYERS * (SPEC_K + 1) * rounds,
-                "grouped_matmul": (n_layers + DRAFT_LAYERS) * slabs,
-                "grouped_matmul_dual": (n_layers + DRAFT_LAYERS) * slabs,
-                "tree_router": n_layers * rounds + (n_layers + DRAFT_LAYERS) * slabs}
-        if counts != want:
-            raise AssertionError(f"[engine] {mode}: launch counts {counts} != "
-                                 f"expected {want}")
+        rounds, slabs = check_engine_run(f"[engine] {mode}", cfg, run, counts,
+                                         chunk, len(reqs))
         shapes = run.shapes
-        want_shapes = {"draft": {(SLOTS, 1)}, "verify": {(SLOTS, SPEC_K + 1)}}
-        if chunk:
-            want_shapes["chunk"] = {(SLOTS, chunk)}
-        else:
-            want_shapes.update({k: {(SLOTS, int(k.split("_")[1]))}
-                                for k in shapes if k.startswith("prefill_")})
-        if shapes != want_shapes:
-            raise AssertionError(f"[engine] {mode}: dispatch shapes {shapes} "
-                                 f"!= {want_shapes}")
-        bad = [r.rid for r in run.results
-               if len(r.tokens) != ENGINE_GEN or r.finish_reason != "length"
-               or not ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()]
-        if len(run.results) != len(reqs) or bad:
-            raise AssertionError(f"[engine] {mode}: bad results for rids {bad}")
         log(f"[engine] {mode}: TTFT p50 {m.ttft.p50_ms:.2f} ms p90 "
             f"{m.ttft.p90_ms:.2f} ms; per-token p50 {m.per_token.p50_ms:.2f} ms "
             f"p90 {m.per_token.p90_ms:.2f} ms; {m.throughput_tok_s:.1f} tok/s; "
@@ -1082,36 +1109,141 @@ def phase_engine_profile(cfg, params, steps=3, label="", **ecfg_kw) -> None:
                    wall, steps)
 
 
+def phase_paged(common, api, serve_mod, cfg, params) -> None:
+    """The engine on the paged KV cache at full width: four runs over the
+    same shared-prefix requests, each run's launch counts reset just before
+    it and read just after (module docstring, phase 5).  Each admission
+    slab (a prefill or chunk dispatch, which ends in its host copy) is
+    timed on the host clock."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
+    slab_fn, slab_s = ContinuousBatchingEngine._slab, []
+
+    def timed_slab(self, *a):
+        t0 = time.perf_counter()
+        out = slab_fn(self, *a)
+        slab_s.append(time.perf_counter() - t0)
+        return out
+    reqs = serve_mod.build_requests(cfg.vocab_size, ENGINE_REQS, ENGINE_PROMPT,
+                                    ENGINE_GEN, seed=0, shared_prefix=PAGED_PREFIX,
+                                    tenants=sorted(PAGED_WEIGHTS))
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    paged = dict(page_size=PAGE)
+    runs = {"a": ("contiguous, fcfs", {}),
+            "b": ("paged, sharing off", dict(paged, prefix_sharing=False)),
+            "c": ("paged, sharing on, monolithic", paged),
+            "d": (f"paged, sharing on, chunked ({ENGINE_CHUNK}), weighted_leaf_aware",
+                  dict(paged, prefill_chunk=ENGINE_CHUNK,
+                       scheduler="weighted_leaf_aware",
+                       scheduler_kw={"weights": PAGED_WEIGHTS}))}
+    log(f"[paged] {cfg.arch_id} FFF full width, {cfg.n_layers} layers "
+        f"{cfg.param_dtype}, {SLOTS} slots, spec_k {SPEC_K}, draft "
+        f"self:{DRAFT_LAYERS}, max_len {PAGED_MAX_LEN}, {len(reqs)} requests "
+        f"with a {PAGED_PREFIX}-token shared prefix, prompts "
+        f"{min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)} "
+        f"tokens ({prompt_tokens} in all), {ENGINE_GEN} new tokens each, "
+        f"tenants {PAGED_WEIGHTS}")
+    tokens = {}
+    for key, (label, kw) in runs.items():
+        ecfg = EngineConfig(num_slots=SLOTS, max_len=PAGED_MAX_LEN,
+                            max_prompt_len=ENGINE_PROMPT, spec_k=SPEC_K,
+                            draft_config=f"self:{DRAFT_LAYERS}", seed=0,
+                            device="cuda", **kw)
+        slab_s.clear()
+        ContinuousBatchingEngine._slab = timed_slab
+        try:
+            with no_reference(api):
+                common.reset_launch_counts()
+                run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
+                counts = common.launch_counts()
+        finally:
+            ContinuousBatchingEngine._slab = slab_fn
+        tag = f"[paged] ({key}) {label}"
+        rounds, slabs = check_engine_run(tag, cfg, run, counts,
+                                         kw.get("prefill_chunk", 0), len(reqs))
+        m = run.metrics
+        tokens[key] = {r.rid: r.tokens for r in run.results}
+        if m.prefill_tokens + m.prefix_hit_tokens != prompt_tokens:
+            raise AssertionError(f"{tag}: {m.prefill_tokens} prefilled + "
+                                 f"{m.prefix_hit_tokens} shared != "
+                                 f"{prompt_tokens} prompt tokens")
+        if (m.prefix_hit_tokens > 0) != (key in "cd"):
+            raise AssertionError(f"{tag}: {m.prefix_hit_tokens} prompt tokens "
+                                 f"from shared pages")
+        tenants = " ".join(f"{t} {d['throughput_tok_s']:.1f} tok/s "
+                           f"({d['n_requests']} requests, TTFT p50 "
+                           f"{d['ttft_ms']['p50_ms']:.2f} ms)"
+                           for t, d in sorted(m.tenants.items()))
+        log(f"{tag}: TTFT p50 {m.ttft.p50_ms:.2f} ms p90 {m.ttft.p90_ms:.2f} ms; "
+            f"per-token p50 {m.per_token.p50_ms:.2f} ms; "
+            f"{m.throughput_tok_s:.1f} tok/s; tokens prefilled on the device "
+            f"{m.prefill_tokens}, from shared pages {m.prefix_hit_tokens}, "
+            f"copy-on-write copies {m.cow_copies}, pages in use "
+            f"{m.pages_in_use} free {m.pages_free}; {rounds} spec rounds, "
+            f"{slabs} admission slabs taking {sum(slab_s) * 1e3:.2f} ms in all "
+            f"(p50 {sorted(slab_s)[len(slab_s) // 2] * 1e3:.2f} ms, host "
+            f"clock); tenants: {tenants}; launches {counts} (as expected)")
+    diff = [rid for rid in tokens["a"]
+            if not (tokens["b"][rid] == tokens["a"][rid]).all()]
+    if diff:
+        raise AssertionError(f"[paged] (b) differs from (a) for rids {diff}")
+    same = sum(bool((tokens["c"][rid] == tokens["a"][rid]).all())
+               for rid in tokens["a"])
+    log(f"[paged] (b) gives (a)'s tokens for all {len(reqs)} requests; (c) for "
+        f"{same} of {len(reqs)} (its suffix slabs are other bf16 dispatches)")
+
+
 def phase_engine_parity(api, fff, lm, serve_mod, FFF_CONFIG) -> None:
     """The engine, plain and speculative, monolithic and chunked, against
-    lm.generate request by request (fp32, full width, 2 layers).  A token
+    lm.generate request by request (fp32, full width, 2 layers): on the
+    contiguous cache, and on the paged cache with prefix sharing over
+    shared-prefix requests, one of them the system prompt alone and one a
+    page-aligned repeat of another's prompt (both copy-on-write).  A token
     may differ only where the generate run met a deciding margin under
     NEAR_TIE: a node logit, or the gap between the two largest logits."""
     from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.serving.request import Request
     cfg = dataclasses.replace(FFF_CONFIG, n_layers=PARITY_LAYERS,
                               param_dtype=torch.float32,
                               accum_dtype=torch.float32)
     params = lm.init(cfg, seed=1, device="cuda")
-    slots, prompt, steps = 4, 32, 8
+    slots, prompt, steps, page, system = 4, 32, 8, 8, 16
     reqs = serve_mod.build_requests(cfg.vocab_size, 8, prompt, steps, seed=2,
                                     min_prompt_len=8)
+    shared = serve_mod.build_requests(cfg.vocab_size, 8, prompt, steps, seed=3,
+                                      shared_prefix=system)
+    shared += [Request(rid=8, prompt=shared[0].prompt[:system], max_new_tokens=steps),
+               Request(rid=9, prompt=shared[0].prompt[:3 * page], max_new_tokens=steps)]
     max_len = prompt + steps + 1
-    want, margin = generate_with_margins(api, fff, lm, cfg, params, reqs, steps, max_len)
-    ties = 0
-    for spec_k in (0, SPEC_K):
-        for chunk in (0, 16):
-            ecfg = EngineConfig(num_slots=slots, max_len=max_len,
-                                max_prompt_len=prompt, prefill_chunk=chunk,
-                                spec_k=spec_k, device="cuda")
-            results, _ = ContinuousBatchingEngine(params, cfg, ecfg).run(reqs)
-            ties += near_tie_check(f"[engine parity] spec_k {spec_k} chunk {chunk}",
-                                   {r.rid: r.tokens for r in results}, want, margin)
+    ties, smallest = 0, math.inf
+    paged = []
+    for kw, batch in (({}, reqs), (dict(page_size=page), shared)):
+        want, margin = generate_with_margins(api, fff, lm, cfg, params, batch,
+                                             steps, max_len)
+        smallest = min(smallest, *margin.values())
+        for spec_k in (0, SPEC_K):
+            for chunk in (0, 16):
+                ecfg = EngineConfig(num_slots=slots, max_len=max_len,
+                                    max_prompt_len=prompt, prefill_chunk=chunk,
+                                    spec_k=spec_k, device="cuda", **kw)
+                results, m = ContinuousBatchingEngine(params, cfg, ecfg).run(batch)
+                ties += near_tie_check(
+                    f"[engine parity] spec_k {spec_k} chunk {chunk} {kw}",
+                    {r.rid: r.tokens for r in results}, want, margin)
+                if kw:
+                    if not (m.prefix_hit_tokens > 0 and m.cow_copies > 0):
+                        raise AssertionError(
+                            f"[engine parity] paged spec_k {spec_k} chunk "
+                            f"{chunk}: {m.prefix_hit_tokens} shared tokens, "
+                            f"{m.cow_copies} copy-on-write copies")
+                    paged.append((spec_k, chunk, m.prefix_hit_tokens, m.cow_copies))
     log(f"[engine parity] {cfg.n_layers} layers fp32, {slots} slots, {len(reqs)} "
         f"requests x {steps} greedy tokens: the plain and speculative (spec_k "
         f"{SPEC_K}, a {slots * (SPEC_K + 1)}-token verify slab) engines, "
-        f"monolithic and chunked, equal lm.generate for every request "
-        f"({ties} near-tie differences allowed); smallest deciding margin "
-        f"{min(margin.values()):.3e}")
+        f"monolithic and chunked, equal lm.generate for every request, and so "
+        f"do they on the paged cache (pages of {page}, prefix sharing, "
+        f"{len(shared)} requests with a {system}-token shared prefix; (spec_k, "
+        f"chunk, shared tokens, copy-on-write copies) {paged}) ({ties} near-tie "
+        f"differences allowed); smallest deciding margin {smallest:.3e}")
     del params
     torch.cuda.empty_cache()
 
@@ -1953,6 +2085,7 @@ def main() -> int:
         f"init {time.perf_counter() - t0:.1f}s")
     phase_serve(common, api, serve_mod, cfg, params)
     counts = phase_engine(common, api, serve_mod, cfg, params)
+    phase_paged(common, api, serve_mod, cfg, params)
     phase_parity(api, fff, lm, FFF_CONFIG)
     phase_engine_parity(api, fff, lm, serve_mod, FFF_CONFIG)
     with torch.inference_mode():

@@ -529,8 +529,10 @@ def _infer_cuda(params, cfg, x, spec):
     at most ``PALLAS_DECODE_MAX_TOKENS`` flattened tokens (phantom rows
     included, so the branch depends on the shape alone) and the grouped
     leaf GEMMs above.  Exact: tokens over a leaf's capacity are repaired
-    densely, so overflow_fraction is 0.  ``spec.valid`` only masks the
-    reported ``leaf_idx``, as in ``_infer_cuda_decode``."""
+    densely, so overflow_fraction is 0.  ``spec.valid`` masks the reported
+    ``leaf_idx``, as in ``_infer_cuda_decode``, and in the grouped branch
+    lets phantom rows take only the capacity the valid rows leave, so a
+    valid row's output never depends on a phantom row's content."""
     xf, lead = utils.flatten_leading(x)
     if xf.shape[0] <= PALLAS_DECODE_MAX_TOKENS:
         y, leaf_idx = fused_ops.fff_decode(xf, params, cfg,
@@ -541,7 +543,8 @@ def _infer_cuda(params, cfg, x, spec):
               else DEFAULT_CAPACITY_INFER)
         y, leaf_idx = gemm_ops.fff_infer(xf, params, cfg, capacity_factor=cf,
                                          dense_levels=spec.dense_levels,
-                                         return_leaf_idx=True)
+                                         return_leaf_idx=True,
+                                         valid=_flat_valid(x, spec.valid))
     return _kernel_output(cfg, x, y, leaf_idx, lead, spec.valid)
 
 
@@ -557,13 +560,20 @@ def _infer_cuda_decode(params, cfg, x, spec):
     return _kernel_output(cfg, x, y, leaf_idx, lead, spec.valid)
 
 
+def _flat_valid(x: torch.Tensor, valid: Optional[torch.Tensor]
+                ) -> Optional[torch.Tensor]:
+    """``spec.valid`` broadcast over x's leading dims, flattened (or None)."""
+    if valid is None:
+        return None
+    return torch.broadcast_to(valid.to(x.device), tuple(x.shape[:-1])).reshape(-1)
+
+
 def _kernel_output(cfg, x, y, leaf_idx, lead, valid):
     """A kernel backend's (y, FFFOutput): ``valid`` masks phantom rows'
     ``leaf_idx`` to the sentinel leaf so they stay out of routing
     telemetry; outputs are per-token exact regardless."""
     if valid is not None:
-        vf = torch.broadcast_to(valid.to(x.device),
-                                tuple(x.shape[:-1])).reshape(-1)
+        vf = _flat_valid(x, valid)
         leaf_idx = torch.where(vf[:, None], leaf_idx,
                                torch.full_like(leaf_idx, cfg.num_leaves))
     return (utils.unflatten_leading(y, lead),

@@ -3,16 +3,24 @@ batching engine (default) or the fixed-batch loop (``--engine off``).
 
 ``--engine continuous`` serves ``--requests`` Markov-source requests of
 mixed prompt lengths (up to ``--prompt-len``) through ``repro_torch.
-serving``: a request queue, admission by ``--scheduler fcfs|leaf_aware``,
-a slot-pooled KV cache of ``--batch`` slots and interleaved prefill and
-decode over fixed shapes.  ``--prefill-chunk N`` switches admission to
-chunked prefill (N tokens per slab, at most ``--prefill-budget`` slabs per
-step); ``--spec-k K`` turns on speculative decoding, the draft
-(``--draft-config self:N``, default the target's first period) proposing K
-tokens per slot per round and the target verifying them in one slab.
+serving``: a request queue, admission by ``--scheduler
+fcfs|leaf_aware|weighted_leaf_aware``, a slot-pooled KV cache of
+``--batch`` slots and interleaved prefill and decode over fixed shapes.
+``--prefill-chunk N`` switches admission to chunked prefill (N tokens per
+slab, at most ``--prefill-budget`` slabs per step, at most
+``--max-prefilling`` slots prefilling at once); ``--spec-k K`` turns on
+speculative decoding, the draft (``--draft-config self:N``, default the
+target's first period) proposing K tokens per slot per round and the
+target verifying them in one slab.  ``--page-size N`` pages the KV cache
+(N tokens a page) and shares cached prompt prefixes across requests;
+``--shared-prefix N`` starts every request with the same N-token system
+prompt.  ``--tenant-weights a=3,b=1`` labels the requests round-robin with
+those tenants and gives ``weighted_leaf_aware`` its weights.
 ``--fff-backend grouped`` (or ``grouped_ep``) serves every FFF site through
 capacity-bounded grouped dispatch, ``--capacity-factor`` sets its per-leaf
-capacity and ``--overflow-policy`` what over-capacity tokens get.
+capacity and ``--overflow-policy`` what over-capacity tokens get;
+``--cuda-decode`` steers decode and draft steps to the fused decode
+kernel.  ``--metrics-json PATH`` writes the run's metrics as JSON.
 ``--engine off`` keeps the fixed-batch loop: one batched prefill, then a
 greedy decode loop.  Both print latency percentiles, tokens/s and how many
 times each CUDA kernel launched.
@@ -30,12 +38,16 @@ runs the plain PyTorch versions on the host::
       --prompt-len 32 --gen 16 [--fff-backend auto|reference|grouped|...]
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --fff-backend grouped --capacity-factor 0.5 --overflow-policy exact_dense
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --page-size 4 --shared-prefix 8 --tenant-weights a=3,b=1 \
+      --scheduler weighted_leaf_aware --metrics-json /tmp/metrics.json
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import json
 import time
 from typing import Optional
 
@@ -167,31 +179,71 @@ class EngineRun:
     shapes: dict                   # engine.dispatch_shapes()
 
 
+def parse_tenant_weights(spec: str) -> dict:
+    """'gold=3,free=1' -> {'gold': 3.0, 'free': 1.0}."""
+    out = {}
+    for part in filter(None, (p.strip() for p in spec.split(","))):
+        name, eq, w = part.partition("=")
+        if not eq or not name:
+            raise ValueError(f"--tenant-weights entry {part!r} is not "
+                             f"tenant=weight")
+        try:
+            weight = float(w)
+        except ValueError:
+            raise ValueError(f"--tenant-weights entry {part!r}: weight "
+                             f"{w!r} is not a number") from None
+        if not (weight > 0 and np.isfinite(weight)):
+            # fail where the operator sees which flag was wrong
+            raise ValueError(f"--tenant-weights entry {part!r}: weight must "
+                             f"be positive and finite")
+        if name in out:
+            raise ValueError(f"--tenant-weights names tenant {name!r} twice")
+        out[name] = weight
+    return out
+
+
 def build_requests(vocab_size: int, n: int, prompt_len: int, gen: int, *,
                    eos_id: int = -1, seed: int = 0,
-                   min_prompt_len: Optional[int] = None) -> list:
+                   min_prompt_len: Optional[int] = None,
+                   shared_prefix: int = 0, tenants=None) -> list:
     """``n`` Markov-source requests with prompts of mixed lengths in
-    [min_prompt_len, prompt_len] (default min: max(4, prompt_len // 4)) and
-    ``gen`` new tokens each (the JAX driver's synthetic workload, less
-    tenants and shared prefixes)."""
+    [min_prompt_len, prompt_len] (default min: max(shared_prefix + 1, 4,
+    prompt_len // 4)) and ``gen`` new tokens each: the JAX driver's
+    synthetic workload, prompt for prompt for the same seed.  With
+    ``shared_prefix`` N > 0 every prompt starts with the same N-token
+    system prompt; ``tenants`` (names) label the requests round-robin
+    (default one tenant, "default")."""
+    if shared_prefix >= prompt_len:
+        raise ValueError(f"--shared-prefix ({shared_prefix}) must be "
+                         f"< --prompt-len ({prompt_len}): every request "
+                         f"needs at least one token of its own")
     src = tokens_lib.MarkovTokenSource(vocab_size, seed=seed)
     rng = np.random.default_rng(seed)
-    lo = min(min_prompt_len or max(4, prompt_len // 4), prompt_len)
+    tenants = list(tenants or ["default"])
+    sp = max(shared_prefix, 0)
+    system = src.sample(1, sp, seed=seed)[0, :sp] if sp else None
+    lo = min(max(sp + 1, min_prompt_len or max(4, prompt_len // 4)),
+             prompt_len)
     reqs = []
     for i in range(n):
         L = int(rng.integers(lo, prompt_len + 1))
-        reqs.append(Request(rid=i, prompt=src.sample(1, L, seed=seed + 1 + i)[0, :L],
-                            max_new_tokens=gen,
-                            eos_id=eos_id if eos_id >= 0 else None))
+        prompt = src.sample(1, L, seed=seed + 1 + i)[0, :L]
+        if system is not None:
+            prompt = np.concatenate([system, prompt[sp:]])
+        reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=gen,
+                            eos_id=eos_id if eos_id >= 0 else None,
+                            tenant=tenants[i % len(tenants)]))
     return reqs
 
 
 def serve_engine(cfg: ModelConfig, ecfg: EngineConfig, requests: list, *,
-                 params=None) -> EngineRun:
+                 params=None, metrics_json: str = "") -> EngineRun:
     """Serve ``requests`` through a ``ContinuousBatchingEngine`` on
     ``ecfg.device``; ``params`` defaults to ``lm.init(cfg, seed=ecfg.seed)``
     there.  Prints the metrics report, the dispatch shapes and the kernel
-    launches of the run."""
+    launches of the run; with ``metrics_json`` also writes the metrics
+    (``EngineMetrics.as_dict``), the dispatch shapes and the learned
+    routing profiles there as JSON."""
     if params is None:
         params = lm.init(cfg, seed=ecfg.seed, device=ecfg.device)
         print(f"{cfg.arch_id}: {lm.param_count(params)/1e6:.1f}M params")
@@ -201,12 +253,19 @@ def serve_engine(cfg: ModelConfig, ecfg: EngineConfig, requests: list, *,
             else "monolithic prefill")
     spec = (f", speculative (k={ecfg.spec_k}, "
             f"draft={ecfg.draft_config or 'self'})" if ecfg.spec_k else "")
+    paged = (f", paged kv (page={ecfg.page_size}, prefix sharing "
+             f"{'on' if ecfg.prefix_sharing else 'off'})"
+             if ecfg.page_size else "")
+    tenants = sorted({r.tenant for r in requests})
     print(f"engine: {ecfg.num_slots} slots, {len(requests)} requests, prompt "
           f"lens {min(len(r.prompt) for r in requests)}-"
           f"{max(len(r.prompt) for r in requests)}, scheduler="
-          f"{ecfg.scheduler}, {mode}{spec}, fff backend={ecfg.fff_backend} "
-          f"requested" + (f", capacity factor {ecfg.capacity_factor}"
-                          if ecfg.capacity_factor is not None else "")
+          f"{ecfg.scheduler}, {mode}{spec}{paged}, fff backend="
+          f"{ecfg.fff_backend} requested"
+          + (", cuda_decode on decode steps" if ecfg.cuda_decode else "")
+          + (f", tenants {tenants}" if tenants != ["default"] else "")
+          + (f", capacity factor {ecfg.capacity_factor}"
+             if ecfg.capacity_factor is not None else "")
           + (f", overflow policy {ecfg.overflow_policy}"
              if ecfg.overflow_policy is not None else ""))
     before = common.launch_counts()
@@ -220,6 +279,15 @@ def serve_engine(cfg: ModelConfig, ecfg: EngineConfig, requests: list, *,
         f"{k}={sorted(v)}" for k, v in sorted(shapes.items())))
     print("kernel launches: " + " ".join(f"{k}={v}" for k, v in
                                          sorted(launches.items())))
+    if metrics_json:
+        payload = m.as_dict()
+        payload["dispatch_shapes"] = {k: sorted(map(list, v))
+                                      for k, v in sorted(shapes.items())}
+        if engine.profiles is not None:
+            payload["routing_profiles"] = engine.profiles.as_dict()
+        with open(metrics_json, "w") as f:
+            json.dump(payload, f, indent=1)
+        print(f"wrote metrics to {metrics_json}")
     return EngineRun(results, m, launches, shapes)
 
 
@@ -249,12 +317,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "output, master_leaf = the always-on master term "
                          "alone (needs a model built with fff_master_leaf), "
                          "drop = zeros (default: the backend's own)")
+    ap.add_argument("--cuda-decode", action="store_true",
+                    help="engine: steer one-token decode steps (and the "
+                         "speculative draft steps) to the cuda_decode backend, "
+                         "the one-launch fused decode kernel; prefill and "
+                         "verify slabs keep the normal resolution (the JAX "
+                         "driver's --pallas-decode)")
     ap.add_argument("--engine", default="continuous",
                     choices=["continuous", "off"],
                     help="continuous = the batching engine "
                          "(repro_torch.serving); off = the fixed-batch loop")
     ap.add_argument("--scheduler", default="fcfs", choices=sorted(SCHEDULERS),
                     help="admission policy for --engine continuous")
+    ap.add_argument("--tenant-weights", default="",
+                    help="comma list of tenant=weight pairs (e.g. "
+                         "gold=3,free=1): the requests are labelled "
+                         "round-robin with the named tenants, and the "
+                         "weights drive --scheduler weighted_leaf_aware's "
+                         "weighted-fair admission; empty = one 'default' "
+                         "tenant")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="engine: >0 = chunked prefill, this many tokens per "
                          "(slots, chunk) slab, interleaved with decode (a "
@@ -263,6 +344,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-budget", type=int, default=1,
                     help="engine: most chunk slabs per step when "
                          "--prefill-chunk > 0")
+    ap.add_argument("--max-prefilling", type=int, default=0,
+                    help="scheduler: most slots mid-chunked-prefill at once "
+                         "(0 = uncapped)")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="engine: >0 = speculative decoding, the draft "
                          "proposing this many tokens per slot per round and "
@@ -272,6 +356,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="engine: the draft for --spec-k, 'self' / 'self:N' "
                          "= the target's own first N periods (default "
                          "'self')")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="engine: >0 = paged KV cache, a pool of pages of "
+                         "this many tokens with per-slot page tables; "
+                         "admissions that share a cached prompt prefix map "
+                         "its pages instead of prefilling them (0 = one "
+                         "contiguous row per slot)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="workload: >0 = every request starts with the same "
+                         "system prompt of this many tokens (0 = "
+                         "independent prompts)")
+    ap.add_argument("--metrics-json", default="",
+                    help="engine: write the run's metrics, dispatch shapes "
+                         "and learned routing profiles as JSON to this path")
     ap.add_argument("--batch", type=int, default=4,
                     help="fixed batch (off) / cache slots (engine)")
     ap.add_argument("--requests", type=int, default=0,
@@ -298,18 +395,32 @@ def main(argv=None) -> None:
               overflow_policy=args.overflow_policy, eos_id=args.eos_id,
               seed=args.seed, device=args.device)
         return
+    weights = parse_tenant_weights(args.tenant_weights)
+    sched_kw = ({"max_prefilling": args.max_prefilling}
+                if args.max_prefilling > 0 else {})
+    if weights and args.scheduler == "weighted_leaf_aware":
+        sched_kw["weights"] = weights
+    elif weights:
+        # labels without enforcement: the metrics split per tenant, but
+        # admission ignores the weights
+        print(f"WARNING: --tenant-weights given but --scheduler is "
+              f"{args.scheduler!r}: requests get tenant labels and "
+              f"per-tenant metrics, but only weighted_leaf_aware enforces "
+              f"the weights at admission")
     ecfg = EngineConfig(
         num_slots=args.batch, max_len=args.prompt_len + args.gen + 1,
         max_prompt_len=args.prompt_len, scheduler=args.scheduler,
-        prefill_chunk=args.prefill_chunk, prefill_budget=args.prefill_budget,
-        fff_backend=args.fff_backend, capacity_factor=args.capacity_factor,
+        scheduler_kw=sched_kw, prefill_chunk=args.prefill_chunk,
+        prefill_budget=args.prefill_budget, fff_backend=args.fff_backend,
+        cuda_decode=args.cuda_decode, capacity_factor=args.capacity_factor,
         overflow_policy=args.overflow_policy, spec_k=args.spec_k,
-        draft_config=args.draft_config or None, seed=args.seed,
-        device=args.device)
+        draft_config=args.draft_config or None, page_size=args.page_size,
+        seed=args.seed, device=args.device)
     reqs = build_requests(cfg.vocab_size, args.requests or 2 * args.batch,
                           args.prompt_len, args.gen, eos_id=args.eos_id,
-                          seed=args.seed)
-    serve_engine(cfg, ecfg, reqs)
+                          seed=args.seed, shared_prefix=args.shared_prefix,
+                          tenants=sorted(weights) or None)
+    serve_engine(cfg, ecfg, reqs, metrics_json=args.metrics_json)
 
 
 if __name__ == "__main__":

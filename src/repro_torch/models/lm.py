@@ -45,8 +45,14 @@ def param_count(params) -> int:
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
+                page_size: int = 0, num_pages: int = 0, prealloc: bool = True,
                 device="cuda") -> list[dict]:
+    """Per-layer KV caches: contiguous (``page_size`` 0), or a paged pool
+    of ``num_pages`` pages of ``page_size`` tokens, with identity tables
+    (``prealloc``) or unmapped ones for the engine to install."""
     return transformer.init_caches(cfg, batch, max_len, dtype,
+                                   page_size=page_size, num_pages=num_pages,
+                                   prealloc=prealloc,
                                    device=utils.resolve_device(device))
 
 
@@ -149,18 +155,49 @@ def set_cache_lengths(caches: list[dict], lengths: torch.Tensor) -> list[dict]:
     return out
 
 
-def cache_admit(caches: list[dict], admit: torch.Tensor) -> list[dict]:
-    """Restart the rows marked in ``admit`` (B,) bool at length 0: the
-    contiguous-layout counterpart of the JAX package's ``cache_admit``,
-    whose page tables and shared-prefix lengths need paging (every row here
-    owns one ``max_len`` page, and an admission shares no prefix).  The
-    pools are not cleared; everything past length 0 is masked by length."""
+def cache_admit(caches: list[dict], admit: torch.Tensor,
+                tables: Optional[torch.Tensor] = None,
+                lengths: Optional[torch.Tensor] = None,
+                cow_src: Optional[torch.Tensor] = None,
+                cow_dst: Optional[torch.Tensor] = None) -> list[dict]:
+    """Install the rows marked in ``admit`` (B,) bool, in one batched call
+    on the device with no host synchronization.
+
+    Paged caches: the admitted rows' page tables become ``tables`` (B, ppr)
+    and their lengths ``lengths`` (B,), the shared-prefix boundary, so
+    prefill resumes at the first novel token.  ``cow_src``/``cow_dst`` (B,)
+    are page ids for copy-on-write (a prompt fully covered by shared pages
+    recomputes its last token privately): the source page's K/V are copied
+    into the row's own ``cow_dst`` page before the table swap.  Rows
+    without a copy pass the ``num_pages`` sentinel as ``cow_dst``, whose
+    copy lands in the sink page.
+
+    Contiguous caches (every row owns one ``max_len`` page, and no prefix
+    is shared) take ``admit`` alone and restart those rows at length 0.
+    The pools are not cleared; everything past a row's length is masked."""
     out = []
     for c in caches:
         kv = c["kv"]
-        a = admit.to(kv.length.device)
+        dev = kv.length.device
+        a = admit.to(dev)
+        if not kv.paged:
+            if tables is not None or cow_src is not None or cow_dst is not None:
+                raise ValueError("a contiguous cache has no page tables to "
+                                 "install")
+            new_len = (torch.zeros_like(kv.length) if lengths is None
+                       else lengths.to(dev, kv.length.dtype))
+            out.append(dict(c, kv=kv._replace(
+                length=torch.where(a, new_len, kv.length))))
+            continue
+        src = cow_src.to(dev).long().clamp(max=kv.k.shape[0] - 2)
+        dst = cow_dst.to(dev).long()
+        for pool in (kv.k, kv.v):
+            pool[dst] = pool[src]
         out.append(dict(c, kv=kv._replace(
-            length=torch.where(a, torch.zeros_like(kv.length), kv.length))))
+            table=torch.where(a[:, None], tables.to(dev, kv.table.dtype),
+                              kv.table),
+            length=torch.where(a, lengths.to(dev, kv.length.dtype),
+                               kv.length))))
     return out
 
 
@@ -204,17 +241,21 @@ def verify_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 @torch.no_grad()
 def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
              steps: int, max_len: int, generator: Optional[torch.Generator] = None,
-             temperature: float = 0.0, eos_id: Optional[int] = None
-             ) -> torch.Tensor:
+             temperature: float = 0.0, eos_id: Optional[int] = None,
+             caches: Optional[list] = None) -> torch.Tensor:
     """Greedy (or, with a generator and temperature > 0, sampled) decoding.
 
     With ``eos_id`` set, rows that emit it stop: their later tokens are
     pinned to ``eos_id`` and the loop exits once every row has finished, so
-    the result may have fewer than ``steps`` generated columns."""
+    the result may have fewer than ``steps`` generated columns.  ``caches``
+    replaces the contiguous caches built here with the caller's, e.g. a
+    preallocated paged set (``init_caches(..., page_size=N)``): fresh, and
+    sized ``(B, max_len)``."""
     dev = _device(params)
     prompt = prompt.to(dev)
     B = prompt.shape[0]
-    caches = transformer.init_caches(cfg, B, max_len, device=dev)
+    if caches is None:
+        caches = transformer.init_caches(cfg, B, max_len, device=dev)
     logits, caches = prefill(params, cfg, {"tokens": prompt}, caches)
     out = [prompt.to(torch.int32)]
     tok = logits.argmax(-1)[:, None].to(torch.int32)

@@ -6,11 +6,13 @@ verify.
 Attention is plain PyTorch, as the JAX package computes it outside Pallas.
 The blocked ``flash_attention`` the JAX package uses above 2048 tokens is
 not ported yet, so prompts and training sequences longer than that raise.
-The KV cache keeps the JAX fields (page pools, page table, lengths) in the
-contiguous layout only: one ``max_len`` page per row and an identity
-table.  Unlike the JAX package, cache writes update the pools in place
-(the returned cache shares them), which saves a copy of every layer's
-cache per step.
+The KV cache keeps the JAX fields (page pools, page table, lengths) in two
+layouts: contiguous (one ``max_len`` page per row, an identity table) and
+paged (``init_cache(page_size=...)``: a pool of fixed pages shared by all
+rows through per-row tables, two rows may map one page).  Unlike the JAX
+package, cache writes update the pools in place (the returned cache shares
+them), which saves a copy of every layer's cache per step; the paged pools
+end with one extra page that takes the writes JAX drops.
 """
 from __future__ import annotations
 
@@ -119,29 +121,68 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 class KVCache(NamedTuple):
-    """KV cache with the JAX package's fields: page pools ``k``/``v``
-    (num_pages, page_size, K, hd), a per-row page ``table`` (B, ppr) int32
-    and filled ``length`` (B,) int32.  Row b's position p lives at
-    ``pool[table[b, p // page_size], p % page_size]``.  Only the contiguous
-    layout is built here (one ``max_len`` page per row, identity table)."""
+    """KV cache with the JAX package's fields: page pools ``k``/``v``, a
+    per-row page ``table`` (B, ppr) int32 and filled ``length`` (B,) int32.
+    Row b's position p lives at ``pool[table[b, p // page_size], p %
+    page_size]``.
+
+    Contiguous layout (``paged`` False): pools (B, max_len, K, hd), row b
+    owns page b.  Paged layout (``paged`` True): pools (num_pages + 1,
+    page_size, K, hd), shared by every row through its table.  Unmapped
+    table entries hold the sentinel ``num_pages``, which names the extra
+    last page: a sink that takes every write JAX drops (sentinel pages,
+    padding, masked rows), so no write needs a host synchronization and
+    none can land on a page another row holds.  Reads of the sink are
+    masked by ``length``.  Two rows may map one page (a shared prompt
+    prefix); the host allocator guarantees a shared page is never
+    written."""
     k: torch.Tensor
     v: torch.Tensor
     table: torch.Tensor
     length: torch.Tensor
+    paged: bool = False
 
 
 def init_cache(batch: int, max_len: int, cfg: AttnConfig, dtype=None, *,
-               device="cpu") -> KVCache:
+               page_size: int = 0, num_pages: int = 0,
+               prealloc: bool = True, device="cpu") -> KVCache:
+    """``page_size <= 0``: the contiguous layout (one ``max_len`` page per
+    row).  ``page_size > 0``: a pool of ``num_pages`` pages (default
+    ``batch * ceil(max_len / page_size)``) plus the sink.  ``prealloc``
+    maps row b to pages ``[b*ppr, (b+1)*ppr)``, a ready-to-write table for
+    standalone callers (``lm.generate``, tests); the serving engine passes
+    ``prealloc=False`` (every entry the sentinel) and installs its tables
+    at admission (``models.lm.cache_admit``)."""
     dtype = dtype or cfg.param_dtype
-    table = torch.arange(batch, dtype=torch.int32, device=device)[:, None]
-    shp = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return KVCache(torch.zeros(shp, dtype=dtype, device=device),
-                   torch.zeros(shp, dtype=dtype, device=device), table,
-                   torch.zeros(batch, dtype=torch.int32, device=device))
+    kv_shape = (cfg.n_kv_heads, cfg.head_dim)
+    zeros = lambda *lead: torch.zeros(lead + kv_shape, dtype=dtype, device=device)
+    length = torch.zeros(batch, dtype=torch.int32, device=device)
+    if page_size <= 0:
+        if num_pages or not prealloc:
+            raise ValueError("the contiguous layout (page_size 0) holds one "
+                             "preallocated page per row")
+        table = torch.arange(batch, dtype=torch.int32, device=device)[:, None]
+        return KVCache(zeros(batch, max_len), zeros(batch, max_len), table,
+                       length)
+    ppr = utils.cdiv(max_len, page_size)                 # pages per row
+    num_pages = num_pages or batch * ppr
+    if prealloc:
+        if num_pages < batch * ppr:
+            raise ValueError(f"prealloc needs {batch * ppr} pages, "
+                             f"pool has {num_pages}")
+        table = torch.arange(batch * ppr, dtype=torch.int32,
+                             device=device).reshape(batch, ppr)
+    else:
+        table = torch.full((batch, ppr), num_pages, dtype=torch.int32,
+                           device=device)
+    return KVCache(zeros(num_pages + 1, page_size),      # + the sink page
+                   zeros(num_pages + 1, page_size), table, length, paged=True)
 
 
 def gather_cache_kv(cache: KVCache) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-row K/V views (B, ppr*page, K, hd) gathered through the table."""
+    """Per-row K/V views (B, ppr*page, K, hd) gathered through the table;
+    sentinel entries read the sink page (paged) or clamp to the last page
+    (contiguous), masked by the caller's length check either way."""
     num_pages, page = cache.k.shape[:2]
     tbl = cache.table.long().clamp(max=num_pages - 1)
     B, ppr = tbl.shape
@@ -161,6 +202,22 @@ def _slots(cache: KVCache, pos: torch.Tensor):
     return pid, off, inside
 
 
+def _paged_write(cache: KVCache, pos: torch.Tensor, ok: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor) -> None:
+    """Scatter k, v (B, C, K, hd) to logical positions pos (B, C) of a
+    paged cache where ``ok`` (B, C) holds and the position lies inside the
+    row's table; every other write, and every write through a sentinel
+    entry, lands in the sink page (in place, no host synchronization)."""
+    page = cache.k.shape[1]
+    ppr = cache.table.shape[1]
+    sink = cache.k.shape[0] - 1
+    pid = torch.gather(cache.table.long(), 1, (pos // page).clamp(max=ppr - 1))
+    pid = torch.where(ok & (pos < ppr * page), pid, torch.full_like(pid, sink))
+    off = pos % page
+    for pool, new in ((cache.k, k), (cache.v, v)):
+        pool[pid, off] = new.to(pool.dtype)
+
+
 def prefill_into_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor
                        ) -> KVCache:
     """Write a full prefix (B, S, K, hd) at position 0 (in place)."""
@@ -169,6 +226,9 @@ def prefill_into_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor
         raise ValueError(f"prefix of {S} tokens exceeds the cache's "
                          f"{cache.table.shape[1] * cache.k.shape[1]} positions")
     pos = torch.arange(S, device=k.device)[None, :].expand(B, S)
+    if cache.paged:
+        _paged_write(cache, pos, torch.ones_like(pos, dtype=torch.bool), k, v)
+        return cache._replace(length=torch.full_like(cache.length, S))
     pid, off, _ = _slots(cache, pos)
     cache.k[pid, off] = k.to(cache.k.dtype)
     cache.v[pid, off] = v.to(cache.v.dtype)
@@ -179,12 +239,16 @@ def append_to_cache(cache: KVCache, k1: torch.Tensor, v1: torch.Tensor,
                     write_mask: Optional[torch.Tensor] = None) -> KVCache:
     """Append one token (B, 1, K, hd) at each row's length (in place).
     Rows where ``write_mask`` is False neither write nor advance; a write
-    past a row's mapped pages is dropped.  Each row writes only its own
-    page, so the drop is a write-back of the slot's old value and needs no
-    host synchronization."""
+    past a row's mapped pages is dropped.  Each row of a contiguous cache
+    writes only its own page, so the drop is a write-back of the slot's old
+    value and needs no host synchronization; a paged cache drops it into
+    its sink page."""
     B = k1.shape[0]
     valid = (torch.ones(B, dtype=torch.bool, device=k1.device)
              if write_mask is None else write_mask.to(torch.bool))
+    if cache.paged:
+        _paged_write(cache, cache.length.long()[:, None], valid[:, None], k1, v1)
+        return cache._replace(length=cache.length + valid.to(cache.length.dtype))
     pid, off, inside = _slots(cache, cache.length.long()[:, None])
     pid, off = pid[:, 0], off[:, 0]
     ok = (valid & inside[:, 0])[:, None, None]
@@ -202,13 +266,17 @@ def chunk_into_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
     its slot's old value, and a position past the row's pages wraps onto
     the row's own positions below its length, which no write of this chunk
     touches, so every index of the scatter is distinct (C must not exceed
-    the row's capacity)."""
+    the row's capacity).  A paged cache drops them into its sink page."""
     B, C = k.shape[:2]
     cap = cache.table.shape[1] * cache.k.shape[1]
     if C > cap:
         raise ValueError(f"chunk of {C} positions exceeds the cache's {cap}")
     col = torch.arange(C, device=k.device)[None, :]
     pos = cache.length.long()[:, None] + col
+    if cache.paged:
+        _paged_write(cache, pos, col < valid_len.long()[:, None], k, v)
+        return cache._replace(
+            length=cache.length + valid_len.to(cache.length.dtype))
     ok = ((col < valid_len.long()[:, None]) & (pos < cap))[..., None, None]
     pid, off, _ = _slots(cache, pos % cap)
     for pool, new in ((cache.k, k), (cache.v, v)):

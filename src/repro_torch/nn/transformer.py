@@ -124,11 +124,14 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> list[Params]:
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
+                page_size: int = 0, num_pages: int = 0, prealloc: bool = True,
                 device="cpu") -> list[Cache]:
-    """One contiguous KV cache per layer, mirroring ``stack_init``."""
+    """One KV cache per layer, mirroring ``stack_init``: contiguous, or
+    paged with ``page_size > 0`` (``attention.init_cache``)."""
     return [{"kv": attention.init_cache(
                 batch, max_len, make_attn_config(cfg, cfg.period[i % len(cfg.period)]),
-                dtype, device=device)}
+                dtype, page_size=page_size, num_pages=num_pages,
+                prealloc=prealloc, device=device)}
             for i in range(cfg.n_layers)]
 
 

@@ -1,10 +1,20 @@
-"""Continuous-batching serving engine (port of ``repro/serving/engine.py``
-on the contiguous slot-pooled cache, ``page_size`` 0).
+"""Continuous-batching serving engine (port of ``repro/serving/engine.py``).
 
-* Every slot owns one ``max_len`` row of the pooled KV cache on one
-  explicit device (``EngineConfig.device``, CUDA by default).  Admission
-  restarts the slot's row at length 0 (``lm.cache_admit``); eviction is
-  host bookkeeping only, since every later write is masked to live rows.
+* KV state lives on one explicit device (``EngineConfig.device``, CUDA by
+  default).  With ``page_size`` 0 every slot owns one ``max_len`` row (the
+  contiguous layout); with ``page_size > 0`` the cache is a pool of fixed
+  pages indexed through per-slot page tables.  A host-side allocator and
+  radix prefix index (``serving/paging.py``) own the mapping; admission
+  installs a slot's table and shared-prefix length in one batched call
+  (``lm.cache_admit``), and eviction is refcount bookkeeping on the host.
+* Prefix sharing: a prompt whose leading full pages are already cached
+  maps them read-only (refcounted, shared across slots) and prefills only
+  its novel suffix.  A prompt covered entirely by shared pages copies its
+  last matched page (copy-on-write) so its final token re-prefills
+  privately: first-token logits need it, and shared pages are never
+  written.  A prompt's pages are published for sharing only when its
+  prefill completes.  A request whose pages the pool cannot fund, even
+  after reclaiming LRU index entries, stays queued.
 * The decode batch is always ``(num_slots, 1)``: free slots decode a
   filler token whose output is ignored and never written.
 * Monolithic admission prefills a prompt as a ``(num_slots, bucket)`` chunk
@@ -31,13 +41,19 @@ decode kernel, slabs of at most 32 tokens (the verify slab at 8 slots and
 Admission policy is pluggable (``serving/scheduler.py``); ``leaf_aware``
 reads the per-slot FFF leaf occupancy the engine collects through
 ``api.collect_routing``, reduced on the device and copied to the host
-with the dispatch's logits in one transfer.  Sampling is host numpy, deterministic under
-``EngineConfig.seed``; the draft samples on the device from a seeded
-``torch.Generator``.  ``capacity_factor`` and ``overflow_policy`` steer the
-live FFF dispatch (``api.overrides``) of capacity-bounded backends
-(``grouped``, ``grouped_ep``); the scheduler's overflow proxy and the
-overflow-policy metrics read the same values.  Left for later slices:
-paging and prefix sharing, tenants and their profiles, the cluster.
+with the dispatch's logits in one transfer, and ``weighted_leaf_aware``
+adds weighted-fair admission across ``Request.tenant`` classes (the queue
+keeps per-tenant FIFO views, ``TenantQueues``).  Finished requests fold
+their measured leaf occupancy into a per-tenant ``RoutingProfileStore``
+(``serving/profiles.py``), the prior for the tenant's hint-less requests.
+Sampling is host numpy, deterministic under ``EngineConfig.seed``; the
+draft samples on the device from a seeded ``torch.Generator``.
+``capacity_factor`` and ``overflow_policy`` steer the live FFF dispatch
+(``api.overrides``) of capacity-bounded backends (``grouped``,
+``grouped_ep``); the scheduler's overflow proxy and the overflow-policy
+metrics read the same values.  ``cuda_decode`` steers decode and draft
+steps to the fused decode kernel.  The engine clock is injectable
+(``clock=``, e.g. a ``VirtualClock``).  The cluster is not ported.
 """
 from __future__ import annotations
 
@@ -46,7 +62,7 @@ import dataclasses
 import time
 import warnings
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -57,13 +73,67 @@ from repro_torch.distributed import act as dist_act
 from repro_torch.models import lm
 from repro_torch.nn import mlp as mlp_lib
 from repro_torch.serving import metrics as metrics_lib
+from repro_torch.serving import paging
 from repro_torch.serving import spec as spec_lib
+from repro_torch.serving.profiles import RoutingProfileStore
 from repro_torch.serving.request import Request, RequestResult, SlotState
 from repro_torch.serving.scheduler import Scheduler, SchedulerView, make_scheduler
 
 
 # weight of the newest routing histogram in a slot's occupancy average
 _OCCUPANCY_EWMA = 0.5
+
+
+class TenantQueues:
+    """The engine's waiting queue: arrival order globally, FIFO per tenant.
+
+    Schedulers receive the arrival-ordered view (``list(queue)``); the
+    weighted scheduler groups it by tenant, and ``poll_metrics`` reads the
+    ``per_tenant`` depths.  ``remove`` is by identity (``Request`` is
+    ``eq=False``)."""
+
+    def __init__(self):
+        self._order: List[Request] = []
+        self.per_tenant: Dict[str, deque] = {}
+
+    def append(self, req: Request) -> None:
+        self._order.append(req)
+        self.per_tenant.setdefault(req.tenant, deque()).append(req)
+
+    def remove(self, req: Request) -> None:
+        self._order.remove(req)
+        q = self.per_tenant[req.tenant]
+        q.remove(req)
+        if not q:
+            del self.per_tenant[req.tenant]
+
+    def __len__(self):
+        return len(self._order)
+
+    def __bool__(self):
+        return bool(self._order)
+
+    def __iter__(self):
+        return iter(self._order)
+
+
+class VirtualClock:
+    """A deterministic engine clock for tests: reading it never blocks and
+    time moves only when told (``advance``).  Passed as
+    ``ContinuousBatchingEngine(..., clock=vc)``, it makes the engine jump to
+    the next pending arrival instead of sleeping when idle."""
+
+    def __init__(self, start: float = 0.0):
+        self._t = float(start)
+
+    def __call__(self) -> float:
+        return self._t
+
+    def advance(self, dt: float) -> float:
+        if dt < 0:
+            raise ValueError(f"cannot advance a clock by {dt}")
+        self._t += float(dt)
+        return self._t
 
 
 def _pow2_buckets(lo: int, hi: int) -> Tuple[int, ...]:
@@ -109,7 +179,20 @@ class EngineConfig:
     over-capacity tokens, "exact_dense" (their exact leaf output),
     "master_leaf" (the master term alone; needs FFF sites built with
     ``fff_master_leaf``) or "drop" (zeros); None = the backend's default
-    (``api.default_overflow_policy``)."""
+    (``api.default_overflow_policy``).  ``cuda_decode`` steers the decode
+    step and the draft steps (not the slabs) to the fused decode kernel
+    (the JAX config's ``pallas_decode``).  ``scheduler_kw`` goes to the
+    scheduler's constructor (``weights``, ``max_prefilling``, ...).
+
+    Paged KV cache: ``page_size`` 0 = one ``max_len`` row per slot (the
+    contiguous layout; no prompt ever fills a page, so nothing is shared);
+    ``page_size > 0`` carves a pool of ``num_pages`` pages (0 = ``num_slots
+    * ceil(max_len / page_size)``, the contiguous footprint) shared through
+    page tables.  ``prefix_sharing`` gates page reuse across requests.
+    Routing profiles: with ``learn_profiles`` each finished request's
+    measured occupancy updates its tenant's profile (``profile_ewma``;
+    served after ``profile_min_updates`` requests; at most
+    ``profile_max_tenants`` tenants, LRU)."""
     num_slots: int = 8
     max_len: int = 128
     max_prompt_len: int = 64
@@ -117,11 +200,20 @@ class EngineConfig:
     prefill_chunk: int = 0
     prefill_budget: int = 1
     scheduler: str = "fcfs"
+    scheduler_kw: dict = dataclasses.field(default_factory=dict)
     fff_backend: str = "auto"
+    cuda_decode: bool = False
     capacity_factor: Optional[float] = None
     overflow_policy: Optional[str] = None
+    learn_profiles: bool = True
+    profile_ewma: float = 0.3
+    profile_min_updates: int = 1
     spec_k: int = 0
     draft_config: Optional[str] = None
+    page_size: int = 0
+    num_pages: int = 0
+    prefix_sharing: bool = True
+    profile_max_tenants: int = 1024
     seed: int = 0
     device: str = "cuda"
 
@@ -137,14 +229,17 @@ class ContinuousBatchingEngine:
         cfg:       the ``ModelConfig``: a decoder-only attention stack.
         ecfg:      shape and policy knobs (``EngineConfig``).
         scheduler: an admission ``Scheduler``; default built from
-                   ``ecfg.scheduler`` with its default knobs.
+                   ``ecfg.scheduler`` and ``ecfg.scheduler_kw``.
+        clock:     the engine clock (seconds; default ``time.monotonic``),
+                   e.g. a ``VirtualClock``.
 
     Drive it with ``run(requests)`` (serve to completion; returns results
     and ``EngineMetrics``) or by hand: ``submit``, then ``step()`` while
     ``has_work()``, reading ``poll_metrics()`` for live telemetry."""
 
     def __init__(self, params, cfg, ecfg: EngineConfig,
-                 scheduler: Optional[Scheduler] = None):
+                 scheduler: Optional[Scheduler] = None,
+                 clock: Optional[Callable[[], float]] = None):
         if any(b.mixer != "attn" or b.cross_attention for b in cfg.period):
             raise ValueError("serving engine requires attention mixers "
                              "(padded slabs are length-masked)")
@@ -165,6 +260,15 @@ class ContinuousBatchingEngine:
                                  "prefill is on")
         if ecfg.spec_k < 0:
             raise ValueError(f"spec_k {ecfg.spec_k} must be >= 0")
+        if ecfg.page_size < 0 or ecfg.page_size > ecfg.max_len:
+            raise ValueError(f"page_size {ecfg.page_size} must be in "
+                             f"[0, max_len {ecfg.max_len}]")
+        page = ecfg.page_size or ecfg.max_len
+        ppr = utils.cdiv(ecfg.max_len, page)       # pages per slot, at most
+        if ecfg.num_pages and ecfg.num_pages < ppr:
+            raise ValueError(
+                f"num_pages {ecfg.num_pages} cannot cover even one "
+                f"max-length slot ({ppr} pages of {page} tokens)")
         if ecfg.draft_config is not None and not ecfg.spec_k:
             raise ValueError("draft_config is set but spec_k == 0")
         if (ecfg.overflow_policy is not None
@@ -199,11 +303,29 @@ class ContinuousBatchingEngine:
                 "stand in for dropped tokens")
         self._topology: Optional[Tuple[int, Optional[float]]] = None
         self._policy: Optional[str] = None    # set alongside _topology
-        self.scheduler = scheduler or make_scheduler(ecfg.scheduler)
+        self.scheduler = scheduler or make_scheduler(ecfg.scheduler,
+                                                     **ecfg.scheduler_kw)
         S, L = ecfg.num_slots, ecfg.max_len
-        self.caches = lm.init_caches(cfg, S, L, device=self.device)
+        # the page pool: the host allocator and prefix index own the
+        # mapping; the device tables start unmapped (prealloc=False).  With
+        # page_size 0 the device rows stay contiguous and the pool (one
+        # max_len page per admission) only accounts for them.
+        self._page, self._ppr = page, ppr
+        self._num_pages = ecfg.num_pages or S * ppr
+        self.pool = paging.PagePool(self._num_pages, page)
+        self.prefix = paging.PrefixIndex(self.pool)
+        self._slot_pages: List[list] = [[] for _ in range(S)]
+        self._alloc_len = np.zeros((S,), np.int32)   # pages * page_size
+        self.n_prefix_hit_tokens = 0
+        self.n_cow_copies = 0
+        self._cache_kw = (dict(page_size=page, num_pages=self._num_pages,
+                               prealloc=False) if ecfg.page_size else {})
+        self.caches = lm.init_caches(cfg, S, L, device=self.device,
+                                     **self._cache_kw)
         # speculative decoding: the draft's cache rows live alongside the
-        # target's, slot for slot.  _tlen/_dlen are the host-authoritative
+        # target's, slot for slot, on the same page geometry and tables
+        # (a token's draft K/V is as deterministic as its target K/V, so
+        # shared prompt pages hold for both trees).  _tlen/_dlen are the host-authoritative
         # cache lengths: verify appends k+1 positions optimistically, host
         # rejection decides how many survive, and the next round's rollout
         # rolls both trees back to them.
@@ -213,7 +335,8 @@ class ContinuousBatchingEngine:
             self.draft_params, self.draft_cfg = spec_lib.build_draft(
                 ecfg.draft_config, params, cfg)
             self.draft_caches = lm.init_caches(self.draft_cfg, S, L,
-                                               device=self.device)
+                                               device=self.device,
+                                               **self._cache_kw)
             self._tlen = np.zeros((S,), np.int32)
             self._dlen = np.zeros((S,), np.int32)
             self._gen = torch.Generator(device=self.device).manual_seed(
@@ -221,9 +344,18 @@ class ContinuousBatchingEngine:
         self.n_draft_tokens = 0
         self.n_accepted_tokens = 0
         self.slots: List[Optional[SlotState]] = [None] * S
-        self.queue: List[Request] = []
+        self.queue = TenantQueues()
         self.results: List[RequestResult] = []
         self.occupancy = np.zeros((S, max(self.num_leaves, 1)), np.float64)
+        # whether a slot's occupancy row holds measured telemetry rather
+        # than a seeded hint or profile: only measured rows update the
+        # profile store, which would otherwise learn its own output
+        self._measured = np.zeros((S,), bool)
+        self.profiles: Optional[RoutingProfileStore] = (
+            RoutingProfileStore(self.num_leaves, ewma=ecfg.profile_ewma,
+                                min_updates=ecfg.profile_min_updates,
+                                max_tenants=ecfg.profile_max_tenants)
+            if ecfg.learn_profiles and self.num_leaves else None)
         self._hint_mismatches = 0
         self._hint_warned = False
         # what a free slot decodes: its last occupant's last non-EOS token
@@ -236,7 +368,8 @@ class ContinuousBatchingEngine:
         self._prefill_counts = np.zeros((S, max(self.num_leaves, 1)),
                                         np.float64)
         self._shapes: Dict[str, Set[tuple]] = {}
-        self._t0 = time.monotonic()
+        self._clock: Callable[[], float] = clock or time.monotonic
+        self._t0 = self._clock()
         self.n_steps = self.n_prefills = self.n_chunks = 0
         self.n_prefill_tokens = 0
         self.decode_lat: List[float] = []
@@ -251,7 +384,7 @@ class ContinuousBatchingEngine:
 
     def now(self) -> float:
         """Engine-clock seconds since construction."""
-        return time.monotonic() - self._t0
+        return self._clock() - self._t0
 
     def validate(self, req: Request) -> None:
         """Checks a request must pass to be servable; raises ValueError."""
@@ -278,9 +411,10 @@ class ContinuousBatchingEngine:
             self._hint_mismatches += 1
             if not self._hint_warned:
                 self._hint_warned = True
-                warnings.warn(f"request {req.rid}: unusable leaf_hint (size "
-                              f"{h.size}, {self.num_leaves} leaves, or zero "
-                              f"mass); ignoring it", stacklevel=2)
+                warnings.warn(f"request {req.rid} (tenant {req.tenant!r}): "
+                              f"unusable leaf_hint (size {h.size}, "
+                              f"{self.num_leaves} leaves, or zero mass); "
+                              f"ignoring it", stacklevel=2)
         self._live_rids.add(req.rid)
         self._arrivals[id(req)] = (self.now() if arrival_time is None
                                    else arrival_time)
@@ -301,12 +435,16 @@ class ContinuousBatchingEngine:
             kw["overflow_policy"] = self.ecfg.overflow_policy
         return kw
 
-    def _ctx(self):
+    def _ctx(self, decode: bool = False):
+        """The context of a dispatch; ``decode`` adds the ``cuda_decode``
+        steer for the one-token decode step."""
         es = contextlib.ExitStack()
         es.enter_context(torch.inference_mode())
         kw = self._overrides()
         if kw:
             es.enter_context(api.overrides(**kw))
+        if decode and self.ecfg.cuda_decode:
+            es.enter_context(api.overrides(backend="cuda_decode", mode="infer"))
         es.enter_context(api.collect_routing())
         return es
 
@@ -381,16 +519,6 @@ class ContinuousBatchingEngine:
     def _record_shape(self, name: str, shape) -> None:
         self._shapes.setdefault(name, set()).add(tuple(shape))
 
-    def _admit_rows(self, slot: int) -> None:
-        """Restart the slot's cache rows at length 0 (both trees)."""
-        admit = np.zeros((self.ecfg.num_slots,), bool)
-        admit[slot] = True
-        admit = self._dev(admit)
-        self.caches = lm.cache_admit(self.caches, admit)
-        if self.spec:
-            self.draft_caches = lm.cache_admit(self.draft_caches, admit)
-            self._tlen[slot] = self._dlen[slot] = 0
-
     def _slab(self, name: str, toks: np.ndarray, valid: np.ndarray):
         """One prefill slab through the target (and the draft under spec):
         returns (logits (S, V), the target's per-row leaf counts (S, E) or
@@ -445,7 +573,12 @@ class ContinuousBatchingEngine:
         return v[:-2].astype(np.float64).reshape(-1, self.num_leaves)
 
     def _update_occupancy(self, rows: Sequence[int],
-                          counts: Optional[np.ndarray]) -> None:
+                          counts: Optional[np.ndarray],
+                          measured: bool = True) -> None:
+        """Fold per-row leaf counts into the occupancy EWMA.  ``measured``
+        False (the draft's histograms, a prior on the verify's routing)
+        refines the footprint the schedulers read without making the row
+        eligible to update the profile store."""
         if counts is None:
             return
         a = _OCCUPANCY_EWMA
@@ -453,6 +586,8 @@ class ContinuousBatchingEngine:
             tot = counts[r].sum()
             if tot <= 0:
                 continue
+            if measured:
+                self._measured[r] = True
             frac = counts[r] / tot
             prev = self.occupancy[r]
             self.occupancy[r] = frac if not prev.any() else \
@@ -492,13 +627,26 @@ class ContinuousBatchingEngine:
     # -- the loop ------------------------------------------------------------
 
     def release_slot(self, i: int) -> None:
-        """Free slot ``i`` and record its result.  No device work: the row
-        is masked out of every later write and restarted at admission."""
+        """Free slot ``i`` and record its result: its pages' refcounts drop
+        (pages nobody else holds, neither a slot nor the prefix index, go
+        back to the free list), and its measured footprint updates its
+        tenant's routing profile.  No device work: the slot's stale table
+        and length are masked out of every later write and replaced at
+        admission."""
         st = self.slots[i]
         if st is None:
             return
+        self.pool.decref(self._slot_pages[i])
+        self._slot_pages[i] = []
+        self._alloc_len[i] = 0
+        if self.profiles is not None and self._measured[i] and \
+                self.occupancy[i].any():
+            self.profiles.update(st.request.tenant, self.occupancy[i])
         self.occupancy[i] = 0.0
+        self._measured[i] = False
         self._prefill_counts[i] = 0.0
+        if self.spec:
+            self._tlen[i] = self._dlen[i] = 0
         spread = [t for t in st.tokens if t != st.request.eos_id]
         self._free_tok[i] = (spread[-1] if spread
                              else int(st.request.prompt[-1]))
@@ -510,17 +658,106 @@ class ContinuousBatchingEngine:
             finish_reason=st.finish_reason, arrival_time=arrival,
             admitted_time=st.admitted_time,
             first_token_time=st.first_token_time,
-            finish_time=st.finish_time, n_drafted=st.n_drafted,
-            n_accepted=st.n_accepted))
+            finish_time=st.finish_time, tenant=st.request.tenant,
+            n_drafted=st.n_drafted, n_accepted=st.n_accepted))
         self.slots[i] = None
 
     def _seed_hint(self, slot: int, req: Request) -> None:
         """The slot's occupancy before telemetry lands: the request's usable
-        ``leaf_hint``, else nothing."""
+        ``leaf_hint``, else its tenant's learned routing profile."""
         h = req.leaf_hint
+        if h is None or not self.num_leaves or h.size != self.num_leaves \
+                or h.sum() <= 0:
+            # the schedulers' _footprint predicate, so admission and slot
+            # seeding agree on the footprint
+            h = (self.profiles.lookup(req.tenant)
+                 if self.profiles is not None else None)
         if h is not None and self.num_leaves and h.size == self.num_leaves \
                 and h.sum() > 0:
             self.occupancy[slot] = h / h.sum()
+
+    # -- paged admission -----------------------------------------------------
+
+    def _plan_pages(self, req: Request) -> Optional[dict]:
+        """Page plan for admitting ``req``: the longest indexed full-page
+        prefix maps shared pages read-only; fresh pages cover the rest of
+        ``len(prompt) + max_new_tokens``.  A prompt covered entirely copies
+        its last matched page (copy-on-write) so its final token
+        re-prefills privately.  None (the request stays queued) when the
+        pool cannot fund the fresh pages even after reclaiming LRU index
+        entries."""
+        page = self._page
+        L = len(req.prompt)
+        n_total = utils.cdiv(L + req.max_new_tokens, page)
+        matched = (self.prefix.match(req.prompt) if self.ecfg.prefix_sharing
+                   else [])
+        shared = min(len(matched) * page, L - 1)   # >= 1 novel token always
+        n_shared = shared // page
+        shared_pages = list(matched[:n_shared])
+        cow_src = matched[n_shared] if shared % page else None
+        n_fresh = n_total - n_shared
+        # hold the mapped and copy-source pages through reclaim and alloc:
+        # the reclaim must not free what this admission depends on
+        self.pool.incref(shared_pages)
+        if cow_src is not None:
+            self.pool.incref([cow_src])
+        if self.pool.pages_free < n_fresh:
+            self.prefix.reclaim(n_fresh)
+        fresh = self.pool.alloc(n_fresh)
+        if fresh is None:
+            self.pool.decref(shared_pages)
+            if cow_src is not None:
+                self.pool.decref([cow_src])
+            return None
+        return {"pages": shared_pages + fresh, "shared_len": shared,
+                "cow_src": cow_src,
+                "cow_dst": fresh[0] if cow_src is not None else None}
+
+    def _apply_admit(self, slot: int, plan: dict) -> None:
+        """Install the plan's page table and shared-prefix length at
+        ``slot`` (``lm.cache_admit``, both trees under speculation); with
+        ``page_size`` 0 the slot's contiguous row restarts at length 0."""
+        S, sentinel = self.ecfg.num_slots, self._num_pages
+        admit = np.zeros((S,), bool)
+        admit[slot] = True
+        if plan["cow_src"] is not None:
+            self.n_cow_copies += 1
+        if self.ecfg.page_size:
+            tables = np.full((S, self._ppr), sentinel, np.int32)
+            tables[slot, :len(plan["pages"])] = plan["pages"]
+            lengths = np.zeros((S,), np.int32)
+            lengths[slot] = plan["shared_len"]
+            cow_src = np.full((S,), sentinel, np.int32)
+            cow_dst = np.full((S,), sentinel, np.int32)
+            if plan["cow_src"] is not None:
+                cow_src[slot] = plan["cow_src"]
+                cow_dst[slot] = plan["cow_dst"]
+            args = [self._dev(a) for a in (admit, tables, lengths, cow_src,
+                                           cow_dst)]
+        else:
+            args = [self._dev(admit)]
+        with torch.inference_mode():
+            self.caches = lm.cache_admit(self.caches, *args)
+            if self.spec:
+                self.draft_caches = lm.cache_admit(self.draft_caches, *args)
+        if plan["cow_src"] is not None:
+            # the copy is queued on the device ahead of any later reuse of
+            # the source page: drop the admission's hold
+            self.pool.decref([plan["cow_src"]])
+        self._slot_pages[slot] = list(plan["pages"])
+        self._alloc_len[slot] = len(plan["pages"]) * self._page
+        self.n_prefix_hit_tokens += plan["shared_len"]
+
+    def _publish_prefix(self, slot: int) -> None:
+        """Index the slot's full prompt pages for sharing, only now that its
+        prefill has completed: published at admission, a racing request
+        could attend to pages not yet written."""
+        if not self.ecfg.prefix_sharing:
+            return
+        prompt = self.slots[slot].request.prompt
+        n_full = len(prompt) // self._page
+        if n_full:
+            self.prefix.insert(prompt, self._slot_pages[slot][:n_full])
 
     def _admit(self) -> None:
         free = [i for i, s in enumerate(self.slots) if s is None]
@@ -533,51 +770,75 @@ class ContinuousBatchingEngine:
             active=np.asarray([s is not None for s in self.slots]),
             num_leaves=self.num_leaves, capacity_factor=cf,
             num_slots=self.ecfg.num_slots, dispatch_shards=shards,
-            tokens_per_slot=self.ecfg.spec_k + 1)
+            prefilling=np.asarray([s is not None and s.prefilling
+                                   for s in self.slots]),
+            profiles=self.profiles,
+            tokens_per_slot=self.ecfg.spec_k + 1,
+            pages_free=self.pool.pages_free)
+        if self.ecfg.prefill_chunk:
+            # monolithic admission never leaves a slot prefilling, so the
+            # cap applies to chunked prefill alone
+            n = min(n, self.scheduler.admission_cap(view))
+        if n <= 0:
+            return
         for req in self.scheduler.select(list(self.queue), n, view):
+            plan = self._plan_pages(req)
+            if plan is None:
+                # out of pages: this and the step's later picks stay queued
+                # until evictions or index reclaim free pages
+                break
             self.queue.remove(req)
             slot = free.pop(0)
-            self._admit_rows(slot)
+            self._apply_admit(slot, plan)
             if self.ecfg.prefill_chunk:
-                self._admit_chunked(req, slot)
+                self._admit_chunked(req, slot, plan["shared_len"])
             else:
-                self._admit_monolithic(req, slot)
+                self._admit_monolithic(req, slot, plan["shared_len"])
 
-    def _admit_monolithic(self, req: Request, slot: int) -> None:
-        """One ``(num_slots, bucket)`` slab prefills the prompt; only the
-        admitted row is valid.  Pad positions repeat the last real token
-        and filler rows carry in-distribution tokens, so their FFF routing
-        stays spread; neither writes the cache."""
-        prompt = req.prompt
-        L = len(prompt)
-        bucket = next(b for b in self.ecfg.buckets() if b >= L)
+    def _admit_monolithic(self, req: Request, slot: int, shared: int) -> None:
+        """One ``(num_slots, bucket)`` slab prefills the prompt's novel
+        suffix, from the shared-prefix boundary on; only the admitted row
+        is valid.  Pad positions repeat the last real token and filler rows
+        carry in-distribution tokens, so their FFF routing stays spread;
+        neither writes the cache."""
+        L = len(req.prompt)
+        suffix = req.prompt[shared:]
+        n = len(suffix)                                # >= 1 by the plan
+        bucket = next(b for b in self.ecfg.buckets() if b >= n)
         toks = np.repeat(self._free_tok[:, None], bucket, axis=1)
-        toks[slot, :L] = prompt
-        toks[slot, L:] = prompt[-1]
+        toks[slot, :n] = suffix
+        toks[slot, n:] = suffix[-1]
         valid = np.zeros((self.ecfg.num_slots,), np.int32)
-        valid[slot] = L
+        valid[slot] = n
         logits, counts = self._slab(f"prefill_{bucket}", toks, valid)
         if self.spec:
             self._tlen[slot] = self._dlen[slot] = L
         self.n_prefills += 1
-        self.n_prefill_tokens += L
+        self.n_prefill_tokens += n
         t = self.now()
         st = SlotState(request=req, admitted_time=t, first_token_time=t,
                        tokens=[], total_len=L, prefill_pos=L)
         self.slots[slot] = st
         if counts is not None and counts[slot].sum() > 0:
             self.occupancy[slot] = counts[slot] / counts[slot].sum()
+            self._measured[slot] = True
         else:
+            self._measured[slot] = False
             self._seed_hint(slot, req)
         self._record_token(st, self._sample(st, logits[slot]))
+        self._publish_prefix(slot)
 
-    def _admit_chunked(self, req: Request, slot: int) -> None:
-        """No model call: the prompt advances through the shared chunk slab
-        in later ``_chunk_prefill`` dispatches."""
+    def _admit_chunked(self, req: Request, slot: int, shared: int) -> None:
+        """No model call: the prompt's novel suffix advances through the
+        shared chunk slab in later ``_chunk_prefill`` dispatches, from the
+        shared-prefix boundary on."""
         self.slots[slot] = SlotState(request=req, admitted_time=self.now(),
                                      first_token_time=0.0, tokens=[],
-                                     total_len=0, prefill_pos=0)
+                                     total_len=0, prefill_pos=shared)
+        if self.spec:
+            self._tlen[slot] = self._dlen[slot] = shared
         self._prefill_counts[slot] = 0.0
+        self._measured[slot] = False
         self._seed_hint(slot, req)
 
     def _chunk_prefill(self) -> None:
@@ -614,16 +875,18 @@ class ContinuousBatchingEngine:
                 tot = self._prefill_counts[i].sum()
                 if tot > 0:
                     self.occupancy[i] = self._prefill_counts[i] / tot
+                    self._measured[i] = True
                 st.total_len = len(st.request.prompt)
                 st.first_token_time = self.now()
                 self._record_token(st, self._sample(st, logits[i]))
+                self._publish_prefix(i)
 
     def _live(self) -> List[int]:
         return [i for i, s in enumerate(self.slots)
                 if s is not None and not s.done and not s.prefilling]
 
     def _decode_done(self, t0: float) -> None:
-        t1 = time.monotonic()
+        t1 = self._clock()
         self.decode_lat.append(t1 - t0)
         if self._last_decode_end is not None:
             self.decode_interval_s.append(t1 - self._last_decode_end)
@@ -644,10 +907,10 @@ class ContinuousBatchingEngine:
             toks[i, 0] = self.slots[i].tokens[-1]
         lv = np.zeros((S,), bool)
         lv[live] = True
-        t0 = time.monotonic()
+        t0 = self._clock()
         t, m = self._dev(toks), self._dev(lv)
         self._record_shape("decode", t.shape)
-        with self._ctx():
+        with self._ctx(decode=True):
             logits, self.caches, stats = lm.decode_step(
                 self.params, self.cfg, t, self.caches, write_mask=m,
                 token_valid=m, with_stats=True)
@@ -669,7 +932,8 @@ class ContinuousBatchingEngine:
         live = self._live()
         if not live:
             return
-        S, k, L = self.ecfg.num_slots, self.ecfg.spec_k, self.ecfg.max_len
+        S, k = self.ecfg.num_slots, self.ecfg.spec_k
+        alloc = self._alloc_len
         toks = self._free_tok[:, None].copy()
         pos0 = np.zeros((S,), np.int32)
         temps = np.zeros((S,), np.float32)
@@ -681,11 +945,15 @@ class ContinuousBatchingEngine:
             pos0[i] = st.total_len - 1       # position of the pending token
             temps[i] = max(st.request.temperature, 0.0)
             lv[i] = True
-            vlen[i] = min(k + 1, L - int(pos0[i]))
-        # draft step j appends at pos0 + j; rows at the cache edge stop
-        # writing (their later drafts go unverified: vlen clips identically)
-        wm = lv[None, :] & ((pos0[None, :] + np.arange(k + 1)[:, None]) < L)
-        t0 = time.monotonic()
+            # the row's writable horizon is its allocated pages (>= prompt
+            # + max_new by the admission plan), not max_len
+            vlen[i] = min(k + 1, int(alloc[i]) - int(pos0[i]))
+        # draft step j appends at pos0 + j; rows at their allocation's edge
+        # stop writing (their later drafts go unverified: vlen clips
+        # identically)
+        wm = lv[None, :] & ((pos0[None, :] + np.arange(k + 1)[:, None])
+                            < alloc[None, :])
+        t0 = self._clock()
         tok0 = self._dev(toks)
         self._record_shape("draft", tok0.shape)
         with self._ctx():
@@ -695,7 +963,8 @@ class ContinuousBatchingEngine:
                 tok0, self.caches, self.draft_caches, self._dev(self._tlen),
                 self._dev(self._dlen), self._dev(wm), self._dev(vlen),
                 self._dev(lv), self._dev(temps) if temps.any() else None,
-                self._gen, verify_cf=self._verify_cf())
+                self._gen, verify_cf=self._verify_cf(),
+                draft_backend="cuda_decode" if self.ecfg.cuda_decode else None)
             self._record_shape("verify", p_logits.shape[:2])
             dv, vv = self._reduce_stats(dstats), self._reduce_stats(vstats)
             host = _to_host(
@@ -709,7 +978,8 @@ class ContinuousBatchingEngine:
         # the draft's histograms are a prior on the verify's routing; the
         # verify is the target's decode
         if dv is not None:
-            self._update_occupancy(live, self._fold_stats(host.pop(0), "draft"))
+            self._update_occupancy(live, self._fold_stats(host.pop(0), "draft"),
+                                   measured=False)
         if vv is not None:
             self._update_occupancy(live, self._fold_stats(host.pop(0), "decode"))
         for i in live:
@@ -774,6 +1044,7 @@ class ContinuousBatchingEngine:
         hints0 = self._hint_mismatches
         draft0, acc0 = self.n_draft_tokens, self.n_accepted_tokens
         ptoks0 = self.n_prefill_tokens
+        phit0, cow0 = self.n_prefix_hit_tokens, self.n_cow_copies
         ovf0 = {k: list(v) for k, v in self._overflow.items()}
         t_start = self.now()
         self._last_decode_end = None    # decode gaps don't span runs
@@ -784,8 +1055,13 @@ class ContinuousBatchingEngine:
             if not self.has_work():
                 self._last_decode_end = None    # idle gap, not a stall
                 if pending:
-                    time.sleep(min(max(t_start + pending[0].arrival_time
-                                       - self.now(), 0.0), 0.05))
+                    wait = max(t_start + pending[0].arrival_time - self.now(),
+                               0.0)
+                    advance = getattr(self._clock, "advance", None)
+                    if advance is not None:
+                        advance(wait)           # virtual time: jump ahead
+                    else:
+                        time.sleep(min(wait, 0.05))
                 continue
             self.step()
         elapsed = self.now() - t_start
@@ -812,13 +1088,18 @@ class ContinuousBatchingEngine:
             hint_mismatches=self._hint_mismatches - hints0,
             draft_tokens=self.n_draft_tokens - draft0,
             accepted_tokens=self.n_accepted_tokens - acc0,
-            prefill_tokens=self.n_prefill_tokens - ptoks0)
+            prefill_tokens=self.n_prefill_tokens - ptoks0,
+            prefix_hit_tokens=self.n_prefix_hit_tokens - phit0,
+            cow_copies=self.n_cow_copies - cow0,
+            pages_in_use=self.pool.pages_in_use,
+            pages_free=self.pool.pages_free)
         return results, m
 
     def poll_metrics(self) -> metrics_lib.EngineMetrics:
         """Live telemetry since construction (or since ``run`` last drained
         its slice), plus instantaneous queue depth, active and prefilling
-        slots.  Host only: no device work."""
+        slots, the page pool, and each tenant's queue depth and learned
+        profile.  Host only: no device work."""
         repairs, m_frac = self._repair_counters()
         m = metrics_lib.from_results(
             self.results, elapsed_s=self.now(), n_steps=self.n_steps,
@@ -830,11 +1111,22 @@ class ContinuousBatchingEngine:
             hint_mismatches=self._hint_mismatches,
             draft_tokens=self.n_draft_tokens,
             accepted_tokens=self.n_accepted_tokens,
-            prefill_tokens=self.n_prefill_tokens)
+            prefill_tokens=self.n_prefill_tokens,
+            prefix_hit_tokens=self.n_prefix_hit_tokens,
+            cow_copies=self.n_cow_copies,
+            pages_in_use=self.pool.pages_in_use,
+            pages_free=self.pool.pages_free)
         m.queue_depth = len(self.queue)
         m.active_slots = sum(s is not None for s in self.slots)
         m.prefilling_slots = sum(s is not None and s.prefilling
                                  for s in self.slots)
+        # live per-tenant queue depths on top of the finished-request
+        # breakdown (a tenant may have nothing finished yet)
+        for t, q in self.queue.per_tenant.items():
+            m.tenants.setdefault(t, {})["queue_depth"] = len(q)
+        if self.profiles is not None:
+            for t, snap in self.profiles.as_dict().items():
+                m.tenants.setdefault(t, {})["profile"] = snap
         return m
 
     def dispatch_shapes(self) -> Dict[str, Set[tuple]]:

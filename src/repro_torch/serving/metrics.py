@@ -1,11 +1,11 @@
 """Latency/throughput summaries and the engine's metrics (port of
-``repro/serving/metrics.py``, less the per-tenant breakdown, the paging
-counters and the JSON view, which arrive with their slices).  Inputs are
-seconds; summaries render in milliseconds."""
+``repro/serving/metrics.py``): the paging counters, the per-tenant
+breakdown and the JSON view (``as_dict``, ``serve.py --metrics-json``).
+Inputs are seconds; summaries render in milliseconds."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Sequence
+from typing import Dict, Iterable, Sequence
 
 import numpy as np
 
@@ -23,6 +23,9 @@ class LatencySummary:
         return (f"{label}: p50 {self.p50_ms:.2f}ms p90 {self.p90_ms:.2f}ms "
                 f"p99 {self.p99_ms:.2f}ms mean {self.mean_ms:.2f}ms "
                 f"max {self.max_ms:.2f}ms (n={self.n})")
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 def summarize(samples_s: Sequence[float]) -> LatencySummary:
@@ -55,9 +58,17 @@ class EngineMetrics:
     whole speculative round), and gaps between consecutive decode-side
     dispatches while work was in flight (``decode_interval``: a monolithic
     prefill lands in one of these gaps, chunked prefill bounds them).
-    ``queue_depth``, ``active_slots`` and ``prefilling_slots`` are
-    instantaneous (0 in a finished ``run`` report, meaningful from
-    ``poll_metrics``)."""
+    ``queue_depth``, ``active_slots``, ``prefilling_slots``, ``pages_in_use``
+    and ``pages_free`` are instantaneous (the queue and slot counts are 0 in
+    a finished ``run`` report, meaningful from ``poll_metrics``).
+
+    Paged KV cache and prefix sharing: ``prefill_tokens`` counts prompt
+    tokens prefilled on the device, ``prefix_hit_tokens`` those served from
+    shared pages instead (together, the prompt tokens admitted), and
+    ``cow_copies`` the copy-on-write page copies.  ``tenants`` is the
+    per-tenant breakdown over finished requests (``tenant_breakdown``);
+    ``poll_metrics`` adds each tenant's live ``queue_depth`` and learned
+    ``profile``."""
     n_requests: int = 0
     n_tokens: int = 0
     elapsed_s: float = 0.0
@@ -88,9 +99,14 @@ class EngineMetrics:
     draft_tokens: int = 0
     accepted_tokens: int = 0
     prefill_tokens: int = 0              # prompt tokens prefilled on device
+    prefix_hit_tokens: int = 0           # prompt tokens from shared pages
+    cow_copies: int = 0                  # copy-on-write page copies
+    pages_in_use: int = 0                # page pool (instantaneous)
+    pages_free: int = 0
     queue_depth: int = 0                 # waiting requests (instantaneous)
     active_slots: int = 0                # occupied slots (instantaneous)
     prefilling_slots: int = 0            # slots mid-chunked-prefill
+    tenants: Dict[str, dict] = dataclasses.field(default_factory=dict)
 
     @property
     def throughput_tok_s(self) -> float:
@@ -132,7 +148,77 @@ class EngineMetrics:
         if self.hint_mismatches:
             lines.append(f"leaf_hint size mismatches dropped: "
                          f"{self.hint_mismatches}")
+        if self.prefix_hit_tokens or self.cow_copies:
+            lines.append(
+                f"paged kv: {self.prefill_tokens} tokens prefilled, "
+                f"{self.prefix_hit_tokens} served from shared prefix pages "
+                f"({self.cow_copies} cow copies)")
+        if set(self.tenants) - {"default"}:
+            for t, d in sorted(self.tenants.items()):
+                if "n_requests" not in d:
+                    continue
+                lines.append(
+                    f"tenant {t}: {d['n_requests']} requests, "
+                    f"{d['n_tokens']} tokens ({d['throughput_tok_s']:.1f} "
+                    f"tok/s), ttft p50 {d['ttft_ms']['p50_ms']:.2f}ms")
         return "\n".join(lines)
+
+    def as_dict(self) -> dict:
+        """The metrics JSON schema (``serve.py --metrics-json``), the JAX
+        package's field for field."""
+        return {
+            "n_requests": self.n_requests, "n_tokens": self.n_tokens,
+            "elapsed_s": self.elapsed_s, "n_steps": self.n_steps,
+            "n_prefills": self.n_prefills, "n_chunks": self.n_chunks,
+            "throughput_tok_s": self.throughput_tok_s,
+            "ttft_ms": self.ttft.as_dict(),
+            "per_token_ms": self.per_token.as_dict(),
+            "e2e_ms": self.e2e.as_dict(),
+            "decode_step_ms": self.decode_step.as_dict(),
+            "decode_interval_ms": self.decode_interval.as_dict(),
+            "overflow_fraction_mean": self.overflow_fraction_mean,
+            "overflow_decode_mean": self.overflow_decode_mean,
+            "overflow_repairs": self.overflow_repairs,
+            "master_leaf_fraction": self.master_leaf_fraction,
+            "hint_mismatches": self.hint_mismatches,
+            "spec_acceptance": self.spec_acceptance,
+            "draft_tokens": self.draft_tokens,
+            "accepted_tokens": self.accepted_tokens,
+            "wasted_tokens": self.wasted_tokens,
+            "prefill_tokens": self.prefill_tokens,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "cow_copies": self.cow_copies,
+            "pages_in_use": self.pages_in_use,
+            "pages_free": self.pages_free,
+            "queue_depth": self.queue_depth,
+            "active_slots": self.active_slots,
+            "prefilling_slots": self.prefilling_slots,
+            "tenants": self.tenants,
+        }
+
+
+def tenant_breakdown(results: Iterable, elapsed_s: float) -> Dict[str, dict]:
+    """Per-tenant slice of finished requests: request and token counts,
+    tokens/s over the shared wall clock (under saturation the ratios track
+    the admission weights), TTFT and e2e summaries, speculation counts."""
+    rs = list(results)
+    out: Dict[str, dict] = {}
+    for t in sorted({r.tenant for r in rs}):
+        trs = [r for r in rs if r.tenant == t]
+        n_tok = sum(r.n_generated for r in trs)
+        drafted = sum(r.n_drafted for r in trs)
+        accepted = sum(r.n_accepted for r in trs)
+        out[t] = {
+            "n_requests": len(trs),
+            "n_tokens": n_tok,
+            "throughput_tok_s": tokens_per_second(n_tok, elapsed_s),
+            "ttft_ms": summarize([r.ttft for r in trs]).as_dict(),
+            "e2e_ms": summarize([r.e2e_latency for r in trs]).as_dict(),
+            "draft_tokens": drafted,
+            "accepted_tokens": accepted,
+            "spec_acceptance": accepted / max(drafted, 1),
+        }
+    return out
 
 
 def from_results(results: Iterable, *, elapsed_s: float, n_steps: int,
@@ -141,7 +227,9 @@ def from_results(results: Iterable, *, elapsed_s: float, n_steps: int,
                  overflow_repairs: int = 0, master_leaf_fraction: float = 0.0,
                  n_chunks: int = 0, decode_interval_s: Sequence[float] = (),
                  hint_mismatches: int = 0, draft_tokens: int = 0,
-                 accepted_tokens: int = 0, prefill_tokens: int = 0
+                 accepted_tokens: int = 0, prefill_tokens: int = 0,
+                 prefix_hit_tokens: int = 0, cow_copies: int = 0,
+                 pages_in_use: int = 0, pages_free: int = 0
                  ) -> EngineMetrics:
     """Build an ``EngineMetrics`` from finished ``RequestResult`` records."""
     rs = list(results)
@@ -162,4 +250,9 @@ def from_results(results: Iterable, *, elapsed_s: float, n_steps: int,
         hint_mismatches=hint_mismatches,
         draft_tokens=draft_tokens,
         accepted_tokens=accepted_tokens,
-        prefill_tokens=prefill_tokens)
+        prefill_tokens=prefill_tokens,
+        prefix_hit_tokens=prefix_hit_tokens,
+        cow_copies=cow_copies,
+        pages_in_use=pages_in_use,
+        pages_free=pages_free,
+        tenants=tenant_breakdown(rs, elapsed_s))

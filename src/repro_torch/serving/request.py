@@ -1,11 +1,15 @@
 """Serving request and result types (port of ``repro/serving/request.py``).
 
 A ``Request`` is what enters the engine queue: prompt tokens plus sampling
-and stop parameters.  ``leaf_hint`` is an optional prior over the model's
-FFF leaves for this request's tokens, which the ``leaf_aware`` scheduler
-uses to predict how a candidate would load the batch before it has been
-prefilled; once admitted, live telemetry replaces it.  (Tenants and their
-routing profiles arrive with the multi-tenant slice.)
+and stop parameters.  ``tenant`` names the traffic class the request bills
+to: the engine keeps per-tenant queues, the ``weighted_leaf_aware``
+scheduler admits weighted-fair across tenants, and the routing-profile
+store (``serving/profiles.py``) learns each tenant's leaf footprint from
+its finished requests.  ``leaf_hint`` is an optional prior over the
+model's FFF leaves for this request's tokens, which the leaf-aware
+schedulers use to predict how a candidate would load the batch before it
+has been prefilled; without one they fall back to the tenant's learned
+profile, then uniform.  Once admitted, live telemetry replaces both.
 """
 from __future__ import annotations
 
@@ -27,11 +31,15 @@ class Request:
     eos_id: Optional[int] = None            # None = run the full budget
     arrival_time: float = 0.0               # engine-clock seconds
     leaf_hint: Optional[np.ndarray] = None  # (E,) nonnegative, any scale
+    tenant: str = "default"                 # traffic class (QoS accounting)
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
         if self.prompt.size == 0:
             raise ValueError(f"request {self.rid}: empty prompt")
+        if not self.tenant or not isinstance(self.tenant, str):
+            raise ValueError(f"request {self.rid}: tenant must be a "
+                             f"non-empty string")
         if self.max_new_tokens < 1:
             raise ValueError(f"request {self.rid}: max_new_tokens < 1")
         if self.leaf_hint is not None:
@@ -58,6 +66,7 @@ class RequestResult:
     admitted_time: float
     first_token_time: float
     finish_time: float
+    tenant: str = "default"
     # speculative decoding: draft tokens proposed/accepted for this request
     # (0/0 without speculation)
     n_drafted: int = 0

@@ -104,7 +104,8 @@ def draft_rollout(draft_params: Params, dcfg, tok0: torch.Tensor,
                   target_caches: list, draft_caches: list,
                   target_len: torch.Tensor, draft_len: torch.Tensor,
                   write_masks: torch.Tensor, live: torch.Tensor,
-                  temps: torch.Tensor, generator: torch.Generator):
+                  temps: torch.Tensor, generator: torch.Generator,
+                  draft_backend: Optional[str] = None):
     """The draft phase of a round.
 
     1. Roll both cache trees back to the host-tracked lengths (the previous
@@ -119,28 +120,32 @@ def draft_rollout(draft_params: Params, dcfg, tok0: torch.Tensor,
     tok0 (S, 1) int32 pending tokens; target_len / draft_len (S,) int32;
     write_masks (k+1, S) bool; live (S,) bool, the FFF validity mask; temps
     (S,) float32, or None when every row is greedy.  All on the draft's
-    device.  Returns ``(drafts (k, S),
+    device.  ``draft_backend``: an FFF backend steered around the draft
+    steps alone (the engine's ``cuda_decode`` flag); None = no steer.
+    Returns ``(drafts (k, S),
     q_logits (k+1, S, V), target_caches, draft_caches, stats)``, ``stats``
     the step-aggregated per-site routing stats (None without a tap)."""
     target_caches = lm.set_cache_lengths(target_caches, target_len)
     draft_caches = lm.set_cache_lengths(draft_caches, draft_len)
     tok, sampled, q_logits, stats = tok0, [], [], []
-    for j in range(write_masks.shape[0]):
-        logits, draft_caches, st = lm.decode_step(
-            draft_params, dcfg, tok, draft_caches, write_mask=write_masks[j],
-            token_valid=live, with_stats=True)
-        nxt = logits.argmax(-1)
-        if temps is not None:
-            u = torch.rand(logits.shape, generator=generator,
-                           device=logits.device).clamp_(1e-20, 1.0)
-            z = logits.float() / torch.clamp(temps, min=1e-6)[:, None]
-            nxt = torch.where(temps > 0.0, (z - torch.log(-torch.log(u))).argmax(-1),
-                              nxt)
-        nxt = nxt.to(torch.int32)
-        tok = nxt[:, None]
-        sampled.append(nxt)
-        q_logits.append(logits)
-        stats.append(st)
+    with (api.overrides(backend=draft_backend, mode="infer")
+          if draft_backend is not None else contextlib.nullcontext()):
+        for j in range(write_masks.shape[0]):
+            logits, draft_caches, st = lm.decode_step(
+                draft_params, dcfg, tok, draft_caches,
+                write_mask=write_masks[j], token_valid=live, with_stats=True)
+            nxt = logits.argmax(-1)
+            if temps is not None:
+                u = torch.rand(logits.shape, generator=generator,
+                               device=logits.device).clamp_(1e-20, 1.0)
+                z = logits.float() / torch.clamp(temps, min=1e-6)[:, None]
+                nxt = torch.where(temps > 0.0,
+                                  (z - torch.log(-torch.log(u))).argmax(-1), nxt)
+            nxt = nxt.to(torch.int32)
+            tok = nxt[:, None]
+            sampled.append(nxt)
+            q_logits.append(logits)
+            stats.append(st)
     # the last step only appends d_k's K/V; its sample is unused
     return (torch.stack(sampled[:-1]), torch.stack(q_logits), target_caches,
             draft_caches, _agg_stats(stats))
@@ -151,7 +156,8 @@ def spec_round(params: Params, cfg, draft_params: Params, dcfg,
                target_len: torch.Tensor, draft_len: torch.Tensor,
                write_masks: torch.Tensor, verify_len: torch.Tensor,
                live: torch.Tensor, temps: torch.Tensor,
-               generator: torch.Generator, verify_cf: Optional[float] = None):
+               generator: torch.Generator, verify_cf: Optional[float] = None,
+               draft_backend: Optional[str] = None):
     """One speculative round: the draft rollout, then the target's verify of
     the ``(S, k + 1)`` slab ``[pending, d_1 .. d_k]``, which reads the drafts
     on the device.  ``verify_len`` (S,) int32 in [0, k + 1] is how many slab
@@ -160,14 +166,16 @@ def spec_round(params: Params, cfg, draft_params: Params, dcfg,
     of the round's dispatches (``api.overrides``, nested inside and winning
     over the engine's own), which the engine scales by ``k + 1``; the
     rollout runs at it too, since draft capacity drops only cost acceptance.
-    None = the backends' defaults.  Returns ``(drafts (k, S), q_logits
+    None = the backends' defaults.  ``draft_backend`` steers the draft
+    steps alone (``draft_rollout``).  Returns ``(drafts (k, S), q_logits
     (k+1, S, V), p_logits (S, k+1, V), caches, draft_caches, draft_stats,
     verify_stats)``."""
     with (api.overrides(capacity_factor=verify_cf) if verify_cf is not None
           else contextlib.nullcontext()):
         drafts, q_logits, caches, draft_caches, dstats = draft_rollout(
             draft_params, dcfg, tok0, caches, draft_caches, target_len,
-            draft_len, write_masks, live, temps, generator)
+            draft_len, write_masks, live, temps, generator,
+            draft_backend=draft_backend)
         vtoks = torch.cat([tok0, drafts.t()], dim=1)          # (S, k+1)
         p_logits, caches, vstats = lm.verify_chunk(params, cfg, vtoks,
                                                    verify_len, caches)
