@@ -149,9 +149,39 @@ Phases (any failure raises, and the exit code is non-zero):
               the 8 sites' device-side ranges) side by side; then
               the reduced native LM's loss and gradients on the card against
               the CPU (1e-3).
+11. archs   — the other registry archs' FFF configs at their published
+              widths, bf16, one model on the card at a time: phi3-medium-14b
+              (leaves of width 1120), starcoder2-15b (GELU leaves without a
+              gate, LayerNorm, attention biases) and command-r-35b (d_model
+              8192, a tied 256000-word head) at 4 of 40 layers, olmoe-1b-7b
+              (a forest of 8 trees of depth 3) at all 16.  For each: every
+              kernel its sites reach on layer 0's weights at the sites'
+              shapes (the prefill slab's router and grouped kernels, the
+              verify slab's router and gathered kernels, the decode step's
+              fused kernel over the whole forest; every tree checked, tree 0
+              timed), against its plain version, called twice where
+              bit-identity is the contract; the fixed-batch loop with its
+              launch counts (per tree) asserted; fp32 greedy parity at 2
+              layers (kernel backends against the reference backend, 0
+              differences off near-ties).  olmoe also serves the engine
+              phase's 16 requests (8 slots, spec_k 3, self:1), its launch
+              counts asserted per tree, and its FFN sites are timed for moe.
+12. moe     — olmoe-1b-7b native: the noisy top-k MoE (64 GELU experts of
+              width 1024, top 8) at full width, all 16 layers, bf16, its
+              gates drawn at random (zero gates tie every expert): the
+              fixed-batch loop (no kernel launches), the FFN sites' device
+              time against the FFF forest's (same inference width, 8 x 1024)
+              in a warm prefill and decode step, and forward_sparse's
+              grouped form against its gather form on layer 0's input.
+13. long    — starcoder2-15b FFF at full width, 2 of 40 layers: one
+              6144-token prompt prefilled through flash_attention (the 4096
+              window binds), 8 decode steps, launch counts asserted, time
+              and peak memory printed; layer 0's q, k, v in float32: flash
+              against the plain masked attention within 1e-3.
 
-Prints the kernel table as one JSON line (launches from the monolithic
-engine run), the card's name and power limit, and, last,
+Prints the new archs' kernel rows as one JSON line ({"arch_kernels": ...}),
+the kernel table as one JSON line (launches from the monolithic engine
+run), the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -202,6 +232,12 @@ TRAIN_SERVE_LAYERS, TRAIN_SERVE_STEPS = 2, 3
 # ~10 bytes a parameter: ~15 GB a checkpoint, CKPT_KEEP of them on disk); a
 # failure injected at CKPT_FAIL_AT; the restored model serves CKPT_GEN tokens
 CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT, CKPT_KEEP, CKPT_GEN = 1, 6, 3, 4, 2, 8
+# the archs phase: each registry arch's FFF config at its published widths,
+# cut to this many layers (olmoe-1b-7b whole); the long phase: starcoder2-15b
+# with a prompt past its 4096-token window
+ARCH_LAYERS = {"phi3-medium-14b": 4, "starcoder2-15b": 4, "command-r-35b": 4,
+               "olmoe-1b-7b": 16}
+LONG_LAYERS, LONG_PROMPT, LONG_GEN = 2, 6144, 8
 
 
 def log(msg: str) -> None:
@@ -838,27 +874,33 @@ def no_reference(api):
                              f"on the kernel path")
 
 
-def phase_serve(common, api, serve_mod, cfg, params) -> dict:
-    from repro_torch.models import lm
+@contextlib.contextmanager
+def kept_masks():
+    """Yields a list that takes the kept mask of every grouped dispatch
+    (one per site and tree) made inside the context: a device tensor, no
+    sync."""
     from repro_torch.kernels.leaf_gemm import ops as gemm_ops
-    scatter = gemm_ops.scatter_to_groups
-    layouts = []
+    scatter, layouts = gemm_ops.scatter_to_groups, []
 
     def recording_scatter(x, leaf_idx, num_leaves, capacity, valid=None):
-        # keeps each prefill layer's kept mask (a device tensor: no sync)
         out = scatter(x, leaf_idx, num_leaves, capacity, valid)
         layouts.append(out.kept)
         return out
 
     gemm_ops.scatter_to_groups = recording_scatter
     try:
-        with no_reference(api):
-            common.reset_launch_counts()
-            res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S,
-                                  gen=GEN, device="cuda", params=params)
-            counts = common.launch_counts()
+        yield layouts
     finally:
         gemm_ops.scatter_to_groups = scatter
+
+
+def phase_serve(common, api, serve_mod, cfg, params) -> dict:
+    from repro_torch.models import lm
+    with kept_masks() as layouts, no_reference(api):
+        common.reset_launch_counts()
+        res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S,
+                              gen=GEN, device="cuda", params=params)
+        counts = common.launch_counts()
     want = {"fused_forest_decode": cfg.n_layers * GEN,
             "tree_router": cfg.n_layers, "grouped_matmul_dual": cfg.n_layers,
             "grouped_matmul": cfg.n_layers, "gathered_matmul": 0,
@@ -1000,20 +1042,21 @@ def check_engine_run(tag, cfg, run, counts, chunk, n_reqs) -> tuple[int, int]:
     """Asserts a speculative engine run's launch counts, dispatch shapes and
     results (spec_k SPEC_K, the self:DRAFT_LAYERS draft, ENGINE_GEN new
     tokens a request); returns (spec rounds, admission slabs)."""
-    n_layers = cfg.n_layers
+    n_layers, trees = cfg.n_layers, cfg.period[0].ffn.fff_trees
     m = run.metrics
     rounds = m.n_steps
     slabs = m.n_chunks if chunk else m.n_prefills
-    # a verify round: every target layer once through the gathered
-    # kernels (and the router); a draft step: the fused decode kernel
-    # per draft layer; an admission slab (> 32 tokens): the grouped
-    # kernels and the router per target and draft layer
-    want = {"gathered_matmul": n_layers * rounds,
-            "gathered_matmul_dual": n_layers * rounds,
+    # a verify round: every target layer's trees once each through the
+    # gathered kernels (and the router); a draft step: the fused decode
+    # kernel per draft layer (all trees in one launch); an admission slab
+    # (> 32 tokens): the grouped kernels and the router per tree of every
+    # target and draft layer
+    want = {"gathered_matmul": n_layers * trees * rounds,
+            "gathered_matmul_dual": n_layers * trees * rounds,
             "fused_forest_decode": DRAFT_LAYERS * (SPEC_K + 1) * rounds,
-            "grouped_matmul": (n_layers + DRAFT_LAYERS) * slabs,
-            "grouped_matmul_dual": (n_layers + DRAFT_LAYERS) * slabs,
-            "tree_router": n_layers * rounds + (n_layers + DRAFT_LAYERS) * slabs}
+            "grouped_matmul": (n_layers + DRAFT_LAYERS) * trees * slabs,
+            "grouped_matmul_dual": (n_layers + DRAFT_LAYERS) * trees * slabs,
+            "tree_router": (n_layers * rounds + (n_layers + DRAFT_LAYERS) * slabs) * trees}
     if counts != want:
         raise AssertionError(f"{tag}: launch counts {counts} != expected {want}")
     shapes = run.shapes
@@ -1269,21 +1312,23 @@ def generate_with_margins(api, fff, lm, cfg, params, reqs, steps, max_len,
                           **overrides):
     """lm.generate's greedy tokens for each request alone (under
     ``api.overrides(**overrides)`` when given), and the smallest deciding
-    margin each met: a node logit on a routed path, or the gap between the
-    two largest logits."""
+    margin each met: a node logit on a routed path of any tree, or the gap
+    between the two largest logits."""
     smallest = {}
     apply_fn, head_fn = api.apply, lm._head
 
     def recording_apply(p, c, x, spec=api.ExecutionSpec()):
         xf = x.reshape(-1, x.shape[-1]).to(c.accum_dtype)
-        logits = fff._node_logits_all(p, c, xf)[:, 0]
-        idx = torch.zeros(xf.shape[0], dtype=torch.long, device=x.device)
-        off = 0
-        for m in range(c.depth):
-            cur = logits[:, off:off + 2 ** m].gather(1, idx[:, None])[:, 0]
-            smallest["now"] = min(smallest["now"], float(cur.abs().min()))
-            idx = 2 * idx + (cur >= 0).long()
-            off += 2 ** m
+        every = fff._node_logits_all(p, c, xf)
+        for t in range(c.trees):
+            logits = every[:, t]
+            idx = torch.zeros(xf.shape[0], dtype=torch.long, device=x.device)
+            off = 0
+            for m in range(c.depth):
+                cur = logits[:, off:off + 2 ** m].gather(1, idx[:, None])[:, 0]
+                smallest["now"] = min(smallest["now"], float(cur.abs().min()))
+                idx = 2 * idx + (cur >= 0).long()
+                off += 2 ** m
         return apply_fn(p, c, x, spec)
 
     def recording_head(p, c, x):
@@ -1594,21 +1639,24 @@ def generate_batch_with_margins(api, fff, lm, cfg, params, prompt, steps, max_le
                                 **overrides):
     """lm.generate on the whole batch (under ``api.overrides(**overrides)``
     when given), and per row the smallest deciding margin it met: a node
-    logit on a routed path, or the gap between the two largest logits."""
+    logit on a routed path of any tree, or the gap between the two largest
+    logits."""
     B = prompt.shape[0]
     row_min = torch.full((B,), math.inf, device="cuda")
     apply_fn, head_fn = api.apply, lm._head
 
     def recording_apply(p, c, x, spec=api.ExecutionSpec()):
         xf = x.reshape(B, -1, x.shape[-1]).to(c.accum_dtype)
-        logits = fff._node_logits_all(p, c, xf.reshape(-1, x.shape[-1]))[:, 0]
-        idx = torch.zeros(logits.shape[0], dtype=torch.long, device=x.device)
-        off = 0
-        for m in range(c.depth):
-            cur = logits[:, off:off + 2 ** m].gather(1, idx[:, None])[:, 0]
-            row_min.copy_(torch.minimum(row_min, cur.abs().reshape(B, -1).amin(1)))
-            idx = 2 * idx + (cur >= 0).long()
-            off += 2 ** m
+        every = fff._node_logits_all(p, c, xf.reshape(-1, x.shape[-1]))
+        for t in range(c.trees):
+            logits = every[:, t]
+            idx = torch.zeros(logits.shape[0], dtype=torch.long, device=x.device)
+            off = 0
+            for m in range(c.depth):
+                cur = logits[:, off:off + 2 ** m].gather(1, idx[:, None])[:, 0]
+                row_min.copy_(torch.minimum(row_min, cur.abs().reshape(B, -1).amin(1)))
+                idx = 2 * idx + (cur >= 0).long()
+                off += 2 ** m
         return apply_fn(p, c, x, spec)
 
     def recording_head(p, c, x):
@@ -1626,6 +1674,23 @@ def generate_batch_with_margins(api, fff, lm, cfg, params, prompt, steps, max_le
     finally:
         api.apply, lm._head = apply_fn, head_fn
     return out[:, prompt.shape[1]:], row_min.tolist()
+
+
+def near_tie_rows(label, kern, ref, margin) -> int:
+    """Greedy tokens row by row: a row of ``kern`` may differ from ``ref``'s
+    only where it met a deciding margin under NEAR_TIE.  Returns how many
+    rows differed."""
+    ties = 0
+    for b in range(len(margin)):
+        if torch.equal(kern[b], ref[b]):
+            continue
+        if margin[b] >= NEAR_TIE:
+            raise AssertionError(
+                f"{label}, row {b}: kernel tokens {kern[b].tolist()} != reference "
+                f"{ref[b].tolist()} with no deciding margin under {NEAR_TIE} "
+                f"(smallest {margin[b]:.3e})")
+        ties += 1
+    return ties
 
 
 def train_then_serve(common, api, fff, lm, FFF_CONFIG) -> None:
@@ -1653,16 +1718,7 @@ def train_then_serve(common, api, fff, lm, FFF_CONFIG) -> None:
     ref, margin = generate_batch_with_margins(api, fff, lm, cfg, params, prompt,
                                               PARITY_STEPS, max_len,
                                               backend="reference", mode="infer")
-    ties = 0
-    for b in range(PARITY_B):
-        if torch.equal(kern[b], ref[b]):
-            continue
-        if margin[b] >= NEAR_TIE:
-            raise AssertionError(
-                f"[train] trained model, row {b}: kernel tokens {kern[b].tolist()} != "
-                f"reference {ref[b].tolist()} with no deciding margin under "
-                f"{NEAR_TIE} (smallest {margin[b]:.3e})")
-        ties += 1
+    ties = near_tie_rows("[train] trained model", kern, ref, margin)
     log(f"[train] {cfg.n_layers} layers fp32 trained {TRAIN_SERVE_STEPS} steps (loss "
         f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f}), then batch {PARITY_B} x "
         f"prompt {PARITY_S}, {PARITY_STEPS} greedy tokens: kernel backends equal the "
@@ -1866,7 +1922,8 @@ def ckpt_cli_resume() -> None:
     from repro_torch.data import tokens as tokens_lib
     d = Path(tempfile.mkdtemp(prefix="ckpt_cli_"))
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    args = ["--reduced", "--steps", "6", "--batch", "2", "--seq", "16", "--ckpt-every", "3"]
+    args = ["--arch", "internlm2-20b", "--reduced", "--steps", "6", "--batch", "2", "--seq",
+            "16", "--ckpt-every", "3"]
     cli = [sys.executable, "-m", "repro_torch.launch.train", *args]
     no_ms = lambda line: line.rsplit(None, 1)[0]
 
@@ -1961,7 +2018,7 @@ def phase_ckpt(common, lm, serve_mod, FFF_CONFIG) -> None:
     ckpt_cli_resume()
 
 
-def ffn_site_times(lm, mlp, cfg, params) -> dict:
+def ffn_site_times(lm, mlp, cfg, params, tag="[dense]") -> dict:
     """One warm prefill (PREFILL_B x PREFILL_S) and one warm decode step of
     ``cfg`` under torch.profiler, every FFN site inside a
     record_function("ffn_site") range.  Per phase: (device busy ms, FFN
@@ -2005,12 +2062,19 @@ def ffn_site_times(lm, mlp, cfg, params) -> dict:
                 work = [(e.time_range.start, e.time_range.end) for e in evs
                         if on_card(e) and e.name != "ffn_site"]
                 if not len(sites) == len(ranges) == cfg.n_layers:
-                    raise AssertionError(f"[dense] {phase}: {len(sites)} FFN sites ran, "
+                    raise AssertionError(f"{tag} {phase}: {len(sites)} FFN sites ran, "
                                          f"{len(ranges)} device-side ranges, "
                                          f"{cfg.n_layers} layers")
-                inside = sum(t1 - t0 for t0, t1 in work
-                             if any(r0 <= t0 < r1 for r0, r1 in ranges))
+                names = {}
+                for e in evs:
+                    if (on_card(e) and e.name != "ffn_site" and any(
+                            r0 <= e.time_range.start < r1 for r0, r1 in ranges)):
+                        names[e.name] = names.get(e.name, 0) + e.time_range.elapsed_us()
+                inside = sum(names.values())
                 out[phase] = (sum(t1 - t0 for t0, t1 in work) / 1e3, inside / 1e3)
+                top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
+                log(f"{tag} {cfg.arch_id} warm {phase}: top kernels inside the FFN sites "
+                    + "; ".join(f"{us / 1e3:.3f} ms {name[:60]}" for name, us in top))
     finally:
         mlp.forward = forward
     return out
@@ -2060,6 +2124,473 @@ def phase_dense(common, api, lm, serve_mod, FFF_CONFIG, CONFIG) -> None:
     train_card_vs_cpu(api, lm, CONFIG, backends=("reference",), label="dense")
 
 
+# ---------------------------------------------------------------------------
+# the registry archs at their own widths, the MoE baseline, long prompts
+# ---------------------------------------------------------------------------
+
+def site_config(cfg):
+    """The FFFConfig of cfg's FFN sites (one period position)."""
+    from repro_torch.nn import mlp
+    return mlp.make_fff_config(cfg.period[0].ffn, cfg.d_model,
+                               param_dtype=cfg.param_dtype, accum_dtype=cfg.accum_dtype)
+
+
+def kernel_row(err, call, plain, b_by, library=None) -> dict:
+    b, by = b_by
+    return dict(max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call),
+                plain_ms=time_ms(plain), bound_ms=b, bound_by=by,
+                library_ms=None if library is None else device_ms(library))
+
+
+def arch_kernels(label, cfg, params) -> dict:
+    """Every kernel cfg's FFN sites reach, on layer 0's own weights (bf16)
+    and seeded inputs at the site's shapes, against its plain version (bf16
+    tolerance, exact leaf indices off near-ties): the router at the
+    1024-token prefill slab and the grouped kernels on the buffers it
+    routes to (capacity as the kernel path sizes them), the gathered
+    kernels and the router at the 32-token verify slab, the fused decode
+    kernel at batch 8 over the whole forest.  Every tree is checked; the
+    row is timed on tree 0 (every tree has its shapes).  The gathered,
+    router and fused decode calls are made twice and must be
+    bit-identical.  Returns {kernel: row} with device times and bounds
+    computed as the kernels phase does."""
+    from repro_torch import utils
+    from repro_torch.kernels.fused_decode import kernel as fdk, ops as fd_ops, ref as fdr
+    from repro_torch.kernels.fused_fff import kernel as fk, ref as fr
+    from repro_torch.kernels.leaf_gemm import kernel as gk, ops as gemm_ops, ref as gr
+    from repro_torch.kernels.tree_router import kernel as trk, ref as trr
+    fc = site_config(cfg)
+    p = params["stack"][0]["ffn"]
+    nw, nb = (t.contiguous() for t in fd_ops.collapse_nodes(p, fc))
+    T, depth, E, L, d = fc.trees, fc.depth, fc.num_leaves, fc.leaf_width, cfg.d_model
+    dtype, sz = cfg.param_dtype, torch.finfo(cfg.param_dtype).bits // 8
+    swiglu = fc.activation == "swiglu"
+    names = ("leaf_wg", "leaf_wu", "leaf_wd") if swiglu else ("leaf_w1", "leaf_w2")
+    up_name = "grouped_matmul_dual" if swiglu else "grouped_matmul (up)"
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)
+    rows = {}
+
+    # prefill slab: the router, then the grouped kernels on its buffers
+    B = PREFILL_B * PREFILL_S
+    x = randn(B, d)
+    C = max(128, utils.round_up(int(2.0 * utils.cdiv(B, E)), 128))
+    for t in range(T):
+        w = [p[n][t] for n in names]
+        leaf = twice(f"{label} tree_router", lambda: trk.tree_router(x, nw[t], nb[t], depth=depth))
+        want, margin = margins(x, nw[t], nb[t], depth)
+        _, ties, _ = compare_idx(f"{label} tree_router", leaf, want, margin)
+        lay = gemm_ops.scatter_to_groups(x, leaf, E, C)
+        xg, gs = lay.x_grouped, lay.group_sizes
+        tokens, live = int(gs.sum()), int((gs > 0).sum())
+        if swiglu:
+            up = lambda: gk.grouped_matmul_dual(xg, w[0], w[1], gs)
+            up_ref = lambda: gr.grouped_matmul_dual_ref(xg, w[0], w[1], gs)
+        else:
+            up = lambda: gk.grouped_matmul(xg, w[0], gs, act=fc.activation)
+            up_ref = lambda: gr.grouped_matmul_ref(xg, w[0], gs, act=fc.activation)
+        h = up()
+        err_up = compare(f"{label} {up_name} (tree {t})", h, up_ref(), dtype)
+        down = lambda: gk.grouped_matmul(h, w[-1], gs)
+        err_down = compare(f"{label} grouped_matmul (tree {t})", down(),
+                           gr.grouped_matmul_ref(h, w[-1], gs), dtype)
+        if t:
+            continue
+        n_up = 2 if swiglu else 1
+        rows["tree_router"] = kernel_row(
+            0.0, lambda: trk.tree_router(x, nw[0], nb[0], depth=depth),
+            lambda: trr.tree_router_ref(x, nw[0], nb[0], depth=depth),
+            bound(B * d * sz + nw.shape[1] * (d + 1) * sz + B * 4,
+                  2 * B * nw.shape[1] * d, dtype))
+        rows["tree_router"]["near_ties"] = ties
+        rows[up_name] = kernel_row(
+            err_up, up, up_ref,
+            bound(live * n_up * d * L * sz + tokens * d * sz + E * C * L * sz,
+                  2 * n_up * tokens * d * L, dtype))
+        rows["grouped_matmul"] = kernel_row(
+            err_down, down, lambda: gr.grouped_matmul_ref(h, w[-1], gs),
+            bound(live * L * d * sz + tokens * L * sz + E * C * d * sz,
+                  2 * tokens * L * d, dtype),
+            library=lambda: torch.bmm(h, w[-1]))
+        rows[up_name]["capacity"] = rows["grouped_matmul"]["capacity"] = C
+        del h
+    # verify slab: the gathered kernels on the router's leaves
+    x = randn(VERIFY_B, d)
+    for t in range(T):
+        w = [p[n][t] for n in names]
+        idx = twice(f"{label} tree_router@32", lambda: trk.tree_router(x, nw[t], nb[t], depth=depth))
+        want, margin = margins(x, nw[t], nb[t], depth)
+        compare_idx(f"{label} tree_router@32", idx, want, margin)
+        if swiglu:
+            up = lambda: fk.gathered_matmul_dual(x, w[0], w[1], idx)
+            up_ref = lambda: fr.gathered_matmul_dual_ref(x, w[0], w[1], idx)
+        else:
+            up = lambda: fk.gathered_matmul(x, w[0], idx, act=fc.activation)
+            up_ref = lambda: fr.gathered_matmul_ref(x, w[0], idx, act=fc.activation)
+        gname = "gathered_matmul_dual" if swiglu else "gathered_matmul (up)"
+        h = twice(f"{label} {gname} (tree {t})", up)
+        err_up = compare(f"{label} {gname} (tree {t})", h, up_ref(), dtype)
+        down = lambda: fk.gathered_matmul(h, w[-1], idx)
+        err_down = compare(f"{label} gathered_matmul (tree {t})",
+                           twice(f"{label} gathered_matmul (tree {t})", down),
+                           fr.gathered_matmul_ref(h, w[-1], idx), dtype)
+        if t:
+            continue
+        distinct = int(torch.unique(idx).numel())
+        n_up = 2 if swiglu else 1
+        rows["tree_router@32"] = kernel_row(
+            0.0, lambda: trk.tree_router(x, nw[0], nb[0], depth=depth),
+            lambda: trr.tree_router_ref(x, nw[0], nb[0], depth=depth),
+            bound(VERIFY_B * d * sz + nw.shape[1] * (d + 1) * sz + VERIFY_B * 4,
+                  2 * VERIFY_B * nw.shape[1] * d, dtype))
+        rows[gname] = kernel_row(
+            err_up, up, up_ref,
+            bound(distinct * n_up * d * L * sz + VERIFY_B * (d + L) * sz + VERIFY_B * 4,
+                  2 * n_up * VERIFY_B * d * L, dtype))
+        rows["gathered_matmul"] = kernel_row(
+            err_down, down, lambda: fr.gathered_matmul_ref(h, w[-1], idx),
+            bound(distinct * L * d * sz + VERIFY_B * (L + d) * sz + VERIFY_B * 4,
+                  2 * VERIFY_B * L * d, dtype))
+        rows[gname]["distinct_leaves"] = rows["gathered_matmul"]["distinct_leaves"] = distinct
+    # decode step: the fused decode kernel over the forest
+    x = randn(DECODE_B, d)
+    leaves = tuple(p[n] for n in names)
+    act = "swiglu" if swiglu else fc.activation
+    call = lambda: fdk.fused_forest_decode(x, nw, nb, leaves, depth=depth, act=act)
+    y, idx = twice(f"{label} fused_forest_decode", call)
+    y_ref, idx_ref = fdr.fused_decode_ref(x, nw, nb, leaves, depth=depth, act=act)
+    agree, ties = torch.ones(DECODE_B, dtype=torch.bool, device="cuda"), 0
+    for t in range(T):
+        _, margin = margins(x, nw[t], nb[t], depth)
+        a, n, _ = compare_idx(f"{label} fused_forest_decode (tree {t})", idx[:, t],
+                              idx_ref[:, t], margin)
+        agree, ties = agree & a, ties + n
+    err = compare(f"{label} fused_forest_decode", y, y_ref, dtype, rows=agree)
+    distinct = sum(int(torch.unique(idx[:, t]).numel()) for t in range(T))
+    n_mats = len(names)
+    rows["fused_forest_decode"] = kernel_row(
+        err, call, lambda: fdr.fused_decode_ref(x, nw, nb, leaves, depth=depth, act=act),
+        bound(distinct * n_mats * d * L * sz + T * nw.shape[1] * (d + 1) * sz
+              + DECODE_B * 2 * d * sz,
+              2 * DECODE_B * (T * nw.shape[1] * d + n_mats * T * d * L), dtype))
+    rows["fused_forest_decode"].update(near_ties=ties, distinct_leaves=distinct)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def arch_serve(common, api, serve_mod, label, cfg, params) -> dict:
+    """The fixed-batch loop (batch 8, prompt 128, 16 greedy decode steps) on
+    the default infer backend, each kernel's launch count asserted: per
+    layer and tree the router and the grouped kernels once in the prefill
+    (SwiGLU: dual and down; GELU: grouped_matmul twice), the fused decode
+    kernel once per layer per step."""
+    fc = site_config(cfg)
+    L, T = cfg.n_layers, fc.trees
+    swiglu = fc.activation == "swiglu"
+    with kept_masks() as layouts, no_reference(api):
+        common.reset_launch_counts()
+        res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S, gen=GEN,
+                              device="cuda", params=params)
+        counts = common.launch_counts()
+    want = {"fused_forest_decode": L * GEN, "tree_router": L * T,
+            "grouped_matmul_dual": L * T if swiglu else 0,
+            "grouped_matmul": L * T * (1 if swiglu else 2),
+            "gathered_matmul": 0, "gathered_matmul_dual": 0}
+    if counts != want:
+        raise AssertionError(f"{label} serve: launch counts {counts} != expected {want}")
+    toks = res.tokens
+    if tuple(toks.shape) != (PREFILL_B, GEN + 1) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{label} serve: bad generated tokens {tuple(toks.shape)}")
+    dropped = [int((~k).sum()) for k in layouts]
+    log(f"{label} serve: prefill tokens over their leaf's capacity (dense repair): "
+        f"{sum(dropped)} of {sum(k.numel() for k in layouts)} over {len(layouts)} "
+        f"grouped dispatches (sites x trees), most in one {max(dropped)}")
+    log(f"{label} serve batch {PREFILL_B} x prompt {PREFILL_S}, {GEN} decode steps: "
+        f"prefill {res.prefill_s * 1e3:.2f} ms (first call); decode p50 "
+        f"{res.steady.p50_ms:.2f} ms p90 {res.steady.p90_ms:.2f} ms; "
+        f"{res.tokens_per_s:.1f} tok/s; launches {counts} (as expected); reference "
+        f"backend never ran")
+    return counts
+
+
+def arch_parity(api, fff, lm, label, fff_config) -> None:
+    """float32, full width, PARITY_LAYERS layers: lm.generate's greedy
+    tokens through the kernel backends against the reference backend's,
+    equal for every row that met no deciding margin under NEAR_TIE."""
+    cfg = dataclasses.replace(fff_config, n_layers=PARITY_LAYERS,
+                              param_dtype=torch.float32, accum_dtype=torch.float32)
+    params = lm.init(cfg, seed=1, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (PARITY_B, PARITY_S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    max_len = PARITY_S + PARITY_STEPS + 1
+    kern, m_kern = generate_batch_with_margins(api, fff, lm, cfg, params, prompt,
+                                               PARITY_STEPS, max_len)
+    ref, m_ref = generate_batch_with_margins(api, fff, lm, cfg, params, prompt,
+                                             PARITY_STEPS, max_len,
+                                             backend="reference", mode="infer")
+    margin = [min(a, b) for a, b in zip(m_kern, m_ref)]
+    ties = near_tie_rows(f"{label} parity", kern, ref, margin)
+    log(f"{label} parity: {cfg.n_layers} layers fp32 at full width, batch {PARITY_B} x "
+        f"prompt {PARITY_S}, {PARITY_STEPS} greedy tokens: kernel backends equal the "
+        f"reference backend ({ties} near-tie rows); smallest deciding margin per row "
+        f"{[f'{m:.3e}' for m in margin]}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def arch_engine(common, api, serve_mod, label, cfg, params) -> None:
+    """The engine phase's monolithic run on cfg: 8 slots, spec_k 3, the
+    self:1 draft, 16 requests; launch counts (per tree) and dispatch shapes
+    asserted as there."""
+    from repro_torch.serving.engine import EngineConfig
+    reqs = serve_mod.build_requests(cfg.vocab_size, ENGINE_REQS, ENGINE_PROMPT,
+                                    ENGINE_GEN, seed=0, min_prompt_len=ENGINE_MIN_PROMPT)
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=ENGINE_PROMPT + ENGINE_GEN + 1,
+                        max_prompt_len=ENGINE_PROMPT, spec_k=SPEC_K,
+                        draft_config=f"self:{DRAFT_LAYERS}", scheduler="fcfs", seed=0,
+                        device="cuda")
+    with no_reference(api):
+        common.reset_launch_counts()
+        run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
+        counts = common.launch_counts()
+    rounds, slabs = check_engine_run(f"{label} engine", cfg, run, counts, 0, len(reqs))
+    m = run.metrics
+    log(f"{label} engine: {SLOTS} slots, spec_k {SPEC_K}, draft self:{DRAFT_LAYERS}, "
+        f"{len(reqs)} requests: TTFT p50 {m.ttft.p50_ms:.2f} ms p90 {m.ttft.p90_ms:.2f} ms;"
+        f" per-token p50 {m.per_token.p50_ms:.2f} ms; {m.throughput_tok_s:.1f} tok/s; "
+        f"{rounds} spec rounds (p50 {m.decode_step.p50_ms:.2f} ms), {slabs} admission "
+        f"slabs; launches {counts} (as expected, per tree)")
+
+
+def log_arch_rows(label, rows, counts) -> None:
+    for name, r in rows.items():
+        base = name.split(" ")[0].split("@")[0]
+        log(f"{label} kernel {name:24s} max|err| {r['max_abs_err']:.3e}  kernel "
+            f"{r['ms']:.4f} ms (loop {r['loop_ms']:.4f})  plain {r['plain_ms']:.4f} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, kernel/bound "
+            f"{r['ms'] / r['bound_ms']:.2f})  library "
+            + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "n/a")
+            + f"  serve launches {counts.get(base, 0)}"
+            + (f"  capacity {r['capacity']}" if "capacity" in r else "")
+            + (f"  near-ties {r['near_ties']}" if "near_ties" in r else "")
+            + (f"  distinct leaves {r['distinct_leaves']}" if "distinct_leaves" in r else ""))
+
+
+def phase_archs(common, api, fff, lm, serve_mod) -> dict:
+    """The registry archs through the kernels at their published widths,
+    cut in depth to ARCH_LAYERS (one model on the card at a time): each
+    kernel at its sites' shapes, the fixed-batch loop, fp32 greedy parity;
+    olmoe-1b-7b also through the engine, and its FFN sites' device time
+    for the moe phase.  Returns {arch: {kernel: row}} and olmoe's site
+    times under "olmoe ffn"."""
+    import importlib
+    from repro_torch.configs import registry
+    from repro_torch.nn import mlp
+    out = {}
+    for arch, layers in ARCH_LAYERS.items():
+        t0 = time.perf_counter()
+        mod = importlib.import_module(registry._MODULES[arch])
+        cfg = dataclasses.replace(mod.FFF_CONFIG, n_layers=layers)
+        fc = site_config(cfg)
+        label = f"[archs] {arch}"
+        params = lm.init(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        log(f"{label} FFF full width (d_model {cfg.d_model}, {fc.trees} tree(s) of depth "
+            f"{fc.depth}, {fc.num_leaves} {fc.activation} leaves of width "
+            f"{fc.leaf_width}), {layers} of {mod.CONFIG.n_layers} layers, "
+            f"{lm.param_count(params) / 1e9:.2f}B params {cfg.param_dtype}, init "
+            f"{time.perf_counter() - t0:.1f}s")
+        with torch.inference_mode():
+            rows = arch_kernels(label, cfg, params)
+        counts = arch_serve(common, api, serve_mod, label, cfg, params)
+        log_arch_rows(label, rows, counts)
+        if arch == "olmoe-1b-7b":
+            arch_engine(common, api, serve_mod, label, cfg, params)
+            out["olmoe ffn"] = ffn_site_times(lm, mlp, cfg, params, tag=label)
+        del params
+        torch.cuda.empty_cache()
+        arch_parity(api, fff, lm, label, mod.FFF_CONFIG)
+        out[arch] = {k: dict(v, launches=counts.get(k.split(" ")[0].split("@")[0], 0))
+                     for k, v in rows.items()}
+        log(f"{label} done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def phase_moe(common, lm, serve_mod, fff_times) -> None:
+    """olmoe-1b-7b native: the noisy top-k MoE (64 experts, top 8, GELU
+    experts of width 1024, no bias) at full width, all 16 layers, bf16: the
+    fixed-batch loop (no kernel launches), the FFN sites' device time
+    against the FFF forest's (same inference width, 8 x 1024) in a warm
+    prefill and decode step, and forward_sparse's grouped form against its
+    gather form on layer 0's FFN input of the warm prefill."""
+    from repro_torch.configs.olmoe_1b_7b import CONFIG
+    from repro_torch.core import moe
+    from repro_torch.nn import mlp
+    t0 = time.perf_counter()
+    cfg = CONFIG
+    spec = cfg.period[0].ffn
+    params = lm.init(cfg, seed=0, device="cuda")
+    # init's gates are zero (Shazeer), which ties every expert and sends
+    # every token to experts 0-7; a trained gate spreads tokens over the
+    # experts, so the gates are drawn at random here, as the FFF nodes are
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for layer in params["stack"]:
+        g = layer["ffn"]["gate_w"]
+        g.copy_(torch.randn(g.shape, generator=gen, device="cuda") * cfg.d_model ** -0.5)
+    log(f"[moe] {cfg.arch_id} native (moe: {spec.moe_experts} experts, top "
+        f"{spec.moe_top_k}, width {spec.d_ff}; active width {spec.active_width}) full "
+        f"width, all {cfg.n_layers} layers, {lm.param_count(params) / 1e9:.2f}B params "
+        f"{cfg.param_dtype}; gates drawn N(0, 1/d_model)")
+    common.reset_launch_counts()
+    res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S, gen=GEN,
+                          device="cuda", params=params)
+    counts = common.launch_counts()
+    toks = res.tokens
+    if any(counts.values()) or tuple(toks.shape) != (PREFILL_B, GEN + 1) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"[moe] serve: launches {counts}, tokens {tuple(toks.shape)}")
+    log(f"[moe] serve batch {PREFILL_B} x prompt {PREFILL_S}, {GEN} decode steps: "
+        f"prefill {res.prefill_s * 1e3:.2f} ms (first call); decode p50 "
+        f"{res.steady.p50_ms:.2f} ms p90 {res.steady.p90_ms:.2f} ms; "
+        f"{res.tokens_per_s:.1f} tok/s; kernel launches {counts} (none: MoE)")
+    moe_times = ffn_site_times(lm, mlp, cfg, params, tag="[moe]")
+    for phase, what in (("prefill", f"{PREFILL_B}x{PREFILL_S} tokens"),
+                        ("decode", f"one step, batch {PREFILL_B}")):
+        m, f = moe_times[phase], fff_times[phase]
+        for name, (busy, inside) in (("MoE", m), ("FFF", f)):
+            log(f"[moe] warm {phase} ({what}), {name}: FFN sites {inside:.3f} ms device "
+                f"time (kernels inside the {cfg.n_layers} sites' device-side spans); "
+                f"device busy {busy:.3f} ms")
+        log(f"[moe] warm {phase}: FFN sites' device time MoE/FFF "
+            f"{m[1] / max(f[1], 1e-9):.2f}x")
+    # the grouped form against the gather form on one layer's input
+    forward, seen = mlp.forward, []
+
+    def first_input(p, s, d, x, **kw):
+        if not seen:
+            seen.append((p, x.clone()))
+        return forward(p, s, d, x, **kw)
+
+    prompt = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(4),
+                           dtype=torch.int32)
+    mlp.forward = first_input
+    try:
+        with torch.inference_mode():
+            lm.prefill(params, cfg, {"tokens": prompt},
+                       lm.init_caches(cfg, PREFILL_B, PREFILL_S + 1, device="cuda"))
+    finally:
+        mlp.forward = forward
+    p, x = seen[0]
+    mcfg = mlp.make_moe_config(spec, cfg.d_model, param_dtype=cfg.param_dtype,
+                               accum_dtype=cfg.accum_dtype)
+    with torch.inference_mode():
+        y, aux = moe.forward_sparse(p, mcfg, x)
+        y_ref, aux_ref = moe.forward_sparse_gather(p, mcfg, x)
+        if not torch.equal(aux["expert_idx"], aux_ref["expert_idx"]):
+            raise AssertionError("[moe] the grouped and gather forms chose other experts")
+        err = compare("[moe] forward_sparse grouped vs gather", y, y_ref, cfg.param_dtype)
+        load = torch.bincount(aux["expert_idx"].reshape(-1), minlength=spec.moe_experts)
+        grouped_ms = time_ms(lambda: moe.forward_sparse(p, mcfg, x), reps=5, warmup=1)
+    log(f"[moe] forward_sparse on layer 0's prefill input ({tuple(x.shape)}): grouped "
+        f"by expert equals the gather form within the bf16 tolerance (max|err| "
+        f"{err:.3e}); {int((load > 0).sum())} of {spec.moe_experts} experts live, "
+        f"{int(load.min())}-{int(load.max())} (token, choice) pairs each; grouped "
+        f"{grouped_ms:.3f} ms a site (CUDA events, host sync included)")
+    del params, p, x, y, y_ref, seen
+    torch.cuda.empty_cache()
+    log(f"[moe] done in {time.perf_counter() - t0:.1f}s")
+
+
+def phase_long(common, api, lm) -> None:
+    """starcoder2-15b FFF at full width, LONG_LAYERS layers, bf16: one
+    LONG_PROMPT-token prompt prefilled through flash_attention (its 4096
+    sliding window binds), then LONG_GEN greedy decode steps; launch
+    counts asserted, time and peak memory printed.  Then layer 0's q, k
+    and v of that prompt in float32: flash_attention against the plain
+    masked attention within the e2e tolerance (1e-3)."""
+    from repro_torch.configs.starcoder2_15b import FFF_CONFIG
+    from repro_torch.nn import attention, norms, transformer
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(FFF_CONFIG, n_layers=LONG_LAYERS)
+    window = cfg.period[0].sliding_window
+    params = lm.init(cfg, seed=0, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(5),
+                           dtype=torch.int32)
+    flash, calls = attention.flash_attention, []
+    attention.flash_attention = lambda *a, **kw: (calls.append(kw), flash(*a, **kw))[1]
+    try:
+        with torch.inference_mode(), no_reference(api):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            common.reset_launch_counts()
+            caches = lm.init_caches(cfg, 1, LONG_PROMPT + LONG_GEN + 1, device="cuda")
+            t1 = time.perf_counter()
+            logits, caches = lm.prefill(params, cfg, {"tokens": prompt}, caches)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t1
+            toks, step_s = [], []
+            for i in range(LONG_GEN):
+                tok = logits.argmax(-1)[:, None].to(torch.int32)
+                toks.append(int(tok))
+                t1 = time.perf_counter()
+                logits, caches = lm.decode_step(params, cfg, tok, caches, LONG_PROMPT + i)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t1)
+            counts = common.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        attention.flash_attention = flash
+    L = cfg.n_layers
+    want = {"fused_forest_decode": L * LONG_GEN, "tree_router": L, "grouped_matmul": 2 * L,
+            "grouped_matmul_dual": 0, "gathered_matmul": 0, "gathered_matmul_dual": 0}
+    if counts != want:
+        raise AssertionError(f"[long] launch counts {counts} != expected {want}")
+    if calls != [dict(causal=True, chunk=cfg.attn_chunk, sliding_window=window)] * L:
+        raise AssertionError(f"[long] flash_attention calls {calls}")
+    if not bool(torch.isfinite(logits).all()) or not all(0 <= t < cfg.vocab_size for t in toks):
+        raise AssertionError(f"[long] bad output: tokens {toks}")
+    log(f"[long] {cfg.arch_id} FFF full width, {L} of 40 layers, "
+        f"{lm.param_count(params) / 1e9:.2f}B params {cfg.param_dtype}, one "
+        f"{LONG_PROMPT}-token prompt (window {window}): prefill through flash_attention "
+        f"({len(calls)} calls, chunk {cfg.attn_chunk}) {prefill_s * 1e3:.2f} ms (first "
+        f"call, host clock); {LONG_GEN} decode steps p50 "
+        f"{sorted(step_s)[len(step_s) // 2] * 1e3:.2f} ms; peak memory {peak} bytes "
+        f"({peak / 2 ** 30:.2f} GiB, max_memory_allocated); tokens {toks}; launches "
+        f"{counts} (as expected)")
+    # layer 0's q, k, v in float32: flash against the plain masked attention
+    acfg = transformer.make_attn_config(cfg, cfg.period[0])
+    layer = params["stack"][0]
+    with torch.inference_mode():
+        from repro_torch.nn import embeddings
+        h = norms.norm_apply(cfg.norm, layer["norm1"],
+                             embeddings.embed(params["embed"], prompt, cfg.accum_dtype))
+        pos = torch.arange(LONG_PROMPT, device="cuda")[None]
+        q, k, v = (a.float() for a in attention.qkv(layer["mixer"], acfg, h, pos))
+        del params, caches
+        torch.cuda.empty_cache()
+        got = attention.flash_attention(q, k, v, causal=True, chunk=acfg.chunk,
+                                        sliding_window=window)
+        i = torch.arange(LONG_PROMPT, device="cuda")
+        band = (i[:, None] - i[None, :]) < window
+        want = attention.full_attention(q, k, v, causal=True, bias_mask=band)
+        err = (got - want).abs()
+        if not bool(torch.isfinite(got).all()) or bool((err > 1e-3 + 1e-3 * want.abs()).any()):
+            raise AssertionError(f"[long] flash vs plain masked attention: max |err| "
+                                 f"{float(err.max()):.3e} exceeds rtol=atol=1e-3")
+        del want
+        torch.cuda.empty_cache()
+        flash_ms = time_ms(lambda: attention.flash_attention(
+            q, k, v, causal=True, chunk=acfg.chunk, sliding_window=window), reps=3, warmup=1)
+    log(f"[long] layer 0's q {tuple(q.shape)}, k, v {tuple(k.shape)} in float32: "
+        f"flash_attention equals the plain masked attention (window {window}) within "
+        f"1e-3 (max |err| {float(err.max()):.3e}); flash {flash_ms:.2f} ms a call "
+        f"(CUDA events); done in {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     name, smi = phase_device()
     sys.path.insert(0, str(SRC))
@@ -2097,6 +2628,9 @@ def main() -> int:
     phase_train(common, api, fff, lm, FFF_CONFIG)
     phase_ckpt(common, lm, serve_mod, FFF_CONFIG)
     phase_dense(common, api, lm, serve_mod, FFF_CONFIG, CONFIG)
+    archs = phase_archs(common, api, fff, lm, serve_mod)
+    phase_moe(common, lm, serve_mod, archs.pop("olmoe ffn"))
+    phase_long(common, api, lm)
 
     table = []
     for kname, k in common.KERNELS.items():
@@ -2107,6 +2641,10 @@ def main() -> int:
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"arch_kernels": {
+        arch: [dict(name=k, **{f: r[f] for f in ("launches", "max_abs_err", "ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "library_ms")})
+               for k, r in rows.items()] for arch, rows in archs.items()}}))
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

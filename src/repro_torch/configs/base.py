@@ -45,6 +45,16 @@ class FFNSpec:
             return self.fff_trees * (2 ** self.fff_depth) * self.fff_leaf_width
         return 0
 
+    @property
+    def active_width(self) -> int:
+        if self.kind == "dense":
+            return self.d_ff
+        if self.kind == "moe":
+            return self.moe_top_k * self.d_ff
+        if self.kind == "fff":
+            return self.fff_trees * self.fff_leaf_width
+        return 0
+
     def as_fff(self, leaf_width: int = 0, trees: int = 0) -> "FFNSpec":
         """Convert a dense/moe FFN site into the FFF replacement that keeps
         the training width (paper user-manual Case 1 / FFF-for-MoE)."""
@@ -91,7 +101,7 @@ class ModelConfig:
     # runtime (training fields, carried for the training slice)
     remat: str = "none"
     grad_accum: int = 1
-    attn_chunk: int = 1024
+    attn_chunk: int = 1024         # flash-attention chunk size
     subquadratic: bool = False
 
     def __post_init__(self):

@@ -1,6 +1,8 @@
 """Arch registry: ``--arch <id>`` lookup (port of ``repro/configs/
 registry.py``).  Holds the archs ported so far; the rest are queued in
-ROADMAP.md."""
+ROADMAP.md.  ``get_config(arch_id, ffn="fff")`` returns the FFF variant;
+``ffn="native"`` the published baseline (dense or MoE as the source model
+ships)."""
 from __future__ import annotations
 
 import importlib
@@ -8,7 +10,11 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "command-r-35b": "repro_torch.configs.command_r_35b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -296,10 +296,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="internlm2-20b",
                     choices=list(registry.ARCH_IDS))
     ap.add_argument("--ffn", default="fff", choices=["fff", "native", "dense"],
-                    help="fff = the paper's FFF sites; native/dense = the "
-                         "arch's dense FFN (the vanilla FF baseline: no "
-                         "kernel, no routing telemetry; leaf_aware admits "
-                         "as fcfs)")
+                    help="fff = the paper's FFF sites; native = the arch's "
+                         "own FFN (dense, or olmoe-1b-7b's top-k MoE); dense "
+                         "= a dense FFN of the training width (native and "
+                         "dense run no kernel and give no routing telemetry; "
+                         "leaf_aware admits as fcfs)")
     ap.add_argument("--fff-backend", default="auto",
                     choices=["auto"] + api.list_backends("infer"),
                     help="execution backend for every FFF site (auto = "

@@ -10,12 +10,16 @@ its newest checkpoint.  Step ``i`` draws from a generator seeded from
 
 ``train(cfg, ...)`` takes any ``ModelConfig`` (e.g. a full-width config
 with fewer layers) and optionally ready parameters; the command line
-trains the registry config (``--ffn fff``, or the dense baseline with
-``native``/``dense``), cut by ``reduced()`` with ``--reduced``.  The card
-is the default; ``--device cpu`` runs on the host::
+trains the registry config (``--ffn fff``; ``native`` for the arch's own
+FFN, the dense baseline or olmoe-1b-7b's noisy top-k MoE; ``dense`` for a
+dense FFN of the training width), cut by ``reduced()`` with
+``--reduced``.  The arch defaults to olmoe-1b-7b, as in the JAX driver.
+The card is the default; ``--device cpu`` runs on the host::
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-20b \\
-      --reduced --steps 6 --ckpt-every 3 --ckpt-dir /path/to/ckpt --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 6 \\
+      --ckpt-every 3 --ckpt-dir /path/to/ckpt --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
+      --ffn native --reduced --steps 3 --device cpu
 
 The JAX driver's ``--mesh`` is not offered: its counterpart is
 multi-process ``torch.distributed`` with sharded parameters.
@@ -172,15 +176,19 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Train an LM with FFF (or dense) FFN sites on "
+        description="Train an LM with FFF (or dense or MoE) FFN sites on "
                     "Markov-source data.",
         epilog="Not offered: the JAX driver's --mesh (multi-process "
                "torch.distributed with sharded parameters is not ported).")
-    ap.add_argument("--arch", default="internlm2-20b",
-                    choices=list(registry.ARCH_IDS))
+    ap.add_argument("--arch", default="olmoe-1b-7b",
+                    choices=list(registry.ARCH_IDS),
+                    help="registry arch (default olmoe-1b-7b, the JAX "
+                         "driver's)")
     ap.add_argument("--ffn", default="fff", choices=["fff", "native", "dense"],
-                    help="fff = the paper's FFF sites; native/dense = the "
-                         "arch's dense FFN (the vanilla FF baseline)")
+                    help="fff = the paper's FFF sites; native = the arch's "
+                         "own FFN (dense, or the noisy top-k MoE with its "
+                         "balancing loss); dense = a dense FFN of the "
+                         "training width (the vanilla FF baseline)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

@@ -1,11 +1,11 @@
-"""Attention (port of ``repro/nn/attention.py``): GQA with RoPE, plain
-materialized-score attention (full-sequence self-attention for training
-and eval), and the KV cache for decode, chunked prefill and speculative
-verify.
+"""Attention (port of ``repro/nn/attention.py``): GQA with RoPE,
+materialized-score attention up to ``FLASH_ABOVE`` tokens, the blocked
+``flash_attention`` above it (training, eval and prefill), and the KV
+cache for decode, chunked prefill and speculative verify.
 
-Attention is plain PyTorch, as the JAX package computes it outside Pallas.
-The blocked ``flash_attention`` the JAX package uses above 2048 tokens is
-not ported yet, so prompts and training sequences longer than that raise.
+Attention is plain PyTorch, as the JAX package computes it outside Pallas;
+``flash_attention`` follows the JAX package's online softmax over a static
+list of (q-chunk, kv-chunk) pairs step by step.
 The KV cache keeps the JAX fields (page pools, page table, lengths) in two
 layouts: contiguous (one ``max_len`` page per row, an identity table) and
 paged (``init_cache(page_size=...)``: a pool of fixed pages shared by all
@@ -28,8 +28,8 @@ from repro_torch.nn import rope as rope_lib
 Params = dict
 
 NEG_INF = -1e30
-#: longest prompt the materialized-score path serves (JAX switches to its
-#: blocked flash attention above this)
+#: longest sequence the materialized-score path serves; longer ones take
+#: the blocked ``flash_attention``, as in the JAX package
 FLASH_ABOVE = 2048
 
 
@@ -44,6 +44,7 @@ class AttnConfig:
     use_rope: bool = True
     causal: bool = True
     sliding_window: int = 0          # 0 = full
+    chunk: int = 1024                # flash chunk size
     param_dtype: Any = torch.float32
     accum_dtype: Any = torch.float32
 
@@ -114,6 +115,80 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = s.masked_fill(~bias_mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqp,bphd->bqhd", p, vf).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash attention over static chunk pairs
+# ---------------------------------------------------------------------------
+
+def _chunk_pairs(n_q: int, n_k: int, causal: bool, window_chunks: int,
+                 chunk: int, sliding_window: int) -> list[tuple[int, int, bool]]:
+    """The static (qi, kj, needs_mask) schedule.  causal: only kj <= qi
+    (equal-length q and k), the diagonal pair masked.  ``window_chunks`` w
+    > 0: also qi - kj <= w (the band), and every pair whose largest
+    distance reaches the window masked.  On a window of whole chunks that
+    is the JAX package's pair at qi - kj == w alone; on any other window
+    the nearer pairs the band cuts are masked too, which the JAX package
+    leaves unmasked."""
+    pairs = []
+    for qi in range(n_q):
+        for kj in range(n_k):
+            if causal and kj > qi:
+                continue
+            if window_chunks > 0 and qi - kj > window_chunks:
+                continue
+            masked = ((causal and kj == qi) or window_chunks > 0
+                      and (qi - kj + 1) * chunk - 1 >= sliding_window)
+            pairs.append((qi, kj, masked))
+    return pairs
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, chunk: int = 1024,
+                    sliding_window: int = 0) -> torch.Tensor:
+    """Online-softmax attention: q (B, S, H, hd); k, v (B, S, K, hd) with H
+    = K * G -> (B, S, H, hd).  Visits only the statically scheduled chunk
+    pairs, carrying full-size float32 (m, l, acc) accumulators whose
+    q-chunk rows each pair updates in place; the JAX package's steps, with
+    the accumulators laid out (B, H, S[, hd]) so no step transposes."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = math.gcd(S, chunk) or S
+    scale = 1.0 / math.sqrt(hd)
+    window_chunks = (max(1, utils.cdiv(sliding_window, chunk))
+                     if sliding_window > 0 else 0)
+    pairs = _chunk_pairs(S // chunk, S // chunk, causal, window_chunks, chunk,
+                         sliding_window)
+    qf = q.float().transpose(1, 2)                       # (B, H, S, hd)
+    kf = _expand_kv(k, G).float().transpose(1, 2)
+    vf = _expand_kv(v, G).float().transpose(1, 2)
+    m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, S, hd), dtype=torch.float32, device=q.device)
+    col = torch.arange(chunk, device=q.device)
+    for qi, kj, needs_mask in pairs:
+        qs, ks = slice(qi * chunk, (qi + 1) * chunk), slice(kj * chunk, (kj + 1) * chunk)
+        s = torch.einsum("bhqd,bhpd->bhqp", qf[:, :, qs], kf[:, :, ks]) * scale
+        if needs_mask:
+            dist = (qi - kj) * chunk + col[:, None] - col[None, :]   # qpos - kpos
+            ok = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device)
+            if causal:
+                ok &= dist >= 0
+            if sliding_window > 0:
+                ok &= dist < sliding_window
+            s = s.masked_fill(~ok, NEG_INF)
+        m_cur = m[:, :, qs]
+        m_new = torch.maximum(m_cur, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_cur - m_new)
+        l[:, :, qs] = l[:, :, qs] * corr + p.sum(dim=-1)
+        acc[:, :, qs] = acc[:, :, qs] * corr[..., None] + torch.einsum(
+            "bhqp,bhpd->bhqd", p, vf[:, :, ks])
+        m[:, :, qs] = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -334,24 +409,24 @@ def chunk_attend(q: torch.Tensor, cache: KVCache, start: torch.Tensor, *,
 # block-level entry points
 # ---------------------------------------------------------------------------
 
-def _check_len(S: int) -> None:
-    if S > FLASH_ABOVE:
-        raise NotImplementedError(
-            f"sequences over {FLASH_ABOVE} tokens need the blocked flash "
-            f"attention, which is not ported yet")
+def _flash(cfg: AttnConfig, q, k, v) -> torch.Tensor:
+    return flash_attention(q, k, v, causal=cfg.causal, chunk=cfg.chunk,
+                           sliding_window=cfg.sliding_window)
 
 
 def forward(params: Params, cfg: AttnConfig, x: torch.Tensor,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention over a full sequence without a cache (train and
     eval): x (B, S, D) -> (B, S, D), RoPE at positions 0..S-1 unless
-    ``positions`` (B, S) are given, a sliding-window band when
-    ``cfg.sliding_window`` is shorter than S."""
+    ``positions`` (B, S) are given.  Above ``FLASH_ABOVE`` tokens the
+    blocked ``flash_attention``; else materialized scores with a
+    sliding-window band when ``cfg.sliding_window`` is shorter than S."""
     B, S, _ = x.shape
-    _check_len(S)
     if positions is None and cfg.use_rope:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = qkv(params, cfg, x, positions)
+    if S > FLASH_ABOVE:
+        return out_proj(params, cfg, _flash(cfg, q, k, v))
     band = None
     if cfg.sliding_window > 0 and S > cfg.sliding_window:
         i = torch.arange(S, device=x.device)
@@ -362,12 +437,18 @@ def forward(params: Params, cfg: AttnConfig, x: torch.Tensor,
 
 def forward_prefill(params: Params, cfg: AttnConfig, x: torch.Tensor,
                     cache: KVCache) -> tuple[torch.Tensor, KVCache]:
+    """Prefill from position 0: the cache takes the prefix's K/V.  Above
+    ``FLASH_ABOVE`` tokens the blocked ``flash_attention`` (with the
+    sliding window); at or below it causal materialized scores without a
+    band, as in the JAX package."""
     B, S, _ = x.shape
-    _check_len(S)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = qkv(params, cfg, x, positions if cfg.use_rope else None)
     cache = prefill_into_cache(cache, k, v)
-    o = full_attention(q, k, v, causal=cfg.causal)
+    if S > FLASH_ABOVE:
+        o = _flash(cfg, q, k, v)
+    else:
+        o = full_attention(q, k, v, causal=cfg.causal)
     return out_proj(params, cfg, o), cache
 
 

@@ -1,9 +1,11 @@
 """FFN sites (port of ``repro/nn/mlp.py``): the dispatch point for the
 paper's technique.  ``FFNSpec.kind`` selects ``fff`` (the paper: FORWARD_T
 or the straight-through estimator in training, with the hardening and
-balance aux losses; the kernels at inference) or ``dense`` (the vanilla
-FF baseline, ``core/ff.py``: a native SwiGLU site).  The ``moe`` baseline
-arrives with the MoE archs and ``core/moe.py``."""
+balance aux losses; the kernels at inference), ``dense`` (the vanilla FF
+baseline, ``core/ff.py``: a native SwiGLU or GELU site) or ``moe`` (the
+noisy top-k contender, ``core/moe.py``: the dense-combine ``forward`` with
+its balancing loss as ``moe_aux`` in training, ``forward_sparse`` at
+inference)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,7 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import FFNSpec
-from repro_torch.core import api, ff, fff
+from repro_torch.core import api, ff, fff, moe
 
 Params = dict
 
@@ -28,18 +30,21 @@ def make_fff_config(spec: FFNSpec, d_model: int, *, param_dtype, accum_dtype
         param_dtype=param_dtype, accum_dtype=accum_dtype)
 
 
+def make_moe_config(spec: FFNSpec, d_model: int, *, param_dtype, accum_dtype
+                    ) -> moe.MoEConfig:
+    return moe.MoEConfig(
+        dim_in=d_model, dim_out=d_model, num_experts=spec.moe_experts,
+        expert_width=spec.d_ff, top_k=spec.moe_top_k,
+        activation="gelu" if spec.activation == "swiglu" else spec.activation,
+        bias=False, param_dtype=param_dtype, accum_dtype=accum_dtype)
+
+
 def make_ff_config(spec: FFNSpec, d_model: int, *, param_dtype, accum_dtype
                    ) -> ff.FFConfig:
     return ff.FFConfig(
         dim_in=d_model, dim_out=d_model, width=spec.d_ff,
         activation=spec.activation, bias=False,
         param_dtype=param_dtype, accum_dtype=accum_dtype)
-
-
-def _unported(kind: str):
-    return NotImplementedError(f"FFN kind {kind!r} is not ported yet (the "
-                               f"port runs fff and dense sites; moe comes "
-                               f"with core/moe.py)")
 
 
 def init(gen: torch.Generator, spec: FFNSpec, d_model: int, *, param_dtype,
@@ -51,7 +56,9 @@ def init(gen: torch.Generator, spec: FFNSpec, d_model: int, *, param_dtype,
         return ff.init(gen, make_ff_config(spec, d_model, **kw))
     if spec.kind == "fff":
         return fff.init(gen, make_fff_config(spec, d_model, **kw))
-    raise _unported(spec.kind)
+    if spec.kind == "moe":
+        return moe.init(gen, make_moe_config(spec, d_model, **kw))
+    raise ValueError(f"unknown ffn kind {spec.kind!r}")
 
 
 def forward(params: Params, spec: FFNSpec, d_model: int, x: torch.Tensor, *,
@@ -63,7 +70,8 @@ def forward(params: Params, spec: FFNSpec, d_model: int, x: torch.Tensor, *,
     site); at inference it holds 'routing' (RoutingStats) for an FFF site
     when an ``api.collect_routing`` tap is active, else nothing (the
     serving path allocates no zero scalars).
-    ``gen`` drives the stochastic training feature (ExecutionSpec.gen);
+    ``gen`` drives the stochastic training feature (ExecutionSpec.gen; a
+    MoE site's gating noise);
     ``valid`` marks phantom tokens for the FFF dispatch
     (ExecutionSpec.valid)."""
     aux = {}
@@ -75,8 +83,15 @@ def forward(params: Params, spec: FFNSpec, d_model: int, x: torch.Tensor, *,
         return x, aux
     if spec.kind == "dense":
         return ff.forward(params, make_ff_config(spec, d_model, **kw), x), aux
+    if spec.kind == "moe":
+        cfg = make_moe_config(spec, d_model, **kw)
+        if not train:
+            return moe.forward_sparse(params, cfg, x)[0], aux
+        y, moe_aux = moe.forward(params, cfg, x, gen=gen, train=True)
+        aux["moe_aux"] = moe_aux["aux_loss"].float()
+        return y, aux
     if spec.kind != "fff":
-        raise _unported(spec.kind)
+        raise ValueError(f"unknown ffn kind {spec.kind!r}")
     cfg = make_fff_config(spec, d_model, **kw)
     # one entry point; backend="auto" picks the execution strategy per site
     # (and the launch layer can steer it with api.overrides)

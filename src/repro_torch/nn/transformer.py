@@ -45,7 +45,7 @@ def make_attn_config(cfg: ModelConfig, spec: BlockSpec, *, causal: bool = True
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, bias=cfg.attn_bias,
         rope_theta=cfg.rope_theta, use_rope=(cfg.pos_emb == "rope"),
-        causal=causal, sliding_window=spec.sliding_window,
+        causal=causal, sliding_window=spec.sliding_window, chunk=cfg.attn_chunk,
         param_dtype=cfg.param_dtype, accum_dtype=cfg.accum_dtype)
 
 

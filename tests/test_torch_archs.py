@@ -1,0 +1,242 @@
+"""The registry archs of this slice against the JAX package, on the CPU:
+phi3-medium-14b, starcoder2-15b (LayerNorm, attention biases, GELU leaves,
+a sliding window), command-r-35b (tied embeddings, rope_theta 8e6) and
+olmoe-1b-7b (an FFF forest of 8 trees; ``native`` is the noisy top-k MoE).
+
+* the registry's ids, and ``get_config(arch, ffn)`` and ``reduced()`` equal
+  to JAX's field for field for every arch and FFN kind, with the FFN
+  sites' training and active widths;
+* for each new arch, FFF and native, the 2-layer ``reduced()`` float32
+  model with the same numpy-drawn weights in both packages
+  (``weights.from_jax``): ``lm.loss_fn``'s loss, metrics and every
+  parameter gradient within the ``e2e`` tolerance of ``tests/conftest.py``;
+  and a prefill of 2 x 20 tokens plus two ``decode_step``s fed the greedy
+  tokens, logits within ``e2e`` and the same greedy tokens.  FFF models run
+  twice: under auto resolution (the reference backend for CPU tensors) and
+  down the resolver's CUDA branch (``api._kernels_native`` patched: the
+  prefill takes the grouped kernel path, decode the fused decode kernel,
+  whose wrappers run their plain versions here).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import dtype_tol
+from repro.configs import registry as jregistry
+from repro.models import lm as jlm
+from repro_torch import optim, utils, weights
+from repro_torch.configs import registry
+from repro_torch.core import api
+from repro_torch.models import lm
+
+torch.set_num_threads(2)
+
+NEW_ARCHS = ("phi3-medium-14b", "starcoder2-15b", "command-r-35b", "olmoe-1b-7b")
+B, S, STEPS = 2, 20, 2
+
+
+def rng(seed):
+    return np.random.default_rng(seed)
+
+
+def close(got, want, kind="e2e"):
+    rtol, atol = dtype_tol(jnp.float32, kind)
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32), rtol=rtol, atol=atol)
+
+
+def np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+def test_registry_ids():
+    assert set(registry.ARCH_IDS) == set(NEW_ARCHS) | {"internlm2-20b"}
+    assert set(registry.ARCH_IDS) <= set(jregistry.ARCH_IDS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        registry.get_config("kimi-k2-1t-a32b")
+
+
+def same_fields(tc, jc):
+    """Every field of the port's config equals JAX's (dtypes by name)."""
+    for f in dataclasses.fields(tc):
+        got, want = getattr(tc, f.name), getattr(jc, f.name)
+        if f.name.endswith("_dtype"):
+            assert str(got).removeprefix("torch.") == jnp.dtype(want).name, f.name
+        elif f.name == "period":
+            assert ([dataclasses.asdict(b) for b in got]
+                    == [dataclasses.asdict(b) for b in want])
+        else:
+            assert got == want, f.name
+
+
+@pytest.mark.parametrize("cut", ["full", "reduced"])
+@pytest.mark.parametrize("ffn", ["fff", "native", "dense"])
+@pytest.mark.parametrize("arch", sorted(registry.ARCH_IDS))
+def test_config_matches_jax(arch, ffn, cut):
+    jc, tc = jregistry.get_config(arch, ffn), registry.get_config(arch, ffn)
+    if cut == "reduced":
+        jc, tc = jc.reduced(n_layers=2), tc.reduced(n_layers=2)
+    same_fields(tc, jc)
+    for tb, jb in zip(tc.period, jc.period):
+        assert tb.ffn.training_width == jb.ffn.training_width
+        assert tb.ffn.active_width == jb.ffn.active_width
+
+
+def test_olmoe_sites():
+    """FFF: a forest of 8 trees of depth 3 with 1024-wide leaves, trained
+    straight-through; native: 64 experts, top 8; the same active width."""
+    f = registry.get_config("olmoe-1b-7b").period[0].ffn
+    m = registry.get_config("olmoe-1b-7b", "native").period[0].ffn
+    assert (f.kind, f.fff_trees, f.fff_depth, f.fff_leaf_width, f.fff_st) == (
+        "fff", 8, 3, 1024, True)
+    assert (m.kind, m.moe_experts, m.moe_top_k, m.d_ff) == ("moe", 64, 8, 1024)
+    assert f.active_width == m.active_width == 8 * 1024
+    assert f.training_width == m.training_width == 64 * 1024
+
+
+# ---------------------------------------------------------------------------
+# the reduced models, same weights in both packages
+# ---------------------------------------------------------------------------
+
+_MODELS = {}
+
+
+def model(arch, ffn):
+    """The reduced configs, the port's params (JAX's carried over), the
+    prompt and batch and the JAX oracles, built once per (arch, ffn): the
+    loss, metrics and gradients on one batch, and the prefill and greedy
+    decode logits."""
+    key = (arch, ffn)
+    if key in _MODELS:
+        return _MODELS[key]
+    jcfg = jregistry.get_config(arch, ffn).reduced(n_layers=2)
+    tcfg = registry.get_config(arch, ffn).reduced(n_layers=2)
+    shapes = jax.eval_shape(lambda: jlm.init(jax.random.PRNGKey(0), jcfg))
+    r = rng(sorted(registry.ARCH_IDS).index(arch))
+
+    def draw(path, s):
+        if path[-1].key == "scale":
+            return jnp.ones(s.shape, s.dtype)
+        return jnp.asarray(r.normal(size=s.shape) / 8.0, s.dtype)
+
+    jp = jax.tree_util.tree_map_with_path(draw, shapes)
+    tp = weights.from_jax(np_tree(jp), tcfg, device="cpu")
+    prompt = r.integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
+    batch = {"tokens": prompt, "labels": np.roll(prompt, -1, axis=1)}
+    (loss, metrics), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: jlm.loss_fn(p, jcfg, b), has_aux=True))(jp, batch)
+    max_len = S + STEPS + 1
+    logits, caches = jax.jit(lambda p, x, c: jlm.prefill(p, jcfg, {"tokens": x}, c))(
+        jp, jnp.asarray(prompt), jlm.init_caches(jcfg, B, max_len))
+    step = jax.jit(lambda p, x, c, i: jlm.decode_step(p, jcfg, x, c, i))
+    seq = [np.asarray(logits)]
+    for i in range(STEPS):
+        tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+        logits, caches = step(jp, tok, caches, S + i)
+        seq.append(np.asarray(logits))
+    _MODELS[key] = dict(jcfg=jcfg, tcfg=tcfg, tp=tp, prompt=prompt, batch=batch,
+                        loss=loss, metrics=metrics, grads=np_tree(grads), logits=seq)
+    return _MODELS[key]
+
+
+@pytest.mark.parametrize("ffn", ["fff", "native"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_weights_carry_over(arch, ffn):
+    """from_jax carries every leaf of the arch's tree with no special case:
+    LayerNorm and attention biases, tied embeddings, MoE experts and gates,
+    and the forest's per-tree leaves."""
+    m = model(arch, ffn)
+    tcfg, tp = m["tcfg"], m["tp"]
+    fresh = lm.init(tcfg, seed=0, device="cpu")
+    assert len(utils.tree_leaves(tp)) == len(utils.tree_leaves(fresh))
+    utils.tree_map(lambda a, b: None if a.shape == b.shape and a.dtype == b.dtype
+                   else pytest.fail(f"{a.shape} {a.dtype} != {b.shape} {b.dtype}"),
+                   tp, fresh)
+    layer = tp["stack"][0]
+    assert ("head" in tp["embed"]) != tcfg.tie_embeddings
+    assert ("bias" in layer["norm1"]) == (tcfg.norm == "layernorm")
+    assert ("bq" in layer["mixer"]) == tcfg.attn_bias
+    assert ("gate_w" in layer["ffn"]) == (ffn == "native" and arch == "olmoe-1b-7b")
+
+
+@pytest.mark.parametrize("ffn", ["fff", "native"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_loss_fn_matches_jax(arch, ffn):
+    """Loss, every metric (moe_aux for the MoE) and every parameter
+    gradient."""
+    m = model(arch, ffn)
+    (loss, metrics), grads = optim.value_and_grad(
+        lambda p, b: lm.loss_fn(p, m["tcfg"], b))(m["tp"], m["batch"])
+    close(loss, m["loss"])
+    assert set(metrics) == set(m["metrics"])
+    for k in metrics:
+        close(metrics[k], m["metrics"][k])
+    if (arch, ffn) == ("olmoe-1b-7b", "native"):
+        assert float(metrics["moe_aux"]) > 0
+    want = weights.from_jax(m["grads"], m["tcfg"], device="cpu")
+    assert len(utils.tree_leaves(grads)) == len(utils.tree_leaves(want))
+    utils.tree_map(lambda g, w: close(g, w.numpy()), grads, want)
+
+
+@pytest.mark.parametrize("resolution", ["auto", "kernels"])
+@pytest.mark.parametrize("ffn", ["fff", "native"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_prefill_and_greedy_decode_match_jax(arch, ffn, resolution, monkeypatch):
+    m = model(arch, ffn)
+    tcfg = m["tcfg"]
+    ran = []
+    for key, fn in list(api._REGISTRY.items()):
+        monkeypatch.setitem(api._REGISTRY, key,
+                            lambda *a, _fn=fn, _n=key[1]: (ran.append(_n), _fn(*a))[1])
+    if resolution == "kernels":
+        monkeypatch.setattr(api, "_kernels_native", lambda device: True)
+    caches = lm.init_caches(tcfg, B, S + STEPS + 1, device="cpu")
+    with torch.inference_mode():
+        logits, caches = lm.prefill(m["tp"], tcfg,
+                                    {"tokens": torch.from_numpy(m["prompt"])}, caches)
+        close(logits, m["logits"][0])
+        for i in range(STEPS):
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+            np.testing.assert_array_equal(tok[:, 0].numpy(), m["logits"][i].argmax(-1))
+            logits, caches = lm.decode_step(m["tp"], tcfg, tok, caches, S + i)
+            close(logits, m["logits"][i + 1])
+    want = (set() if ffn == "native" else
+            {"cuda", "cuda_decode"} if resolution == "kernels" else {"reference"})
+    assert set(ran) == want, set(ran)
+
+
+# ---------------------------------------------------------------------------
+# the drivers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ffn", ["fff", "native"])
+def test_drivers_serve_and_train_olmoe(ffn, capsys):
+    """The train driver defaults to olmoe-1b-7b, as the JAX driver does;
+    --ffn native trains the MoE (its balancing loss in the step's loss)
+    and serves it through the fixed-batch loop and the engine."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    assert train_mod.build_parser().get_default("arch") == "olmoe-1b-7b"
+    res = train_mod.main(["--reduced", "--ffn", ffn, "--steps", "2", "--batch", "2",
+                          "--seq", "16", "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("olmoe-1b-7b: ")
+    assert lines[-1] == "done at step 2 (restarts=0)"
+    assert all(np.isfinite(res.losses))
+    ffn_params = res.params["stack"][0]["ffn"]
+    assert ("expert_w1" in ffn_params) == (ffn == "native")
+    assert (res.metrics[0]["moe_aux"] > 0) == (ffn == "native")
+    for engine in ("off", "continuous"):
+        serve_mod.main(["--device", "cpu", "--arch", "olmoe-1b-7b", "--ffn", ffn,
+                        "--engine", engine, "--batch", "2", "--prompt-len", "8",
+                        "--gen", "3", "--spec-k", "2"])
+        out = capsys.readouterr().out
+        assert out.startswith("olmoe-1b-7b: ") and "kernel launches:" in out

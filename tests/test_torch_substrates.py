@@ -464,8 +464,8 @@ def _same_run(got, want, first=0):
                                                  utils.tree_leaves(want.params)))
 
 
-CLI_ARGS = ["--reduced", "--steps", "6", "--batch", str(BATCH), "--seq", str(SEQ),
-            "--device", "cpu"]
+CLI_ARGS = ["--arch", "internlm2-20b", "--reduced", "--steps", "6", "--batch", str(BATCH),
+            "--seq", str(SEQ), "--device", "cpu"]
 
 
 def _cli(ckpt_dir, prob=0.0):
@@ -666,8 +666,13 @@ def test_dense_site_aux_and_moe_still_unported():
     assert all(float(v) == 0.0 for v in aux.values())
     y2, aux2 = mlp.forward(p, spec, 64, x, **kw)
     assert aux2 == {} and torch.equal(y, y2)
-    with pytest.raises(NotImplementedError, match="'moe'"):
-        mlp.init(torch.Generator(), dataclasses.replace(spec, kind="moe"), 64, **kw)
+    # the moe kind is ported since (core/moe.py; tests/test_torch_moe.py):
+    # its site initialises, and an unknown kind raises
+    moe_spec = dataclasses.replace(spec, kind="moe", moe_experts=4, moe_top_k=2)
+    p = mlp.init(torch.Generator().manual_seed(0), moe_spec, 64, **kw)
+    assert set(p) == {"gate_w", "noise_w", "expert_w1", "expert_w2"}
+    with pytest.raises(ValueError, match="'mystery'"):
+        mlp.init(torch.Generator(), dataclasses.replace(spec, kind="mystery"), 64, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -723,8 +728,8 @@ def test_native_generate_matches_jax(native):
 
 @pytest.mark.parametrize("ffn", ["native", "dense"])
 def test_drivers_take_the_dense_baseline(ffn, capsys):
-    res = train_mod.main(["--reduced", "--ffn", ffn, "--steps", "2", "--batch", "2",
-                          "--seq", "16", "--device", "cpu"])
+    res = train_mod.main(["--arch", "internlm2-20b", "--reduced", "--ffn", ffn, "--steps",
+                          "2", "--batch", "2", "--seq", "16", "--device", "cpu"])
     assert all(np.isfinite(res.losses)) and "wg" in res.params["stack"][0]["ffn"]
     assert capsys.readouterr().out.strip().splitlines()[-1] == "done at step 2 (restarts=0)"
     for engine in ("off", "continuous"):

@@ -264,9 +264,14 @@ def test_attention_forward_matches_jax(window):
     x = r.normal(size=(2, 11, 16)).astype(np.float32)
     want = jattn.forward({k: jnp.asarray(v) for k, v in p.items()}, jcfg, jnp.asarray(x))
     close(attention.forward(weights.tree(p, device="cpu"), tcfg, t(x)), want)
-    with pytest.raises(NotImplementedError, match="flash"):
-        attention.forward(weights.tree(p, device="cpu"), tcfg,
-                          torch.zeros(1, attention.FLASH_ABOVE + 1, 16))
+    # above FLASH_ABOVE both packages take their blocked flash attention (on
+    # a chunk the window is a whole number of)
+    kw.update(chunk=window or 32)
+    jcfg, tcfg = jattn.AttnConfig(**kw), attention.AttnConfig(**kw)
+    x = r.normal(size=(1, attention.FLASH_ABOVE + 32, 16)).astype(np.float32)
+    want = jax.jit(lambda p, x: jattn.forward(p, jcfg, x))(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x))
+    close(attention.forward(weights.tree(p, device="cpu"), tcfg, t(x)), want)
 
 
 def test_cross_entropy_matches_jax():
@@ -494,8 +499,8 @@ STEP_LINE = re.compile(r"^step +\d+ loss +[\d.]+ ce +[\d.]+ harden +[\d.]+ "
 @pytest.mark.parametrize("flags", [[], ["--balance-weight", "0.01"], ["--master-leaf"]],
                          ids=["plain", "balance", "master"])
 def test_train_cli_on_cpu(capsys, flags):
-    res = train_mod.main(["--reduced", "--steps", "2", "--batch", "2", "--seq", "16",
-                          "--device", "cpu", *flags])
+    res = train_mod.main(["--arch", "internlm2-20b", "--reduced", "--steps", "2",
+                          "--batch", "2", "--seq", "16", "--device", "cpu", *flags])
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].startswith("internlm2-20b: ") and lines[-1] == "done at step 2 (restarts=0)"
     assert all(STEP_LINE.match(line) for line in lines[1:-1]), lines
