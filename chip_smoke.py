@@ -159,10 +159,10 @@ Phases (any failure raises, and the exit code is non-zero):
               shapes (the prefill slab's router and grouped kernels, the
               verify slab's router and gathered kernels, the decode step's
               fused kernel over the whole forest; every tree checked, tree 0
-              timed), against its plain version, called twice where
-              bit-identity is the contract; the fixed-batch loop with its
-              launch counts (per tree) asserted; fp32 greedy parity at 2
-              layers (kernel backends against the reference backend, 0
+              timed), through the kernels phase's row builders and
+              bounds; the serve phase's fixed-batch loop with its launch
+              counts (per tree) asserted; the parity phase at 2 layers
+              (kernel backends against the reference backend, 0
               differences off near-ties).  olmoe also serves the engine
               phase's 16 requests (8 slots, spec_k 3, self:1), its launch
               counts asserted per tree, and its FFN sites are timed for moe.
@@ -171,7 +171,8 @@ Phases (any failure raises, and the exit code is non-zero):
               gates drawn at random (zero gates tie every expert): the
               fixed-batch loop (no kernel launches), the FFN sites' device
               time against the FFF forest's (same inference width, 8 x 1024)
-              in a warm prefill and decode step, and forward_sparse's
+              in a warm prefill and decode step, beside the MoE sites' bound
+              (it is a plain, unfused MoE), and forward_sparse's
               grouped form against its gather form on layer 0's input.
 13. long    — starcoder2-15b FFF at full width, 2 of 40 layers: one
               6144-token prompt prefilled through flash_attention (the 4096
@@ -292,6 +293,45 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# Each kernel's bound from its inputs in this run: every input read once
+# (each routed leaf's weights once), every output written once.
+
+def router_bound(B, N, d, dtype) -> tuple[float, str]:
+    """B tokens of width d down N nodes: x, weights, biases in; (B,) int32 out."""
+    sz = torch.finfo(dtype).bits // 8
+    return bound(B * d * sz + N * (d + 1) * sz + B * 4, 2 * B * N * d, dtype)
+
+
+def grouped_bound(gs, C, k_in, n_out, n_mats, dtype) -> tuple[float, str]:
+    """n_mats (k_in, n_out) weights per group over capacity-C buffers: each
+    live group's weights and each routed token's row read, the whole
+    (E, C, n_out) output written."""
+    sz = torch.finfo(dtype).bits // 8
+    tokens, live = int(gs.sum()), int((gs > 0).sum())
+    return bound(live * n_mats * k_in * n_out * sz + tokens * k_in * sz
+                 + gs.numel() * C * n_out * sz, 2 * n_mats * tokens * k_in * n_out, dtype)
+
+
+def gathered_bound(idx, k_in, n_out, n_mats, dtype) -> tuple[float, str]:
+    """n_mats (k_in, n_out) weights of each distinct leaf in idx, the tokens'
+    rows and leaf indices read, their outputs written."""
+    sz = torch.finfo(dtype).bits // 8
+    B, distinct = idx.numel(), int(torch.unique(idx).numel())
+    return bound(distinct * n_mats * k_in * n_out * sz + B * (k_in + n_out) * sz + B * 4,
+                 2 * n_mats * B * k_in * n_out, dtype)
+
+
+def decode_bound(idx, N, d, L, n_mats, dtype) -> tuple[float, str]:
+    """The fused decode step: idx (B, T) leaves over T trees of N nodes;
+    each tree's distinct leaves' n_mats (d, L) matrices, every node, x in
+    and y out."""
+    sz = torch.finfo(dtype).bits // 8
+    B, T = idx.shape
+    distinct = sum(int(torch.unique(idx[:, t]).numel()) for t in range(T))
+    return bound(distinct * n_mats * d * L * sz + T * N * (d + 1) * sz + B * 2 * d * sz,
+                 2 * B * (T * N * d + n_mats * T * d * L), dtype)
+
+
 def margins(x, nw, nb, depth):
     """Per token: the leaf the float32 plain descent reaches and the
     smallest |deciding logit| on its path."""
@@ -381,38 +421,135 @@ def phase_build(common) -> None:
         + " ".join(f"{k}={v:.1f}s" for k, v in took.items()))
 
 
-def router_row(label, x, nw, nb, depth=DEPTH) -> dict:
-    """The router on one input: leaf indices against the float32 plain
-    descent, two calls bit-identical, device and loop times, the plain
-    version, the bound; and on a line of its own two yardsticks, timed the
-    same ways: ``torch.addmm`` of the logits alone (no single PyTorch call
-    computes the descent, so the row has no library time) and ``zero_()`` of
-    the (B,) int32 output, the smallest launch."""
-    from repro_torch.kernels.tree_router import kernel as trk, ref as trr
-    B, d = x.shape
-    N = nw.shape[0]
-    sz = x.element_size()
-    got = trk.tree_router(x, nw, nb, depth=depth)
-    if not torch.equal(got, trk.tree_router(x, nw, nb, depth=depth)):
-        raise AssertionError(f"{label}: two calls on one input differ")
+def kernel_row(err, call, plain, b_by, library=None) -> dict:
+    """A table row: device and loop times of ``call``, the plain version's
+    time, the bound and, where one PyTorch call computes the same
+    function, that call's device time."""
+    b, by = b_by
+    return dict(max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call),
+                plain_ms=time_ms(plain), bound_ms=b, bound_by=by,
+                library_ms=None if library is None else device_ms(library))
+
+
+def routed(label, x, nw, nb, depth=DEPTH):
+    """The router on one input, called twice (bit-identical): leaf indices
+    exact against the float32 plain descent off near-ties.  Returns the
+    leaves and the number of near-tie disagreements."""
+    from repro_torch.kernels.tree_router import kernel as trk
+    leaf = twice(label, lambda: trk.tree_router(x, nw, nb, depth=depth))
     want, margin = margins(x, nw, nb, depth)
-    _, ties, err = compare_idx(label, got, want, margin)
-    call = lambda: trk.tree_router(x, nw, nb, depth=depth)
-    b, by = bound(B * d * sz + N * (d + 1) * sz + B * 4, 2 * B * N * d, x.dtype)
-    out = torch.empty(B, dtype=torch.int32, device=x.device)
+    _, ties, _ = compare_idx(label, leaf, want, margin)
+    return leaf, ties
+
+
+def router_row(label, x, nw, nb, depth=DEPTH) -> dict:
+    """The router's row on one input (``routed``'s checks, device and loop
+    times, the plain version, the bound); and on a line of its own two
+    yardsticks, timed the same ways: ``torch.addmm`` of the logits alone
+    (no single PyTorch call computes the descent, so the row has no
+    library time) and ``zero_()`` of the (B,) int32 output, the smallest
+    launch."""
+    from repro_torch.kernels.tree_router import kernel as trk, ref as trr
+    _, ties = routed(label, x, nw, nb, depth)
+    row = kernel_row(0.0, lambda: trk.tree_router(x, nw, nb, depth=depth),
+                     lambda: trr.tree_router_ref(x, nw, nb, depth=depth),
+                     router_bound(x.shape[0], nw.shape[0], x.shape[1], x.dtype))
+    out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
     logits = lambda: torch.addmm(nb, x, nw.T)
-    log(f"[kernels] {label} yardsticks {str(x.dtype):15s} torch.addmm logits "
+    log(f"{label} yardsticks {str(x.dtype):15s} torch.addmm logits "
         f"{device_ms(logits):.4f} ms (loop {time_ms(logits):.4f}); zero_ of the "
         f"output {device_ms(out.zero_):.4f} ms (loop {time_ms(out.zero_):.4f})")
-    return dict(max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call),
-                plain_ms=time_ms(lambda: trr.tree_router_ref(x, nw, nb, depth=depth)),
-                bound_ms=b, bound_by=by, library_ms=None, near_ties=ties)
+    return dict(row, near_ties=ties)
+
+
+def grouped_rows(label, xg, up_w, wd, gs, act, dtype, timed=True):
+    """The grouped up projection on xg (E, C, d), the dual kernel on up_w =
+    (wg, wu) under SwiGLU, else ``grouped_matmul`` with ``act`` on up_w =
+    (w1,), then ``grouped_matmul`` down on its output, each against its
+    plain version.  Returns the hidden and, when ``timed``, a row for each
+    (``torch.bmm`` the down projection's library call)."""
+    from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
+    C, d = xg.shape[1:]
+    L, O = wd.shape[1:]
+    if act == "swiglu":
+        up_name = "grouped_matmul_dual"
+        up = lambda: gk.grouped_matmul_dual(xg, *up_w, gs)
+        up_ref = lambda: gr.grouped_matmul_dual_ref(xg, *up_w, gs)
+    else:
+        up_name = "grouped_matmul (up)"
+        up = lambda: gk.grouped_matmul(xg, up_w[0], gs, act=act)
+        up_ref = lambda: gr.grouped_matmul_ref(xg, up_w[0], gs, act=act)
+    h = up()
+    err_up = compare(f"{label} {up_name}", h, up_ref(), dtype)
+    down = lambda: gk.grouped_matmul(h, wd, gs)
+    down_ref = lambda: gr.grouped_matmul_ref(h, wd, gs)
+    err_down = compare(f"{label} grouped_matmul", down(), down_ref(), dtype)
+    if not timed:
+        return h, {}
+    return h, {up_name: kernel_row(err_up, up, up_ref,
+                                   grouped_bound(gs, C, d, L, len(up_w), dtype)),
+               "grouped_matmul": kernel_row(err_down, down, down_ref,
+                                            grouped_bound(gs, C, L, O, 1, dtype),
+                                            library=lambda: torch.bmm(h, wd))}
+
+
+def gathered_rows(label, x, up_w, wd, idx, act, dtype, timed=True):
+    """The gathered up projection on x (B, d) routed to leaves idx (the
+    dual kernel under SwiGLU, as ``grouped_rows``), then the gathered down
+    projection on its output, each called twice (bit-identical) and held
+    against its plain version.  Returns the hidden and, when ``timed``, a
+    row for each (no library call computes a gathered matmul)."""
+    from repro_torch.kernels.fused_fff import kernel as fk, ref as fr
+    d, (L, O) = x.shape[1], wd.shape[1:]
+    if act == "swiglu":
+        up_name = "gathered_matmul_dual"
+        up = lambda: fk.gathered_matmul_dual(x, *up_w, idx)
+        up_ref = lambda: fr.gathered_matmul_dual_ref(x, *up_w, idx)
+    else:
+        up_name = "gathered_matmul (up)"
+        up = lambda: fk.gathered_matmul(x, up_w[0], idx, act=act)
+        up_ref = lambda: fr.gathered_matmul_ref(x, up_w[0], idx, act=act)
+    h = twice(f"{label} {up_name}", up)
+    err_up = compare(f"{label} {up_name}", h, up_ref(), dtype)
+    down = lambda: fk.gathered_matmul(h, wd, idx)
+    down_ref = lambda: fr.gathered_matmul_ref(h, wd, idx)
+    err_down = compare(f"{label} gathered_matmul", twice(f"{label} gathered_matmul", down),
+                       down_ref(), dtype)
+    if not timed:
+        return h, {}
+    distinct = int(torch.unique(idx).numel())
+    rows = {up_name: kernel_row(err_up, up, up_ref,
+                                gathered_bound(idx, d, L, len(up_w), dtype)),
+            "gathered_matmul": kernel_row(err_down, down, down_ref,
+                                          gathered_bound(idx, L, O, 1, dtype))}
+    return h, {k: dict(r, distinct_leaves=distinct) for k, r in rows.items()}
+
+
+def decode_row(label, x, nw, nb, leaves, depth, act, dtype) -> dict:
+    """The fused decode kernel on x (B, d) over a forest (nw (T, N, d), nb
+    (T, N), leaves (T, E, ...) each), called twice (bit-identical): every
+    tree's leaf indices exact against the float32 descent off near-ties,
+    the output against the plain version on the rows whose every tree
+    agreed; its row."""
+    from repro_torch.kernels.fused_decode import kernel as fdk, ref as fdr
+    call = lambda: fdk.fused_forest_decode(x, nw, nb, leaves, depth=depth, act=act)
+    plain = lambda: fdr.fused_decode_ref(x, nw, nb, leaves, depth=depth, act=act)
+    y, idx = twice(f"{label} fused_forest_decode", call)
+    y_ref, idx_ref = plain()
+    agree, ties = torch.ones(x.shape[0], dtype=torch.bool, device=x.device), 0
+    for t in range(nw.shape[0]):
+        _, margin = margins(x, nw[t], nb[t], depth)
+        a, n, _ = compare_idx(f"{label} fused_forest_decode (tree {t})", idx[:, t],
+                              idx_ref[:, t], margin)
+        agree, ties = agree & a, ties + n
+    err = compare(f"{label} fused_forest_decode", y, y_ref, dtype, rows=agree)
+    row = kernel_row(err, call, plain, decode_bound(idx, nw.shape[1], x.shape[1],
+                                                    leaves[-1].shape[2], len(leaves), dtype))
+    distinct = sum(int(torch.unique(idx[:, t]).numel()) for t in range(nw.shape[0]))
+    return dict(row, near_ties=ties, distinct_leaves=distinct)
 
 
 def phase_kernels(gen) -> dict:
-    from repro_torch.kernels.fused_decode import kernel as fdk, ref as fdr
-    from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
-
     dev = torch.device("cuda")
     rows = {}
 
@@ -420,13 +557,12 @@ def phase_kernels(gen) -> dict:
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     for dtype in (torch.float32, torch.bfloat16):
-        sz = 2 if dtype == torch.bfloat16 else 4
         # -- tree_router: prefill routing, 1024 tokens x 15 nodes x 6144
         B = PREFILL_B * PREFILL_S
         x = randn(B, D, dtype=dtype)
         nw = randn(N_NODES, D, scale=D ** -0.5, dtype=dtype)
         nb = randn(N_NODES, scale=0.1, dtype=dtype)
-        rows[("tree_router", dtype)] = router_row("tree_router", x, nw, nb)
+        rows[("tree_router", dtype)] = router_row("[kernels] tree_router", x, nw, nb)
 
         # -- grouped GEMMs: 1024 routed tokens in 16 capacity-128 groups
         C = max(128, math.ceil(2 * math.ceil(B / E) / 128) * 128)   # leaf_gemm capacity
@@ -437,55 +573,18 @@ def phase_kernels(gen) -> dict:
         wg = randn(E, D, L_W, scale=D ** -0.5, dtype=dtype)
         wu = randn(E, D, L_W, scale=D ** -0.5, dtype=dtype)
         wd = randn(E, L_W, O, scale=L_W ** -0.5, dtype=dtype)
-        tokens = int(gs.sum())
-        live = int((gs > 0).sum())
-        h = gk.grouped_matmul_dual(xg, wg, wu, gs)
-        err = compare("grouped_matmul_dual", h, gr.grouped_matmul_dual_ref(xg, wg, wu, gs), dtype)
-        call = lambda: gk.grouped_matmul_dual(xg, wg, wu, gs)
-        plain = time_ms(lambda: gr.grouped_matmul_dual_ref(xg, wg, wu, gs))
-        b, by = bound(live * 2 * D * L_W * sz + tokens * D * sz + E * C * L_W * sz,
-                      2 * 2 * tokens * D * L_W, dtype)
-        rows[("grouped_matmul_dual", dtype)] = dict(
-            max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call), plain_ms=plain,
-            bound_ms=b, bound_by=by, library_ms=None)
-
-        y = gk.grouped_matmul(h, wd, gs)
-        err = compare("grouped_matmul", y, gr.grouped_matmul_ref(h, wd, gs), dtype)
-        call = lambda: gk.grouped_matmul(h, wd, gs)
-        plain = time_ms(lambda: gr.grouped_matmul_ref(h, wd, gs))
-        lib = device_ms(lambda: torch.bmm(h, wd))
-        b, by = bound(live * L_W * O * sz + tokens * L_W * sz + E * C * O * sz,
-                      2 * tokens * L_W * O, dtype)
-        rows[("grouped_matmul", dtype)] = dict(
-            max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call), plain_ms=plain,
-            bound_ms=b, bound_by=by, library_ms=lib)
-        del xg, h, y
+        _, r = grouped_rows("[kernels]", xg, (wg, wu), wd, gs, "swiglu", dtype)
+        rows.update({(k, dtype): v for k, v in r.items()})
+        del xg
         grouped_slab(dtype, wg, wu, wd)
         router_slab(dtype, nw, nb)
 
         # -- fused forest decode: batch 8, one tree of 16 SwiGLU leaves
         xd = randn(DECODE_B, D, dtype=dtype)
-        nwf, nbf = nw[None], nb[None]
-        leaves = (wg[None], wu[None], wd[None])
-        y, idx = twice("fused_forest_decode", lambda: fdk.fused_forest_decode(
-            xd, nwf, nbf, leaves, depth=DEPTH, act="swiglu"))
-        y_ref, idx_ref = fdr.fused_decode_ref(xd, nwf, nbf, leaves, depth=DEPTH, act="swiglu")
-        _, margin = margins(xd, nw, nb, DEPTH)
-        agree, ties, _ = compare_idx("fused_forest_decode", idx[:, 0], idx_ref[:, 0], margin)
-        err = compare("fused_forest_decode", y, y_ref, dtype, rows=agree)
-        call = lambda: fdk.fused_forest_decode(xd, nwf, nbf, leaves, depth=DEPTH,
-                                               act="swiglu")
-        plain = time_ms(lambda: fdr.fused_decode_ref(xd, nwf, nbf, leaves,
-                                                     depth=DEPTH, act="swiglu"))
-        distinct = int(torch.unique(idx).numel())
-        b, by = bound(distinct * 3 * D * L_W * sz + N_NODES * D * sz
-                      + DECODE_B * (D + O) * sz,
-                      2 * DECODE_B * (N_NODES * D + 3 * D * L_W), dtype)
-        rows[("fused_forest_decode", dtype)] = dict(
-            max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call), plain_ms=plain,
-            bound_ms=b, bound_by=by, library_ms=None, near_ties=ties,
-            distinct_leaves=distinct)
-        del wg, wu, wd, leaves
+        rows[("fused_forest_decode", dtype)] = decode_row(
+            "[kernels]", xd, nw[None], nb[None], (wg[None], wu[None], wd[None]), DEPTH,
+            "swiglu", dtype)
+        del wg, wu, wd
         torch.cuda.empty_cache()
     log_rows(rows)
     return rows
@@ -497,32 +596,21 @@ def grouped_slab(dtype, wg, wu, wd, tokens=SLAB_B) -> None:
     has one live 64-row half): agreement and times, logged beside the
     table's 1024-token rows.  Its own generator leaves the table's inputs
     as they were."""
-    from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    sz = 2 if dtype == torch.bfloat16 else 4
     C = 128
     leaf = torch.randint(0, E, (tokens,), generator=gen, device=dev)
     gs = torch.bincount(leaf, minlength=E).clamp(max=C).to(torch.int32)
     mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
     xg = (torch.randn((E, C, D), generator=gen, device=dev) * mask).to(dtype)
-    live, n = int((gs > 0).sum()), int(gs.sum())
-    h = gk.grouped_matmul_dual(xg, wg, wu, gs)
-    err_d = compare("grouped_matmul_dual @256", h, gr.grouped_matmul_dual_ref(xg, wg, wu, gs), dtype)
-    err = compare("grouped_matmul @256", gk.grouped_matmul(h, wd, gs),
-                  gr.grouped_matmul_ref(h, wd, gs), dtype)
-    ms_d = device_ms(lambda: gk.grouped_matmul_dual(xg, wg, wu, gs))
-    ms = device_ms(lambda: gk.grouped_matmul(h, wd, gs))
-    lib = device_ms(lambda: torch.bmm(h, wd))
-    b_d, _ = bound(live * 2 * D * L_W * sz + n * D * sz + E * C * L_W * sz,
-                   2 * 2 * n * D * L_W, dtype)
-    b, _ = bound(live * L_W * O * sz + n * L_W * sz + E * C * O * sz,
-                 2 * n * L_W * O, dtype)
+    _, r = grouped_rows(f"[kernels] @{tokens}", xg, (wg, wu), wd, gs, "swiglu", dtype)
+    dual, down = r["grouped_matmul_dual"], r["grouped_matmul"]
     log(f"[kernels] grouped @{tokens} tokens {str(dtype):15s} (group sizes "
-        f"{min(gs.tolist())}-{max(gs.tolist())}): grouped_matmul_dual {ms_d:.4f} ms"
-        f" (bound {b_d:.4f}, kernel/bound {ms_d / b_d:.2f}, max|err| {err_d:.3e});"
-        f" grouped_matmul {ms:.4f} ms (bound {b:.4f}, kernel/bound {ms / b:.2f},"
-        f" max|err| {err:.3e}); torch.bmm {lib:.4f} ms")
+        f"{min(gs.tolist())}-{max(gs.tolist())}): grouped_matmul_dual {dual['ms']:.4f} ms"
+        f" (bound {dual['bound_ms']:.4f}, kernel/bound {dual['ms'] / dual['bound_ms']:.2f},"
+        f" max|err| {dual['max_abs_err']:.3e}); grouped_matmul {down['ms']:.4f} ms (bound "
+        f"{down['bound_ms']:.4f}, kernel/bound {down['ms'] / down['bound_ms']:.2f}, max|err| "
+        f"{down['max_abs_err']:.3e}); torch.bmm {down['library_ms']:.4f} ms")
 
 
 def router_slab(dtype, nw, nb, tokens=SLAB_B) -> None:
@@ -531,7 +619,7 @@ def router_slab(dtype, nw, nb, tokens=SLAB_B) -> None:
     leaves the table's inputs as they were."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn((tokens, D), generator=gen, device="cuda").to(dtype)
-    r = router_row(f"tree_router@{tokens}", x, nw, nb)
+    r = router_row(f"[kernels] tree_router@{tokens}", x, nw, nb)
     log(f"[kernels] tree_router @{tokens} tokens {str(dtype):15s} {r['ms']:.4f} ms "
         f"(loop {r['loop_ms']:.4f}; bound {r['bound_ms']:.4f}, kernel/bound "
         f"{r['ms'] / r['bound_ms']:.2f}; plain {r['plain_ms']:.4f}; near-ties "
@@ -563,7 +651,7 @@ def phase_gathered(gen) -> dict:
         x = randn(VERIFY_B, D, dtype=dtype)
         nw = randn(N_NODES, D, scale=D ** -0.5, dtype=dtype)
         nb = randn(N_NODES, scale=0.1, dtype=dtype)
-        rows[("tree_router@32", dtype)] = router_row("tree_router@32", x, nw, nb)
+        rows[("tree_router@32", dtype)] = router_row("[kernels] tree_router@32", x, nw, nb)
         wg = randn(E, D, L_W, scale=D ** -0.5, dtype=dtype)
         wu = randn(E, D, L_W, scale=D ** -0.5, dtype=dtype)
         wd = randn(E, L_W, O, scale=L_W ** -0.5, dtype=dtype)
@@ -582,43 +670,20 @@ def phase_gathered(gen) -> dict:
         times = {}
         for rname, idx in routings.items():
             xb = (x if idx.numel() <= VERIFY_B else xe)[:idx.numel()]
-            h = twice(f"gathered_matmul_dual ({rname})",
-                      lambda: fk.gathered_matmul_dual(xb, wg, wu, idx))
-            compare(f"gathered_matmul_dual ({rname})", h,
-                    fr.gathered_matmul_dual_ref(xb, wg, wu, idx), dtype)
+            h, _ = gathered_rows(f"[kernels] ({rname})", xb, (wg, wu), wd, idx, "swiglu",
+                                 dtype, timed=False)
             for act in ACTS:
                 compare(f"gathered_matmul {act} 6144->1024 ({rname})",
                         twice(f"gathered_matmul {act} ({rname})",
                               lambda: fk.gathered_matmul(xb, wg, idx, act=act)),
                         fr.gathered_matmul_ref(xb, wg, idx, act=act), dtype)
-            compare(f"gathered_matmul 1024->6144 ({rname})",
-                    twice(f"gathered_matmul 1024->6144 ({rname})",
-                          lambda: fk.gathered_matmul(h, wd, idx)),
-                    fr.gathered_matmul_ref(h, wd, idx), dtype)
             if rname in ("one leaf", "distinct"):
                 times[rname] = (device_ms(lambda: fk.gathered_matmul_dual(xb, wg, wu, idx)),
                                 device_ms(lambda: fk.gathered_matmul(h, wd, idx)))
         idx = routings["random"]
-        distinct = int(torch.unique(idx).numel())
-        h = fk.gathered_matmul_dual(x, wg, wu, idx)
-        err = compare("gathered_matmul_dual", h,
-                      fr.gathered_matmul_dual_ref(x, wg, wu, idx), dtype)
-        call = lambda: fk.gathered_matmul_dual(x, wg, wu, idx)
-        plain = time_ms(lambda: fr.gathered_matmul_dual_ref(x, wg, wu, idx))
-        b, by = bound(distinct * 2 * D * L_W * sz + VERIFY_B * (D + L_W) * sz
-                      + VERIFY_B * 4, 2 * 2 * VERIFY_B * D * L_W, dtype)
-        rows[("gathered_matmul_dual", dtype)] = dict(
-            max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call), plain_ms=plain,
-            bound_ms=b, bound_by=by, library_ms=None, distinct_leaves=distinct)
-        y = fk.gathered_matmul(h, wd, idx)
-        err = compare("gathered_matmul", y, fr.gathered_matmul_ref(h, wd, idx), dtype)
-        call = lambda: fk.gathered_matmul(h, wd, idx)
-        plain = time_ms(lambda: fr.gathered_matmul_ref(h, wd, idx))
-        b, by = bound(distinct * L_W * O * sz + VERIFY_B * (L_W + O) * sz
-                      + VERIFY_B * 4, 2 * VERIFY_B * L_W * O, dtype)
-        rows[("gathered_matmul", dtype)] = dict(
-            max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call), plain_ms=plain,
-            bound_ms=b, bound_by=by, library_ms=None, distinct_leaves=distinct)
+        _, r = gathered_rows("[kernels]", x, (wg, wu), wd, idx, "swiglu", dtype)
+        rows.update({(k, dtype): v for k, v in r.items()})
+        distinct = r["gathered_matmul"]["distinct_leaves"]
         # read-rate yardstick: one library read of the same weight bytes (the
         # first `distinct` leaves); no single PyTorch call computes a
         # gathered matmul, so this is no library_ms
@@ -646,14 +711,25 @@ def phase_gathered(gen) -> dict:
     return rows
 
 
-def log_rows(rows) -> None:
-    for (name, dtype), r in rows.items():
-        log(f"[kernels] {name:20s} {str(dtype):15s} max|err| {r['max_abs_err']:.3e}"
-            f"  kernel {r['ms']:.4f} ms (loop {r['loop_ms']:.4f})  plain "
-            f"{r['plain_ms']:.4f} ms  bound "
+def kernel_of(row_name: str) -> str:
+    """The kernel a row times: "tree_router@32" and "grouped_matmul (up)"
+    are rows of tree_router and grouped_matmul."""
+    return row_name.split(" ")[0].split("@")[0]
+
+
+def log_rows(rows, tag="[kernels]", counts=None) -> None:
+    """One line per row; rows keyed by (name, dtype) or by name, and with
+    ``counts`` each row's kernel's serve-loop launches."""
+    for key, r in rows.items():
+        name, dtype = key if isinstance(key, tuple) else (key, None)
+        log(f"{tag} {name:24s} " + (f"{str(dtype):15s} " if dtype else "")
+            + f"max|err| {r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms (loop "
+            f"{r['loop_ms']:.4f})  plain {r['plain_ms']:.4f} ms  bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}, kernel/bound "
             f"{r['ms'] / r['bound_ms']:.2f})  library "
             + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "n/a")
+            + (f"  serve launches {counts.get(kernel_of(name), 0)}" if counts else "")
+            + (f"  capacity {r['capacity']}" if "capacity" in r else "")
             + (f"  near-ties {r['near_ties']}" if "near_ties" in r else "")
             + (f"  distinct leaves {r['distinct_leaves']}" if "distinct_leaves" in r else ""))
 
@@ -675,7 +751,6 @@ def phase_ragged(gen) -> None:
     and 24, leaf widths 4 and 8, a two-tree forest, the master leaf, every
     activation."""
     from repro_torch.kernels.fused_decode import kernel as fdk, ref as fdr
-    from repro_torch.kernels.fused_fff import kernel as fk, ref as fr
     from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
     from repro_torch.kernels.tree_router import kernel as trk
 
@@ -894,32 +969,39 @@ def kept_masks():
         gemm_ops.scatter_to_groups = scatter
 
 
-def phase_serve(common, api, serve_mod, cfg, params) -> dict:
-    from repro_torch.models import lm
+def phase_serve(common, api, serve_mod, cfg, params, label="[serve]") -> dict:
+    """The fixed-batch loop (batch 8, prompt 128, 16 greedy decode steps) on
+    the default infer backend, each kernel's launch count asserted: per
+    layer and tree the router and the grouped kernels once in the prefill
+    (SwiGLU: dual and down; otherwise grouped_matmul up and down), the
+    fused decode kernel once per layer per step."""
+    fc = site_config(cfg)
+    L, T = cfg.n_layers, fc.trees
+    swiglu = fc.activation == "swiglu"
     with kept_masks() as layouts, no_reference(api):
         common.reset_launch_counts()
-        res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S,
-                              gen=GEN, device="cuda", params=params)
+        res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S, gen=GEN,
+                              device="cuda", params=params)
         counts = common.launch_counts()
-    want = {"fused_forest_decode": cfg.n_layers * GEN,
-            "tree_router": cfg.n_layers, "grouped_matmul_dual": cfg.n_layers,
-            "grouped_matmul": cfg.n_layers, "gathered_matmul": 0,
-            "gathered_matmul_dual": 0}
+    want = {"fused_forest_decode": L * GEN, "tree_router": L * T,
+            "grouped_matmul_dual": L * T if swiglu else 0,
+            "grouped_matmul": L * T * (1 if swiglu else 2),
+            "gathered_matmul": 0, "gathered_matmul_dual": 0}
     if counts != want:
-        raise AssertionError(f"launch counts {counts} != expected {want}")
+        raise AssertionError(f"{label} serve: launch counts {counts} != expected {want}")
     toks = res.tokens
     if tuple(toks.shape) != (PREFILL_B, GEN + 1) or not bool(
             ((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
+        raise AssertionError(f"{label} serve: bad generated tokens {tuple(toks.shape)}")
     dropped = [int((~k).sum()) for k in layouts]
-    log(f"[serve] prefill tokens over their leaf's capacity (dense repair): "
-        f"{sum(dropped)} of {sum(k.numel() for k in layouts)} over "
-        f"{len(layouts)} layers, per layer {dropped}")
-    log(f"[serve] prefill {res.prefill_s * 1e3:.2f} ms; decode p50 "
+    log(f"{label} serve: prefill tokens over their leaf's capacity (dense repair): "
+        f"{sum(dropped)} of {sum(k.numel() for k in layouts)} over {len(layouts)} "
+        f"grouped dispatches (sites x trees), most in one {max(dropped)}")
+    log(f"{label} serve batch {PREFILL_B} x prompt {PREFILL_S}, {GEN} decode steps: "
+        f"prefill {res.prefill_s * 1e3:.2f} ms (first call); decode p50 "
         f"{res.steady.p50_ms:.2f} ms p90 {res.steady.p90_ms:.2f} ms; "
-        f"{res.tokens_per_s:.1f} tok/s; launches {counts} (as expected); "
-        f"reference backend never ran")
-    phase_profile(cfg, params, lm)
+        f"{res.tokens_per_s:.1f} tok/s; launches {counts} (as expected); reference "
+        f"backend never ran")
     return counts
 
 
@@ -994,48 +1076,37 @@ def phase_profile(cfg, params, lm) -> None:
         profile_report("decode", prof, wall, steps)
 
 
-def phase_parity(api, fff, lm, FFF_CONFIG) -> None:
-    cfg = dataclasses.replace(FFF_CONFIG, n_layers=PARITY_LAYERS,
-                              param_dtype=torch.float32,
-                              accum_dtype=torch.float32)
+def phase_parity(api, fff, lm, fff_config, label="[parity]", exact=True) -> None:
+    """float32, full width, PARITY_LAYERS layers: lm.generate's greedy
+    tokens through the kernel backends against the reference backend's.
+    A row may differ only where it met a deciding margin under NEAR_TIE (a
+    node logit on a routed path, or the gap between the two largest
+    logits); with ``exact`` no row may differ."""
+    cfg = dataclasses.replace(fff_config, n_layers=PARITY_LAYERS,
+                              param_dtype=torch.float32, accum_dtype=torch.float32)
     params = lm.init(cfg, seed=1, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    prompt = torch.randint(0, cfg.vocab_size, (PARITY_B, PARITY_S),
-                           generator=gen, device="cuda", dtype=torch.int32)
+    prompt = torch.randint(0, cfg.vocab_size, (PARITY_B, PARITY_S), generator=gen,
+                           device="cuda", dtype=torch.int32)
     max_len = PARITY_S + PARITY_STEPS + 1
-    with torch.inference_mode():
-        kern = lm.generate(params, cfg, prompt, PARITY_STEPS, max_len)
-        ref_fn = api.get_backend("infer", "reference")
-        smallest = [math.inf]
-
-        def recording_reference(p, c, x, spec):
-            # the smallest deciding |node logit| the reference sees
-            xf = x.reshape(-1, x.shape[-1]).to(c.accum_dtype)
-            logits = fff._node_logits_all(p, c, xf)[:, 0]
-            idx = torch.zeros(xf.shape[0], dtype=torch.long, device=x.device)
-            off = 0
-            for m in range(c.depth):
-                cur = logits[:, off:off + 2 ** m].gather(1, idx[:, None])[:, 0]
-                smallest[0] = min(smallest[0], float(cur.abs().min()))
-                idx = 2 * idx + (cur >= 0).long()
-                off += 2 ** m
-            return ref_fn(p, c, x, spec)
-
-        api.register_backend("infer", "reference", recording_reference)
-        try:
-            with api.overrides(backend="reference", mode="infer"):
-                ref = lm.generate(params, cfg, prompt, PARITY_STEPS, max_len)
-        finally:
-            api.register_backend("infer", "reference", ref_fn)
-    if not torch.equal(kern, ref):
+    kern, m_kern = generate_batch_with_margins(api, fff, lm, cfg, params, prompt,
+                                               PARITY_STEPS, max_len)
+    ref, m_ref = generate_batch_with_margins(api, fff, lm, cfg, params, prompt,
+                                             PARITY_STEPS, max_len,
+                                             backend="reference", mode="infer")
+    margin = [min(a, b) for a, b in zip(m_kern, m_ref)]
+    ties = near_tie_check(label, dict(enumerate(kern)), dict(enumerate(ref)), margin)
+    if exact and ties:
         raise AssertionError(
-            f"greedy tokens differ between the kernel and reference backends "
-            f"(smallest deciding |node logit| on the path: {smallest[0]:.3e}):"
-            f"\nkernel    {kern[:, PARITY_S:].tolist()}"
-            f"\nreference {ref[:, PARITY_S:].tolist()}")
-    log(f"[parity] {cfg.n_layers} layers fp32, batch {PARITY_B} x prompt "
-        f"{PARITY_S}: {PARITY_STEPS} greedy tokens identical (kernel vs "
-        f"reference); smallest deciding |node logit| {smallest[0]:.3e}")
+            f"{label}: greedy tokens differ between the kernel and reference backends "
+            f"in {ties} rows (smallest deciding margin per row {margin}):"
+            f"\nkernel    {kern.tolist()}\nreference {ref.tolist()}")
+    log(f"{label} {cfg.n_layers} layers fp32 at full width, batch {PARITY_B} x prompt "
+        f"{PARITY_S}, {PARITY_STEPS} greedy tokens: kernel backends equal the reference "
+        f"backend ({ties} near-tie rows); smallest deciding margin per row "
+        f"{[f'{m:.3e}' for m in margin]}")
+    del params
+    torch.cuda.empty_cache()
 
 
 def check_engine_run(tag, cfg, run, counts, chunk, n_reqs) -> tuple[int, int]:
@@ -1368,7 +1439,6 @@ def grouped_capacities(rows) -> None:
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     for dtype in (torch.float32, torch.bfloat16):
-        sz = 2 if dtype == torch.bfloat16 else 4
         wg = randn(E, D, L_W, scale=D ** -0.5, dtype=dtype)
         wu = randn(E, D, L_W, scale=D ** -0.5, dtype=dtype)
         wd = randn(E, L_W, O, scale=L_W ** -0.5, dtype=dtype)
@@ -1388,10 +1458,8 @@ def grouped_capacities(rows) -> None:
                 raise AssertionError(f"grouped kernels (C={C}): a row past its "
                                      f"group's size is not zero")
             live, n = int((gs > 0).sum()), int(gs.sum())
-            b_d, _ = bound(live * 2 * D * L_W * sz + n * D * sz + E * C * L_W * sz,
-                           2 * 2 * n * D * L_W, dtype)
-            b, by = bound(live * L_W * O * sz + n * L_W * sz + E * C * O * sz,
-                          2 * n * L_W * O, dtype)
+            b_d, _ = grouped_bound(gs, C, D, L_W, 2, dtype)
+            b, by = grouped_bound(gs, C, L_W, O, 1, dtype)
             ms_d = device_ms(lambda: gk.grouped_matmul_dual(xg, wg, wu, gs))
             ms = device_ms(lambda: gk.grouped_matmul(h, wd, gs))
             log(f"[grouped] C={C:3d} {str(dtype):15s} ({n} tokens in {live} live "
@@ -1676,23 +1744,6 @@ def generate_batch_with_margins(api, fff, lm, cfg, params, prompt, steps, max_le
     return out[:, prompt.shape[1]:], row_min.tolist()
 
 
-def near_tie_rows(label, kern, ref, margin) -> int:
-    """Greedy tokens row by row: a row of ``kern`` may differ from ``ref``'s
-    only where it met a deciding margin under NEAR_TIE.  Returns how many
-    rows differed."""
-    ties = 0
-    for b in range(len(margin)):
-        if torch.equal(kern[b], ref[b]):
-            continue
-        if margin[b] >= NEAR_TIE:
-            raise AssertionError(
-                f"{label}, row {b}: kernel tokens {kern[b].tolist()} != reference "
-                f"{ref[b].tolist()} with no deciding margin under {NEAR_TIE} "
-                f"(smallest {margin[b]:.3e})")
-        ties += 1
-    return ties
-
-
 def train_then_serve(common, api, fff, lm, FFF_CONFIG) -> None:
     """float32, full width, TRAIN_SERVE_LAYERS layers trained
     TRAIN_SERVE_STEPS steps, then served through the kernel backends and the
@@ -1718,7 +1769,8 @@ def train_then_serve(common, api, fff, lm, FFF_CONFIG) -> None:
     ref, margin = generate_batch_with_margins(api, fff, lm, cfg, params, prompt,
                                               PARITY_STEPS, max_len,
                                               backend="reference", mode="infer")
-    ties = near_tie_rows("[train] trained model", kern, ref, margin)
+    ties = near_tie_check("[train] trained model", dict(enumerate(kern)),
+                          dict(enumerate(ref)), margin)
     log(f"[train] {cfg.n_layers} layers fp32 trained {TRAIN_SERVE_STEPS} steps (loss "
         f"{res.losses[0]:.4f} -> {res.losses[-1]:.4f}), then batch {PARITY_B} x "
         f"prompt {PARITY_S}, {PARITY_STEPS} greedy tokens: kernel backends equal the "
@@ -2135,209 +2187,49 @@ def site_config(cfg):
                                param_dtype=cfg.param_dtype, accum_dtype=cfg.accum_dtype)
 
 
-def kernel_row(err, call, plain, b_by, library=None) -> dict:
-    b, by = b_by
-    return dict(max_abs_err=err, ms=device_ms(call), loop_ms=time_ms(call),
-                plain_ms=time_ms(plain), bound_ms=b, bound_by=by,
-                library_ms=None if library is None else device_ms(library))
-
-
 def arch_kernels(label, cfg, params) -> dict:
     """Every kernel cfg's FFN sites reach, on layer 0's own weights (bf16)
-    and seeded inputs at the site's shapes, against its plain version (bf16
-    tolerance, exact leaf indices off near-ties): the router at the
-    1024-token prefill slab and the grouped kernels on the buffers it
-    routes to (capacity as the kernel path sizes them), the gathered
-    kernels and the router at the 32-token verify slab, the fused decode
-    kernel at batch 8 over the whole forest.  Every tree is checked; the
-    row is timed on tree 0 (every tree has its shapes).  The gathered,
-    router and fused decode calls are made twice and must be
-    bit-identical.  Returns {kernel: row} with device times and bounds
-    computed as the kernels phase does."""
+    and seeded inputs at the site's shapes, through the kernels phase's
+    row builders: the router at the 1024-token prefill slab and the grouped
+    kernels on the buffers it routes to (capacity as the kernel path sizes
+    them), the router and the gathered kernels at the 32-token verify
+    slab, the fused decode kernel at batch 8 over the whole forest.  Every
+    tree is checked; the rows are timed on tree 0 (every tree has its
+    shapes).  Returns {row name: row}."""
     from repro_torch import utils
-    from repro_torch.kernels.fused_decode import kernel as fdk, ops as fd_ops, ref as fdr
-    from repro_torch.kernels.fused_fff import kernel as fk, ref as fr
-    from repro_torch.kernels.leaf_gemm import kernel as gk, ops as gemm_ops, ref as gr
-    from repro_torch.kernels.tree_router import kernel as trk, ref as trr
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    from repro_torch.kernels.leaf_gemm import ops as gemm_ops
     fc = site_config(cfg)
     p = params["stack"][0]["ffn"]
     nw, nb = (t.contiguous() for t in fd_ops.collapse_nodes(p, fc))
-    T, depth, E, L, d = fc.trees, fc.depth, fc.num_leaves, fc.leaf_width, cfg.d_model
-    dtype, sz = cfg.param_dtype, torch.finfo(cfg.param_dtype).bits // 8
-    swiglu = fc.activation == "swiglu"
-    names = ("leaf_wg", "leaf_wu", "leaf_wd") if swiglu else ("leaf_w1", "leaf_w2")
-    up_name = "grouped_matmul_dual" if swiglu else "grouped_matmul (up)"
+    depth, E, act, dtype = fc.depth, fc.num_leaves, fc.activation, cfg.param_dtype
+    names = ("leaf_wg", "leaf_wu", "leaf_wd") if act == "swiglu" else ("leaf_w1", "leaf_w2")
+    leaves = tuple(p[n] for n in names)
     gen = torch.Generator(device="cuda").manual_seed(7)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)
     rows = {}
-
-    # prefill slab: the router, then the grouped kernels on its buffers
-    B = PREFILL_B * PREFILL_S
-    x = randn(B, d)
-    C = max(128, utils.round_up(int(2.0 * utils.cdiv(B, E)), 128))
-    for t in range(T):
-        w = [p[n][t] for n in names]
-        leaf = twice(f"{label} tree_router", lambda: trk.tree_router(x, nw[t], nb[t], depth=depth))
-        want, margin = margins(x, nw[t], nb[t], depth)
-        _, ties, _ = compare_idx(f"{label} tree_router", leaf, want, margin)
-        lay = gemm_ops.scatter_to_groups(x, leaf, E, C)
-        xg, gs = lay.x_grouped, lay.group_sizes
-        tokens, live = int(gs.sum()), int((gs > 0).sum())
-        if swiglu:
-            up = lambda: gk.grouped_matmul_dual(xg, w[0], w[1], gs)
-            up_ref = lambda: gr.grouped_matmul_dual_ref(xg, w[0], w[1], gs)
-        else:
-            up = lambda: gk.grouped_matmul(xg, w[0], gs, act=fc.activation)
-            up_ref = lambda: gr.grouped_matmul_ref(xg, w[0], gs, act=fc.activation)
-        h = up()
-        err_up = compare(f"{label} {up_name} (tree {t})", h, up_ref(), dtype)
-        down = lambda: gk.grouped_matmul(h, w[-1], gs)
-        err_down = compare(f"{label} grouped_matmul (tree {t})", down(),
-                           gr.grouped_matmul_ref(h, w[-1], gs), dtype)
-        if t:
-            continue
-        n_up = 2 if swiglu else 1
-        rows["tree_router"] = kernel_row(
-            0.0, lambda: trk.tree_router(x, nw[0], nb[0], depth=depth),
-            lambda: trr.tree_router_ref(x, nw[0], nb[0], depth=depth),
-            bound(B * d * sz + nw.shape[1] * (d + 1) * sz + B * 4,
-                  2 * B * nw.shape[1] * d, dtype))
-        rows["tree_router"]["near_ties"] = ties
-        rows[up_name] = kernel_row(
-            err_up, up, up_ref,
-            bound(live * n_up * d * L * sz + tokens * d * sz + E * C * L * sz,
-                  2 * n_up * tokens * d * L, dtype))
-        rows["grouped_matmul"] = kernel_row(
-            err_down, down, lambda: gr.grouped_matmul_ref(h, w[-1], gs),
-            bound(live * L * d * sz + tokens * L * sz + E * C * d * sz,
-                  2 * tokens * L * d, dtype),
-            library=lambda: torch.bmm(h, w[-1]))
-        rows[up_name]["capacity"] = rows["grouped_matmul"]["capacity"] = C
-        del h
-    # verify slab: the gathered kernels on the router's leaves
-    x = randn(VERIFY_B, d)
-    for t in range(T):
-        w = [p[n][t] for n in names]
-        idx = twice(f"{label} tree_router@32", lambda: trk.tree_router(x, nw[t], nb[t], depth=depth))
-        want, margin = margins(x, nw[t], nb[t], depth)
-        compare_idx(f"{label} tree_router@32", idx, want, margin)
-        if swiglu:
-            up = lambda: fk.gathered_matmul_dual(x, w[0], w[1], idx)
-            up_ref = lambda: fr.gathered_matmul_dual_ref(x, w[0], w[1], idx)
-        else:
-            up = lambda: fk.gathered_matmul(x, w[0], idx, act=fc.activation)
-            up_ref = lambda: fr.gathered_matmul_ref(x, w[0], idx, act=fc.activation)
-        gname = "gathered_matmul_dual" if swiglu else "gathered_matmul (up)"
-        h = twice(f"{label} {gname} (tree {t})", up)
-        err_up = compare(f"{label} {gname} (tree {t})", h, up_ref(), dtype)
-        down = lambda: fk.gathered_matmul(h, w[-1], idx)
-        err_down = compare(f"{label} gathered_matmul (tree {t})",
-                           twice(f"{label} gathered_matmul (tree {t})", down),
-                           fr.gathered_matmul_ref(h, w[-1], idx), dtype)
-        if t:
-            continue
-        distinct = int(torch.unique(idx).numel())
-        n_up = 2 if swiglu else 1
-        rows["tree_router@32"] = kernel_row(
-            0.0, lambda: trk.tree_router(x, nw[0], nb[0], depth=depth),
-            lambda: trr.tree_router_ref(x, nw[0], nb[0], depth=depth),
-            bound(VERIFY_B * d * sz + nw.shape[1] * (d + 1) * sz + VERIFY_B * 4,
-                  2 * VERIFY_B * nw.shape[1] * d, dtype))
-        rows[gname] = kernel_row(
-            err_up, up, up_ref,
-            bound(distinct * n_up * d * L * sz + VERIFY_B * (d + L) * sz + VERIFY_B * 4,
-                  2 * n_up * VERIFY_B * d * L, dtype))
-        rows["gathered_matmul"] = kernel_row(
-            err_down, down, lambda: fr.gathered_matmul_ref(h, w[-1], idx),
-            bound(distinct * L * d * sz + VERIFY_B * (L + d) * sz + VERIFY_B * 4,
-                  2 * VERIFY_B * L * d, dtype))
-        rows[gname]["distinct_leaves"] = rows["gathered_matmul"]["distinct_leaves"] = distinct
-    # decode step: the fused decode kernel over the forest
-    x = randn(DECODE_B, d)
-    leaves = tuple(p[n] for n in names)
-    act = "swiglu" if swiglu else fc.activation
-    call = lambda: fdk.fused_forest_decode(x, nw, nb, leaves, depth=depth, act=act)
-    y, idx = twice(f"{label} fused_forest_decode", call)
-    y_ref, idx_ref = fdr.fused_decode_ref(x, nw, nb, leaves, depth=depth, act=act)
-    agree, ties = torch.ones(DECODE_B, dtype=torch.bool, device="cuda"), 0
-    for t in range(T):
-        _, margin = margins(x, nw[t], nb[t], depth)
-        a, n, _ = compare_idx(f"{label} fused_forest_decode (tree {t})", idx[:, t],
-                              idx_ref[:, t], margin)
-        agree, ties = agree & a, ties + n
-    err = compare(f"{label} fused_forest_decode", y, y_ref, dtype, rows=agree)
-    distinct = sum(int(torch.unique(idx[:, t]).numel()) for t in range(T))
-    n_mats = len(names)
-    rows["fused_forest_decode"] = kernel_row(
-        err, call, lambda: fdr.fused_decode_ref(x, nw, nb, leaves, depth=depth, act=act),
-        bound(distinct * n_mats * d * L * sz + T * nw.shape[1] * (d + 1) * sz
-              + DECODE_B * 2 * d * sz,
-              2 * DECODE_B * (T * nw.shape[1] * d + n_mats * T * d * L), dtype))
-    rows["fused_forest_decode"].update(near_ties=ties, distinct_leaves=distinct)
+    for slab, B in (("", PREFILL_B * PREFILL_S), ("@32", VERIFY_B)):
+        x = randn(B, cfg.d_model)
+        C = max(128, utils.round_up(int(2.0 * utils.cdiv(B, E)), 128))
+        for t in range(fc.trees):
+            tag = f"{label} (tree {t})"
+            if t == 0:
+                rows[f"tree_router{slab}"] = router_row(f"{label} tree_router{slab}", x,
+                                                        nw[t], nb[t], depth)
+            leaf, _ = routed(f"{tag} tree_router{slab}", x, nw[t], nb[t], depth)
+            w = [m[t] for m in leaves]
+            if slab:
+                _, r = gathered_rows(tag, x, w[:-1], w[-1], leaf, act, dtype, timed=t == 0)
+            else:
+                lay = gemm_ops.scatter_to_groups(x, leaf, E, C)
+                _, r = grouped_rows(tag, lay.x_grouped, w[:-1], w[-1], lay.group_sizes,
+                                    act, dtype, timed=t == 0)
+                r = {k: dict(v, capacity=C) for k, v in r.items()}
+            rows.update(r)
+    rows["fused_forest_decode"] = decode_row(label, randn(DECODE_B, cfg.d_model), nw, nb,
+                                             leaves, depth, act, dtype)
     torch.cuda.empty_cache()
     return rows
-
-
-def arch_serve(common, api, serve_mod, label, cfg, params) -> dict:
-    """The fixed-batch loop (batch 8, prompt 128, 16 greedy decode steps) on
-    the default infer backend, each kernel's launch count asserted: per
-    layer and tree the router and the grouped kernels once in the prefill
-    (SwiGLU: dual and down; GELU: grouped_matmul twice), the fused decode
-    kernel once per layer per step."""
-    fc = site_config(cfg)
-    L, T = cfg.n_layers, fc.trees
-    swiglu = fc.activation == "swiglu"
-    with kept_masks() as layouts, no_reference(api):
-        common.reset_launch_counts()
-        res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S, gen=GEN,
-                              device="cuda", params=params)
-        counts = common.launch_counts()
-    want = {"fused_forest_decode": L * GEN, "tree_router": L * T,
-            "grouped_matmul_dual": L * T if swiglu else 0,
-            "grouped_matmul": L * T * (1 if swiglu else 2),
-            "gathered_matmul": 0, "gathered_matmul_dual": 0}
-    if counts != want:
-        raise AssertionError(f"{label} serve: launch counts {counts} != expected {want}")
-    toks = res.tokens
-    if tuple(toks.shape) != (PREFILL_B, GEN + 1) or not bool(
-            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        raise AssertionError(f"{label} serve: bad generated tokens {tuple(toks.shape)}")
-    dropped = [int((~k).sum()) for k in layouts]
-    log(f"{label} serve: prefill tokens over their leaf's capacity (dense repair): "
-        f"{sum(dropped)} of {sum(k.numel() for k in layouts)} over {len(layouts)} "
-        f"grouped dispatches (sites x trees), most in one {max(dropped)}")
-    log(f"{label} serve batch {PREFILL_B} x prompt {PREFILL_S}, {GEN} decode steps: "
-        f"prefill {res.prefill_s * 1e3:.2f} ms (first call); decode p50 "
-        f"{res.steady.p50_ms:.2f} ms p90 {res.steady.p90_ms:.2f} ms; "
-        f"{res.tokens_per_s:.1f} tok/s; launches {counts} (as expected); reference "
-        f"backend never ran")
-    return counts
-
-
-def arch_parity(api, fff, lm, label, fff_config) -> None:
-    """float32, full width, PARITY_LAYERS layers: lm.generate's greedy
-    tokens through the kernel backends against the reference backend's,
-    equal for every row that met no deciding margin under NEAR_TIE."""
-    cfg = dataclasses.replace(fff_config, n_layers=PARITY_LAYERS,
-                              param_dtype=torch.float32, accum_dtype=torch.float32)
-    params = lm.init(cfg, seed=1, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    prompt = torch.randint(0, cfg.vocab_size, (PARITY_B, PARITY_S), generator=gen,
-                           device="cuda", dtype=torch.int32)
-    max_len = PARITY_S + PARITY_STEPS + 1
-    kern, m_kern = generate_batch_with_margins(api, fff, lm, cfg, params, prompt,
-                                               PARITY_STEPS, max_len)
-    ref, m_ref = generate_batch_with_margins(api, fff, lm, cfg, params, prompt,
-                                             PARITY_STEPS, max_len,
-                                             backend="reference", mode="infer")
-    margin = [min(a, b) for a, b in zip(m_kern, m_ref)]
-    ties = near_tie_rows(f"{label} parity", kern, ref, margin)
-    log(f"{label} parity: {cfg.n_layers} layers fp32 at full width, batch {PARITY_B} x "
-        f"prompt {PARITY_S}, {PARITY_STEPS} greedy tokens: kernel backends equal the "
-        f"reference backend ({ties} near-tie rows); smallest deciding margin per row "
-        f"{[f'{m:.3e}' for m in margin]}")
-    del params
-    torch.cuda.empty_cache()
 
 
 def arch_engine(common, api, serve_mod, label, cfg, params) -> None:
@@ -2362,20 +2254,6 @@ def arch_engine(common, api, serve_mod, label, cfg, params) -> None:
         f" per-token p50 {m.per_token.p50_ms:.2f} ms; {m.throughput_tok_s:.1f} tok/s; "
         f"{rounds} spec rounds (p50 {m.decode_step.p50_ms:.2f} ms), {slabs} admission "
         f"slabs; launches {counts} (as expected, per tree)")
-
-
-def log_arch_rows(label, rows, counts) -> None:
-    for name, r in rows.items():
-        base = name.split(" ")[0].split("@")[0]
-        log(f"{label} kernel {name:24s} max|err| {r['max_abs_err']:.3e}  kernel "
-            f"{r['ms']:.4f} ms (loop {r['loop_ms']:.4f})  plain {r['plain_ms']:.4f} ms  "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, kernel/bound "
-            f"{r['ms'] / r['bound_ms']:.2f})  library "
-            + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "n/a")
-            + f"  serve launches {counts.get(base, 0)}"
-            + (f"  capacity {r['capacity']}" if "capacity" in r else "")
-            + (f"  near-ties {r['near_ties']}" if "near_ties" in r else "")
-            + (f"  distinct leaves {r['distinct_leaves']}" if "distinct_leaves" in r else ""))
 
 
 def phase_archs(common, api, fff, lm, serve_mod) -> dict:
@@ -2404,18 +2282,66 @@ def phase_archs(common, api, fff, lm, serve_mod) -> dict:
             f"{time.perf_counter() - t0:.1f}s")
         with torch.inference_mode():
             rows = arch_kernels(label, cfg, params)
-        counts = arch_serve(common, api, serve_mod, label, cfg, params)
-        log_arch_rows(label, rows, counts)
+        counts = phase_serve(common, api, serve_mod, cfg, params, label=label)
+        log_rows(rows, f"{label} kernel", counts)
         if arch == "olmoe-1b-7b":
             arch_engine(common, api, serve_mod, label, cfg, params)
             out["olmoe ffn"] = ffn_site_times(lm, mlp, cfg, params, tag=label)
         del params
         torch.cuda.empty_cache()
-        arch_parity(api, fff, lm, label, mod.FFF_CONFIG)
-        out[arch] = {k: dict(v, launches=counts.get(k.split(" ")[0].split("@")[0], 0))
-                     for k, v in rows.items()}
+        phase_parity(api, fff, lm, mod.FFF_CONFIG, label=f"{label} parity", exact=False)
+        out[arch] = {k: dict(v, launches=counts.get(kernel_of(k), 0)) for k, v in rows.items()}
         log(f"{label} done in {time.perf_counter() - t0:.1f}s")
     return out
+
+
+def site_inputs(lm, mlp, cfg, params) -> dict:
+    """Each FFN site's (params, input) in a prefill of ffn_site_times's
+    seeded prompt and in the decode step after it: {"prefill": [...],
+    "decode": [...]}, one entry a layer."""
+    forward, seen = mlp.forward, []
+
+    def recording(p, s, d, x, **kw):
+        seen.append((p, x.clone()))
+        return forward(p, s, d, x, **kw)
+
+    prompt = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(4),
+                           dtype=torch.int32)
+    out = {}
+    mlp.forward = recording
+    try:
+        with torch.inference_mode():
+            logits, caches = lm.prefill(params, cfg, {"tokens": prompt},
+                                        lm.init_caches(cfg, PREFILL_B, PREFILL_S + 2,
+                                                       device="cuda"))
+            out["prefill"], seen = seen, []
+            lm.decode_step(params, cfg, logits.argmax(-1)[:, None].to(torch.int32),
+                           caches, PREFILL_S)
+            out["decode"] = seen
+    finally:
+        mlp.forward = forward
+    return out
+
+
+def moe_sites_bound(moe, mcfg, inputs) -> tuple[float, int]:
+    """The MoE sites' bound over one pass (each site's own, summed: they
+    run one after another): per site the gate weights, each live expert's
+    two matrices and the tokens read, the outputs written; the gate logits
+    and each (token, choice) pair's two products.  Returns (ms, live
+    experts summed over the sites)."""
+    total, live_all = 0.0, 0
+    with torch.inference_mode():
+        for p, x in inputs:
+            _, aux = moe.forward_sparse(p, mcfg, x)
+            n, k = aux["expert_idx"].shape
+            live = int(torch.unique(aux["expert_idx"]).numel())
+            d, E, F = mcfg.dim_in, mcfg.num_experts, mcfg.expert_width
+            sz = torch.finfo(mcfg.param_dtype).bits // 8
+            b, _ = bound(d * E * sz + live * 2 * d * F * sz + n * 2 * d * sz,
+                         2 * n * d * E + 2 * 2 * n * k * d * F, mcfg.param_dtype)
+            total, live_all = total + b, live_all + live
+    return total, live_all
 
 
 def phase_moe(common, lm, serve_mod, fff_times) -> None:
@@ -2456,6 +2382,9 @@ def phase_moe(common, lm, serve_mod, fff_times) -> None:
         f"{res.steady.p50_ms:.2f} ms p90 {res.steady.p90_ms:.2f} ms; "
         f"{res.tokens_per_s:.1f} tok/s; kernel launches {counts} (none: MoE)")
     moe_times = ffn_site_times(lm, mlp, cfg, params, tag="[moe]")
+    inputs = site_inputs(lm, mlp, cfg, params)
+    mcfg = mlp.make_moe_config(spec, cfg.d_model, param_dtype=cfg.param_dtype,
+                               accum_dtype=cfg.accum_dtype)
     for phase, what in (("prefill", f"{PREFILL_B}x{PREFILL_S} tokens"),
                         ("decode", f"one step, batch {PREFILL_B}")):
         m, f = moe_times[phase], fff_times[phase]
@@ -2463,29 +2392,14 @@ def phase_moe(common, lm, serve_mod, fff_times) -> None:
             log(f"[moe] warm {phase} ({what}), {name}: FFN sites {inside:.3f} ms device "
                 f"time (kernels inside the {cfg.n_layers} sites' device-side spans); "
                 f"device busy {busy:.3f} ms")
+        b_ms, live = moe_sites_bound(moe, mcfg, inputs[phase])
         log(f"[moe] warm {phase}: FFN sites' device time MoE/FFF "
-            f"{m[1] / max(f[1], 1e-9):.2f}x")
+            f"{m[1] / max(f[1], 1e-9):.2f}x, against a plain, unfused MoE (one "
+            f"product pair per live expert and a host sync a site): its sites' bound "
+            f"{b_ms:.3f} ms ({live} live experts over {cfg.n_layers} sites), "
+            f"MoE sites/bound {m[1] / b_ms:.2f}")
     # the grouped form against the gather form on one layer's input
-    forward, seen = mlp.forward, []
-
-    def first_input(p, s, d, x, **kw):
-        if not seen:
-            seen.append((p, x.clone()))
-        return forward(p, s, d, x, **kw)
-
-    prompt = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), device="cuda",
-                           generator=torch.Generator(device="cuda").manual_seed(4),
-                           dtype=torch.int32)
-    mlp.forward = first_input
-    try:
-        with torch.inference_mode():
-            lm.prefill(params, cfg, {"tokens": prompt},
-                       lm.init_caches(cfg, PREFILL_B, PREFILL_S + 1, device="cuda"))
-    finally:
-        mlp.forward = forward
-    p, x = seen[0]
-    mcfg = mlp.make_moe_config(spec, cfg.d_model, param_dtype=cfg.param_dtype,
-                               accum_dtype=cfg.accum_dtype)
+    p, x = inputs["prefill"][0]
     with torch.inference_mode():
         y, aux = moe.forward_sparse(p, mcfg, x)
         y_ref, aux_ref = moe.forward_sparse_gather(p, mcfg, x)
@@ -2499,7 +2413,7 @@ def phase_moe(common, lm, serve_mod, fff_times) -> None:
         f"{err:.3e}); {int((load > 0).sum())} of {spec.moe_experts} experts live, "
         f"{int(load.min())}-{int(load.max())} (token, choice) pairs each; grouped "
         f"{grouped_ms:.3f} ms a site (CUDA events, host sync included)")
-    del params, p, x, y, y_ref, seen
+    del params, p, x, y, y_ref, inputs
     torch.cuda.empty_cache()
     log(f"[moe] done in {time.perf_counter() - t0:.1f}s")
 
@@ -2615,6 +2529,7 @@ def main() -> int:
         f"{lm.param_count(params) / 1e9:.2f}B params {cfg.param_dtype}, "
         f"init {time.perf_counter() - t0:.1f}s")
     phase_serve(common, api, serve_mod, cfg, params)
+    phase_profile(cfg, params, lm)
     counts = phase_engine(common, api, serve_mod, cfg, params)
     phase_paged(common, api, serve_mod, cfg, params)
     phase_parity(api, fff, lm, FFF_CONFIG)

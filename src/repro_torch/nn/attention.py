@@ -148,25 +148,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sliding_window: int = 0) -> torch.Tensor:
     """Online-softmax attention: q (B, S, H, hd); k, v (B, S, K, hd) with H
     = K * G -> (B, S, H, hd).  Visits only the statically scheduled chunk
-    pairs, carrying full-size float32 (m, l, acc) accumulators whose
-    q-chunk rows each pair updates in place; the JAX package's steps, with
-    the accumulators laid out (B, H, S[, hd]) so no step transposes."""
+    pairs, carrying float32 (m, l, acc) accumulators for each q-chunk; the
+    JAX package's steps, with the accumulators laid out (B, H, chunk[, hd])
+    so no step transposes.  Each pair rebinds its q-chunk's accumulators
+    rather than writing them in place, so autograd can differentiate it."""
     B, S, H, hd = q.shape
     G = H // k.shape[2]
     chunk = min(chunk, S)
     if S % chunk:
         chunk = math.gcd(S, chunk) or S
+    n = S // chunk
     scale = 1.0 / math.sqrt(hd)
     window_chunks = (max(1, utils.cdiv(sliding_window, chunk))
                      if sliding_window > 0 else 0)
-    pairs = _chunk_pairs(S // chunk, S // chunk, causal, window_chunks, chunk,
-                         sliding_window)
+    pairs = _chunk_pairs(n, n, causal, window_chunks, chunk, sliding_window)
     qf = q.float().transpose(1, 2)                       # (B, H, S, hd)
     kf = _expand_kv(k, G).float().transpose(1, 2)
     vf = _expand_kv(v, G).float().transpose(1, 2)
-    m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, H, S, hd), dtype=torch.float32, device=q.device)
+    m = [torch.full((B, H, chunk), NEG_INF, dtype=torch.float32, device=q.device)] * n
+    l = [torch.zeros((B, H, chunk), dtype=torch.float32, device=q.device)] * n
+    acc = [torch.zeros((B, H, chunk, hd), dtype=torch.float32, device=q.device)] * n
     col = torch.arange(chunk, device=q.device)
     for qi, kj, needs_mask in pairs:
         qs, ks = slice(qi * chunk, (qi + 1) * chunk), slice(kj * chunk, (kj + 1) * chunk)
@@ -179,15 +180,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             if sliding_window > 0:
                 ok &= dist < sliding_window
             s = s.masked_fill(~ok, NEG_INF)
-        m_cur = m[:, :, qs]
-        m_new = torch.maximum(m_cur, s.amax(dim=-1))
+        m_new = torch.maximum(m[qi], s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m_cur - m_new)
-        l[:, :, qs] = l[:, :, qs] * corr + p.sum(dim=-1)
-        acc[:, :, qs] = acc[:, :, qs] * corr[..., None] + torch.einsum(
+        corr = torch.exp(m[qi] - m_new)
+        l[qi] = l[qi] * corr + p.sum(dim=-1)
+        acc[qi] = acc[qi] * corr[..., None] + torch.einsum(
             "bhqp,bhpd->bhqd", p, vf[:, :, ks])
-        m[:, :, qs] = m_new
-    out = acc / torch.clamp(l[..., None], min=1e-30)
+        m[qi] = m_new
+    out = torch.cat(acc, dim=2) / torch.clamp(torch.cat(l, dim=2)[..., None], min=1e-30)
     return out.transpose(1, 2).to(q.dtype)
 
 

@@ -8,7 +8,8 @@ bf16 inputs):
 * ``flash_attention`` itself: causal, a sliding window of whole chunks,
   GQA, a sequence that is not a multiple of the chunk (the chunk drops to
   their gcd), not causal, and bf16 inputs; and against the plain masked
-  attention (``full_attention`` with a band);
+  attention (``full_attention`` with a band); and its gradients with
+  respect to q, k and v against ``jax.grad`` of JAX's;
 * a window that is not a whole number of chunks: the port masks every
   chunk pair the band cuts and equals the plain masked attention, where
   the JAX package leaves the nearer pairs unmasked (a deliberate
@@ -16,7 +17,8 @@ bf16 inputs):
 * the attention entry points route above ``FLASH_ABOVE`` tokens;
 * the LM above ``FLASH_ABOVE``: a reduced starcoder2-15b FFF model with a
   64-token window, the same weights in both packages (``from_jax``),
-  prefill logits of a 2080-token prompt and two greedy decode steps.
+  prefill logits of a 2080-token prompt and two greedy decode steps, and
+  ``lm.loss_fn``'s loss and every parameter gradient over that prompt.
 """
 import dataclasses
 
@@ -30,7 +32,7 @@ from conftest import dtype_tol
 from repro.configs import registry as jregistry
 from repro.models import lm as jlm
 from repro.nn import attention as jattn
-from repro_torch import weights
+from repro_torch import optim, utils, weights
 from repro_torch.configs import registry
 from repro_torch.models import lm
 from repro_torch.nn import attention
@@ -84,6 +86,23 @@ def test_flash_matches_jax(case):
     assert got.shape == q.shape and got.dtype == torch.float32
     close(got, want)
     close(got, plain(q, k, v, c["causal"], c["window"]).numpy())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_grad_matches_jax(case):
+    """The gradients of <flash(q, k, v), w> for numpy-drawn q, k, v and w
+    against ``jax.grad`` of JAX's flash_attention."""
+    c = CASES[case]
+    q, k, v = qkv(5, 2, c["S"], c["H"], c["K"])
+    w = rng(6).normal(size=q.shape).astype(np.float32)
+    kw = dict(causal=c["causal"], chunk=c["chunk"], sliding_window=c["window"])
+    want = jax.jit(jax.grad(lambda q, k, v: jnp.sum(
+        jattn.flash_attention(q, k, v, **kw) * w), argnums=(0, 1, 2)))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    (attention.flash_attention(tq, tk, tv, **kw) * torch.from_numpy(w)).sum().backward()
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
+        close(got, ref)
 
 
 def test_flash_bf16_matches_jax():
@@ -188,3 +207,20 @@ def test_lm_prefill_above_flash_above_matches_jax(long_model):
             jl, jc = step(jp, jnp.asarray(tok.numpy()), jc, S_LONG + i)
             tl, tc = lm.decode_step(tp, tcfg, tok, tc, S_LONG + i)
             close(tl, jl)
+
+
+def test_lm_loss_grad_above_flash_above_matches_jax(long_model):
+    """Training above FLASH_ABOVE: ``lm.loss_fn`` over the 2080-token prompt
+    (every layer's attention through flash with the window), its loss and
+    every parameter gradient against ``jax.value_and_grad`` of JAX's."""
+    jcfg, tcfg, jp, tp, prompt = long_model
+    batch = {"tokens": prompt, "labels": np.roll(prompt, -1, axis=1)}
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: jlm.loss_fn(p, jcfg, b), has_aux=True))(jp, batch)
+    (loss, _), grads = optim.value_and_grad(
+        lambda p, b: lm.loss_fn(p, tcfg, b))(tp, batch)
+    close(loss, jloss)
+    want = weights.from_jax(jax.tree_util.tree_map(np.asarray, jgrads), tcfg,
+                            device="cpu")
+    assert len(utils.tree_leaves(grads)) == len(utils.tree_leaves(want))
+    utils.tree_map(lambda g, w: close(g.detach(), w.numpy()), grads, want)
