@@ -180,7 +180,35 @@ Phases (any failure raises, and the exit code is non-zero):
               and peak memory printed; layer 0's q, k, v in float32: flash
               against the plain masked attention within 1e-3.
 
-Prints the new archs' kernel rows as one JSON line ({"arch_kernels": ...}),
+14. kimi    — kimi-k2-1t-a32b FFF (8 trees of depth 6, 64 SwiGLU leaves of
+              2048 a tree, D 7168, head_dim 112, a 163840-word vocabulary)
+              at 1 of 61 layers, bf16: every kernel at its site's shapes
+              (as archs), the fixed-batch loop with its launch counts; the
+              native MoE (384 experts, top 8, gates drawn N(0, 1/d_model))
+              at 1 layer through the same loop (no launches), its decode
+              p50 beside the forest's; fp32 greedy parity at 1 layer with
+              the forest cut to 2 trees (8 fp32 trees are ~90 GB).
+15. jamba   — jamba-1.5-large-398b FFF, bf16, its period cut to positions
+              (0, 1, 7): Mamba with the MoE-derived forest (2 trees of depth
+              3, leaves of 24576), Mamba with the dense-derived tree (16 x
+              1536), attention with the dense-derived tree; 3 of 72 layers.
+              (The port's layer i takes period[i % len(period)], so a depth
+              cut of the published period would never reach attention.)
+              Every kernel at both site configs' shapes, the fixed-batch
+              loop with per-site launch counts, the engine's refusal (the
+              JAX message), fp32 greedy parity at the same 3 layers.
+16. xlstm   — xlstm-1.3b, all 48 layers (42 mLSTM, 6 sLSTM), bf16: no FFN
+              site, so the fixed-batch loop launches no kernel (asserted);
+              the engine refuses it.
+17. mixers  — at full width in float32, Mamba (D 8192) and the mLSTM and
+              sLSTM blocks (D 2048), the card against the CPU with the same
+              weights: a prefill of 2 x 32 tokens from zeros and 4 one-token
+              steps from its state, every output and the final state
+              within 1e-3; on the card, chunkwise mLSTM (chunks of 8 and
+              256) against the sequential recurrence.
+
+Prints the new archs' kernel rows as one JSON line ({"arch_kernels": ...},
+jamba's rows tagged with their site, trees x leaves x width),
 the kernel table as one JSON line (launches from the monolithic engine
 run), the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
@@ -239,6 +267,14 @@ CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT, CKPT_KEEP, CKPT_GEN = 1, 6, 3
 ARCH_LAYERS = {"phi3-medium-14b": 4, "starcoder2-15b": 4, "command-r-35b": 4,
                "olmoe-1b-7b": 16}
 LONG_LAYERS, LONG_PROMPT, LONG_GEN = 2, 6144, 8
+# kimi-k2-1t-a32b at KIMI_LAYERS of 61 layers (fp32 parity with its forest
+# cut to KIMI_PARITY_TREES trees: a float32 layer of 8 trees is ~90 GB);
+# jamba-1.5-large-398b on the period positions JAMBA_POSITIONS (Mamba + the
+# MoE-derived forest, Mamba + the dense-derived tree, attention + the
+# dense-derived tree); xlstm-1.3b whole; the mixers phase's prefill of
+# MIXER_B x MIXER_S tokens and MIXER_STEPS one-token steps, held at E2E
+KIMI_LAYERS, KIMI_PARITY_TREES, JAMBA_POSITIONS = 1, 2, (0, 1, 7)
+MIXER_B, MIXER_S, MIXER_STEPS, E2E = 2, 32, 4, 1e-3
 
 
 def log(msg: str) -> None:
@@ -969,23 +1005,24 @@ def kept_masks():
         gemm_ops.scatter_to_groups = scatter
 
 
-def phase_serve(common, api, serve_mod, cfg, params, label="[serve]") -> dict:
+def phase_serve(common, api, serve_mod, cfg, params, label="[serve]"):
     """The fixed-batch loop (batch 8, prompt 128, 16 greedy decode steps) on
-    the default infer backend, each kernel's launch count asserted: per
-    layer and tree the router and the grouped kernels once in the prefill
-    (SwiGLU: dual and down; otherwise grouped_matmul up and down), the
-    fused decode kernel once per layer per step."""
-    fc = site_config(cfg)
-    L, T = cfg.n_layers, fc.trees
-    swiglu = fc.activation == "swiglu"
+    the default infer backend, each kernel's launch count asserted, summed
+    over the layers' own FFF sites (a layer without one adds nothing): per
+    tree the router and the grouped kernels once in the prefill (SwiGLU:
+    dual and down; otherwise grouped_matmul up and down), the fused decode
+    kernel once per FFF layer per step.  Returns (counts, the serve
+    result)."""
+    sites = [fc for fc in site_configs(cfg) if fc is not None]
+    trees = sum(fc.trees for fc in sites)
+    swiglu = sum(fc.trees for fc in sites if fc.activation == "swiglu")
     with kept_masks() as layouts, no_reference(api):
         common.reset_launch_counts()
         res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S, gen=GEN,
                               device="cuda", params=params)
         counts = common.launch_counts()
-    want = {"fused_forest_decode": L * GEN, "tree_router": L * T,
-            "grouped_matmul_dual": L * T if swiglu else 0,
-            "grouped_matmul": L * T * (1 if swiglu else 2),
+    want = {"fused_forest_decode": len(sites) * GEN, "tree_router": trees,
+            "grouped_matmul_dual": swiglu, "grouped_matmul": 2 * trees - swiglu,
             "gathered_matmul": 0, "gathered_matmul_dual": 0}
     if counts != want:
         raise AssertionError(f"{label} serve: launch counts {counts} != expected {want}")
@@ -996,13 +1033,13 @@ def phase_serve(common, api, serve_mod, cfg, params, label="[serve]") -> dict:
     dropped = [int((~k).sum()) for k in layouts]
     log(f"{label} serve: prefill tokens over their leaf's capacity (dense repair): "
         f"{sum(dropped)} of {sum(k.numel() for k in layouts)} over {len(layouts)} "
-        f"grouped dispatches (sites x trees), most in one {max(dropped)}")
+        f"grouped dispatches (sites x trees), most in one {max(dropped, default=0)}")
     log(f"{label} serve batch {PREFILL_B} x prompt {PREFILL_S}, {GEN} decode steps: "
         f"prefill {res.prefill_s * 1e3:.2f} ms (first call); decode p50 "
         f"{res.steady.p50_ms:.2f} ms p90 {res.steady.p90_ms:.2f} ms; "
         f"{res.tokens_per_s:.1f} tok/s; launches {counts} (as expected); reference "
         f"backend never ran")
-    return counts
+    return counts, res
 
 
 def profile_report(label, prof, wall_s, steps) -> None:
@@ -1076,13 +1113,14 @@ def phase_profile(cfg, params, lm) -> None:
         profile_report("decode", prof, wall, steps)
 
 
-def phase_parity(api, fff, lm, fff_config, label="[parity]", exact=True) -> None:
-    """float32, full width, PARITY_LAYERS layers: lm.generate's greedy
-    tokens through the kernel backends against the reference backend's.
-    A row may differ only where it met a deciding margin under NEAR_TIE (a
-    node logit on a routed path, or the gap between the two largest
-    logits); with ``exact`` no row may differ."""
-    cfg = dataclasses.replace(fff_config, n_layers=PARITY_LAYERS,
+def phase_parity(api, fff, lm, fff_config, label="[parity]", exact=True,
+                 layers=PARITY_LAYERS) -> None:
+    """float32, full width, ``layers`` layers: lm.generate's greedy tokens
+    through the kernel backends against the reference backend's.  A row
+    may differ only where it met a deciding margin under NEAR_TIE (a node
+    logit on a routed path, or the gap between the two largest logits);
+    with ``exact`` no row may differ."""
+    cfg = dataclasses.replace(fff_config, n_layers=layers,
                               param_dtype=torch.float32, accum_dtype=torch.float32)
     params = lm.init(cfg, seed=1, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -2180,55 +2218,79 @@ def phase_dense(common, api, lm, serve_mod, FFF_CONFIG, CONFIG) -> None:
 # the registry archs at their own widths, the MoE baseline, long prompts
 # ---------------------------------------------------------------------------
 
-def site_config(cfg):
-    """The FFFConfig of cfg's FFN sites (one period position)."""
+def site_configs(cfg) -> list:
+    """Per layer, the FFFConfig of its FFN site, or None where the layer
+    has no FFF site (jamba's period holds two site configs; xlstm has no
+    FFN site at all)."""
     from repro_torch.nn import mlp
-    return mlp.make_fff_config(cfg.period[0].ffn, cfg.d_model,
-                               param_dtype=cfg.param_dtype, accum_dtype=cfg.accum_dtype)
+    out = []
+    for i in range(cfg.n_layers):
+        f = cfg.period[i % len(cfg.period)].ffn
+        out.append(None if f.kind != "fff" else mlp.make_fff_config(
+            f, cfg.d_model, param_dtype=cfg.param_dtype, accum_dtype=cfg.accum_dtype))
+    return out
+
+
+def site_tag(fc) -> str:
+    """trees x leaves x leaf width, e.g. "2x8x24576"."""
+    return f"{fc.trees}x{fc.num_leaves}x{fc.leaf_width}"
 
 
 def arch_kernels(label, cfg, params) -> dict:
-    """Every kernel cfg's FFN sites reach, on layer 0's own weights (bf16)
-    and seeded inputs at the site's shapes, through the kernels phase's
-    row builders: the router at the 1024-token prefill slab and the grouped
-    kernels on the buffers it routes to (capacity as the kernel path sizes
-    them), the router and the gathered kernels at the 32-token verify
-    slab, the fused decode kernel at batch 8 over the whole forest.  Every
-    tree is checked; the rows are timed on tree 0 (every tree has its
-    shapes).  Returns {row name: row}."""
+    """Every kernel cfg's FFN sites reach, on each distinct site config's
+    first layer's own weights (bf16) and seeded inputs at the site's
+    shapes, through the kernels phase's row builders: the router at the
+    1024-token prefill slab and the grouped kernels on the buffers it
+    routes to (capacity as the kernel path sizes them), the router and the
+    gathered kernels at the 32-token verify slab, the fused decode kernel
+    at batch 8 over the whole forest.  Every tree is checked; the rows are
+    timed on tree 0 (every tree has its shapes).  Returns {row name: row};
+    with more than one site config each name ends in its site's tag."""
     from repro_torch import utils
     from repro_torch.kernels.fused_decode import ops as fd_ops
     from repro_torch.kernels.leaf_gemm import ops as gemm_ops
-    fc = site_config(cfg)
-    p = params["stack"][0]["ffn"]
-    nw, nb = (t.contiguous() for t in fd_ops.collapse_nodes(p, fc))
-    depth, E, act, dtype = fc.depth, fc.num_leaves, fc.activation, cfg.param_dtype
-    names = ("leaf_wg", "leaf_wu", "leaf_wd") if act == "swiglu" else ("leaf_w1", "leaf_w2")
-    leaves = tuple(p[n] for n in names)
+    first = {}
+    for i, fc in enumerate(site_configs(cfg)):
+        if fc is not None and fc not in first:
+            first[fc] = i
     gen = torch.Generator(device="cuda").manual_seed(7)
-    randn = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)
     rows = {}
-    for slab, B in (("", PREFILL_B * PREFILL_S), ("@32", VERIFY_B)):
-        x = randn(B, cfg.d_model)
-        C = max(128, utils.round_up(int(2.0 * utils.cdiv(B, E)), 128))
-        for t in range(fc.trees):
-            tag = f"{label} (tree {t})"
-            if t == 0:
-                rows[f"tree_router{slab}"] = router_row(f"{label} tree_router{slab}", x,
-                                                        nw[t], nb[t], depth)
-            leaf, _ = routed(f"{tag} tree_router{slab}", x, nw[t], nb[t], depth)
-            w = [m[t] for m in leaves]
-            if slab:
-                _, r = gathered_rows(tag, x, w[:-1], w[-1], leaf, act, dtype, timed=t == 0)
-            else:
-                lay = gemm_ops.scatter_to_groups(x, leaf, E, C)
-                _, r = grouped_rows(tag, lay.x_grouped, w[:-1], w[-1], lay.group_sizes,
-                                    act, dtype, timed=t == 0)
-                r = {k: dict(v, capacity=C) for k, v in r.items()}
-            rows.update(r)
-    rows["fused_forest_decode"] = decode_row(label, randn(DECODE_B, cfg.d_model), nw, nb,
-                                             leaves, depth, act, dtype)
-    torch.cuda.empty_cache()
+    for fc, layer in first.items():
+        suffix = f" [{site_tag(fc)}]" if len(first) > 1 else ""
+        p = params["stack"][layer]["ffn"]
+        nw, nb = (t.contiguous() for t in fd_ops.collapse_nodes(p, fc))
+        depth, E, act, dtype = fc.depth, fc.num_leaves, fc.activation, cfg.param_dtype
+        names = (("leaf_wg", "leaf_wu", "leaf_wd") if act == "swiglu"
+                 else ("leaf_w1", "leaf_w2"))
+        leaves = tuple(p[n] for n in names)
+        randn = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)
+        site_rows = {}
+        for slab, B in (("", PREFILL_B * PREFILL_S), ("@32", VERIFY_B)):
+            x = randn(B, cfg.d_model)
+            C = max(128, utils.round_up(int(2.0 * utils.cdiv(B, E)), 128))
+            for t in range(fc.trees):
+                tag = f"{label}{suffix} (tree {t})"
+                if t == 0:
+                    site_rows[f"tree_router{slab}"] = router_row(
+                        f"{label}{suffix} tree_router{slab}", x, nw[t], nb[t], depth)
+                leaf, _ = routed(f"{tag} tree_router{slab}", x, nw[t], nb[t], depth)
+                w = [m[t] for m in leaves]
+                if slab:
+                    _, r = gathered_rows(tag, x, w[:-1], w[-1], leaf, act, dtype,
+                                         timed=t == 0)
+                else:
+                    lay = gemm_ops.scatter_to_groups(x, leaf, E, C)
+                    _, r = grouped_rows(tag, lay.x_grouped, w[:-1], w[-1],
+                                        lay.group_sizes, act, dtype, timed=t == 0)
+                    r = {k: dict(v, capacity=C) for k, v in r.items()}
+                site_rows.update(r)
+                torch.cuda.empty_cache()
+        site_rows["fused_forest_decode"] = decode_row(
+            f"{label}{suffix}", randn(DECODE_B, cfg.d_model), nw, nb, leaves, depth,
+            act, dtype)
+        rows.update({k + suffix: v for k, v in site_rows.items()})
+        del nw, nb, leaves
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2271,7 +2333,7 @@ def phase_archs(common, api, fff, lm, serve_mod) -> dict:
         t0 = time.perf_counter()
         mod = importlib.import_module(registry._MODULES[arch])
         cfg = dataclasses.replace(mod.FFF_CONFIG, n_layers=layers)
-        fc = site_config(cfg)
+        fc = site_configs(cfg)[0]
         label = f"[archs] {arch}"
         params = lm.init(cfg, seed=0, device="cuda")
         torch.cuda.synchronize()
@@ -2282,7 +2344,7 @@ def phase_archs(common, api, fff, lm, serve_mod) -> dict:
             f"{time.perf_counter() - t0:.1f}s")
         with torch.inference_mode():
             rows = arch_kernels(label, cfg, params)
-        counts = phase_serve(common, api, serve_mod, cfg, params, label=label)
+        counts, _ = phase_serve(common, api, serve_mod, cfg, params, label=label)
         log_rows(rows, f"{label} kernel", counts)
         if arch == "olmoe-1b-7b":
             arch_engine(common, api, serve_mod, label, cfg, params)
@@ -2358,13 +2420,7 @@ def phase_moe(common, lm, serve_mod, fff_times) -> None:
     cfg = CONFIG
     spec = cfg.period[0].ffn
     params = lm.init(cfg, seed=0, device="cuda")
-    # init's gates are zero (Shazeer), which ties every expert and sends
-    # every token to experts 0-7; a trained gate spreads tokens over the
-    # experts, so the gates are drawn at random here, as the FFF nodes are
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    for layer in params["stack"]:
-        g = layer["ffn"]["gate_w"]
-        g.copy_(torch.randn(g.shape, generator=gen, device="cuda") * cfg.d_model ** -0.5)
+    random_gates(cfg, params, seed=6)
     log(f"[moe] {cfg.arch_id} native (moe: {spec.moe_experts} experts, top "
         f"{spec.moe_top_k}, width {spec.d_ff}; active width {spec.active_width}) full "
         f"width, all {cfg.n_layers} layers, {lm.param_count(params) / 1e9:.2f}B params "
@@ -2505,6 +2561,211 @@ def phase_long(common, api, lm) -> None:
         f"(CUDA events); done in {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# kimi-k2-1t-a32b, jamba-1.5-large-398b and xlstm-1.3b; the recurrent mixers
+# ---------------------------------------------------------------------------
+
+def refuses_engine(serve_mod, label, cfg, params) -> None:
+    """serve_engine must refuse a model with a recurrent mixer, with the
+    JAX package's message."""
+    from repro_torch.serving.engine import EngineConfig
+    reqs = serve_mod.build_requests(cfg.vocab_size, ENGINE_REQS, ENGINE_PROMPT,
+                                    ENGINE_GEN, seed=0, min_prompt_len=ENGINE_MIN_PROMPT)
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=ENGINE_PROMPT + ENGINE_GEN + 1,
+                        max_prompt_len=ENGINE_PROMPT, device="cuda")
+    try:
+        serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
+    except ValueError as e:
+        if "requires attention mixers" not in str(e):
+            raise
+        log(f"{label} engine refuses it: {e}")
+        return
+    raise AssertionError(f"{label}: the engine served a model with a recurrent mixer")
+
+
+def random_gates(cfg, params, seed) -> None:
+    """The MoE sites' gates drawn N(0, 1/d_model) in place.  init's gates
+    are zero (Shazeer), which ties every expert and sends every token to
+    experts 0-7; a trained gate spreads tokens over the experts, so the
+    gates are drawn at random, as the FFF nodes are."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for layer in params["stack"]:
+        g = layer["ffn"]["gate_w"]
+        g.copy_(torch.randn(g.shape, generator=gen, device="cuda") * cfg.d_model ** -0.5)
+
+
+def arch_intro(label, lm, cfg, params, layers_of, t0) -> None:
+    tags = sorted({site_tag(fc) for fc in site_configs(cfg) if fc is not None})
+    log(f"{label} {cfg.arch_id} full width (d_model {cfg.d_model}, mixers "
+        f"{[b.mixer for b in cfg.period]}, FFF sites (trees x leaves x width) "
+        f"{tags or 'none'}), {cfg.n_layers} of {layers_of} layers, "
+        f"{lm.param_count(params) / 1e9:.2f}B params {cfg.param_dtype}, init "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def phase_kimi(common, api, fff, lm, serve_mod) -> dict:
+    """kimi-k2-1t-a32b FFF (8 trees of depth 6, leaves of 2048, D 7168) at
+    KIMI_LAYERS of 61 layers, bf16: every kernel at its site's shapes, the
+    fixed-batch loop; the native MoE (384 experts, top 8) through the same
+    loop; fp32 greedy parity with the forest cut to KIMI_PARITY_TREES
+    trees.  Returns the kernel rows with their launches."""
+    from repro_torch.configs import kimi_k2_1t_a32b as mod
+    t0 = time.perf_counter()
+    label = "[kimi]"
+    cfg = dataclasses.replace(mod.FFF_CONFIG, n_layers=KIMI_LAYERS)
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    arch_intro(label, lm, cfg, params, mod.CONFIG.n_layers, t0)
+    with torch.inference_mode():
+        rows = arch_kernels(label, cfg, params)
+    counts, res = phase_serve(common, api, serve_mod, cfg, params, label=label)
+    log_rows(rows, f"{label} kernel", counts)
+    fff_p50 = res.steady.p50_ms
+    del params, res
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ncfg = dataclasses.replace(mod.CONFIG, n_layers=KIMI_LAYERS)
+    params = lm.init(ncfg, seed=0, device="cuda")
+    random_gates(ncfg, params, seed=6)
+    torch.cuda.synchronize()
+    arch_intro(f"{label} native MoE", lm, ncfg, params, mod.CONFIG.n_layers, t1)
+    _, res = phase_serve(common, api, serve_mod, ncfg, params, label=f"{label} native")
+    log(f"{label} decode p50 (batch {PREFILL_B}, {KIMI_LAYERS} layer, host clock): FFF "
+        f"forest {fff_p50:.2f} ms, native MoE (384 experts, top 8, gates drawn "
+        f"N(0, 1/d_model)) {res.steady.p50_ms:.2f} ms")
+    del params, res
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(mod.FFF_CONFIG, period=tuple(
+        dataclasses.replace(b, ffn=dataclasses.replace(b.ffn, fff_trees=KIMI_PARITY_TREES))
+        for b in mod.FFF_CONFIG.period))
+    phase_parity(api, fff, lm, cut, label=f"{label} parity (forest cut to "
+                 f"{KIMI_PARITY_TREES} of 8 trees)", exact=False, layers=KIMI_LAYERS)
+    log(f"{label} done in {time.perf_counter() - t0:.1f}s")
+    return {k: dict(v, launches=counts.get(kernel_of(k), 0)) for k, v in rows.items()}
+
+
+def phase_jamba(common, api, fff, lm, serve_mod) -> dict:
+    """jamba-1.5-large-398b FFF, bf16, its period cut to JAMBA_POSITIONS
+    (the port's layer i takes period[i % len(period)], so a depth cut on
+    the published period would never reach its attention block): every
+    kernel at both site configs' shapes, the fixed-batch loop, the
+    engine's refusal, fp32 greedy parity.  Returns the kernel rows."""
+    from repro_torch.configs import jamba_1_5_large_398b as mod
+    t0 = time.perf_counter()
+    label = "[jamba]"
+    base = mod.FFF_CONFIG
+    cfg = dataclasses.replace(base, period=tuple(base.period[i] for i in JAMBA_POSITIONS),
+                              n_layers=len(JAMBA_POSITIONS))
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    arch_intro(label, lm, cfg, params, base.n_layers, t0)
+    with torch.inference_mode():
+        rows = arch_kernels(label, cfg, params)
+    counts, _ = phase_serve(common, api, serve_mod, cfg, params, label=label)
+    log_rows(rows, f"{label} kernel", counts)
+    refuses_engine(serve_mod, label, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    phase_parity(api, fff, lm, cfg, label=f"{label} parity", exact=False,
+                 layers=len(JAMBA_POSITIONS))
+    log(f"{label} done in {time.perf_counter() - t0:.1f}s")
+    return {k: dict(v, launches=counts.get(kernel_of(k), 0)) for k, v in rows.items()}
+
+
+def phase_xlstm(common, api, lm, serve_mod) -> None:
+    """xlstm-1.3b, all 48 layers, bf16: no FFN site, so the fixed-batch
+    loop must launch no kernel; the engine refuses it."""
+    from repro_torch.configs import xlstm_1_3b as mod
+    t0 = time.perf_counter()
+    label = "[xlstm]"
+    cfg = mod.FFF_CONFIG
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    arch_intro(label, lm, cfg, params, cfg.n_layers, t0)
+    counts, _ = phase_serve(common, api, serve_mod, cfg, params, label=label)
+    if any(counts.values()):
+        raise AssertionError(f"{label} a kernel launched: {counts}")
+    refuses_engine(serve_mod, label, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    log(f"{label} done in {time.perf_counter() - t0:.1f}s")
+
+
+def close_e2e(name, got, want) -> float:
+    """got (card) against want (CPU) within rtol = atol = E2E; max |err|."""
+    g, w = got.float().cpu(), want.float().cpu()
+    err = (g - w).abs()
+    if not bool(torch.isfinite(g).all()) or bool((err > E2E + E2E * w.abs()).any()):
+        raise AssertionError(f"{name}: max |err| {float(err.max()):.3e} exceeds "
+                             f"rtol=atol={E2E}")
+    return float(err.max())
+
+
+def phase_mixers() -> None:
+    """The recurrent mixers at full width in float32, the card against the
+    CPU with the same weights: Mamba at jamba's D 8192, the mLSTM and sLSTM
+    blocks at xlstm's D 2048.  A prefill of MIXER_B x MIXER_S tokens from
+    zeros, then MIXER_STEPS one-token steps from its state: every output
+    and the final state within E2E.  On the card, chunkwise mLSTM (chunks
+    of 8 and the default 256) against the sequential recurrence."""
+    from repro_torch import utils
+    from repro_torch.configs import jamba_1_5_large_398b as jamba, xlstm_1_3b as xl
+    from repro_torch.nn import mamba, transformer, xlstm
+    t0 = time.perf_counter()
+    f32 = lambda c: dataclasses.replace(c, param_dtype=torch.float32,
+                                        accum_dtype=torch.float32)
+    mcfg = transformer.make_mamba_config(f32(jamba.CONFIG))
+    xcfg = transformer.make_xlstm_config(f32(xl.CONFIG))
+    gen = torch.Generator().manual_seed(11)
+    cases = (("mamba", mamba.init(gen, mcfg), mcfg.d_model,
+              lambda p, x, st: (mamba.forward if st is None else mamba.forward_step)(
+                  p, mcfg, x, st)),
+             ("mlstm", xlstm.mlstm_init(gen, xcfg), xcfg.d_model,
+              lambda p, x, st: xlstm.mlstm_block(p, xcfg, x, st)),
+             ("slstm", xlstm.slstm_init(gen, xcfg), xcfg.d_model,
+              lambda p, x, st: xlstm.slstm_block(p, xcfg, x, st)))
+    for name, p_cpu, d, fwd in cases:
+        x = torch.randn((MIXER_B, MIXER_S + MIXER_STEPS, d), generator=gen)
+        out = {}
+        for dev, p in (("cpu", p_cpu), ("cuda", utils.tree_map(lambda a: a.cuda(), p_cpu))):
+            xd = x.to(dev)
+            with torch.inference_mode():
+                t1 = time.perf_counter()
+                y, st = fwd(p, xd[:, :MIXER_S], None)
+                ys = [y]
+                for i in range(MIXER_S, MIXER_S + MIXER_STEPS):
+                    y, st = fwd(p, xd[:, i:i + 1], st)
+                    ys.append(y)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                out[dev] = (torch.cat(ys, dim=1), st, time.perf_counter() - t1)
+        (yc, sc, tc), (yg, sg, tg) = out["cpu"], out["cuda"]
+        err = close_e2e(f"[mixers] {name} output", yg, yc)
+        st_err = max(close_e2e(f"[mixers] {name} state.{f}", a, b)
+                     for f, a, b in zip(type(sg)._fields, sg, sc))
+        log(f"[mixers] {name} (d_model {d}, {sum(a.numel() for a in utils.tree_leaves(p_cpu)) / 1e6:.1f}M params "
+            f"fp32): prefill {MIXER_B}x{MIXER_S} + {MIXER_STEPS} steps, card equals "
+            f"CPU within {E2E} (max |err| output {err:.3e}, state {st_err:.3e}; state "
+            f"{[tuple(a.shape) for a in sg]}); card {tg * 1e3:.1f} ms, CPU "
+            f"{tc * 1e3:.1f} ms (host clock, first call)")
+        if name == "mlstm":
+            p = utils.tree_map(lambda a: a.cuda(), p_cpu)
+            xg = x[:, :MIXER_S].cuda()
+            with torch.inference_mode():
+                seq, seq_st = xlstm.mlstm_block(p, xcfg, xg, sequential=True)
+                for chunk in (8, xcfg.chunk):
+                    ccfg = dataclasses.replace(xcfg, chunk=chunk)
+                    got, got_st = xlstm.mlstm_block(p, ccfg, xg)
+                    e = close_e2e(f"[mixers] mlstm chunk {chunk} vs sequential", got, seq)
+                    for f, a, b in zip(got_st._fields, got_st, seq_st):
+                        close_e2e(f"[mixers] mlstm chunk {chunk} state.{f}", a, b)
+                    log(f"[mixers] mlstm on the card: chunkwise (chunk {chunk}) equals the "
+                        f"sequential recurrence within {E2E} (max |err| {e:.3e})")
+            del p
+        torch.cuda.empty_cache()
+    log(f"[mixers] done in {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     name, smi = phase_device()
     sys.path.insert(0, str(SRC))
@@ -2546,6 +2807,10 @@ def main() -> int:
     archs = phase_archs(common, api, fff, lm, serve_mod)
     phase_moe(common, lm, serve_mod, archs.pop("olmoe ffn"))
     phase_long(common, api, lm)
+    archs["kimi-k2-1t-a32b"] = phase_kimi(common, api, fff, lm, serve_mod)
+    archs["jamba-1.5-large-398b"] = phase_jamba(common, api, fff, lm, serve_mod)
+    phase_xlstm(common, api, lm, serve_mod)
+    phase_mixers()
 
     table = []
     for kname, k in common.KERNELS.items():

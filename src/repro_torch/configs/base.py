@@ -1,9 +1,11 @@
 """Config schema (port of ``repro/configs/base.py``) with torch dtypes.
 
 A model's layer stack is a repeated ``period`` of ``BlockSpec``s;
-``FFNSpec.kind`` selects the paper's technique per FFN site.  This slice
-carries the fields the attention-mixer decoder stack reads; the encoder,
-frontend and recurrent-mixer fields arrive with the archs that use them.
+``FFNSpec.kind`` selects the paper's technique per FFN site.  The port
+carries the fields of the decoder-only stacks it serves: attention, Mamba
+(``mamba_*``) and xLSTM (``lstm_heads``) mixers.  The encoder, frontend,
+``attn_logit_softcap`` and ``scan_layers`` fields arrive with the archs
+that use them.
 """
 from __future__ import annotations
 
@@ -72,7 +74,7 @@ class FFNSpec:
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    mixer: str = "attn"            # attn (the only mixer ported so far)
+    mixer: str = "attn"            # attn|mamba|mlstm|slstm
     ffn: FFNSpec = FFNSpec()
     cross_attention: bool = False
     sliding_window: int = 0        # 0 = full attention
@@ -90,17 +92,26 @@ class ModelConfig:
     period: Tuple[BlockSpec, ...]
     head_dim: int = 0              # 0 -> d_model // n_heads
     max_seq_len: int = 8192
-    pos_emb: str = "rope"
+    pos_emb: str = "rope"          # rope|none (learned|sinusoidal: not yet)
     rope_theta: float = 10000.0
     norm: str = "rmsnorm"          # rmsnorm|layernorm
     attn_bias: bool = False
     tie_embeddings: bool = False
+    # mamba hyper-params (hybrid archs)
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    # xlstm hyper-params
+    lstm_heads: int = 4
     # numerics
     param_dtype: Any = torch.float32
     accum_dtype: Any = torch.float32
     # runtime (training fields, carried for the training slice)
     remat: str = "none"
     grad_accum: int = 1
+    # 1: params replicated, moments sharded; 3: params sharded too.  A
+    # recorded field: nothing reads it until distributed/sharding is ported
+    zero_stage: int = 1
     attn_chunk: int = 1024         # flash-attention chunk size
     subquadratic: bool = False
 

@@ -10,11 +10,14 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "command-r-35b": "repro_torch.configs.command_r_35b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

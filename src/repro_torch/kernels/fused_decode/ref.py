@@ -14,17 +14,21 @@ from repro_torch import utils
 
 def _mlp(xf: torch.Tensor, w: tuple, act: str, gather=None) -> torch.Tensor:
     """xf (B, D) through one MLP per token; with ``gather`` (B,) the weights
-    carry a leading leaf axis and each token uses its own leaf."""
-    ws = [(v[gather] if gather is not None else v).float() for v in w]
-    eq_in, eq_out = (("bd,bdh->bh", "bh,bho->bo") if gather is not None
-                     else ("bd,dh->bh", "bh,ho->bo"))
+    carry a leading leaf axis and each token uses its own leaf, taken leaf
+    by leaf over the distinct indices (one leaf in float32 at a time)."""
+    if gather is not None:
+        y = torch.zeros((xf.shape[0], w[-1].shape[-1]), dtype=torch.float32,
+                        device=xf.device)
+        for e in torch.unique(gather).tolist():
+            rows = gather == e
+            y[rows] = _mlp(xf[rows], tuple(v[e] for v in w), act)
+        return y
+    ws = [v.float() for v in w]
     if act == "swiglu":
         wg, wu, wd = ws
-        h = F.silu(torch.einsum(eq_in, xf, wg)) * torch.einsum(eq_in, xf, wu)
-        return torch.einsum(eq_out, h, wd)
+        return (F.silu(xf @ wg) * (xf @ wu)) @ wd
     w1, w2 = ws
-    h = utils.get_activation(act)(torch.einsum(eq_in, xf, w1))
-    return torch.einsum(eq_out, h, w2)
+    return utils.get_activation(act)(xf @ w1) @ w2
 
 
 def fused_decode_ref(x: torch.Tensor, nw: torch.Tensor, nb: torch.Tensor,

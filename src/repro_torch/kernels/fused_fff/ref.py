@@ -11,14 +11,20 @@ from repro_torch.kernels.leaf_gemm.ref import ACTS
 
 def _gathered(x: torch.Tensor, w: torch.Tensor, leaf_idx: torch.Tensor
               ) -> torch.Tensor:
-    """(B, D) x w[leaf_idx] (B, D, H) -> (B, H) float32.  A row whose
-    index lies outside [0, E) reads no weights and yields zeros, as the
-    kernel's guard does (the router never produces one)."""
+    """(B, D) x w[leaf_idx] (B, D, H) -> (B, H) float32, leaf by leaf over
+    the distinct indices, so one leaf's weights exist in float32 at a time
+    (a per-token gather of jamba's 24576-wide leaves would be 13 GB a
+    matrix at 32 tokens).  A row whose index lies outside [0, E) reads no
+    weights and yields zeros, as the kernel's guard does (the router never
+    produces one)."""
     idx = leaf_idx.long()
-    ok = (idx >= 0) & (idx < w.shape[0])
-    wg = w[idx.clamp(0, w.shape[0] - 1)].float()
-    y = torch.einsum("bd,bdh->bh", x.float(), wg)
-    return y * ok[:, None]
+    xf = x.float()
+    y = torch.zeros((x.shape[0], w.shape[-1]), dtype=torch.float32, device=x.device)
+    for e in torch.unique(idx).tolist():
+        if 0 <= e < w.shape[0]:
+            rows = idx == e
+            y[rows] = xf[rows] @ w[e].float()
+    return y
 
 
 def gathered_matmul_ref(x: torch.Tensor, w: torch.Tensor,

@@ -29,8 +29,10 @@ times each CUDA kernel launched.
 ``ModelConfig``, e.g. a full-width config with fewer layers,
 ``dataclasses.replace(FFF_CONFIG, n_layers=8)``.  The command line serves
 the registry config cut by ``reduced()``, as the JAX driver does (its
-``--reduced`` is always on).  The card is the default; ``--device cpu``
-runs the plain PyTorch versions on the host::
+``--reduced`` is always on).  The archs with recurrent mixers
+(jamba-1.5-large-398b, xlstm-1.3b) serve through ``--engine off``: the
+engine refuses them, as the JAX package's does.  The card is the default;
+``--device cpu`` runs the plain PyTorch versions on the host::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --engine continuous --batch 4 --prompt-len 32 --gen 8 --spec-k 2

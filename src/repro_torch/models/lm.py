@@ -23,9 +23,13 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     tensor by tensor on ``device`` in the config's parameter dtype.  Same
     layout as ``repro.models.lm.init`` except the stack, which is one dict
     per layer (``nn/transformer.py``); ``weights.from_jax`` carries JAX
-    weights over instead."""
-    if cfg.pos_emb != "rope":
-        raise NotImplementedError("the port serves RoPE models so far")
+    weights over instead.  Positions come from RoPE or from nowhere
+    (``pos_emb="none"``: the recurrent mixers carry position in their
+    state)."""
+    if cfg.pos_emb not in ("rope", "none"):
+        raise NotImplementedError(
+            f"pos_emb {cfg.pos_emb!r}: learned and sinusoidal positions are "
+            f"not ported yet (they come with the encoder archs)")
     dev = utils.resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return {
@@ -47,9 +51,10 @@ def param_count(params) -> int:
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                 page_size: int = 0, num_pages: int = 0, prealloc: bool = True,
                 device="cuda") -> list[dict]:
-    """Per-layer KV caches: contiguous (``page_size`` 0), or a paged pool
-    of ``num_pages`` pages of ``page_size`` tokens, with identity tables
-    (``prealloc``) or unmapped ones for the engine to install."""
+    """Per-layer caches: an attention layer's KV cache, contiguous
+    (``page_size`` 0) or a paged pool of ``num_pages`` pages of
+    ``page_size`` tokens with identity tables (``prealloc``) or unmapped
+    ones for the engine to install; a recurrent layer's state (zeros)."""
     return transformer.init_caches(cfg, batch, max_len, dtype,
                                    page_size=page_size, num_pages=num_pages,
                                    prealloc=prealloc,
@@ -146,12 +151,15 @@ def set_cache_lengths(caches: list[dict], lengths: torch.Tensor) -> list[dict]:
     """Overwrite every layer's per-row filled length with ``lengths`` (B,):
     the speculative round's rollback.  Positions at or past a row's new
     length stay in the pools, masked by length, until appends overwrite
-    them."""
+    them.  A recurrent layer's state has no length and is left as it is,
+    as in the JAX package."""
     out = []
     for c in caches:
-        kv = c["kv"]
-        out.append(dict(c, kv=kv._replace(
-            length=lengths.to(kv.length.device, kv.length.dtype))))
+        if "kv" in c:
+            kv = c["kv"]
+            c = dict(c, kv=kv._replace(
+                length=lengths.to(kv.length.device, kv.length.dtype)))
+        out.append(c)
     return out
 
 
@@ -174,7 +182,12 @@ def cache_admit(caches: list[dict], admit: torch.Tensor,
 
     Contiguous caches (every row owns one ``max_len`` page, and no prefix
     is shared) take ``admit`` alone and restart those rows at length 0.
-    The pools are not cleared; everything past a row's length is masked."""
+    The pools are not cleared; everything past a row's length is masked.
+    Recurrent state cannot be restarted per row by length, so caches with
+    a recurrent layer are refused."""
+    if any("kv" not in c for c in caches):
+        raise ValueError("cache_admit requires attention KV caches (recurrent "
+                         "state is not length-masked)")
     out = []
     for c in caches:
         kv = c["kv"]

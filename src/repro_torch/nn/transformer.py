@@ -1,5 +1,11 @@
 """Transformer block + stack (port of ``repro/nn/transformer.py``).
 
+A block is a pre-norm sequence mixer (attention, or the recurrent Mamba,
+mLSTM and sLSTM mixers of ``nn/mamba.py`` and ``nn/xlstm.py``) and an
+optional pre-norm FFN site.  A layer's cache holds its mixer's state
+under the JAX package's keys: ``"kv"`` (attention), ``"mamba"``,
+``"mlstm"`` or ``"slstm"``.
+
 The stack is a Python loop over layers.  Where the JAX package stacks each
 period position's parameters on a leading ``n_periods`` axis for
 ``lax.scan``, the port keeps one parameter dict (and one cache dict) per
@@ -27,7 +33,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.core import api
-from repro_torch.nn import attention, mlp, norms
+from repro_torch.nn import attention, mamba, mlp, norms, xlstm
 
 Params = dict
 Cache = dict
@@ -49,26 +55,81 @@ def make_attn_config(cfg: ModelConfig, spec: BlockSpec, *, causal: bool = True
         param_dtype=cfg.param_dtype, accum_dtype=cfg.accum_dtype)
 
 
+def make_mamba_config(cfg: ModelConfig) -> mamba.MambaConfig:
+    return mamba.MambaConfig(
+        d_model=cfg.d_model, d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv,
+        expand=cfg.mamba_expand, param_dtype=cfg.param_dtype,
+        accum_dtype=cfg.accum_dtype)
+
+
+def make_xlstm_config(cfg: ModelConfig) -> xlstm.XLSTMConfig:
+    return xlstm.XLSTMConfig(
+        d_model=cfg.d_model, n_heads=cfg.lstm_heads,
+        param_dtype=cfg.param_dtype, accum_dtype=cfg.accum_dtype)
+
+
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+
+
 def _check_spec(spec: BlockSpec) -> None:
-    if spec.mixer != "attn" or spec.cross_attention:
-        raise NotImplementedError(
-            f"mixer {spec.mixer!r} (cross_attention={spec.cross_attention}) "
-            f"is not ported yet")
+    if spec.mixer not in MIXERS:
+        raise ValueError(f"unknown mixer {spec.mixer!r}; have {MIXERS}")
+    if spec.cross_attention:
+        raise NotImplementedError("cross_attention is not ported yet")
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec) -> Params:
     _check_spec(spec)
     dev = gen.device
-    p: Params = {
-        "norm1": norms.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, dev),
-        "mixer": attention.init(gen, make_attn_config(cfg, spec)),
-    }
+    p: Params = {"norm1": norms.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, dev)}
+    if spec.mixer == "attn":
+        p["mixer"] = attention.init(gen, make_attn_config(cfg, spec))
+    elif spec.mixer == "mamba":
+        p["mixer"] = mamba.init(gen, make_mamba_config(cfg))
+    elif spec.mixer == "mlstm":
+        p["mixer"] = xlstm.mlstm_init(gen, make_xlstm_config(cfg))
+    else:
+        p["mixer"] = xlstm.slstm_init(gen, make_xlstm_config(cfg))
     if spec.ffn.kind != "none":
         p["norm2"] = norms.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, dev)
         p["ffn"] = mlp.init(gen, spec.ffn, cfg.d_model,
                             param_dtype=cfg.param_dtype,
                             accum_dtype=cfg.accum_dtype)
     return p
+
+
+def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
+                     max_len: int, dtype=None, *, page_size: int = 0,
+                     num_pages: int = 0, prealloc: bool = True,
+                     device="cpu") -> Cache:
+    """One layer's cache: the attention KV cache (contiguous, or paged with
+    ``page_size > 0``) or the recurrent mixer's state, zeros in
+    ``cfg.accum_dtype`` as in the JAX package."""
+    _check_spec(spec)
+    if spec.mixer == "attn":
+        return {"kv": attention.init_cache(
+            batch, max_len, make_attn_config(cfg, spec), dtype,
+            page_size=page_size, num_pages=num_pages, prealloc=prealloc,
+            device=device)}
+    if spec.mixer == "mamba":
+        return {"mamba": mamba.init_state(batch, make_mamba_config(cfg),
+                                          cfg.accum_dtype, device=device)}
+    if spec.mixer == "mlstm":
+        return {"mlstm": xlstm.mlstm_init_state(batch, make_xlstm_config(cfg),
+                                                cfg.accum_dtype, device=device)}
+    return {"slstm": xlstm.slstm_init_state(batch, cfg.d_model, cfg.accum_dtype,
+                                            device=device)}
+
+
+def _recurrent(params: Params, cfg: ModelConfig, spec: BlockSpec,
+               h: torch.Tensor, state):
+    """The recurrent mixer of ``spec`` on h (B, S, D) from ``state`` (None:
+    zeros); returns (y, the final state)."""
+    if spec.mixer == "mamba":
+        return mamba.forward(params, make_mamba_config(cfg), h, state)
+    if spec.mixer == "mlstm":
+        return xlstm.mlstm_block(params, make_xlstm_config(cfg), h, state)
+    return xlstm.slstm_block(params, make_xlstm_config(cfg), h, state)
 
 
 def block_forward(params: Params, cfg: ModelConfig, spec: BlockSpec,
@@ -78,19 +139,30 @@ def block_forward(params: Params, cfg: ModelConfig, spec: BlockSpec,
                   decode_mask: Optional[torch.Tensor] = None,
                   token_valid: Optional[torch.Tensor] = None
                   ) -> tuple[torch.Tensor, Optional[Cache], dict]:
-    """One block: pre-norm attention + residual, pre-norm FFN + residual.
+    """One block: pre-norm mixer + residual, pre-norm FFN + residual.
     ``train`` and ``eval`` take no cache and return None for it; ``gen``
     drives the FFN's stochastic training feature.  ``chunk_valid`` (B,) is
     each row's real token count in chunk mode; ``decode_mask`` (B,) keeps
     rows from writing their KV cache in decode mode; ``token_valid`` marks
     phantom tokens for the FFN dispatch (in chunk mode derived from
-    ``chunk_valid`` when not given)."""
+    ``chunk_valid`` when not given).  Those three are attention features:
+    a recurrent mixer has no length-masked state, so chunk mode refuses it
+    (as in the JAX package; the serving engine refuses such models)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     _check_spec(spec)
+    if mode == "chunk" and spec.mixer != "attn":
+        raise ValueError("chunked prefill requires plain attention mixers "
+                         "(recurrent state folds pad garbage in)")
     h = norms.norm_apply(cfg.norm, params["norm1"], x)
+    new_cache = None
+    if spec.mixer != "attn":
+        y, state = _recurrent(params["mixer"], cfg, spec, h,
+                              None if cache is None else cache[spec.mixer])
+        if mode not in ("train", "eval"):
+            new_cache = {spec.mixer: state}
+        return _ffn(params, cfg, spec, x + y, mode, gen, token_valid, new_cache)
     acfg = make_attn_config(cfg, spec)
-    kv = None
     if mode in ("train", "eval"):      # eval: full attention, hard FFN routing
         y = attention.forward(params["mixer"], acfg, h)
     elif mode == "prefill":
@@ -104,7 +176,15 @@ def block_forward(params: Params, cfg: ModelConfig, spec: BlockSpec,
     else:
         y, kv = attention.forward_decode(params["mixer"], acfg, h, cache["kv"],
                                          decode_mask)
-    x = x + y
+    if mode not in ("train", "eval"):
+        new_cache = {"kv": kv}
+    return _ffn(params, cfg, spec, x + y, mode, gen, token_valid, new_cache)
+
+
+def _ffn(params: Params, cfg: ModelConfig, spec: BlockSpec, x: torch.Tensor,
+         mode: str, gen, token_valid, new_cache):
+    """The block's pre-norm FFN site + residual; returns block_forward's
+    (x, cache, aux)."""
     aux = {}
     if spec.ffn.kind != "none":
         h2 = norms.norm_apply(cfg.norm, params["norm2"], x)
@@ -114,7 +194,7 @@ def block_forward(params: Params, cfg: ModelConfig, spec: BlockSpec,
                               train=(mode == "train"), gen=gen,
                               valid=token_valid)
         x = x + y2
-    return x, (None if kv is None else {"kv": kv}), aux
+    return x, new_cache, aux
 
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig) -> list[Params]:
@@ -126,12 +206,10 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig) -> list[Params]:
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                 page_size: int = 0, num_pages: int = 0, prealloc: bool = True,
                 device="cpu") -> list[Cache]:
-    """One KV cache per layer, mirroring ``stack_init``: contiguous, or
-    paged with ``page_size > 0`` (``attention.init_cache``)."""
-    return [{"kv": attention.init_cache(
-                batch, max_len, make_attn_config(cfg, cfg.period[i % len(cfg.period)]),
-                dtype, page_size=page_size, num_pages=num_pages,
-                prealloc=prealloc, device=device)}
+    """One cache per layer, mirroring ``stack_init`` (``init_block_cache``)."""
+    return [init_block_cache(cfg, cfg.period[i % len(cfg.period)], batch, max_len,
+                             dtype, page_size=page_size, num_pages=num_pages,
+                             prealloc=prealloc, device=device)
             for i in range(cfg.n_layers)]
 
 

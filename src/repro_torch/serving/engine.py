@@ -241,8 +241,10 @@ class ContinuousBatchingEngine:
                  scheduler: Optional[Scheduler] = None,
                  clock: Optional[Callable[[], float]] = None):
         if any(b.mixer != "attn" or b.cross_attention for b in cfg.period):
+            # recurrent mixers fold right-pad garbage into their state
             raise ValueError("serving engine requires attention mixers "
-                             "(padded slabs are length-masked)")
+                             "(padded prefill is length-masked, recurrent "
+                             "state is not)")
         if ecfg.max_prompt_len >= ecfg.max_len:
             raise ValueError("max_prompt_len must leave room to generate "
                              "(max_prompt_len < max_len)")

@@ -38,6 +38,15 @@ def einsum_as(eq: str, *operands: torch.Tensor, out_dtype) -> torch.Tensor:
     return torch.einsum(eq, *(o.to(ct) for o in operands)).to(out_dtype)
 
 
+def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum`` without ``preferred_element_type``: the product in
+    the operands' promoted dtype (``torch.einsum`` refuses mixed dtypes)."""
+    ct = operands[0].dtype
+    for o in operands[1:]:
+        ct = torch.promote_types(ct, o.dtype)
+    return torch.einsum(eq, *(o.to(ct) for o in operands))
+
+
 def tree_leaves(tree) -> list:
     """The tensors of a nested dict/list/tuple, in a fixed order (dicts in
     insertion order)."""
@@ -90,23 +99,50 @@ def _normal(gen: torch.Generator, shape) -> torch.Tensor:
                        dtype=torch.float32)
 
 
+#: tensors with more elements are drawn one slice of the first axis at a
+#: time, so only a slice exists in float32 (kimi-k2's forest: 7.5e9
+#: elements a weight, 30 GB in float32 beside its 15 GB in bf16); smaller
+#: ones keep their single draw
+SLICED_INIT_ABOVE = 2 ** 31
+
+
+def _by_slices(gen: torch.Generator, shape: tuple, dtype, draw):
+    """``draw(slice_shape)`` for each slice of the first axis, into one
+    tensor of ``dtype``; None when ``shape`` is drawn whole."""
+    if math.prod(shape) <= SLICED_INIT_ABOVE or len(shape) < 2:
+        return None
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        out[i] = draw(shape[1:])
+    return out
+
+
 def lecun_normal(gen: torch.Generator, shape, dtype=torch.float32,
                  fan_in_axis: int = -2) -> torch.Tensor:
+    shape = tuple(shape)
     std = 1.0 / math.sqrt(shape[fan_in_axis])
-    return _normal(gen, shape).mul_(std).to(dtype)
+    out = _by_slices(gen, shape, dtype, lambda s: _normal(gen, s).mul_(std))
+    return out if out is not None else _normal(gen, shape).mul_(std).to(dtype)
 
 
 def he_normal(gen: torch.Generator, shape, dtype=torch.float32,
               fan_in_axis: int = -2) -> torch.Tensor:
+    shape = tuple(shape)
     std = math.sqrt(2.0 / shape[fan_in_axis])
-    return _normal(gen, shape).mul_(std).to(dtype)
+    out = _by_slices(gen, shape, dtype, lambda s: _normal(gen, s).mul_(std))
+    return out if out is not None else _normal(gen, shape).mul_(std).to(dtype)
 
 
 def truncated_init(gen: torch.Generator, shape, std: float,
                    dtype=torch.float32) -> torch.Tensor:
     """N(0, 1) truncated to [-2, 2], times ``std`` (``jax.random.
     truncated_normal(key, -2, 2) * std``)."""
-    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    shape = tuple(shape)
+    out = _by_slices(gen, shape, dtype,
+                     lambda s: truncated_init(gen, s, std, torch.float32))
+    if out is not None:
+        return out
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(std).to(dtype)
 

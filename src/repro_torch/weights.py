@@ -40,6 +40,13 @@ def tree(params, device="cuda"):
     return tensor(params, device)
 
 
+def state(state_np, cls, device="cuda"):
+    """A recurrent mixer's state as numpy (a ``MambaState``, ``MLSTMState``
+    or ``SLSTMState`` of the JAX package, field by field) -> the port's
+    NamedTuple ``cls`` of tensors."""
+    return cls(*(tensor(a, device) for a in state_np))
+
+
 def from_jax(params_np: dict, cfg: ModelConfig, device="cuda") -> dict:
     """``repro.models.lm.init``'s tree (as numpy) -> the port's LM params.
 
