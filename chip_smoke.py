@@ -206,9 +206,30 @@ Phases (any failure raises, and the exit code is non-zero):
               steps from its state, every output and the final state
               within 1e-3; on the card, chunkwise mLSTM (chunks of 8 and
               256) against the sequential recurrence.
+18. whisper — whisper-small FFF whole (12 encoder + 12 decoder layers,
+              D 768, a 51865-word head), bf16: every kernel at the decoder
+              site's shapes (one tree of depth 3, 8 GELU leaves of 384), as
+              archs, and the two dual kernels on random SwiGLU leaves of
+              those shapes (no GELU site runs them), each twice and
+              bit-identical; lm.encode over (8, 1500, 768) launches no
+              kernel (its sites run FORWARD_T in train mode, as in the JAX
+              package); the fixed-batch loop with enc_embeds (8, 1500, 768):
+              12 router and 24 grouped_matmul launches in the prefill, 12
+              fused decode launches a step; the loop again, warm; a warm
+              prefill and decode step profiled (as profile); the engine's
+              refusal (the JAX message); the encoder in float32 on
+              the card against the CPU (2 x 1500 frames, within 1e-3); fp32
+              greedy parity at full depth from tokens and enc_embeds.
+19. internvl — internvl2-26b FFF at full width (D 6144, 16 SwiGLU leaves
+              of 1024, a 92553-word head), 8 of 48 layers, bf16: the
+              fixed-batch loop with an embeds prompt of 8 x 128 x 6144 in
+              place of tokens (launch counts asserted), warm again; a warm
+              prefill and decode step profiled; the engine's refusal; fp32 greedy parity at 2 layers from an
+              embeds prompt.
 
-Prints the new archs' kernel rows as one JSON line ({"arch_kernels": ...},
-jamba's rows tagged with their site, trees x leaves x width),
+Each phase's seconds print as a "[time]" line.  Prints the new archs' kernel rows as one JSON line ({"arch_kernels": ...},
+jamba's rows tagged with their site, trees x leaves x width; whisper's
+SwiGLU probe rows tagged "[swiglu probe]", 0 launches),
 the kernel table as one JSON line (launches from the monolithic engine
 run), the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
@@ -275,6 +296,10 @@ LONG_LAYERS, LONG_PROMPT, LONG_GEN = 2, 6144, 8
 # MIXER_B x MIXER_S tokens and MIXER_STEPS one-token steps, held at E2E
 KIMI_LAYERS, KIMI_PARITY_TREES, JAMBA_POSITIONS = 1, 2, (0, 1, 7)
 MIXER_B, MIXER_S, MIXER_STEPS, E2E = 2, 32, 4, 1e-3
+# whisper-small whole (12 encoder + 12 decoder layers), its encoder held
+# against the CPU's in float32 at WHISPER_CPU_B rows; internvl2-26b at
+# INTERNVL_LAYERS of 48 layers
+WHISPER_CPU_B, INTERNVL_LAYERS = 2, 8
 
 
 def log(msg: str) -> None:
@@ -501,9 +526,10 @@ def router_row(label, x, nw, nb, depth=DEPTH) -> dict:
 def grouped_rows(label, xg, up_w, wd, gs, act, dtype, timed=True):
     """The grouped up projection on xg (E, C, d), the dual kernel on up_w =
     (wg, wu) under SwiGLU, else ``grouped_matmul`` with ``act`` on up_w =
-    (w1,), then ``grouped_matmul`` down on its output, each against its
-    plain version.  Returns the hidden and, when ``timed``, a row for each
-    (``torch.bmm`` the down projection's library call)."""
+    (w1,), then ``grouped_matmul`` down on its output, each called twice
+    (bit-identical) and held against its plain version.  Returns the hidden
+    and, when ``timed``, a row for each (``torch.bmm`` the down
+    projection's library call)."""
     from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
     C, d = xg.shape[1:]
     L, O = wd.shape[1:]
@@ -515,11 +541,12 @@ def grouped_rows(label, xg, up_w, wd, gs, act, dtype, timed=True):
         up_name = "grouped_matmul (up)"
         up = lambda: gk.grouped_matmul(xg, up_w[0], gs, act=act)
         up_ref = lambda: gr.grouped_matmul_ref(xg, up_w[0], gs, act=act)
-    h = up()
+    h = twice(f"{label} {up_name}", up)
     err_up = compare(f"{label} {up_name}", h, up_ref(), dtype)
     down = lambda: gk.grouped_matmul(h, wd, gs)
     down_ref = lambda: gr.grouped_matmul_ref(h, wd, gs)
-    err_down = compare(f"{label} grouped_matmul", down(), down_ref(), dtype)
+    err_down = compare(f"{label} grouped_matmul", twice(f"{label} grouped_matmul", down),
+                       down_ref(), dtype)
     if not timed:
         return h, {}
     return h, {up_name: kernel_row(err_up, up, up_ref,
@@ -1072,20 +1099,23 @@ def profile_report(label, prof, wall_s, steps) -> None:
             f" calls/step  {e.key[:90]}")
 
 
-def phase_profile(cfg, params, lm) -> None:
+def phase_profile(cfg, params, lm, inputs=None) -> None:
     """Where a warm prefill and a warm decode step spend their time:
     host-clock step time, device busy share (kernel time over the window)
-    and the kernels with the most device time, from torch.profiler."""
+    and the kernels with the most device time, from torch.profiler.
+    ``inputs(prompt)``, when given, makes the prefill's inputs from the
+    token prompt (an encoder's enc_embeds, or an embeds prompt)."""
     from torch.profiler import ProfilerActivity, profile
     # a seeded prompt: its overflow repairs, launches and syncs repeat from run to run
     prompt = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(4),
                            dtype=torch.int32)
     max_len = PREFILL_S + GEN + 1
+    batch = {"tokens": prompt} if inputs is None else inputs(prompt)
 
     def prefill():
         caches = lm.init_caches(cfg, PREFILL_B, max_len, device="cuda")
-        out = lm.prefill(params, cfg, {"tokens": prompt}, caches)
+        out = lm.prefill(params, cfg, batch, caches)
         torch.cuda.synchronize()
         return out
 
@@ -1114,23 +1144,26 @@ def phase_profile(cfg, params, lm) -> None:
 
 
 def phase_parity(api, fff, lm, fff_config, label="[parity]", exact=True,
-                 layers=PARITY_LAYERS) -> None:
+                 layers=PARITY_LAYERS, inputs=None) -> None:
     """float32, full width, ``layers`` layers: lm.generate's greedy tokens
     through the kernel backends against the reference backend's.  A row
     may differ only where it met a deciding margin under NEAR_TIE (a node
     logit on a routed path, or the gap between the two largest logits);
-    with ``exact`` no row may differ."""
+    with ``exact`` no row may differ.  ``inputs(cfg, prompt, gen)``, when
+    given, makes the prefill's inputs from the token prompt (an encoder's
+    enc_embeds, or an embeds prompt), which ``greedy`` decodes from."""
     cfg = dataclasses.replace(fff_config, n_layers=layers,
                               param_dtype=torch.float32, accum_dtype=torch.float32)
     params = lm.init(cfg, seed=1, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
     prompt = torch.randint(0, cfg.vocab_size, (PARITY_B, PARITY_S), generator=gen,
                            device="cuda", dtype=torch.int32)
+    batch = None if inputs is None else inputs(cfg, prompt, gen)
     max_len = PARITY_S + PARITY_STEPS + 1
     kern, m_kern = generate_batch_with_margins(api, fff, lm, cfg, params, prompt,
-                                               PARITY_STEPS, max_len)
+                                               PARITY_STEPS, max_len, batch=batch)
     ref, m_ref = generate_batch_with_margins(api, fff, lm, cfg, params, prompt,
-                                             PARITY_STEPS, max_len,
+                                             PARITY_STEPS, max_len, batch=batch,
                                              backend="reference", mode="infer")
     margin = [min(a, b) for a, b in zip(m_kern, m_ref)]
     ties = near_tie_check(label, dict(enumerate(kern)), dict(enumerate(ref)), margin)
@@ -1741,17 +1774,37 @@ def train_full_width(common, api, fff, lm, FFF_CONFIG) -> None:
     torch.cuda.empty_cache()
 
 
+def greedy(lm, cfg, params, batch, steps, max_len) -> torch.Tensor:
+    """lm.generate's greedy loop from a prefill of ``batch`` (tokens with an
+    encoder's enc_embeds, or an embeds prompt): the (B, steps) generated
+    tokens."""
+    B, S = (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[:2]
+    caches = lm.init_caches(cfg, B, max_len, device="cuda")
+    logits, caches = lm.prefill(params, cfg, batch, caches)
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    out = []
+    for i in range(steps):
+        out.append(tok)
+        logits, caches = lm.decode_step(params, cfg, tok, caches, S + i)
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+    return torch.cat(out, dim=1)
+
+
 def generate_batch_with_margins(api, fff, lm, cfg, params, prompt, steps, max_len,
-                                **overrides):
-    """lm.generate on the whole batch (under ``api.overrides(**overrides)``
-    when given), and per row the smallest deciding margin it met: a node
-    logit on a routed path of any tree, or the gap between the two largest
-    logits."""
+                                batch=None, **overrides):
+    """lm.generate on the whole batch (``greedy`` from ``batch``'s prefill
+    inputs when given), under ``api.overrides(**overrides)`` when given,
+    and per row the smallest deciding margin it met: a node logit on a
+    routed path of any tree, or the gap between the two largest logits.
+    Train-mode sites (an encoder's soft mixture) decide nothing and are
+    left out."""
     B = prompt.shape[0]
     row_min = torch.full((B,), math.inf, device="cuda")
     apply_fn, head_fn = api.apply, lm._head
 
     def recording_apply(p, c, x, spec=api.ExecutionSpec()):
+        if spec.mode == "train":
+            return apply_fn(p, c, x, spec)
         xf = x.reshape(B, -1, x.shape[-1]).to(c.accum_dtype)
         every = fff._node_logits_all(p, c, xf.reshape(-1, x.shape[-1]))
         for t in range(c.trees):
@@ -1776,10 +1829,11 @@ def generate_batch_with_margins(api, fff, lm, cfg, params, prompt, steps, max_le
     try:
         with torch.inference_mode(), (api.overrides(**overrides) if overrides
                                       else contextlib.nullcontext()):
-            out = lm.generate(params, cfg, prompt, steps, max_len)
+            out = (lm.generate(params, cfg, prompt, steps, max_len)[:, prompt.shape[1]:]
+                   if batch is None else greedy(lm, cfg, params, batch, steps, max_len))
     finally:
         api.apply, lm._head = apply_fn, head_fn
-    return out[:, prompt.shape[1]:], row_min.tolist()
+    return out, row_min.tolist()
 
 
 def train_then_serve(common, api, fff, lm, FFF_CONFIG) -> None:
@@ -2565,9 +2619,11 @@ def phase_long(common, api, lm) -> None:
 # kimi-k2-1t-a32b, jamba-1.5-large-398b and xlstm-1.3b; the recurrent mixers
 # ---------------------------------------------------------------------------
 
-def refuses_engine(serve_mod, label, cfg, params) -> None:
-    """serve_engine must refuse a model with a recurrent mixer, with the
-    JAX package's message."""
+def refuses_engine(serve_mod, label, cfg, params, why="requires attention mixers"
+                   ) -> None:
+    """serve_engine must refuse a model with a recurrent mixer (or, with
+    ``why="decoder-only token LMs"``, an encoder or frontend model), with
+    the JAX package's message."""
     from repro_torch.serving.engine import EngineConfig
     reqs = serve_mod.build_requests(cfg.vocab_size, ENGINE_REQS, ENGINE_PROMPT,
                                     ENGINE_GEN, seed=0, min_prompt_len=ENGINE_MIN_PROMPT)
@@ -2576,11 +2632,11 @@ def refuses_engine(serve_mod, label, cfg, params) -> None:
     try:
         serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
     except ValueError as e:
-        if "requires attention mixers" not in str(e):
+        if why not in str(e):
             raise
         log(f"{label} engine refuses it: {e}")
         return
-    raise AssertionError(f"{label}: the engine served a model with a recurrent mixer")
+    raise AssertionError(f"{label}: the engine served a model it must refuse ({why})")
 
 
 def random_gates(cfg, params, seed) -> None:
@@ -2766,7 +2822,187 @@ def phase_mixers() -> None:
     log(f"[mixers] done in {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# whisper-small (encoder-decoder, cross-attention) and internvl2-26b (vision stub)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def backends_ran(api):
+    """Yields a list that takes (mode, name) of every FFF backend that runs
+    inside the context."""
+    saved, ran = dict(api._REGISTRY), []
+    for key, fn in saved.items():
+        api._REGISTRY[key] = lambda *a, _fn=fn, _k=key: (ran.append(_k), _fn(*a))[1]
+    try:
+        yield ran
+    finally:
+        api._REGISTRY.update(saved)
+
+
+def swiglu_probe(label, cfg, params) -> dict:
+    """The two dual kernels, which a GELU site never runs, at the site's
+    shapes (D, E leaves of width L) on random SwiGLU leaves, routed by
+    layer 0's nodes: the grouped dual at the 1024-token prefill slab and
+    the gathered dual at the 32-token verify slab, each twice
+    (bit-identical) against its plain version, with its row."""
+    from repro_torch import utils
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    from repro_torch.kernels.leaf_gemm import ops as gemm_ops
+    fc = site_configs(cfg)[0]
+    nw, nb = (t[0].contiguous() for t in fd_ops.collapse_nodes(params["stack"][0]["ffn"], fc))
+    E, L, d, dtype = fc.num_leaves, fc.leaf_width, cfg.d_model, cfg.param_dtype
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device="cuda")
+                                   * scale).to(dtype)
+    wg, wu = randn(E, d, L, scale=d ** -0.5), randn(E, d, L, scale=d ** -0.5)
+    wd = randn(E, L, d, scale=L ** -0.5)
+    tag = f"{label} [swiglu probe]"
+    x = randn(PREFILL_B * PREFILL_S, d)
+    leaf, _ = routed(f"{tag} tree_router", x, nw, nb, fc.depth)
+    C = max(128, utils.round_up(int(2.0 * utils.cdiv(x.shape[0], E)), 128))
+    lay = gemm_ops.scatter_to_groups(x, leaf, E, C)
+    _, grouped = grouped_rows(tag, lay.x_grouped, (wg, wu), wd, lay.group_sizes,
+                              "swiglu", dtype)
+    x = randn(VERIFY_B, d)
+    leaf, _ = routed(f"{tag} tree_router@32", x, nw, nb, fc.depth)
+    _, gathered = gathered_rows(tag, x, (wg, wu), wd, leaf, "swiglu", dtype)
+    return {"grouped_matmul_dual [swiglu probe]": dict(grouped["grouped_matmul_dual"],
+                                                       capacity=C),
+            "gathered_matmul_dual [swiglu probe]": gathered["gathered_matmul_dual"]}
+
+
+def encoder_card_vs_cpu(lm, base_cfg, label) -> None:
+    """The encoder in float32 (TF32 off) over WHISPER_CPU_B x seq_len frame
+    embeddings, one seeded param tree on the CPU and on the card: the
+    outputs within E2E."""
+    from repro_torch import utils
+    cfg = dataclasses.replace(base_cfg, param_dtype=torch.float32,
+                              accum_dtype=torch.float32)
+    t0 = time.perf_counter()
+    p_cpu = lm.init(cfg, seed=3, device="cpu")
+    enc = torch.randn((WHISPER_CPU_B, cfg.encoder.seq_len, cfg.d_model),
+                      generator=torch.Generator().manual_seed(5))
+    out, secs = {}, {}
+    for where, p in (("CPU", p_cpu), ("card", utils.tree_map(lambda a: a.cuda(), p_cpu))):
+        with torch.inference_mode():
+            t1 = time.perf_counter()
+            out[where] = lm.encode(p, cfg, enc.to(p["enc_norm"]["scale"].device))
+            torch.cuda.synchronize()
+            secs[where] = time.perf_counter() - t1
+        del p
+    err = close_e2e(f"{label} encoder fp32, card against CPU", out["card"], out["CPU"])
+    log(f"{label} encoder fp32 ({cfg.encoder.n_layers} layers, {WHISPER_CPU_B} x "
+        f"{cfg.encoder.seq_len} frames): card equals CPU within {E2E} (max |err| "
+        f"{err:.3e}); card {secs['card'] * 1e3:.1f} ms, CPU {secs['CPU'] * 1e3:.1f} ms "
+        f"(host clock, first call); done in {time.perf_counter() - t0:.1f}s")
+    del p_cpu
+    torch.cuda.empty_cache()
+
+
+def warm_serve(serve_mod, label, cfg, params) -> None:
+    """The fixed-batch loop again, warm: its prefill and decode times."""
+    res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S, gen=GEN,
+                          device="cuda", params=params)
+    log(f"{label} serve again (warm) batch {PREFILL_B} x prompt {PREFILL_S}, {GEN} "
+        f"decode steps: prefill {res.prefill_s * 1e3:.2f} ms; decode p50 "
+        f"{res.steady.p50_ms:.2f} ms p90 {res.steady.p90_ms:.2f} ms; "
+        f"{res.tokens_per_s:.1f} tok/s (host clock)")
+
+
+def phase_whisper(common, api, fff, lm, serve_mod) -> dict:
+    """whisper-small FFF whole (12 encoder + 12 decoder layers), bf16: every
+    kernel at the decoder site's shapes (D 768, one tree of depth 3, 8
+    GELU leaves of 384) and the two dual kernels on SwiGLU leaves of those
+    shapes; the encoder launches nothing (its sites run FORWARD_T in train
+    mode, as in the JAX package); the fixed-batch loop with enc_embeds
+    (8, 1500, 768) and its launch counts, again warm, and a profiled warm
+    prefill and decode step; the engine's refusal; the fp32 encoder on the
+    card against the CPU; fp32 greedy parity at full depth.
+    Returns the kernel rows with their launches."""
+    from repro_torch.configs import whisper_small as mod
+    t0 = time.perf_counter()
+    label = "[whisper]"
+    cfg = mod.FFF_CONFIG
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    arch_intro(label, lm, cfg, params, cfg.n_layers, t0)
+    log(f"{label} encoder: {cfg.encoder.n_layers} layers over {cfg.encoder.seq_len} "
+        f"frames, sinusoidal positions; decoder: learned positions "
+        f"({cfg.max_seq_len} rows), cross-attention in every block")
+    with torch.inference_mode():
+        rows = arch_kernels(label, cfg, params)
+        rows.update(swiglu_probe(label, cfg, params))
+    enc = torch.randn((PREFILL_B, cfg.encoder.seq_len, cfg.d_model), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(9))
+    with torch.inference_mode(), backends_ran(api) as ran:
+        common.reset_launch_counts()
+        out = lm.encode(params, cfg, enc)
+        torch.cuda.synchronize()
+        counts = common.launch_counts()
+    if any(counts.values()) or set(ran) != {("train", "reference")} or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError(f"{label} encode: launches {counts}, backends {set(ran)}")
+    log(f"{label} encode {tuple(enc.shape)}: no kernel launched, every site on "
+        f"{sorted(set(ran))} ({len(ran)} site calls), output finite {tuple(out.shape)}")
+    del out, enc
+    counts, _ = phase_serve(common, api, serve_mod, cfg, params, label=label)
+    log_rows(rows, f"{label} kernel", counts)
+    warm_serve(serve_mod, label, cfg, params)
+    phase_profile(cfg, params, lm, inputs=lambda prompt: {
+        "tokens": prompt, "enc_embeds": torch.randn(
+            (prompt.shape[0], cfg.encoder.seq_len, cfg.d_model), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(9))})
+    refuses_engine(serve_mod, label, cfg, params, why="decoder-only token LMs")
+    del params
+    torch.cuda.empty_cache()
+    encoder_card_vs_cpu(lm, cfg, label)
+    phase_parity(api, fff, lm, cfg, label=f"{label} parity", exact=False,
+                 layers=cfg.n_layers, inputs=lambda c, prompt, gen: {
+                     "tokens": prompt, "enc_embeds": torch.randn(
+                         (prompt.shape[0], c.encoder.seq_len, c.d_model), generator=gen,
+                         device="cuda")})
+    log(f"{label} done in {time.perf_counter() - t0:.1f}s")
+    return {k: dict(v, launches=counts.get(kernel_of(k), 0)) for k, v in rows.items()}
+
+
+def phase_internvl(common, api, fff, lm, serve_mod) -> None:
+    """internvl2-26b FFF at full width (D 6144, one tree of 16 SwiGLU leaves
+    of 1024, the 92553-word head), INTERNVL_LAYERS of 48 layers, bf16: the
+    fixed-batch loop with an embeds prompt (8 x 128 x 6144) in place of
+    tokens and its launch counts, warm again, and a profiled warm prefill
+    and decode step; the engine's refusal; fp32 greedy parity at
+    PARITY_LAYERS layers from an embeds prompt."""
+    from repro_torch.configs import internvl2_26b as mod
+    t0 = time.perf_counter()
+    label = "[internvl]"
+    cfg = dataclasses.replace(mod.FFF_CONFIG, n_layers=INTERNVL_LAYERS)
+    params = lm.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    arch_intro(label, lm, cfg, params, mod.CONFIG.n_layers, t0)
+    phase_serve(common, api, serve_mod, cfg, params, label=label)
+    warm_serve(serve_mod, label, cfg, params)
+    phase_profile(cfg, params, lm, inputs=lambda prompt: {"embeds": torch.randn(
+        (*prompt.shape, cfg.d_model), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(9))})
+    refuses_engine(serve_mod, label, cfg, params, why="decoder-only token LMs")
+    del params
+    torch.cuda.empty_cache()
+    phase_parity(api, fff, lm, mod.FFF_CONFIG, label=f"{label} parity", exact=False,
+                 inputs=lambda c, prompt, gen: {"embeds": torch.randn(
+                     (*prompt.shape, c.d_model), generator=gen, device="cuda")})
+    log(f"{label} done in {time.perf_counter() - t0:.1f}s")
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Logs the seconds the phase inside took."""
+    t0 = time.perf_counter()
+    yield
+    log(f"[time] {name}: {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     name, smi = phase_device()
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.internlm2_20b import CONFIG, FFF_CONFIG
@@ -2775,13 +3011,17 @@ def main() -> int:
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import lm
 
-    phase_build(common)
+    with timed("build"):
+        phase_build(common)
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
-        rows = phase_kernels(gen)
-        rows.update(phase_gathered(gen))
-        phase_ragged(gen)
-        phase_router(gen)
+        with timed("kernels"):
+            rows = phase_kernels(gen)
+            rows.update(phase_gathered(gen))
+        with timed("ragged"):
+            phase_ragged(gen)
+        with timed("router"):
+            phase_router(gen)
     cfg = dataclasses.replace(FFF_CONFIG, n_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     params = lm.init(cfg, seed=0, device="cuda")
@@ -2789,28 +3029,48 @@ def main() -> int:
     log(f"[serve] {cfg.arch_id} FFF full width, {cfg.n_layers} of 48 layers, "
         f"{lm.param_count(params) / 1e9:.2f}B params {cfg.param_dtype}, "
         f"init {time.perf_counter() - t0:.1f}s")
-    phase_serve(common, api, serve_mod, cfg, params)
-    phase_profile(cfg, params, lm)
-    counts = phase_engine(common, api, serve_mod, cfg, params)
-    phase_paged(common, api, serve_mod, cfg, params)
-    phase_parity(api, fff, lm, FFF_CONFIG)
-    phase_engine_parity(api, fff, lm, serve_mod, FFF_CONFIG)
-    with torch.inference_mode():
-        grouped_capacities(rows)
-    phase_grouped_serving(common, api, serve_mod, cfg, params)
-    del params
-    torch.cuda.empty_cache()
-    phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG)
-    phase_train(common, api, fff, lm, FFF_CONFIG)
-    phase_ckpt(common, lm, serve_mod, FFF_CONFIG)
-    phase_dense(common, api, lm, serve_mod, FFF_CONFIG, CONFIG)
-    archs = phase_archs(common, api, fff, lm, serve_mod)
-    phase_moe(common, lm, serve_mod, archs.pop("olmoe ffn"))
-    phase_long(common, api, lm)
-    archs["kimi-k2-1t-a32b"] = phase_kimi(common, api, fff, lm, serve_mod)
-    archs["jamba-1.5-large-398b"] = phase_jamba(common, api, fff, lm, serve_mod)
-    phase_xlstm(common, api, lm, serve_mod)
-    phase_mixers()
+    with timed("serve and profile"):
+        phase_serve(common, api, serve_mod, cfg, params)
+        phase_profile(cfg, params, lm)
+    with timed("engine"):
+        counts = phase_engine(common, api, serve_mod, cfg, params)
+    with timed("paged"):
+        phase_paged(common, api, serve_mod, cfg, params)
+    with timed("parity"):
+        phase_parity(api, fff, lm, FFF_CONFIG)
+        phase_engine_parity(api, fff, lm, serve_mod, FFF_CONFIG)
+    with timed("grouped"):
+        with torch.inference_mode():
+            grouped_capacities(rows)
+        phase_grouped_serving(common, api, serve_mod, cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG)
+    with timed("train"):
+        phase_train(common, api, fff, lm, FFF_CONFIG)
+    with timed("ckpt"):
+        phase_ckpt(common, lm, serve_mod, FFF_CONFIG)
+    with timed("dense"):
+        phase_dense(common, api, lm, serve_mod, FFF_CONFIG, CONFIG)
+    with timed("archs"):
+        archs = phase_archs(common, api, fff, lm, serve_mod)
+    with timed("moe"):
+        phase_moe(common, lm, serve_mod, archs.pop("olmoe ffn"))
+    with timed("long"):
+        phase_long(common, api, lm)
+    with timed("kimi"):
+        archs["kimi-k2-1t-a32b"] = phase_kimi(common, api, fff, lm, serve_mod)
+    with timed("jamba"):
+        archs["jamba-1.5-large-398b"] = phase_jamba(common, api, fff, lm, serve_mod)
+    with timed("xlstm"):
+        phase_xlstm(common, api, lm, serve_mod)
+    with timed("mixers"):
+        phase_mixers()
+    with timed("whisper"):
+        archs["whisper-small"] = phase_whisper(common, api, fff, lm, serve_mod)
+    with timed("internvl"):
+        phase_internvl(common, api, fff, lm, serve_mod)
+    log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
 
     table = []
     for kname, k in common.KERNELS.items():

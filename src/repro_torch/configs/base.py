@@ -1,17 +1,20 @@
 """Config schema (port of ``repro/configs/base.py``) with torch dtypes.
 
 A model's layer stack is a repeated ``period`` of ``BlockSpec``s;
-``FFNSpec.kind`` selects the paper's technique per FFN site.  The port
-carries the fields of the decoder-only stacks it serves: attention, Mamba
-(``mamba_*``) and xLSTM (``lstm_heads``) mixers.  The encoder, frontend,
-``attn_logit_softcap`` and ``scan_layers`` fields arrive with the archs
-that use them.
+``FFNSpec.kind`` selects the paper's technique per FFN site.  Every field
+of the JAX schema is here: attention, Mamba (``mamba_*``) and xLSTM
+(``lstm_heads``) mixers, cross-attention decoder blocks over an
+``EncoderSpec`` stack (whisper-small), the ``frontend`` stubs over
+precomputed frame or patch embeddings, and learned or sinusoidal
+positions.  ``attn_logit_softcap``, ``scan_layers`` and ``zero_stage``
+are recorded fields: the JAX package reads no softcap, and the port
+unrolls its layers and has no sharding yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -76,8 +79,15 @@ class FFNSpec:
 class BlockSpec:
     mixer: str = "attn"            # attn|mamba|mlstm|slstm
     ffn: FFNSpec = FFNSpec()
-    cross_attention: bool = False
+    cross_attention: bool = False  # decoder blocks of enc-dec models
     sliding_window: int = 0        # 0 = full attention
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderSpec:
+    n_layers: int = 0
+    period: Tuple[BlockSpec, ...] = ()
+    seq_len: int = 0               # fixed encoder length (e.g. whisper frames)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,11 +102,14 @@ class ModelConfig:
     period: Tuple[BlockSpec, ...]
     head_dim: int = 0              # 0 -> d_model // n_heads
     max_seq_len: int = 8192
-    pos_emb: str = "rope"          # rope|none (learned|sinusoidal: not yet)
+    pos_emb: str = "rope"          # rope|learned|sinusoidal|none
     rope_theta: float = 10000.0
     norm: str = "rmsnorm"          # rmsnorm|layernorm
     attn_bias: bool = False
+    attn_logit_softcap: float = 0.0   # recorded; the JAX package reads none
     tie_embeddings: bool = False
+    encoder: Optional[EncoderSpec] = None
+    frontend: str = "none"         # none|audio_stub|vision_stub
     # mamba hyper-params (hybrid archs)
     mamba_d_state: int = 16
     mamba_d_conv: int = 4
@@ -106,7 +119,8 @@ class ModelConfig:
     # numerics
     param_dtype: Any = torch.float32
     accum_dtype: Any = torch.float32
-    # runtime (training fields, carried for the training slice)
+    # runtime.  scan_layers is recorded: the port unrolls its layers
+    scan_layers: bool = True
     remat: str = "none"
     grad_accum: int = 1
     # 1: params replicated, moments sharded; 3: params sharded too.  A
@@ -138,8 +152,12 @@ class ModelConfig:
                 return dataclasses.replace(b, ffn=dataclasses.replace(
                     b.ffn, kind="dense", d_ff=b.ffn.training_width))
             return b
+        enc = self.encoder
+        if enc is not None and enc.period:
+            enc = dataclasses.replace(
+                enc, period=tuple(convert(b) for b in enc.period))
         return dataclasses.replace(
-            self, period=tuple(convert(b) for b in self.period))
+            self, period=tuple(convert(b) for b in self.period), encoder=enc)
 
     def reduced(self, n_layers: int = 0, d_model: int = 64, n_heads: int = 4,
                 n_kv_heads: int = 0, vocab: int = 256, seq: int = 64
@@ -165,9 +183,16 @@ class ModelConfig:
         nkv = n_kv_heads or max(1, min(self.n_kv_heads, n_heads))
         while n_heads % nkv:
             nkv -= 1
+        enc = self.encoder
+        if enc is not None:
+            enc = dataclasses.replace(
+                enc, n_layers=len(enc.period) if enc.period else 0,
+                period=tuple(dataclasses.replace(b, ffn=shrink_ffn(b.ffn))
+                             for b in enc.period),
+                seq_len=min(enc.seq_len, 32) or 32)
         return dataclasses.replace(
             self, n_layers=n_layers,
             d_model=d_model, n_heads=n_heads, n_kv_heads=nkv, head_dim=0,
-            vocab_size=vocab, max_seq_len=seq, period=new_period,
-            attn_chunk=32, remat="none",
+            vocab_size=vocab, max_seq_len=seq, period=new_period, encoder=enc,
+            scan_layers=False, attn_chunk=32, remat="none",
             param_dtype=torch.float32, accum_dtype=torch.float32)

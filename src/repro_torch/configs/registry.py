@@ -1,6 +1,6 @@
 """Arch registry: ``--arch <id>`` lookup (port of ``repro/configs/
-registry.py``).  Holds the archs ported so far; the rest are queued in
-ROADMAP.md.  ``get_config(arch_id, ffn="fff")`` returns the FFF variant;
+registry.py``), every arch of the JAX registry but its paper-vit.
+``get_config(arch_id, ffn="fff")`` returns the FFF variant;
 ``ffn="native"`` the published baseline (dense or MoE as the source model
 ships)."""
 from __future__ import annotations
@@ -10,6 +10,7 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "whisper-small": "repro_torch.configs.whisper_small",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
@@ -17,6 +18,7 @@ _MODULES = {
     "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
     "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
     "command-r-35b": "repro_torch.configs.command_r_35b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }
 

@@ -30,9 +30,13 @@ times each CUDA kernel launched.
 ``dataclasses.replace(FFF_CONFIG, n_layers=8)``.  The command line serves
 the registry config cut by ``reduced()``, as the JAX driver does (its
 ``--reduced`` is always on).  The archs with recurrent mixers
-(jamba-1.5-large-398b, xlstm-1.3b) serve through ``--engine off``: the
-engine refuses them, as the JAX package's does.  The card is the default;
-``--device cpu`` runs the plain PyTorch versions on the host::
+(jamba-1.5-large-398b, xlstm-1.3b), the encoder-decoder whisper-small and
+the vision-stub internvl2-26b serve through ``--engine off``: the engine
+refuses them, as the JAX package's does.  The loop gives whisper-small
+``enc_embeds`` (batch, the encoder's frames, D) and internvl2-26b an
+``embeds`` prompt (batch, prompt-len, D) in place of tokens, drawn N(0, 1)
+from ``np.random.default_rng(0)`` as the JAX driver draws them.  The card
+is the default; ``--device cpu`` runs the plain PyTorch versions on the host::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --engine continuous --batch 4 --prompt-len 32 --gen 8 --spec-k 2
@@ -91,7 +95,11 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
           overflow_policy: Optional[str] = None, eos_id: int = -1,
           seed: int = 0, device="cuda", params=None) -> ServeResult:
     """Prefill ``batch`` Markov-source prompts of ``prompt_len`` tokens and
-    decode up to ``gen`` tokens greedily.  ``params`` defaults to
+    decode up to ``gen`` tokens greedily.  As in the JAX driver, an encoder
+    model's batch adds ``enc_embeds`` and a frontend model without an
+    encoder takes ``embeds`` (batch, prompt_len, D) for its prompt, both
+    float32 N(0, 1) from ``np.random.default_rng(0)``; every decode step
+    embeds its token.  ``params`` defaults to
     ``lm.init(cfg, seed=seed)`` on ``device``.  ``fff_backend``,
     ``capacity_factor`` and ``overflow_policy`` steer every FFF site
     (``api.overrides``)."""
@@ -103,6 +111,13 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
     prompt = torch.from_numpy(
         src.sample(batch, prompt_len, seed=1)[:, :prompt_len]).to(dev)
     max_len = prompt_len + gen + 1
+    inputs = {"tokens": prompt}
+    if cfg.encoder is not None:
+        inputs["enc_embeds"] = torch.from_numpy(np.random.default_rng(0).normal(
+            0, 1, (batch, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)).to(dev)
+    if cfg.frontend != "none" and cfg.encoder is None:
+        inputs = {"embeds": torch.from_numpy(np.random.default_rng(0).normal(
+            0, 1, (batch, prompt_len, cfg.d_model)).astype(np.float32)).to(dev)}
 
     def backend_ctx():
         # mode="infer": a serving override never redirects train-mode math
@@ -120,7 +135,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
     with torch.inference_mode():
         t0 = time.perf_counter()
         with backend_ctx():
-            logits, caches = lm.prefill(params, cfg, {"tokens": prompt}, caches)
+            logits, caches = lm.prefill(params, cfg, inputs, caches)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
         # "requested": ineligible sites fall through to auto resolution

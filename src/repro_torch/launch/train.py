@@ -14,6 +14,10 @@ trains the registry config (``--ffn fff``; ``native`` for the arch's own
 FFN, the dense baseline or olmoe-1b-7b's noisy top-k MoE; ``dense`` for a
 dense FFN of the training width), cut by ``reduced()`` with
 ``--reduced``.  The arch defaults to olmoe-1b-7b, as in the JAX driver.
+As there, each step of an encoder model (whisper-small) adds
+``enc_embeds`` and a frontend model without an encoder (internvl2-26b)
+trains on ``embeds`` in place of tokens, both float32 N(0, 1) from
+``np.random.default_rng(i)`` at step i.
 The card is the default; ``--device cpu`` runs on the host::
 
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 6 \\
@@ -46,14 +50,35 @@ from repro_torch.models import lm
 def _with_fff_training_opts(cfg: ModelConfig, *, balance: float = 0.0,
                             master: bool = False) -> ModelConfig:
     """Turn on the balance aux weight and/or the master leaf on every FFF
-    site of ``cfg``."""
+    site of ``cfg``, the decoder's and the encoder's."""
     def upd(b):
         if b.ffn.kind != "fff":
             return b
         return dataclasses.replace(b, ffn=dataclasses.replace(
             b.ffn, balance_scale=balance, fff_master_leaf=master))
 
-    return dataclasses.replace(cfg, period=tuple(upd(b) for b in cfg.period))
+    cfg = dataclasses.replace(cfg, period=tuple(upd(b) for b in cfg.period))
+    if cfg.encoder is not None and cfg.encoder.period:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, period=tuple(upd(b) for b in cfg.encoder.period)))
+    return cfg
+
+
+def step_batch(cfg: ModelConfig, source, batch: int, seq: int, seed: int,
+               i: int) -> dict:
+    """Step ``i``'s batch: ``source.batch(batch, seq, seed=seed + i)``'s
+    tokens and labels; a frontend model without an encoder takes
+    ``embeds`` (batch, seq, D) in place of the tokens, and an encoder model
+    adds ``enc_embeds`` (batch, encoder seq_len, D), float32 N(0, 1) from
+    ``np.random.default_rng(i)`` as in the JAX driver."""
+    b = source.batch(batch, seq, seed=seed + i)
+    if cfg.frontend != "none" and cfg.encoder is None:
+        b = {"embeds": np.random.default_rng(i).normal(
+            0, 1, (batch, seq, cfg.d_model)).astype(np.float32), "labels": b["labels"]}
+    if cfg.encoder is not None:
+        b["enc_embeds"] = np.random.default_rng(i).normal(
+            0, 1, (batch, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)
+    return b
 
 
 def step_generator(seed: int, i: int, device) -> torch.Generator:
@@ -92,7 +117,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           failure_hook: Optional[Callable[[int], bool]] = None) -> TrainResult:
     """``steps`` steps of ``chain_clip(adamw(cosine_warmup(lr, steps // 10
     + 1, steps)), 1.0)`` on ``MarkovTokenSource(cfg.vocab_size, seed)``
-    batches (``batch(batch, seq, seed=seed + i)`` at step i), from
+    batches (``step_batch`` at step i), from
     ``params`` or ``lm.init(cfg, seed=seed)``; params made under
     ``torch.inference_mode`` cannot train.  ``inspect(i, grads, metrics)``,
     when given, sees each step's gradients before the update.
@@ -115,7 +140,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     runs = {}                      # step -> (metrics, ms) of its newest run
 
     def one_step(params, opt_state, i):
-        b = source.batch(batch, seq, seed=seed + i)
+        b = step_batch(cfg, source, batch, seq, seed, i)
         if on_card:
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()

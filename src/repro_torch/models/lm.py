@@ -4,7 +4,14 @@ terms), KV caches, prefill, one decode step, the fixed-shape chunk slabs
 of the serving engine (chunked prefill, speculative verify), per-row cache
 surgery and the greedy/temperature generate loop.  Serving builds no
 autograd graph: ``generate`` runs under ``torch.no_grad``, and the serving
-drivers under ``inference_mode``."""
+drivers under ``inference_mode``.
+
+Every registry arch's inputs: token LMs take ``tokens``; an encoder-decoder
+model (whisper-small) also takes ``enc_embeds`` (B, S_enc, D), precomputed
+frame embeddings that ``encode`` runs through the frontend stub, the
+sinusoidal table and the encoder stack; a frontend model without an
+encoder (internvl2-26b) may take its prompt as ``embeds`` (B, S, D)
+instead of tokens, and embeds each decoded token."""
 from __future__ import annotations
 
 from typing import Optional
@@ -13,7 +20,7 @@ import torch
 
 from repro_torch import utils
 from repro_torch.configs.base import ModelConfig
-from repro_torch.nn import embeddings, norms, transformer
+from repro_torch.nn import embeddings, norms, rope as rope_lib, transformer
 
 Params = dict
 
@@ -21,24 +28,34 @@ Params = dict
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, drawn
     tensor by tensor on ``device`` in the config's parameter dtype.  Same
-    layout as ``repro.models.lm.init`` except the stack, which is one dict
-    per layer (``nn/transformer.py``); ``weights.from_jax`` carries JAX
-    weights over instead.  Positions come from RoPE or from nowhere
-    (``pos_emb="none"``: the recurrent mixers carry position in their
-    state)."""
-    if cfg.pos_emb not in ("rope", "none"):
-        raise NotImplementedError(
-            f"pos_emb {cfg.pos_emb!r}: learned and sinusoidal positions are "
-            f"not ported yet (they come with the encoder archs)")
+    layout as ``repro.models.lm.init`` except the stacks, which are one
+    dict per layer (``nn/transformer.py``); ``weights.from_jax`` carries
+    JAX weights over instead.  Learned positions add ``pos`` (a
+    ``max_seq_len``-row table); a frontend model without an encoder adds
+    ``frontend``; an encoder-decoder model adds ``enc_frontend``,
+    ``enc_stack`` (non-causal, over the encoder's period) and
+    ``enc_norm``."""
     dev = utils.resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return {
+    pd = cfg.param_dtype
+    p = {
         "embed": embeddings.embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                       tie=cfg.tie_embeddings,
-                                       param_dtype=cfg.param_dtype),
+                                       tie=cfg.tie_embeddings, param_dtype=pd),
         "stack": transformer.stack_init(gen, cfg),
-        "final_norm": norms.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, dev),
+        "final_norm": norms.norm_init(cfg.norm, cfg.d_model, pd, dev),
     }
+    if cfg.pos_emb == "learned":
+        p["pos"] = embeddings.learned_pos_init(gen, cfg.max_seq_len, cfg.d_model, pd)
+    if cfg.frontend != "none" and cfg.encoder is None:
+        p["frontend"] = embeddings.frontend_init(gen, cfg.frontend, cfg.d_model, pd)
+    if cfg.encoder is not None:
+        p["enc_frontend"] = embeddings.frontend_init(gen, cfg.frontend,
+                                                     cfg.d_model, pd)
+        p["enc_stack"] = transformer.stack_init(
+            gen, cfg, causal=False, period=cfg.encoder.period,
+            n_layers=cfg.encoder.n_layers)
+        p["enc_norm"] = norms.norm_init(cfg.norm, cfg.d_model, pd, dev)
+    return p
 
 
 def param_count(params) -> int:
@@ -54,8 +71,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     """Per-layer caches: an attention layer's KV cache, contiguous
     (``page_size`` 0) or a paged pool of ``num_pages`` pages of
     ``page_size`` tokens with identity tables (``prealloc``) or unmapped
-    ones for the engine to install; a recurrent layer's state (zeros)."""
-    return transformer.init_caches(cfg, batch, max_len, dtype,
+    ones for the engine to install; a recurrent layer's state (zeros); a
+    cross-attention layer's encoder K/V, ``cfg.encoder.seq_len`` long."""
+    enc_len = cfg.encoder.seq_len if cfg.encoder is not None else 0
+    return transformer.init_caches(cfg, batch, max_len, dtype, enc_len=enc_len,
                                    page_size=page_size, num_pages=num_pages,
                                    prealloc=prealloc,
                                    device=utils.resolve_device(device))
@@ -63,6 +82,52 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
 
 def _device(params: Params) -> torch.device:
     return params["embed"]["tok"].device
+
+
+def encode(params: Params, cfg: ModelConfig, enc_embeds) -> torch.Tensor:
+    """The encoder over precomputed frame/patch embeddings (B, S_enc, D), a
+    tensor or numpy array: the frontend stub, the sinusoidal table, the
+    non-causal encoder stack and its norm.  The stack runs in train mode,
+    as in the JAX package, so its FFF sites compute FORWARD_T's soft
+    mixture over every leaf (no kernel) even when serving; their aux
+    terms are dropped."""
+    x = embeddings.frontend(params["enc_frontend"],
+                            torch.as_tensor(enc_embeds, device=_device(params)),
+                            cfg.accum_dtype)
+    x = x + rope_lib.sinusoidal_embedding(x.shape[1], cfg.d_model,
+                                          device=x.device).to(x.dtype)
+    x, _, _ = transformer.stack_forward(params["enc_stack"], cfg, x, mode="train",
+                                        causal=False, period=cfg.encoder.period)
+    return norms.norm_apply(cfg.norm, params["enc_norm"], x)
+
+
+def _encode_batch(params: Params, cfg: ModelConfig, batch: dict):
+    return encode(params, cfg, batch["enc_embeds"]) if cfg.encoder is not None else None
+
+
+def _embed_inputs(params: Params, cfg: ModelConfig, batch: dict,
+                  pos_offset=0) -> torch.Tensor:
+    """The stack's input (B, S, D) in ``cfg.accum_dtype``: a frontend model
+    without an encoder takes ``batch["embeds"]`` through its frontend when
+    the batch has them, any other batch embeds ``batch["tokens"]``
+    (tensors or numpy arrays).  Learned positions are taken from
+    ``pos_offset`` (an int or per-row (B,)); sinusoidal ones from row 0
+    whatever the offset, as the JAX package adds them."""
+    dev = _device(params)
+    if cfg.frontend != "none" and cfg.encoder is None and "embeds" in batch:
+        x = embeddings.frontend(params["frontend"],
+                                torch.as_tensor(batch["embeds"], device=dev),
+                                cfg.accum_dtype)
+    else:
+        x = embeddings.embed(params["embed"],
+                             torch.as_tensor(batch["tokens"], device=dev),
+                             cfg.accum_dtype)
+    if cfg.pos_emb == "learned":
+        x = embeddings.learned_pos(params["pos"], x, pos_offset)
+    elif cfg.pos_emb == "sinusoidal":
+        x = x + rope_lib.sinusoidal_embedding(x.shape[1], cfg.d_model,
+                                              device=dev).to(x.dtype)
+    return x
 
 
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -87,18 +152,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict,
             gen: Optional[torch.Generator] = None
             ) -> tuple[torch.Tensor, dict]:
-    """Training loss: cross-entropy plus the FFF hardening and balance aux
-    terms (and the MoE one, zero until MoE sites are ported), summed over
-    layers.  ``batch`` holds ``tokens`` and ``labels`` (B, S), tensors or
-    numpy arrays; ``gen`` drives the FFF sites' stochastic training
-    feature.  Returns (loss, metrics) with the JAX package's metric names:
-    loss, ce, accuracy, hardening, moe_aux, balance."""
-    dev = _device(params)
-    tokens = torch.as_tensor(batch["tokens"], device=dev)
-    labels = torch.as_tensor(batch["labels"], device=dev)
-    x = embeddings.embed(params["embed"], tokens, cfg.accum_dtype)
-    x, _, aux = transformer.stack_forward(params["stack"], cfg, x,
-                                          mode="train", gen=gen)
+    """Training loss: cross-entropy plus the FFF hardening and balance and
+    the MoE balancing aux terms, summed over the decoder's layers (an
+    encoder's aux terms are dropped, as in the JAX package).  ``batch``
+    holds ``labels`` (B, S) and the inputs (``tokens``, or ``embeds``;
+    ``enc_embeds`` for an encoder), tensors or numpy arrays; ``gen`` drives
+    the FFN sites' stochastic training feature.  Returns (loss, metrics)
+    with the JAX package's metric names: loss, ce, accuracy, hardening,
+    moe_aux, balance."""
+    labels = torch.as_tensor(batch["labels"], device=_device(params))
+    enc_out = _encode_batch(params, cfg, batch)
+    x = _embed_inputs(params, cfg, batch)
+    x, _, aux = transformer.stack_forward(params["stack"], cfg, x, mode="train",
+                                          gen=gen, enc_out=enc_out)
     ce, acc = cross_entropy(_head(params, cfg, x), labels)
     loss = ce + aux["hardening"] + aux["moe_aux"] + aux["balance"]
     metrics = {"loss": loss, "ce": ce, "accuracy": acc,
@@ -109,11 +175,13 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict,
 
 def prefill(params: Params, cfg: ModelConfig, batch: dict, caches: list[dict]
             ) -> tuple[torch.Tensor, list[dict]]:
-    """Run the prefix, fill caches, return last-position logits (B, V)."""
-    x = embeddings.embed(params["embed"], batch["tokens"].to(_device(params)),
-                         cfg.accum_dtype)
+    """Run the prefix (``tokens``, or ``embeds``; with ``enc_embeds`` for an
+    encoder), fill caches, return last-position logits (B, V)."""
+    enc_out = _encode_batch(params, cfg, batch)
+    x = _embed_inputs(params, cfg, batch)
     x, caches, _ = transformer.stack_forward(params["stack"], cfg, x,
-                                             mode="prefill", caches=caches)
+                                             mode="prefill", caches=caches,
+                                             enc_out=enc_out)
     return _head(params, cfg, x[:, -1:, :])[:, 0], caches
 
 
@@ -124,14 +192,13 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 with_stats: bool = False):
     """One serve step: token (B, 1) -> logits (B, V), updated caches.
 
-    RoPE reads each row's position off its cache length, so ``pos_offset``
-    (kept for the JAX signature) is unused by the RoPE models ported so
-    far.  ``write_mask`` (B,) keeps rows from writing K/V; ``token_valid``
+    ``pos_offset`` (an int, or per row (B,)) is the token's position, which
+    learned positional embeddings read; RoPE reads each row's position off
+    its cache length instead.  ``write_mask`` (B,) keeps rows from writing K/V; ``token_valid``
     (B,) marks phantom rows for the FFN dispatch.  With ``with_stats=True``
     also returns the per-site routing stats of an active
     ``api.collect_routing`` tap (None without one)."""
-    x = embeddings.embed(params["embed"], token.to(_device(params)),
-                         cfg.accum_dtype)
+    x = _embed_inputs(params, cfg, {"tokens": token}, pos_offset=pos_offset)
     tv = token_valid[:, None] if token_valid is not None else None
     x, caches, aux = transformer.stack_forward(params["stack"], cfg, x,
                                                mode="decode", caches=caches,
@@ -268,7 +335,7 @@ def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
     prompt = prompt.to(dev)
     B = prompt.shape[0]
     if caches is None:
-        caches = transformer.init_caches(cfg, B, max_len, device=dev)
+        caches = init_caches(cfg, B, max_len, device=dev)
     logits, caches = prefill(params, cfg, {"tokens": prompt}, caches)
     out = [prompt.to(torch.int32)]
     tok = logits.argmax(-1)[:, None].to(torch.int32)

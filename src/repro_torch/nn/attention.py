@@ -1,7 +1,9 @@
 """Attention (port of ``repro/nn/attention.py``): GQA with RoPE,
 materialized-score attention up to ``FLASH_ABOVE`` tokens, the blocked
 ``flash_attention`` above it (training, eval and prefill), and the KV
-cache for decode, chunked prefill and speculative verify.
+cache for decode, chunked prefill and speculative verify; and
+cross-attention (``cross_kv``, ``forward_cross``): decoder queries over an
+encoder output's K/V, full and non-causal.
 
 Attention is plain PyTorch, as the JAX package computes it outside Pallas;
 ``flash_attention`` follows the JAX package's online softmax over a static
@@ -479,3 +481,28 @@ def forward_chunk(params: Params, cfg: AttnConfig, x: torch.Tensor,
     cache = chunk_into_cache(cache, k, v, valid_len)
     o = chunk_attend(q, cache, start, sliding_window=cfg.sliding_window)
     return out_proj(params, cfg, o), cache
+
+
+def forward_cross(params: Params, cfg: AttnConfig, x: torch.Tensor,
+                  enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention: queries from x (B, S, D) over the encoder's K/V
+    (B, S_enc, K, hd) from ``cross_kv``, full and non-causal, no RoPE."""
+    ad = cfg.accum_dtype
+    q = utils.einsum_as("bsd,dhk->bshk", x, params["wq"], out_dtype=ad)
+    if cfg.bias:
+        q = q + params["bq"].to(ad)
+    o = full_attention(q, enc_k, enc_v, causal=False)
+    return out_proj(params, cfg, o)
+
+
+def cross_kv(params: Params, cfg: AttnConfig, enc_out: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output (B, S_enc, D) -> the cross-attention K and V
+    (B, S_enc, K, hd) in ``cfg.accum_dtype``, biases under ``cfg.bias``."""
+    ad = cfg.accum_dtype
+    k = utils.einsum_as("bsd,dhk->bshk", enc_out, params["wk"], out_dtype=ad)
+    v = utils.einsum_as("bsd,dhk->bshk", enc_out, params["wv"], out_dtype=ad)
+    if cfg.bias:
+        k = k + params["bk"].to(ad)
+        v = v + params["bv"].to(ad)
+    return k, v

@@ -1,4 +1,7 @@
-"""Token embeddings and the LM head (port of ``repro/nn/embeddings.py``)."""
+"""Token embeddings and the LM head (port of ``repro/nn/embeddings.py``),
+learned position rows, and the frontend stubs: the audio and vision archs
+take precomputed frame or patch embeddings through a learned projection,
+not a conv or ViT tower."""
 from __future__ import annotations
 
 import math
@@ -32,3 +35,50 @@ def logits(params: Params, x: torch.Tensor) -> torch.Tensor:
     w = params["head"] if "head" in params else params["tok"].t()
     ct = torch.promote_types(x.dtype, w.dtype)
     return torch.matmul(x.to(ct), w.to(ct)).float()
+
+
+def learned_pos_init(gen: torch.Generator, max_len: int, d_model: int,
+                     param_dtype) -> Params:
+    return {"pos": utils.truncated_init(gen, (max_len, d_model), 0.02, param_dtype)}
+
+
+def learned_pos(params: Params, x: torch.Tensor, offset=0) -> torch.Tensor:
+    """x (B, S, D) plus learned position rows from ``offset``: an int (the
+    whole batch's prefix length) or a (B,) tensor of per-row offsets.  As
+    in the JAX package, a scalar window is clamped into the table
+    (``lax.dynamic_slice``) and a per-row position past it reads NaN
+    (``jnp.take``'s fill)."""
+    table = params["pos"]
+    n, S = table.shape[0], x.shape[1]
+    if isinstance(offset, torch.Tensor) and offset.ndim == 1:
+        idx = (offset.to(x.device).long()[:, None]
+               + torch.arange(S, device=x.device)[None, :])
+        inside = (idx >= 0) & (idx < n)
+        pos = table[idx.clamp(0, n - 1)].to(x.dtype)
+        return x + torch.where(inside[..., None], pos, torch.nan)
+    start = min(max(int(offset), 0), max(n - S, 0))
+    return x + table[start:start + S].to(x.dtype)
+
+
+def frontend_init(gen: torch.Generator, kind: str, d_model: int,
+                  param_dtype) -> Params:
+    """The stub frontends: a learned (D, D) projection plus bias over
+    precomputed embeddings; ``{}`` for ``"none"``."""
+    if kind == "none":
+        return {}
+    return {
+        "proj": utils.truncated_init(gen, (d_model, d_model),
+                                     1.0 / math.sqrt(d_model), param_dtype),
+        "bias": torch.zeros((d_model,), dtype=param_dtype, device=gen.device),
+    }
+
+
+def frontend(params: Params, embeds: torch.Tensor,
+             accum_dtype=torch.float32) -> torch.Tensor:
+    """Precomputed frame/patch embeddings (B, S, D) -> (B, S, D) in
+    ``accum_dtype``."""
+    x = embeds.to(accum_dtype)
+    if not params:
+        return x
+    y = utils.einsum_as("bsd,de->bse", x, params["proj"], out_dtype=accum_dtype)
+    return y + params["bias"].to(accum_dtype)

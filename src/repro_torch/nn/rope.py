@@ -1,5 +1,6 @@
 """Rotary position embeddings (port of ``repro/nn/rope.py``): the rotation
-acts on split halves of the head dimension, not interleaved pairs."""
+acts on split halves of the head dimension, not interleaved pairs; plus
+the sinusoidal absolute table of whisper's encoder."""
 from __future__ import annotations
 
 import torch
@@ -23,3 +24,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_embedding(seq_len: int, dim: int, max_timescale: float = 10000.0,
+                         device="cpu") -> torch.Tensor:
+    """The sinusoidal table (S, D), float32, whisper's formula: the sines of
+    ``dim // 2`` timescales then their cosines, timescale ``i`` being
+    ``max_timescale ** (i / max(dim // 2 - 1, 1))``."""
+    half = dim // 2
+    inv = 1.0 / (max_timescale ** (torch.arange(half, dtype=torch.float32,
+                                                device=device) / max(half - 1, 1)))
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1)

@@ -1,16 +1,20 @@
 """Transformer block + stack (port of ``repro/nn/transformer.py``).
 
 A block is a pre-norm sequence mixer (attention, or the recurrent Mamba,
-mLSTM and sLSTM mixers of ``nn/mamba.py`` and ``nn/xlstm.py``) and an
-optional pre-norm FFN site.  A layer's cache holds its mixer's state
-under the JAX package's keys: ``"kv"`` (attention), ``"mamba"``,
-``"mlstm"`` or ``"slstm"``.
+mLSTM and sLSTM mixers of ``nn/mamba.py`` and ``nn/xlstm.py``), in the
+decoder blocks of an encoder-decoder model a pre-norm cross-attention over
+the encoder output, and an optional pre-norm FFN site.  A layer's cache
+holds its mixer's state under the JAX package's keys: ``"kv"``
+(attention), ``"mamba"``, ``"mlstm"`` or ``"slstm"``, and a
+cross-attention block's encoder K/V as ``"cross_k"``/``"cross_v"``.
 
 The stack is a Python loop over layers.  Where the JAX package stacks each
 period position's parameters on a leading ``n_periods`` axis for
 ``lax.scan``, the port keeps one parameter dict (and one cache dict) per
 layer, in layer order: layer ``i`` is period ``i // len(period)``,
-position ``i % len(period)``.  Modes: ``train`` (full attention, no
+position ``i % len(period)``; an encoder stack is the same over
+``cfg.encoder``'s period (``period=``, ``n_layers=``, ``causal=False``).
+Modes: ``train`` (full attention, no
 cache, the FFN sites in training mode), ``eval`` (the same with hard FFN
 routing), ``prefill`` (build caches over a prefix), ``decode`` (one token
 against the caches) and ``chunk`` (a ``(B, C)`` slab continuing each row
@@ -74,22 +78,24 @@ MIXERS = ("attn", "mamba", "mlstm", "slstm")
 def _check_spec(spec: BlockSpec) -> None:
     if spec.mixer not in MIXERS:
         raise ValueError(f"unknown mixer {spec.mixer!r}; have {MIXERS}")
-    if spec.cross_attention:
-        raise NotImplementedError("cross_attention is not ported yet")
 
 
-def block_init(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec) -> Params:
+def block_init(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec, *,
+               causal: bool = True) -> Params:
     _check_spec(spec)
     dev = gen.device
     p: Params = {"norm1": norms.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, dev)}
     if spec.mixer == "attn":
-        p["mixer"] = attention.init(gen, make_attn_config(cfg, spec))
+        p["mixer"] = attention.init(gen, make_attn_config(cfg, spec, causal=causal))
     elif spec.mixer == "mamba":
         p["mixer"] = mamba.init(gen, make_mamba_config(cfg))
     elif spec.mixer == "mlstm":
         p["mixer"] = xlstm.mlstm_init(gen, make_xlstm_config(cfg))
     else:
         p["mixer"] = xlstm.slstm_init(gen, make_xlstm_config(cfg))
+    if spec.cross_attention:
+        p["norm_x"] = norms.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, dev)
+        p["cross"] = attention.init(gen, make_attn_config(cfg, spec, causal=False))
     if spec.ffn.kind != "none":
         p["norm2"] = norms.norm_init(cfg.norm, cfg.d_model, cfg.param_dtype, dev)
         p["ffn"] = mlp.init(gen, spec.ffn, cfg.d_model,
@@ -99,26 +105,34 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec) -> Param
 
 
 def init_block_cache(cfg: ModelConfig, spec: BlockSpec, batch: int,
-                     max_len: int, dtype=None, *, page_size: int = 0,
-                     num_pages: int = 0, prealloc: bool = True,
-                     device="cpu") -> Cache:
+                     max_len: int, dtype=None, *, enc_len: int = 0,
+                     page_size: int = 0, num_pages: int = 0,
+                     prealloc: bool = True, device="cpu") -> Cache:
     """One layer's cache: the attention KV cache (contiguous, or paged with
     ``page_size > 0``) or the recurrent mixer's state, zeros in
-    ``cfg.accum_dtype`` as in the JAX package."""
+    ``cfg.accum_dtype`` as in the JAX package; a cross-attention block
+    adds ``cross_k``/``cross_v``, zeros (B, enc_len, K, hd) in ``dtype``
+    (default the parameter dtype) that prefill replaces."""
     _check_spec(spec)
     if spec.mixer == "attn":
-        return {"kv": attention.init_cache(
+        c = {"kv": attention.init_cache(
             batch, max_len, make_attn_config(cfg, spec), dtype,
             page_size=page_size, num_pages=num_pages, prealloc=prealloc,
             device=device)}
-    if spec.mixer == "mamba":
-        return {"mamba": mamba.init_state(batch, make_mamba_config(cfg),
-                                          cfg.accum_dtype, device=device)}
-    if spec.mixer == "mlstm":
-        return {"mlstm": xlstm.mlstm_init_state(batch, make_xlstm_config(cfg),
-                                                cfg.accum_dtype, device=device)}
-    return {"slstm": xlstm.slstm_init_state(batch, cfg.d_model, cfg.accum_dtype,
-                                            device=device)}
+    elif spec.mixer == "mamba":
+        c = {"mamba": mamba.init_state(batch, make_mamba_config(cfg),
+                                       cfg.accum_dtype, device=device)}
+    elif spec.mixer == "mlstm":
+        c = {"mlstm": xlstm.mlstm_init_state(batch, make_xlstm_config(cfg),
+                                             cfg.accum_dtype, device=device)}
+    else:
+        c = {"slstm": xlstm.slstm_init_state(batch, cfg.d_model, cfg.accum_dtype,
+                                             device=device)}
+    if spec.cross_attention:
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        for k in ("cross_k", "cross_v"):
+            c[k] = torch.zeros(shape, dtype=dtype or cfg.param_dtype, device=device)
+    return c
 
 
 def _recurrent(params: Params, cfg: ModelConfig, spec: BlockSpec,
@@ -135,50 +149,68 @@ def _recurrent(params: Params, cfg: ModelConfig, spec: BlockSpec,
 def block_forward(params: Params, cfg: ModelConfig, spec: BlockSpec,
                   x: torch.Tensor, *, mode: str, cache: Optional[Cache] = None,
                   gen: Optional[torch.Generator] = None,
+                  enc_out: Optional[torch.Tensor] = None,
+                  causal: bool = True,
                   chunk_valid: Optional[torch.Tensor] = None,
                   decode_mask: Optional[torch.Tensor] = None,
                   token_valid: Optional[torch.Tensor] = None
                   ) -> tuple[torch.Tensor, Optional[Cache], dict]:
-    """One block: pre-norm mixer + residual, pre-norm FFN + residual.
-    ``train`` and ``eval`` take no cache and return None for it; ``gen``
-    drives the FFN's stochastic training feature.  ``chunk_valid`` (B,) is
-    each row's real token count in chunk mode; ``decode_mask`` (B,) keeps
-    rows from writing their KV cache in decode mode; ``token_valid`` marks
-    phantom tokens for the FFN dispatch (in chunk mode derived from
-    ``chunk_valid`` when not given).  Those three are attention features:
-    a recurrent mixer has no length-masked state, so chunk mode refuses it
-    (as in the JAX package; the serving engine refuses such models)."""
+    """One block: pre-norm mixer + residual, [pre-norm cross-attention +
+    residual], pre-norm FFN + residual.  ``train`` and ``eval`` take no
+    cache and return None for it; ``gen`` drives the FFN's stochastic
+    training feature.  ``causal=False`` is the encoder's self-attention.
+    A cross-attention block attends to ``enc_out`` (B, S_enc, D): train,
+    eval and prefill compute its K/V (prefill stores them in the cache),
+    decode reads them back.  ``chunk_valid`` (B,) is each row's real token
+    count in chunk mode; ``decode_mask`` (B,) keeps rows from writing their
+    KV cache in decode mode; ``token_valid`` marks phantom tokens for the
+    FFN dispatch (in chunk mode derived from ``chunk_valid`` when not
+    given).  Those three are attention features: chunk mode refuses a
+    recurrent mixer (it has no length-masked state) and a cross-attention
+    block, as the JAX package does (the serving engine refuses such
+    models)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     _check_spec(spec)
-    if mode == "chunk" and spec.mixer != "attn":
+    if mode == "chunk" and (spec.mixer != "attn" or spec.cross_attention):
         raise ValueError("chunked prefill requires plain attention mixers "
-                         "(recurrent state folds pad garbage in)")
+                         "(recurrent state folds pad garbage in; cross-attn "
+                         "slabs are unsupported)")
     h = norms.norm_apply(cfg.norm, params["norm1"], x)
-    new_cache = None
+    new_cache = None if mode in ("train", "eval") else {}
     if spec.mixer != "attn":
         y, state = _recurrent(params["mixer"], cfg, spec, h,
                               None if cache is None else cache[spec.mixer])
-        if mode not in ("train", "eval"):
-            new_cache = {spec.mixer: state}
-        return _ffn(params, cfg, spec, x + y, mode, gen, token_valid, new_cache)
-    acfg = make_attn_config(cfg, spec)
-    if mode in ("train", "eval"):      # eval: full attention, hard FFN routing
-        y = attention.forward(params["mixer"], acfg, h)
-    elif mode == "prefill":
-        y, kv = attention.forward_prefill(params["mixer"], acfg, h, cache["kv"])
-    elif mode == "chunk":
-        y, kv = attention.forward_chunk(params["mixer"], acfg, h, cache["kv"],
-                                        chunk_valid)
-        if token_valid is None:
-            token_valid = (torch.arange(x.shape[1], device=x.device)[None, :]
-                           < chunk_valid.to(x.device)[:, None])
+        if new_cache is not None:
+            new_cache[spec.mixer] = state
     else:
-        y, kv = attention.forward_decode(params["mixer"], acfg, h, cache["kv"],
-                                         decode_mask)
-    if mode not in ("train", "eval"):
-        new_cache = {"kv": kv}
-    return _ffn(params, cfg, spec, x + y, mode, gen, token_valid, new_cache)
+        acfg = make_attn_config(cfg, spec, causal=causal)
+        if mode in ("train", "eval"):      # eval: full attention, hard FFN routing
+            y = attention.forward(params["mixer"], acfg, h)
+        elif mode == "prefill":
+            y, new_cache["kv"] = attention.forward_prefill(params["mixer"], acfg, h,
+                                                           cache["kv"])
+        elif mode == "chunk":
+            y, new_cache["kv"] = attention.forward_chunk(params["mixer"], acfg, h,
+                                                         cache["kv"], chunk_valid)
+            if token_valid is None:
+                token_valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+                               < chunk_valid.to(x.device)[:, None])
+        else:
+            y, new_cache["kv"] = attention.forward_decode(params["mixer"], acfg, h,
+                                                          cache["kv"], decode_mask)
+    x = x + y
+    if spec.cross_attention:
+        acfg = make_attn_config(cfg, spec, causal=False)
+        hx = norms.norm_apply(cfg.norm, params["norm_x"], x)
+        if mode == "decode":
+            ek, ev = cache["cross_k"], cache["cross_v"]
+        else:
+            ek, ev = attention.cross_kv(params["cross"], acfg, enc_out)
+        if new_cache is not None:
+            new_cache["cross_k"], new_cache["cross_v"] = ek, ev
+        x = x + attention.forward_cross(params["cross"], acfg, hx, ek, ev)
+    return _ffn(params, cfg, spec, x, mode, gen, token_valid, new_cache)
 
 
 def _ffn(params: Params, cfg: ModelConfig, spec: BlockSpec, x: torch.Tensor,
@@ -197,19 +229,24 @@ def _ffn(params: Params, cfg: ModelConfig, spec: BlockSpec, x: torch.Tensor,
     return x, new_cache, aux
 
 
-def stack_init(gen: torch.Generator, cfg: ModelConfig) -> list[Params]:
-    """One parameter dict per layer, in layer order."""
-    return [block_init(gen, cfg, cfg.period[i % len(cfg.period)])
-            for i in range(cfg.n_layers)]
+def stack_init(gen: torch.Generator, cfg: ModelConfig, *, causal: bool = True,
+               period: Optional[tuple[BlockSpec, ...]] = None,
+               n_layers: Optional[int] = None) -> list[Params]:
+    """One parameter dict per layer, in layer order: ``n_layers`` (default
+    ``cfg.n_layers``) over ``period`` (default ``cfg.period``)."""
+    period = period or cfg.period
+    return [block_init(gen, cfg, period[i % len(period)], causal=causal)
+            for i in range(n_layers or cfg.n_layers)]
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
-                page_size: int = 0, num_pages: int = 0, prealloc: bool = True,
-                device="cpu") -> list[Cache]:
-    """One cache per layer, mirroring ``stack_init`` (``init_block_cache``)."""
+                enc_len: int = 0, page_size: int = 0, num_pages: int = 0,
+                prealloc: bool = True, device="cpu") -> list[Cache]:
+    """One cache per layer, mirroring ``stack_init`` (``init_block_cache``;
+    ``enc_len`` sizes the cross-attention K/V)."""
     return [init_block_cache(cfg, cfg.period[i % len(cfg.period)], batch, max_len,
-                             dtype, page_size=page_size, num_pages=num_pages,
-                             prealloc=prealloc, device=device)
+                             dtype, enc_len=enc_len, page_size=page_size,
+                             num_pages=num_pages, prealloc=prealloc, device=device)
             for i in range(cfg.n_layers)]
 
 
@@ -242,6 +279,9 @@ def _remat(fn, remat: str):
 def stack_forward(params: list[Params], cfg: ModelConfig, x: torch.Tensor, *,
                   mode: str, caches: Optional[list[Cache]] = None,
                   gen: Optional[torch.Generator] = None,
+                  enc_out: Optional[torch.Tensor] = None,
+                  causal: bool = True,
+                  period: Optional[tuple[BlockSpec, ...]] = None,
                   chunk_valid: Optional[torch.Tensor] = None,
                   decode_mask: Optional[torch.Tensor] = None,
                   token_valid: Optional[torch.Tensor] = None
@@ -251,8 +291,12 @@ def stack_forward(params: list[Params], cfg: ModelConfig, x: torch.Tensor, *,
     of 'hardening', 'moe_aux' and 'balance' (float32) and ``cfg.remat``
     applies.  aux["routing"], when a ``collect_routing`` tap is active at
     inference, holds one ``RoutingStats`` per period position, summed over
-    periods (overflow weighted by slots), as the JAX package reports."""
-    n_pos = len(cfg.period)
+    periods (overflow weighted by slots), as the JAX package reports.
+    ``period`` (default ``cfg.period``) and ``causal`` select the stack
+    (the encoder: its own period, non-causal); ``enc_out`` reaches every
+    cross-attention block."""
+    period = period or cfg.period
+    n_pos = len(period)
     no_cache = mode in ("train", "eval")
     if not no_cache and caches is None:
         raise ValueError(f"mode {mode!r} needs caches")
@@ -261,8 +305,9 @@ def stack_forward(params: list[Params], cfg: ModelConfig, x: torch.Tensor, *,
     def block(i, p, c, x):
         lg = (None if seeds is None else
               torch.Generator(device=x.device).manual_seed(seeds[i]))
-        return block_forward(p, cfg, cfg.period[i % n_pos], x, mode=mode,
-                             cache=c, gen=lg, chunk_valid=chunk_valid,
+        return block_forward(p, cfg, period[i % n_pos], x, mode=mode,
+                             cache=c, gen=lg, enc_out=enc_out, causal=causal,
+                             chunk_valid=chunk_valid,
                              decode_mask=decode_mask, token_valid=token_valid)
 
     run = block

@@ -240,7 +240,15 @@ class ContinuousBatchingEngine:
     def __init__(self, params, cfg, ecfg: EngineConfig,
                  scheduler: Optional[Scheduler] = None,
                  clock: Optional[Callable[[], float]] = None):
-        if any(b.mixer != "attn" or b.cross_attention for b in cfg.period):
+        if cfg.encoder is not None or cfg.frontend != "none":
+            raise ValueError("serving engine supports decoder-only token LMs")
+        if cfg.pos_emb not in ("rope", "none"):
+            # its slabs and decode steps take positions from the cache
+            # lengths, which only RoPE reads (the JAX engine passes offsets)
+            raise ValueError(f"the port's serving engine takes positions from "
+                             f"the cache lengths (RoPE); pos_emb "
+                             f"{cfg.pos_emb!r} serves through the fixed-batch loop")
+        if any(b.mixer != "attn" for b in cfg.period):
             # recurrent mixers fold right-pad garbage into their state
             raise ValueError("serving engine requires attention mixers "
                              "(padded prefill is length-masked, recurrent "

@@ -52,18 +52,26 @@ def from_jax(params_np: dict, cfg: ModelConfig, device="cuda") -> dict:
 
     JAX keeps the stack as one entry per period position whose leaves carry
     a leading ``n_periods`` axis; the port keeps one dict per layer, layer
-    ``i`` being period ``i // len(period)``, position ``i % len(period)``.
-    Any tree of that layout maps the same way: the tests carry JAX
-    gradients and optimizer moments over with it to compare them with the
-    port's leaf by leaf."""
-    n_pos = len(cfg.period)
+    ``i`` being period ``i // len(period)``, position ``i % len(period)``;
+    an encoder's stack (``enc_stack``) maps the same way over the
+    encoder's period.  The other entries (``pos``, ``frontend``,
+    ``enc_frontend``, ``enc_norm``) carry over as they are.  Any tree of
+    that layout maps the same way: the tests carry JAX gradients and
+    optimizer moments over with it to compare them with the port's leaf
+    by leaf."""
+    def layers(stack, n_pos, n_layers):
+        def layer(i):
+            take = lambda t: ({k: take(v) for k, v in t.items()}
+                              if isinstance(t, dict) else np.asarray(t)[i // n_pos])
+            return tree(take(stack[i % n_pos]), device)
+        return [layer(i) for i in range(n_layers)]
 
-    def layer(i):
-        pos_tree = params_np["stack"][i % n_pos]
-        take = lambda t: ({k: take(v) for k, v in t.items()}
-                          if isinstance(t, dict) else np.asarray(t)[i // n_pos])
-        return tree(take(pos_tree), device)
-
-    return {"embed": tree(params_np["embed"], device),
-            "stack": [layer(i) for i in range(cfg.n_layers)],
-            "final_norm": tree(params_np["final_norm"], device)}
+    out = {}
+    for k, v in params_np.items():
+        if k == "stack":
+            out[k] = layers(v, len(cfg.period), cfg.n_layers)
+        elif k == "enc_stack":
+            out[k] = layers(v, len(cfg.encoder.period), cfg.encoder.n_layers)
+        else:
+            out[k] = tree(v, device)
+    return out

@@ -8,9 +8,11 @@ one attention block, MoE and dense sites alternating, so two FFF site
 configs in one model) and xlstm-1.3b (mLSTM and sLSTM blocks, no FFN
 site, no positional embedding).
 
-* the registry's ids, and ``get_config(arch, ffn)`` and ``reduced()`` equal
-  to JAX's field for field for every arch and FFN kind, with the FFN
-  sites' training and active widths;
+* the registry's ids (the JAX registry's, in its order), and
+  ``get_config(arch, ffn)`` and ``reduced()`` equal to JAX's field for
+  field for every arch and FFN kind (whisper-small's ``EncoderSpec`` and
+  internvl2-26b's frontend too; ``tests/test_torch_encdec.py`` holds their
+  models), with the FFN sites' training and active widths;
 * for each new arch, FFF and native, the 2-layer ``reduced()`` float32
   model with the same numpy-drawn weights in both packages
   (``weights.from_jax``): ``lm.loss_fn``'s loss, metrics and every
@@ -49,6 +51,9 @@ NEW_ARCHS = ("phi3-medium-14b", "starcoder2-15b", "command-r-35b", "olmoe-1b-7b"
              "kimi-k2-1t-a32b", "jamba-1.5-large-398b", "xlstm-1.3b")
 RECURRENT = ("jamba-1.5-large-398b", "xlstm-1.3b")
 B, S, STEPS = 2, 20, 2
+# each arch's draw seed: its index here (the ids registered before the
+# encoder and frontend archs, so their arrival leaves these draws as they were)
+SEEDED = sorted(NEW_ARCHS + ("internlm2-20b",))
 
 
 def rng(seed):
@@ -70,18 +75,21 @@ def np_tree(tree):
 # ---------------------------------------------------------------------------
 
 def test_registry_ids():
-    assert set(registry.ARCH_IDS) == set(NEW_ARCHS) | {"internlm2-20b"}
-    assert set(registry.ARCH_IDS) <= set(jregistry.ARCH_IDS)
-    # the JAX registry's order, less the archs not ported yet
-    assert registry.ARCH_IDS == tuple(a for a in jregistry.ARCH_IDS
-                                      if a not in ("whisper-small", "internvl2-26b"))
-    for arch in ("whisper-small", "internvl2-26b"):
-        with pytest.raises(KeyError, match="unknown arch"):
-            registry.get_config(arch)
+    """Every arch of the JAX registry, in its order (the encoder and
+    frontend archs too)."""
+    assert set(registry.ARCH_IDS) == set(NEW_ARCHS) | {
+        "internlm2-20b", "whisper-small", "internvl2-26b"}
+    assert registry.ARCH_IDS == jregistry.ARCH_IDS
+    with pytest.raises(KeyError, match="unknown arch"):
+        registry.get_config("paper-vit")
 
 
 def same_fields(tc, jc):
-    """Every field of the port's config equals JAX's (dtypes by name)."""
+    """The port's config has JAX's fields, each equal (dtypes by name; the
+    period's blocks and the encoder spec as dicts, since the two packages'
+    dataclasses never compare equal)."""
+    assert ([f.name for f in dataclasses.fields(tc)]
+            == [f.name for f in dataclasses.fields(jc)])
     for f in dataclasses.fields(tc):
         got, want = getattr(tc, f.name), getattr(jc, f.name)
         if f.name.endswith("_dtype"):
@@ -89,6 +97,10 @@ def same_fields(tc, jc):
         elif f.name == "period":
             assert ([dataclasses.asdict(b) for b in got]
                     == [dataclasses.asdict(b) for b in want])
+        elif f.name == "encoder":
+            assert (got is None) == (want is None), f.name
+            if got is not None:
+                assert dataclasses.asdict(got) == dataclasses.asdict(want)
         else:
             assert got == want, f.name
 
@@ -160,7 +172,7 @@ def model(arch, ffn):
     if key in _MODELS:
         return _MODELS[key]
     shapes = jax.eval_shape(lambda: jlm.init(jax.random.PRNGKey(0), jcfg))
-    r = rng(sorted(registry.ARCH_IDS).index(arch))
+    r = rng(SEEDED.index(arch))
 
     def draw(path, s):
         if path[-1].key == "scale":
