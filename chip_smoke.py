@@ -227,9 +227,61 @@ Phases (any failure raises, and the exit code is non-zero):
               prefill and decode step profiled; the engine's refusal; fp32 greedy parity at 2 layers from an
               embeds prompt.
 
+20. cluster — (runs after paged, on its 8-layer bf16 model) the
+              disaggregated cluster (repro_torch.cluster): first the handoff
+              round trip between two engines of 8 slots on pages of 16, 8
+              of the engine phase's requests a wave: each request's pages,
+              extracted to the host and installed, equal the source
+              engine's bit for bit, and both engines then decode all 8 to
+              the same tokens (extract and install timed, bytes counted);
+              then a LocalBus fleet of 1 prefill + 2 decode workers of 8
+              slots sharing the parameters serves the engine phase's 16
+              requests (32 greedy tokens, pages of 16) beside one engine of
+              24 slots and one of 8: its tokens must equal the 8-slot
+              engine's exactly; the launch counts around each worker's tick (a
+              prefill worker launches no fused decode and its dispatch
+              shapes are admission slabs; a decode worker launches the
+              fused decode kernel alone, its shapes decode and install),
+              TTFT, per-token latency and tok/s of the fleet and of the
+              24-slot engine, and how many requests' bf16 tokens differ
+              from the 24-slot engine's (for each, its first differing
+              token and whether its handed-off prompt K/V already
+              differed).  Then fp32 at 2 layers: the fleet and the 24-slot
+              engine give lm.generate's tokens, off near-ties.
+21. cluster_proc — the fleet on ProcBus at 2 layers, bf16: three spawned
+              processes on the one card, each rebuilding its weights from
+              the seed (every child's weights checksum must equal this
+              process's); decode worker d0 SIGKILLed after 4 results, its
+              requests replayed and the role respawned: every rid finishes
+              once, with the tokens of a LocalBus run without a kill; then
+              a drain, which must finish clean, and no child may be left.
+              Prints spawn-to-first-heartbeat seconds and each process's
+              peak device memory.  Last, the serve CLI in a subprocess
+              (--cluster 1 2 --cluster-kill 4 --cluster-verify --drain,
+              reduced, on the card by default) must report parity_ok.
+22. draft    — the engine phase's requests with spec_k 3 and the
+              starcoder2-15b draft (--draft-config starcoder2-15b):
+              starcoder2 reduced to D 6144, 48 heads, vocab 92544, one
+              layer, one tree of depth 3 with 8 GELU leaves of 16, float32
+              as reduced() makes it.  Every kernel at the draft's site
+              (as archs; rows in the arch_kernels JSON under
+              "starcoder2-15b draft" with the draft's launches), the engine
+              run with its launch counts asserted (the target's as in the
+              engine phase plus the draft's router and two grouped_matmul
+              per admission slab and 4 fused decode launches a round; the
+              draft's read off the counts around each of its calls), the
+              acceptance printed (random weights), and how many requests'
+              bf16 tokens differ from the engine without speculation, with
+              the self:1 draft's count beside it as the witness that the
+              verify path, not the draft, makes bf16 tokens differ (the
+              two drafts' greedy tokens must be equal); then
+              fp32 at 2 layers: with the draft and without speculation the
+              engine gives lm.generate's tokens, off near-ties.
+
 Each phase's seconds print as a "[time]" line.  Prints the new archs' kernel rows as one JSON line ({"arch_kernels": ...},
 jamba's rows tagged with their site, trees x leaves x width; whisper's
-SwiGLU probe rows tagged "[swiglu probe]", 0 launches),
+SwiGLU probe rows tagged "[swiglu probe]", 0 launches; the draft's site
+under "starcoder2-15b draft"),
 the kernel table as one JSON line (launches from the monolithic engine
 run), the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
@@ -240,12 +292,14 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -300,6 +354,9 @@ MIXER_B, MIXER_S, MIXER_STEPS, E2E = 2, 32, 4, 1e-3
 # against the CPU's in float32 at WHISPER_CPU_B rows; internvl2-26b at
 # INTERNVL_LAYERS of 48 layers
 WHISPER_CPU_B, INTERNVL_LAYERS = 2, 8
+# the cluster phases: a decode worker SIGKILLed after this many results; the
+# registry arch the draft phase serves as --draft-config
+CLUSTER_KILL_AFTER, DRAFT_ARCH = 4, "starcoder2-15b"
 
 
 def log(msg: str) -> None:
@@ -2993,6 +3050,487 @@ def phase_internvl(common, api, fff, lm, serve_mod) -> None:
     log(f"{label} done in {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# the disaggregated cluster and registry-arch drafts
+
+
+def cluster_ecfg(slots=SLOTS, **kw):
+    """The engine phase's shapes on the paged cache (pages of PAGE), greedy,
+    no speculation: one worker's engine, or one engine of ``slots``."""
+    from repro_torch.serving.engine import EngineConfig
+    return EngineConfig(num_slots=slots, max_len=ENGINE_PROMPT + ENGINE_GEN + 1,
+                        max_prompt_len=ENGINE_PROMPT, page_size=PAGE, seed=0,
+                        device="cuda", **kw)
+
+
+def engine_requests(serve_mod, cfg):
+    return serve_mod.build_requests(cfg.vocab_size, ENGINE_REQS, ENGINE_PROMPT,
+                                    ENGINE_GEN, seed=0, min_prompt_len=ENGINE_MIN_PROMPT)
+
+
+def by_rid(results) -> dict:
+    return {r.rid: np.asarray(r.tokens) for r in results}
+
+
+def first_diff(a, b) -> int:
+    n = min(len(a), len(b))
+    d = np.nonzero(a[:n] != b[:n])[0]
+    return int(d[0]) if d.size else n
+
+
+def handoff_round_trip(cfg, params, reqs) -> dict:
+    """extract -> install between two engines of the same shape, 8 requests
+    a wave: the decode engine's installed pages equal the prefill engine's
+    bit for bit (on the card) and the shipped rows; then both decode their
+    8 requests, the prefill engine keeping its slots, and every token must
+    agree.  Returns per-request bytes and extract / install ms (each call
+    between two synchronizations)."""
+    from repro_torch.cluster import handoff
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    stats = {"bytes": [], "extract_ms": [], "install_ms": []}
+    for w in range(0, len(reqs), SLOTS):
+        wave = reqs[w:w + SLOTS]
+        src = ContinuousBatchingEngine(params, cfg, cluster_ecfg())
+        dst = ContinuousBatchingEngine(params, cfg, cluster_ecfg())
+        for r in wave:
+            src.submit(r)
+        while src.queue:
+            src._admit()
+        for i, st in enumerate(src.slots):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = handoff.extract(src, i)
+            t1 = time.perf_counter()
+            if handoff.install(dst, h) != i:
+                raise AssertionError(f"[cluster] handoff of rid {st.request.rid} "
+                                     f"did not install into slot {i}")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            stats["bytes"].append(h.nbytes)
+            stats["extract_ms"].append((t1 - t0) * 1e3)
+            stats["install_ms"].append((t2 - t1) * 1e3)
+            a, b = src._slot_pages[i][:h.n_pages], dst._slot_pages[i][:h.n_pages]
+            for layer, (cs, cd) in enumerate(zip(src.caches, dst.caches)):
+                for name, rows in (("k", h.k_rows), ("v", h.v_rows)):
+                    got = getattr(cd["kv"], name)[b]
+                    if not (torch.equal(got, getattr(cs["kv"], name)[a])
+                            and torch.equal(got, rows[layer].cuda())):
+                        raise AssertionError(
+                            f"[cluster] rid {st.request.rid} layer {layer} {name}: "
+                            f"installed pages differ from the extracted ones")
+        while src.has_work() or dst.has_work():
+            src.step()
+            dst.step()
+        want, got = by_rid(src.results), by_rid(dst.results)
+        bad = [rid for rid in want if not np.array_equal(want[rid], got[rid])]
+        if bad or len(got) != len(wave):
+            raise AssertionError(f"[cluster] rids {bad}: the decode engine's tokens "
+                                 f"differ from the prefill engine's own after the handoff")
+    return stats
+
+
+def cluster_fleet(common, cfg, params, reqs, n_prefill=1, n_decode=2):
+    """A LocalBus fleet sharing ``params``: ``n_prefill`` + ``n_decode``
+    workers of SLOTS slots, the router on the host clock.  Each worker's
+    tick is wrapped to read the launch counts around it and to keep the
+    handoffs it sends.  Returns (results, metrics, cluster metrics, launches
+    per wid, engines per wid, handoffs per rid)."""
+    from repro_torch.cluster import ClusterConfig, ClusterWorker, LocalBus, Router
+    from repro_torch.cluster import bus as bus_lib
+    from repro_torch.cluster.control import ControlConfig
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    per, engines, handoffs = {}, {}, {}
+
+    def factory(wid, role):
+        engines[wid] = ContinuousBatchingEngine(params, cfg, cluster_ecfg())
+        w = ClusterWorker(wid, role, engines[wid])
+        tick = w.tick
+
+        def counted():
+            before = common.launch_counts()
+            out = tick()
+            after = common.launch_counts()
+            c = per.setdefault(wid, {})
+            for k, v in after.items():
+                c[k] = c.get(k, 0) + v - before.get(k, 0)
+            handoffs.update({m.handoff.request.rid: m.handoff for m in out
+                             if isinstance(m, bus_lib.PrefillDone)})
+            return out
+
+        w.tick = counted
+        return w
+
+    router = Router(LocalBus(factory), ClusterConfig(
+        n_prefill=n_prefill, n_decode=n_decode, page_size=PAGE,
+        control=ControlConfig(heartbeat_timeout=600.0, scale_up_watermark=1e9,
+                              scale_down_watermark=-1.0)), clock=time.monotonic)
+    router.start()
+    t0 = time.monotonic()
+    results = router.run(reqs)
+    m = router.metrics(elapsed_s=time.monotonic() - t0)
+    cm = router.cluster_metrics()
+    router.shutdown()
+    return results, m, cm, per, engines, handoffs
+
+
+def check_roles(per, engines) -> None:
+    """The per-role contract: a prefill worker launches no fused decode and
+    its dispatch shapes hold admission slabs alone; a decode worker
+    launches the fused decode kernel alone and its shapes are decode and
+    install."""
+    for wid, eng in engines.items():
+        c, shapes = per.get(wid, {}), eng.compiled_shapes()
+        if wid.startswith("p"):
+            ok = (c.get("fused_forest_decode", 0) == 0 and c.get("tree_router", 0) > 0
+                  and all(k.startswith("prefill_") for k in shapes))
+        else:
+            ok = (c.get("fused_forest_decode", 0) > 0
+                  and sum(v for k, v in c.items() if k != "fused_forest_decode") == 0
+                  and shapes == {"decode": 1, "install": 1})
+        if not ok:
+            raise AssertionError(f"[cluster] worker {wid}: launches {c}, dispatch "
+                                 f"shapes {shapes} break its role's contract")
+
+
+def kv_differs(h, snap) -> bool:
+    """Whether two handoffs of one prompt hold different K/V at any prompt
+    position (the rows past the prompt in its last page are not compared)."""
+    L = h.prompt_len
+    flat = lambda t: t.reshape(-1, *t.shape[2:])[:L]
+    return any(not torch.equal(flat(a), flat(b))
+               for a, b in zip(h.k_rows + h.v_rows, snap.k_rows + snap.v_rows))
+
+
+def one_engine_snapshots(cfg, params, reqs, slots) -> dict:
+    """One engine of ``slots`` slots serving ``reqs``, each request's prompt
+    K/V copied (``handoff.extract``, which releases nothing) right after
+    the step that prefilled it."""
+    from repro_torch.cluster import handoff
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(params, cfg, cluster_ecfg(slots))
+    snaps, step = {}, eng.step
+
+    def stepped():
+        step()
+        for i, st in enumerate(eng.slots):
+            if st is not None and st.tokens and st.request.rid not in snaps:
+                snaps[st.request.rid] = handoff.extract(eng, i)
+
+    eng.step = stepped
+    eng.run(reqs)
+    return snaps
+
+
+def phase_cluster(common, api, fff, lm, serve_mod, cfg, params) -> None:
+    """The disaggregated cluster at full width (module docstring, phase 20)."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    reqs = engine_requests(serve_mod, cfg)
+    n_workers = 3
+    log(f"[cluster] {cfg.arch_id} FFF full width, {cfg.n_layers} layers "
+        f"{cfg.param_dtype}, LocalBus, 1 prefill + 2 decode workers sharing one "
+        f"parameter set, {SLOTS} slots each, pages of {PAGE}; {len(reqs)} requests, "
+        f"prompts {min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)}"
+        f" tokens, {ENGINE_GEN} greedy tokens each")
+    with no_reference(api):
+        rt = handoff_round_trip(cfg, params, reqs)
+        b = np.asarray(rt["bytes"])
+        log(f"[cluster] handoff round trip: {len(b)} requests, installed pages equal "
+            f"the extracted ones bit for bit and the decode engine's tokens equal the "
+            f"prefill engine's own; bytes a request min {b.min()} mean {b.mean():.0f} max "
+            f"{b.max()} ({b.sum() / sum(len(r.prompt) for r in reqs):.0f} a prompt token, "
+            f"{b.sum() / 1e6:.2f} MB in all); extract ms p50 "
+            f"{np.median(rt['extract_ms']):.3f} max {max(rt['extract_ms']):.3f}; install "
+            f"ms p50 {np.median(rt['install_ms']):.3f} max {max(rt['install_ms']):.3f} "
+            f"(host clock, each call between two synchronizations)")
+        one = ContinuousBatchingEngine(params, cfg, cluster_ecfg(n_workers * SLOTS))
+        want, m1 = one.run(reqs)
+        same, _ = ContinuousBatchingEngine(params, cfg, cluster_ecfg()).run(reqs)
+        common.reset_launch_counts()
+        res, m, cm, per, engines, handoffs = cluster_fleet(common, cfg, params, reqs)
+        total = common.launch_counts()
+    check_roles(per, engines)
+    if sorted(r.rid for r in res) != list(range(len(reqs))) or cm["duplicate_results"]:
+        raise AssertionError(f"[cluster] results {sorted(r.rid for r in res)}, "
+                             f"{cm['duplicate_results']} duplicates")
+    log(f"[cluster] launches {total}; by worker " + "; ".join(
+        f"{w} {dict(sorted((k, v) for k, v in c.items() if v))} shapes "
+        f"{engines[w].compiled_shapes()}" for w, c in sorted(per.items()))
+        + " (per-role contract holds)")
+    for tag, mm in (("cluster 1+2", m), (f"one engine, {n_workers * SLOTS} slots", m1)):
+        log(f"[cluster] {tag}: TTFT p50 {mm.ttft.p50_ms:.2f} ms p90 {mm.ttft.p90_ms:.2f} "
+            f"ms; per-token p50 {mm.per_token.p50_ms:.2f} ms p90 {mm.per_token.p90_ms:.2f}"
+            f" ms; {mm.throughput_tok_s:.1f} tok/s (host clock)")
+    log(f"[cluster] handoff bytes in all {cm['handoff_bytes']} "
+        f"({cm['handoff_bytes'] / len(reqs) / 1e6:.3f} MB a request); tok/s "
+        f"cluster / one engine {m.throughput_tok_s / m1.throughput_tok_s:.3f}")
+    got, ref = by_rid(res), by_rid(want)
+    diff = [rid for rid in ref if not np.array_equal(got[rid], ref[rid])]
+    ref8 = by_rid(same)
+    diff8 = [rid for rid in ref8 if not np.array_equal(got[rid], ref8[rid])]
+    if diff8:
+        raise AssertionError(f"[cluster] rids {diff8}: the cluster's tokens differ from "
+                             f"one engine's of a worker's {SLOTS} slots")
+    log(f"[cluster] {cfg.param_dtype} tokens: every request equals one engine's of "
+        f"{SLOTS} slots (a worker's size); {len(diff)} of {len(reqs)} differ from the "
+        f"one engine's of {n_workers * SLOTS} slots")
+    if diff:
+        snaps = one_engine_snapshots(cfg, params, reqs, n_workers * SLOTS)
+        for rid in diff:
+            log(f"[cluster]   rid {rid}: first differing token {first_diff(got[rid], ref[rid])}"
+                f" of {ENGINE_GEN}; handed-off prompt K/V "
+                f"{'differ' if kv_differs(handoffs[rid], snaps[rid]) else 'equal'} "
+                f"from the one engine's")
+    del handoffs
+    cluster_parity(api, fff, lm, serve_mod, cfg)
+
+
+def cluster_parity(api, fff, lm, serve_mod, base_cfg) -> None:
+    """fp32 at PARITY_LAYERS layers: the LocalBus fleet and one engine of
+    the same slots give lm.generate's greedy tokens, off near-ties."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    from repro_torch.kernels import common
+    cfg = dataclasses.replace(base_cfg, n_layers=PARITY_LAYERS,
+                              param_dtype=torch.float32, accum_dtype=torch.float32)
+    params = lm.init(cfg, seed=1, device="cuda")
+    reqs = engine_requests(serve_mod, cfg)
+    want, margin = generate_with_margins(api, fff, lm, cfg, params, reqs, ENGINE_GEN,
+                                         ENGINE_PROMPT + ENGINE_GEN + 1)
+    res = cluster_fleet(common, cfg, params, reqs)[0]
+    one, _ = ContinuousBatchingEngine(params, cfg, cluster_ecfg(3 * SLOTS)).run(reqs)
+    ties = [near_tie_check(f"[cluster parity] {tag}", by_rid(r), want, margin)
+            for tag, r in (("cluster", res), ("one engine", one))]
+    log(f"[cluster parity] {cfg.n_layers} layers fp32, {len(reqs)} requests x "
+        f"{ENGINE_GEN} greedy tokens: the cluster (1 prefill + 2 decode) and one "
+        f"engine of {3 * SLOTS} slots equal lm.generate ({ties[0]} and {ties[1]} "
+        f"near-tie differences); smallest deciding margin {min(margin.values()):.3e}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_cluster_proc(serve_mod, lm, base_cfg) -> None:
+    """The cluster on ProcBus at PARITY_LAYERS layers, bf16 (module
+    docstring, phase 21)."""
+    import multiprocessing
+    import tempfile
+    from repro_torch.cluster import ClusterConfig, ProcBus, Router, WorkerSpec
+    from repro_torch.cluster.control import ControlConfig
+    from repro_torch.cluster.worker import weights_checksum
+    from repro_torch.kernels import common
+    cfg = dataclasses.replace(base_cfg, n_layers=PARITY_LAYERS)
+    reqs = engine_requests(serve_mod, cfg)
+    params = lm.init(cfg, seed=0, device="cuda")
+    checksum = weights_checksum(params)
+    want = by_rid(cluster_fleet(common, cfg, params, reqs)[0])
+    del params
+    torch.cuda.empty_cache()
+    bus = ProcBus(lambda wid, role: WorkerSpec(
+        wid=wid, role=role, cfg=cfg, ecfg=cluster_ecfg(), seed=0, device="cuda"))
+    router = Router(bus, ClusterConfig(
+        n_prefill=1, n_decode=2, page_size=PAGE,
+        control=ControlConfig(heartbeat_timeout=600.0, scale_up_watermark=1e9,
+                              scale_down_watermark=-1.0)), clock=time.monotonic)
+    killed = []
+
+    def on_tick(r):
+        if not killed and len(r.results) >= CLUSTER_KILL_AFTER:
+            killed.append(next(w for w, v in sorted(r.views.items()) if v.role == "decode"))
+            r.kill_worker(killed[0])
+
+    t0 = time.perf_counter()
+    try:
+        router.start()
+        res = router.run(reqs, on_tick=on_tick)
+        router.drain_all()
+        deadline = time.monotonic() + 120
+        while router.views and time.monotonic() < deadline:
+            router.step()
+        drained = not router.views
+    finally:
+        router.shutdown()
+    wall = time.perf_counter() - t0
+    left = multiprocessing.active_children()
+    cm = router.cluster_metrics()
+    got = by_rid(res)
+    if left:
+        raise AssertionError(f"[cluster_proc] child processes left behind: {left}")
+    if sorted(r.rid for r in res) != list(range(len(reqs))) or cm["duplicate_results"] \
+            or cm["worker_restarts"] != 1:
+        raise AssertionError(f"[cluster_proc] rids {sorted(r.rid for r in res)}, "
+                             f"duplicates {cm['duplicate_results']}, restarts "
+                             f"{cm['worker_restarts']}")
+    bad = [rid for rid in want if not np.array_equal(got[rid], want[rid])]
+    if bad:
+        raise AssertionError(f"[cluster_proc] rids {bad}: tokens after the kill differ "
+                             f"from the run without one")
+    sums = router.checksums
+    if set(sums) != set(bus.ready_s) or set(sums.values()) != {checksum}:
+        raise AssertionError(f"[cluster_proc] weights checksums {sums} != this "
+                             f"process's {checksum}")
+    if not drained:
+        raise AssertionError("[cluster_proc] the drain did not finish")
+    peaks = {w: b.metrics.get("peak_bytes", 0) / 2 ** 30 for w, b in router.byes.items()}
+    log(f"[cluster_proc] {cfg.arch_id} FFF full width, {cfg.n_layers} layers "
+        f"{cfg.param_dtype}, ProcBus (spawn), 1 prefill + 2 decode processes on the "
+        f"one card: {len(reqs)} requests, decode worker {killed[0]} SIGKILLed after "
+        f"{CLUSTER_KILL_AFTER} results, {cm['replayed_requests']} requests replayed, "
+        f"1 respawn, 0 duplicate results; "
+        f"every rid once, tokens equal the run without a kill (LocalBus, "
+        f"same weights); drain clean ({len(router.byes)} goodbyes); every child's "
+        f"weights checksum {checksum} equals this process's; no child left; "
+        f"{wall:.1f}s")
+    log(f"[cluster_proc] spawn-to-first-heartbeat s " + " ".join(
+        f"{w}={s:.2f}" for w, s in sorted(bus.ready_s.items()))
+        + "; peak device memory GiB (torch, per process) "
+        + " ".join(f"{w}={g:.2f}" for w, g in sorted(peaks.items())))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "cluster.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--cluster", "1", "2",
+               "--cluster-kill", "4", "--cluster-verify", "--drain",
+               "--metrics-json", str(path)]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+                             capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"[cluster_proc] the serve CLI failed:\n"
+                                 f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        payload = json.loads(path.read_text())
+    if payload.get("parity_ok") is not True or payload["cluster"]["worker_restarts"] != 1 \
+            or "drained: clean" not in out.stdout:
+        raise AssertionError(f"[cluster_proc] the serve CLI: parity_ok "
+                             f"{payload.get('parity_ok')}, cluster {payload['cluster']}"
+                             f"\n{out.stdout[-3000:]}")
+    log(f"[cluster_proc] CLI {' '.join(cmd[1:])} (reduced, on the card by default): "
+        f"parity_ok true, 1 restart, drain clean, {time.perf_counter() - t0:.1f}s")
+
+
+def phase_draft(common, api, fff, lm, serve_mod, cfg, params) -> dict:
+    """The engine with a registry-arch draft (module docstring, phase 22).
+    Returns the draft site's kernel rows with the draft's launches."""
+    from repro_torch.serving import spec as spec_lib
+    from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
+    label = f"[draft] {DRAFT_ARCH}"
+    dparams, dcfg = spec_lib.build_draft(DRAFT_ARCH, params, cfg, seed=0)
+    fc = site_configs(dcfg)[0]
+    log(f"{label} draft: {DRAFT_ARCH} reduced to d_model {dcfg.d_model}, "
+        f"{dcfg.n_heads} heads ({dcfg.n_kv_heads} KV), vocab {dcfg.vocab_size}, "
+        f"{dcfg.n_layers} layer, {fc.trees} tree of depth {fc.depth}, {fc.num_leaves} "
+        f"{fc.activation} leaves of width {fc.leaf_width}, {dcfg.param_dtype} (as "
+        f"reduced() makes it), {lm.param_count(dparams) / 1e9:.2f}B params")
+    with torch.inference_mode():
+        rows = arch_kernels(label, dcfg, dparams)
+    del dparams
+    torch.cuda.empty_cache()
+    reqs = engine_requests(serve_mod, cfg)
+    kw = dict(num_slots=SLOTS, max_len=ENGINE_PROMPT + ENGINE_GEN + 1,
+              max_prompt_len=ENGINE_PROMPT, scheduler="fcfs", seed=0, device="cuda")
+    ecfg = EngineConfig(spec_k=SPEC_K, draft_config=DRAFT_ARCH, **kw)
+    mine = {}
+    with no_reference(api):
+        with draft_launches(common, lm, dcfg, mine):
+            common.reset_launch_counts()
+            run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
+            counts = common.launch_counts()
+        plain, _ = ContinuousBatchingEngine(params, cfg, EngineConfig(**kw)).run(reqs)
+        selfspec, _ = ContinuousBatchingEngine(params, cfg, EngineConfig(
+            spec_k=SPEC_K, draft_config="self:1", **kw)).run(reqs)
+    m, L = run.metrics, cfg.n_layers
+    rounds, slabs = m.n_steps, m.n_prefills
+    mine = {k: mine.get(k, 0) for k in counts}
+    # the draft: one site, its slabs grouped (up and down), its steps fused
+    want_mine = dict({k: 0 for k in counts}, tree_router=slabs,
+                     grouped_matmul=2 * slabs,
+                     fused_forest_decode=(SPEC_K + 1) * rounds)
+    if mine != want_mine:
+        raise AssertionError(f"{label}: the draft's launch counts {mine} != "
+                             f"expected {want_mine}")
+    want = {"gathered_matmul": L * rounds, "gathered_matmul_dual": L * rounds,
+            "fused_forest_decode": mine["fused_forest_decode"],
+            "grouped_matmul": L * slabs + mine["grouped_matmul"],
+            "grouped_matmul_dual": L * slabs,
+            "tree_router": L * rounds + L * slabs + mine["tree_router"]}
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != expected {want}")
+    got, ref, own = by_rid(run.results), by_rid(plain), by_rid(selfspec)
+    diff = [rid for rid in ref if not np.array_equal(got[rid], ref[rid])]
+    own_diff = [rid for rid in ref if not np.array_equal(own[rid], ref[rid])]
+    vs_own = [rid for rid in ref if not np.array_equal(got[rid], own[rid])]
+    if vs_own:      # greedy tokens are the verify's argmaxes, whatever the draft
+        raise AssertionError(f"{label}: requests {vs_own} differ from the self:1 "
+                             f"draft's greedy tokens")
+    log_rows(rows, f"{label} kernel", mine)
+    log(f"{label} engine: {SLOTS} slots, spec_k {SPEC_K}, {len(reqs)} requests: "
+        f"TTFT p50 {m.ttft.p50_ms:.2f} ms; per-token p50 {m.per_token.p50_ms:.2f} ms; "
+        f"{m.throughput_tok_s:.1f} tok/s; {rounds} spec rounds (p50 "
+        f"{m.decode_step.p50_ms:.2f} ms), {slabs} admission slabs; acceptance "
+        f"{m.spec_acceptance:.3f} ({m.accepted_tokens}/{m.draft_tokens}; random "
+        f"weights); launches {counts} (as expected; the draft's, measured around "
+        f"its calls: {mine}); {cfg.param_dtype} tokens: "
+        f"{len(diff)} of {len(reqs)} requests differ from the no-spec engine's"
+        + "".join(f"; rid {rid} from token {first_diff(got[rid], ref[rid])}"
+                  for rid in diff))
+    log(f"{label} witness, {cfg.param_dtype}: spec_k {SPEC_K} with the self:1 draft "
+        f"(the same verify path) differs from the no-spec engine in {len(own_diff)} "
+        f"of {len(reqs)} requests"
+        + "".join(f"; rid {rid} from token {first_diff(own[rid], ref[rid])}"
+                  for rid in own_diff)
+        + f"; the {DRAFT_ARCH} draft's tokens equal the self:1 draft's in all "
+        f"{len(reqs)}")
+    draft_parity(api, fff, lm, serve_mod, cfg)
+    return {k: dict(v, launches=mine.get(kernel_of(k), 0)) for k, v in rows.items()}
+
+
+@contextlib.contextmanager
+def draft_launches(common, lm, dcfg, into: dict):
+    """Adds to ``into`` each kernel's launches made inside ``lm.decode_step``
+    and ``lm.prefill_chunk`` on the config ``dcfg`` (the draft's), read off
+    the counts around every such call."""
+    saved = {n: getattr(lm, n) for n in ("decode_step", "prefill_chunk")}
+
+    def wrap(fn):
+        def call(*a, **kw):
+            if (a[1] if len(a) > 1 else kw.get("cfg")) != dcfg:
+                return fn(*a, **kw)
+            before = common.launch_counts()
+            out = fn(*a, **kw)
+            for k, n in common.launch_counts().items():
+                into[k] = into.get(k, 0) + n - before[k]
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(lm, n, wrap(fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(lm, n, fn)
+
+
+def draft_parity(api, fff, lm, serve_mod, base_cfg) -> None:
+    """fp32 at PARITY_LAYERS layers: the engine with the registry draft, and
+    without speculation, give lm.generate's greedy tokens off near-ties."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
+    cfg = dataclasses.replace(base_cfg, n_layers=PARITY_LAYERS,
+                              param_dtype=torch.float32, accum_dtype=torch.float32)
+    params = lm.init(cfg, seed=1, device="cuda")
+    reqs = engine_requests(serve_mod, cfg)
+    want, margin = generate_with_margins(api, fff, lm, cfg, params, reqs, ENGINE_GEN,
+                                         ENGINE_PROMPT + ENGINE_GEN + 1)
+    kw = dict(num_slots=SLOTS, max_len=ENGINE_PROMPT + ENGINE_GEN + 1,
+              max_prompt_len=ENGINE_PROMPT, device="cuda")
+    ties = {}
+    for tag, extra in (("spec", dict(spec_k=SPEC_K, draft_config=DRAFT_ARCH)),
+                       ("no spec", {})):
+        res, m = ContinuousBatchingEngine(params, cfg, EngineConfig(**kw, **extra)).run(reqs)
+        ties[tag] = near_tie_check(f"[draft parity] {tag}", by_rid(res), want, margin)
+    log(f"[draft parity] {cfg.n_layers} layers fp32, {len(reqs)} requests x {ENGINE_GEN} "
+        f"greedy tokens: spec_k {SPEC_K} with the {DRAFT_ARCH} draft and the engine "
+        f"without speculation equal lm.generate (near-tie differences {ties}); "
+        f"smallest deciding margin {min(margin.values()):.3e}")
+    del params
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def timed(name: str):
     """Logs the seconds the phase inside took."""
@@ -3036,6 +3574,12 @@ def main() -> int:
         counts = phase_engine(common, api, serve_mod, cfg, params)
     with timed("paged"):
         phase_paged(common, api, serve_mod, cfg, params)
+    with timed("cluster"):
+        phase_cluster(common, api, fff, lm, serve_mod, cfg, params)
+    with timed("cluster_proc"):
+        phase_cluster_proc(serve_mod, lm, FFF_CONFIG)
+    with timed("draft"):
+        draft_rows = phase_draft(common, api, fff, lm, serve_mod, cfg, params)
     with timed("parity"):
         phase_parity(api, fff, lm, FFF_CONFIG)
         phase_engine_parity(api, fff, lm, serve_mod, FFF_CONFIG)
@@ -3070,6 +3614,7 @@ def main() -> int:
         archs["whisper-small"] = phase_whisper(common, api, fff, lm, serve_mod)
     with timed("internvl"):
         phase_internvl(common, api, fff, lm, serve_mod)
+    archs[f"{DRAFT_ARCH} draft"] = draft_rows
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
 
     table = []

@@ -21,6 +21,17 @@ capacity-bounded grouped dispatch, ``--capacity-factor`` sets its per-leaf
 capacity and ``--overflow-policy`` what over-capacity tokens get;
 ``--cuda-decode`` steers decode and draft steps to the fused decode
 kernel.  ``--metrics-json PATH`` writes the run's metrics as JSON.
+``--draft-config`` also takes a registry arch id: an independent draft of
+that arch reduced to the target's width (``serving/spec.build_draft``).
+``--cluster N_PREFILL N_DECODE`` serves through the disaggregated cluster
+(``repro_torch.cluster``, ``run_cluster``): a router over that many
+prefill and decode workers of ``--batch`` slots each, KV pages handed from
+prefill to decode, on ``--cluster-bus proc`` (one process per worker,
+each with its own CUDA context on the card) or ``local`` (in process);
+``--cluster-kill N`` SIGKILLs a decode worker after N results,
+``--cluster-verify`` replays the workload on one engine and reports
+whether every token matched (``parity_ok``), ``--drain`` drains the fleet
+at the end.
 ``--engine off`` keeps the fixed-batch loop: one batched prefill, then a
 greedy decode loop.  Both print latency percentiles, tokens/s and how many
 times each CUDA kernel launched.
@@ -47,6 +58,8 @@ is the default; ``--device cpu`` runs the plain PyTorch versions on the host::
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --page-size 4 --shared-prefix 8 --tenant-weights a=3,b=1 \
       --scheduler weighted_leaf_aware --metrics-json /tmp/metrics.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --cluster 1 1 --cluster-bus local --cluster-verify
 """
 from __future__ import annotations
 
@@ -373,7 +386,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--draft-config", default="",
                     help="engine: the draft for --spec-k, 'self' / 'self:N' "
                          "= the target's own first N periods (default "
-                         "'self')")
+                         "'self'), or a registry arch id = that arch reduced "
+                         "to the target's width, random weights")
     ap.add_argument("--page-size", type=int, default=0,
                     help="engine: >0 = paged KV cache, a pool of pages of "
                          "this many tokens with per-slot page tables; "
@@ -399,13 +413,179 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch versions)")
+    ap.add_argument("--cluster", nargs=2, type=int, default=None,
+                    metavar=("N_PREFILL", "N_DECODE"),
+                    help="disaggregated serving: this many prefill and "
+                         "decode workers behind the cluster router "
+                         "(repro_torch.cluster) instead of one engine; each "
+                         "worker gets --batch slots; implies a paged KV "
+                         "cache (--page-size, 16 when unset)")
+    ap.add_argument("--cluster-bus", default="proc", choices=["local", "proc"],
+                    help="cluster transport: proc = one OS process per "
+                         "worker (each with its own CUDA context); local = "
+                         "every worker in this process, stepped in turn")
+    ap.add_argument("--cluster-kill", type=int, default=0,
+                    help="cluster fault injection: after this many requests "
+                         "complete, SIGKILL one decode worker; the router "
+                         "replays its in-flight requests from the prompt and "
+                         "respawns the role (0 = no kill)")
+    ap.add_argument("--cluster-verify", action="store_true",
+                    help="cluster: afterwards serve the same requests on one "
+                         "engine in this process and report whether every "
+                         "token matched (parity_ok in --metrics-json)")
+    ap.add_argument("--scale-up-watermark", type=float, default=0.0,
+                    help="cluster: smoothed queue depth above which the "
+                         "monitor spawns a decode worker (0 = off)")
+    ap.add_argument("--scale-down-watermark", type=float, default=0.0,
+                    help="cluster: smoothed queue depth below which an idle "
+                         "surplus decode worker is drained (0 = never)")
+    ap.add_argument("--heartbeat-timeout", type=float, default=600.0,
+                    help="cluster: seconds without a heartbeat before a "
+                         "worker is declared dead and its requests replayed")
+    ap.add_argument("--drain", action="store_true",
+                    help="cluster: after serving, drain the fleet (finish "
+                         "in-flight work, stop each worker on its Drained "
+                         "handshake) instead of stopping it at once")
     return ap
+
+
+def _json_default(o):
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    if isinstance(o, (np.integer, np.floating)):
+        return o.item()
+    raise TypeError(f"not JSON serializable: {type(o)}")
+
+
+def run_cluster(args, cfg: ModelConfig) -> None:
+    """Disaggregated serving (``--cluster N_PREFILL N_DECODE``): the router
+    over role-restricted worker engines, the prefill-to-decode KV handoff,
+    heartbeat liveness and replay, and elastic scaling when its watermarks
+    are set.  Every worker runs on ``--device``.  Prints the report; with
+    ``--metrics-json`` writes the metrics, the cluster's counters, the
+    topology and ``parity_ok`` (with ``--cluster-verify``) as JSON."""
+    from repro_torch.cluster import (ClusterConfig, ClusterWorker, LocalBus,
+                                     ProcBus, Router, WorkerSpec)
+    from repro_torch.cluster.control import ControlConfig
+
+    n_prefill, n_decode = args.cluster
+    if n_prefill < 1 or n_decode < 1:
+        raise ValueError("--cluster needs >= 1 prefill and >= 1 decode worker")
+    page = args.page_size or 16         # the handoff moves pages: paging is on
+    weights = parse_tenant_weights(args.tenant_weights)
+    sched_kw = ({"weights": weights}
+                if weights and args.scheduler == "weighted_leaf_aware" else {})
+
+    def ecfg_for(role):
+        return EngineConfig(
+            num_slots=args.batch, max_len=args.prompt_len + args.gen + 1,
+            max_prompt_len=args.prompt_len, prefill_chunk=args.prefill_chunk,
+            prefill_budget=args.prefill_budget, fff_backend=args.fff_backend,
+            cuda_decode=args.cuda_decode, capacity_factor=args.capacity_factor,
+            overflow_policy=args.overflow_policy, spec_k=args.spec_k,
+            draft_config=args.draft_config or None, page_size=page,
+            seed=args.seed, device=args.device)
+
+    ctrl = ControlConfig(
+        heartbeat_timeout=args.heartbeat_timeout,
+        scale_up_watermark=args.scale_up_watermark or 1e9,
+        scale_down_watermark=args.scale_down_watermark or -1.0,
+        max_decode=max(n_decode + 2, n_decode * 2))
+    params = None
+    if args.cluster_bus == "local":
+        params = lm.init(cfg, seed=args.seed, device=args.device)
+        print(f"{cfg.arch_id}: {lm.param_count(params)/1e6:.1f}M params "
+              f"(shared by the in-process workers)")
+        bus = LocalBus(lambda wid, role: ClusterWorker(
+            wid, role, ContinuousBatchingEngine(params, cfg, ecfg_for(role))))
+    else:
+        bus = ProcBus(lambda wid, role: WorkerSpec(
+            wid=wid, role=role, cfg=cfg, ecfg=ecfg_for(role), seed=args.seed,
+            device=args.device))
+    router = Router(bus, ClusterConfig(
+        n_prefill=n_prefill, n_decode=n_decode, scheduler=args.scheduler,
+        scheduler_kw=sched_kw, control=ctrl, page_size=page),
+        clock=time.monotonic)
+    reqs = build_requests(cfg.vocab_size, args.requests or 2 * args.batch,
+                          args.prompt_len, args.gen, eos_id=args.eos_id,
+                          seed=args.seed, shared_prefix=args.shared_prefix,
+                          tenants=sorted(weights) or None)
+    print(f"cluster: {n_prefill} prefill + {n_decode} decode workers "
+          f"({args.cluster_bus} bus, {args.device}), {args.batch} slots each, "
+          f"{len(reqs)} requests, prompt lens "
+          f"{min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)}, page={page}, "
+          f"scheduler={args.scheduler}")
+    killed = []
+
+    def on_tick(r):
+        if args.cluster_kill and not killed and \
+                len(r.results) >= args.cluster_kill:
+            victim = next((w for w, v in sorted(r.views.items())
+                           if v.role == "decode"), None)
+            if victim is not None:
+                print(f"FAULT INJECTION: killing decode worker {victim} "
+                      f"after {len(r.results)} results")
+                killed.append(victim)
+                r.kill_worker(victim)
+
+    try:
+        router.start()
+        t0 = time.monotonic()
+        results = router.run(reqs, on_tick=on_tick)
+        elapsed = time.monotonic() - t0
+        m = router.metrics(elapsed_s=elapsed)
+        cm = router.cluster_metrics()
+        print(m.report())
+        print(f"cluster: replayed={cm['replayed_requests']} "
+              f"restarts={cm['worker_restarts']} "
+              f"handoff={cm['handoff_bytes']/1e6:.2f}MB "
+              f"scale_events={len(cm['scale_events'])}")
+        if args.drain:
+            router.drain_all()
+            deadline = time.monotonic() + 120
+            while router.views and time.monotonic() < deadline:
+                router.step()
+            print(f"drained: {'clean' if not router.views else 'TIMED OUT'} "
+                  f"({len(router.byes)} goodbyes)")
+    finally:
+        router.shutdown()
+    parity_ok = None
+    if args.cluster_verify:
+        # one engine in this process, same seed and requests: the cluster's
+        # tokens must equal its own
+        if params is None:
+            params = lm.init(cfg, seed=args.seed, device=args.device)
+        ref = ContinuousBatchingEngine(params, cfg, ecfg_for("decode"))
+        want, _ = ref.run([Request(rid=r.rid, prompt=r.prompt,
+                                   max_new_tokens=r.max_new_tokens,
+                                   eos_id=r.eos_id, tenant=r.tenant)
+                           for r in reqs])
+        parity_ok = len(results) == len(want) and all(
+            a.rid == b.rid and list(a.tokens) == list(b.tokens)
+            and a.finish_reason == b.finish_reason
+            for a, b in zip(results, want))
+        print(f"parity vs single engine: {'EXACT' if parity_ok else 'MISMATCH'}")
+    payload = m.as_dict()
+    payload["cluster"] = cm
+    payload["topology"] = {"n_prefill": n_prefill, "n_decode": n_decode,
+                           "bus": args.cluster_bus, "device": args.device,
+                           "slots_per_worker": args.batch}
+    if parity_ok is not None:
+        payload["parity_ok"] = bool(parity_ok)
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(payload, f, indent=1, default=_json_default)
+        print(f"wrote metrics to {args.metrics_json}")
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     cfg = registry.get_config(args.arch, ffn=args.ffn)
     cfg = cfg.reduced(seq=max(64, args.prompt_len + args.gen + 1))
+    if args.cluster is not None:
+        run_cluster(args, cfg)
+        return
     if args.engine == "off":
         serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
               fff_backend=args.fff_backend,

@@ -281,6 +281,41 @@ def cache_admit(caches: list[dict], admit: torch.Tensor,
     return out
 
 
+def cache_install(caches: list[dict], admit: torch.Tensor, tables: torch.Tensor,
+                  lengths: torch.Tensor, pages: torch.Tensor,
+                  k_rows: list[torch.Tensor], v_rows: list[torch.Tensor]
+                  ) -> list[dict]:
+    """Install handed-off rows, page contents and table, in one batched call
+    on the device with no host synchronization (the cluster's receive path,
+    ``cluster/handoff.install``).
+
+    ``admit`` / ``tables`` / ``lengths`` as in ``cache_admit``.  The K/V
+    arrive over the wire instead of being computed: ``k_rows[i]`` /
+    ``v_rows[i]`` (P, page_size, K, hd), one per layer, are copied into
+    the pages ``pages`` (P,) of this pool; the ``num_pages`` sentinel sends
+    its row to the sink page, where JAX drops the write.  Paged attention
+    caches only."""
+    if any("kv" not in c or not c["kv"].paged for c in caches):
+        raise ValueError("cache_install requires paged attention KV caches")
+    if not len(k_rows) == len(v_rows) == len(caches):
+        raise ValueError(f"{len(k_rows)} K and {len(v_rows)} V row sets for "
+                         f"{len(caches)} layers")
+    out = []
+    for c, kr, vr in zip(caches, k_rows, v_rows):
+        kv = c["kv"]
+        dev = kv.length.device
+        a = admit.to(dev)
+        dst = pages.to(dev).long()
+        for pool, rows in ((kv.k, kr), (kv.v, vr)):
+            pool.index_copy_(0, dst, rows.to(dev, pool.dtype, non_blocking=True))
+        out.append(dict(c, kv=kv._replace(
+            table=torch.where(a[:, None], tables.to(dev, kv.table.dtype),
+                              kv.table),
+            length=torch.where(a, lengths.to(dev, kv.length.dtype),
+                               kv.length))))
+    return out
+
+
 def _chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
            valid_len: torch.Tensor, caches: list[dict]):
     dev = _device(params)

@@ -53,7 +53,11 @@ draft samples on the device from a seeded ``torch.Generator``.
 ``grouped_ep``); the scheduler's overflow proxy and the overflow-policy
 metrics read the same values.  ``cuda_decode`` steers decode and draft
 steps to the fused decode kernel.  The engine clock is injectable
-(``clock=``, e.g. a ``VirtualClock``).  The cluster is not ported.
+(``clock=``, e.g. a ``VirtualClock``).  The disaggregated cluster
+(``repro_torch.cluster``) drives one engine per worker through
+``release_slot(i, record_result=False)``, ``_evict_finished``,
+``occupancy_snapshot`` and ``compiled_shapes``, and installs handed-off
+KV pages with ``lm.cache_install``.
 """
 from __future__ import annotations
 
@@ -232,6 +236,9 @@ class ContinuousBatchingEngine:
                    ``ecfg.scheduler`` and ``ecfg.scheduler_kw``.
         clock:     the engine clock (seconds; default ``time.monotonic``),
                    e.g. a ``VirtualClock``.
+        draft:     ``(draft_params, draft_cfg)`` for speculative decoding in
+                   place of ``ecfg.draft_config`` (a cluster worker passes
+                   the draft it rebuilt from its seed).
 
     Drive it with ``run(requests)`` (serve to completion; returns results
     and ``EngineMetrics``) or by hand: ``submit``, then ``step()`` while
@@ -239,7 +246,8 @@ class ContinuousBatchingEngine:
 
     def __init__(self, params, cfg, ecfg: EngineConfig,
                  scheduler: Optional[Scheduler] = None,
-                 clock: Optional[Callable[[], float]] = None):
+                 clock: Optional[Callable[[], float]] = None,
+                 draft: Optional[Tuple[dict, object]] = None):
         if cfg.encoder is not None or cfg.frontend != "none":
             raise ValueError("serving engine supports decoder-only token LMs")
         if cfg.pos_emb not in ("rope", "none"):
@@ -342,8 +350,21 @@ class ContinuousBatchingEngine:
         self.spec = ecfg.spec_k > 0
         self.draft_params = self.draft_cfg = self.draft_caches = None
         if self.spec:
-            self.draft_params, self.draft_cfg = spec_lib.build_draft(
-                ecfg.draft_config, params, cfg)
+            self.draft_params, self.draft_cfg = draft or spec_lib.build_draft(
+                ecfg.draft_config, params, cfg, seed=ecfg.seed)
+            dcfg = self.draft_cfg
+            if any(b.mixer != "attn" for b in dcfg.period):
+                raise ValueError("draft model requires attention mixers "
+                                 "(same pooled-cache contract as the target)")
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {dcfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}: rejection sampling compares the two "
+                    f"distributions token-for-token")
+            if dcfg.pos_emb not in ("rope", "none"):
+                raise ValueError(f"the draft's pos_emb {dcfg.pos_emb!r}: the "
+                                 f"engine takes positions from the cache "
+                                 f"lengths (RoPE)")
             self.draft_caches = lm.init_caches(self.draft_cfg, S, L,
                                                device=self.device,
                                                **self._cache_kw)
@@ -565,9 +586,13 @@ class ContinuousBatchingEngine:
         if stats is None or self.num_leaves == 0:
             return None
         sites = [s for s in stats if s is not None]
-        counts = torch.stack([s.leaf_counts for s in sites
-                              if s.leaf_counts.shape[-1] == self.num_leaves]
-                             ).sum(0)
+        match = [s.leaf_counts for s in sites
+                 if s.leaf_counts.shape[-1] == self.num_leaves]
+        # a registry draft's sites may have another leaf count: they fold
+        # their overflow, and count on no leaf (zero rows fold as no data)
+        counts = (torch.stack(match).sum(0) if match else torch.zeros(
+            sites[0].leaf_counts.shape[:-1] + (self.num_leaves,),
+            device=sites[0].leaf_counts.device))
         ovf = torch.stack([s.overflow.float().reshape(()) for s in sites])
         w = torch.stack([s.slots.float().reshape(()) for s in sites])
         return torch.cat([counts.reshape(-1).float(), (ovf * w).sum()[None],
@@ -636,13 +661,22 @@ class ContinuousBatchingEngine:
 
     # -- the loop ------------------------------------------------------------
 
-    def release_slot(self, i: int) -> None:
-        """Free slot ``i`` and record its result: its pages' refcounts drop
-        (pages nobody else holds, neither a slot nor the prefix index, go
-        back to the free list), and its measured footprint updates its
-        tenant's routing profile.  No device work: the slot's stale table
-        and length are masked out of every later write and replaced at
-        admission."""
+    def _evict_finished(self) -> None:
+        """Release every slot whose request is done, recording its result."""
+        for i, st in enumerate(self.slots):
+            if st is not None and st.done:
+                self.release_slot(i)
+
+    def release_slot(self, i: int, record_result: bool = True) -> None:
+        """Free slot ``i``: its pages' refcounts drop (pages nobody else
+        holds, neither a slot nor the prefix index, go back to the free
+        list), and its measured footprint updates its tenant's routing
+        profile.  ``record_result`` False is the cluster's handoff path
+        (``cluster/handoff.py``): a prefill worker that shipped the slot's
+        KV pages releases it without minting a ``RequestResult``, since the
+        decode worker now owns the request.  No device work: the slot's
+        stale table and length are masked out of every later write and
+        replaced at admission."""
         st = self.slots[i]
         if st is None:
             return
@@ -662,14 +696,15 @@ class ContinuousBatchingEngine:
                              else int(st.request.prompt[-1]))
         self._live_rids.discard(st.request.rid)
         arrival = self._arrivals.pop(id(st.request), st.admitted_time)
-        self.results.append(RequestResult(
-            rid=st.request.rid, prompt=st.request.prompt,
-            tokens=np.asarray(st.tokens, np.int32),
-            finish_reason=st.finish_reason, arrival_time=arrival,
-            admitted_time=st.admitted_time,
-            first_token_time=st.first_token_time,
-            finish_time=st.finish_time, tenant=st.request.tenant,
-            n_drafted=st.n_drafted, n_accepted=st.n_accepted))
+        if record_result:
+            self.results.append(RequestResult(
+                rid=st.request.rid, prompt=st.request.prompt,
+                tokens=np.asarray(st.tokens, np.int32),
+                finish_reason=st.finish_reason, arrival_time=arrival,
+                admitted_time=st.admitted_time,
+                first_token_time=st.first_token_time,
+                finish_time=st.finish_time, tenant=st.request.tenant,
+                n_drafted=st.n_drafted, n_accepted=st.n_accepted))
         self.slots[i] = None
 
     def _seed_hint(self, slot: int, req: Request) -> None:
@@ -1021,9 +1056,7 @@ class ContinuousBatchingEngine:
         """One engine iteration: evict finished slots, admit, advance
         chunked prefills (up to ``prefill_budget`` slabs), then one decode
         step or speculative round for every live slot."""
-        for i, st in enumerate(self.slots):
-            if st is not None and st.done:
-                self.release_slot(i)
+        self._evict_finished()
         self._admit()
         if self.ecfg.prefill_chunk:
             for _ in range(self.ecfg.prefill_budget):
@@ -1138,6 +1171,26 @@ class ContinuousBatchingEngine:
             for t, snap in self.profiles.as_dict().items():
                 m.tenants.setdefault(t, {})["profile"] = snap
         return m
+
+    def occupancy_snapshot(self) -> Optional[np.ndarray]:
+        """Mean leaf-occupancy EWMA over the occupied slots: the worker's
+        live FFF footprint, which cluster placement reads
+        (``cluster/placement.py``).  None when the model has no FFF site;
+        zeros when no slot is occupied."""
+        if not self.num_leaves:
+            return None
+        act = [i for i, s in enumerate(self.slots) if s is not None]
+        if not act:
+            return np.zeros((self.num_leaves,), np.float64)
+        return self.occupancy[act].mean(axis=0)
+
+    def compiled_shapes(self) -> Dict[str, int]:
+        """The number of distinct shapes each dispatch has seen, from
+        ``dispatch_shapes()`` (the counterpart of JAX's compile counts: 1
+        per dispatch after warm-up, one per prefill bucket used).  A
+        cluster worker's ``install`` entry counts the handoff installs'
+        table shapes (``cluster/handoff.install``)."""
+        return {k: len(v) for k, v in self._shapes.items()}
 
     def dispatch_shapes(self) -> Dict[str, Set[tuple]]:
         """The distinct token-slab shapes each dispatch has seen (the

@@ -20,8 +20,9 @@ draft (Leviathan et al., 2023).
 The JAX package runs a round as one compiled dispatch; PyTorch runs it
 eagerly and reads nothing on the host: the engine copies the round's
 logits, drafts and routing stats off the device in one transfer, for
-rejection sampling.  Only the ``self`` / ``self:N`` early-exit
-draft is ported: an independent draft architecture needs the other archs.
+rejection sampling.  ``build_draft`` gives the ``self`` / ``self:N``
+early-exit draft, or an independent registry arch reduced to the target's
+width, heads and vocabulary with weights drawn from the engine's seed.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.core import api
 from repro_torch.models import lm
 
@@ -64,16 +66,30 @@ def slice_draft_params(params: Params, cfg, n_periods: int = 1) -> Params:
     return dict(params, stack=params["stack"][:n_periods * len(cfg.period)])
 
 
-def build_draft(spec: Optional[str], params: Params, cfg
+def build_draft(spec: Optional[str], params: Params, cfg, seed: int = 0
                 ) -> Tuple[Params, object]:
-    """``None`` / ``"self"`` / ``"self:N"`` -> ``(draft_params, draft_cfg)``:
-    the target's own first N periods (default 1), parameters shared."""
+    """A draft spec -> ``(draft_params, draft_cfg)``.
+
+    * ``None`` / ``"self"`` / ``"self:N"``: the target's own first N
+      periods (default 1), parameters shared.
+    * a registry arch id (``configs.registry.ARCH_IDS``): an independent
+      draft, the arch's FFF config ``reduced()`` to the target's width,
+      heads, vocabulary and sequence length (float32, as ``reduced()``
+      makes it), weights from ``lm.init(seed=seed)`` on the target's
+      device.  Random weights accept almost nothing; it holds the slot a
+      trained draft would take.  Its period must be all attention.
+    """
     spec = spec or "self"
-    if spec != "self" and not spec.startswith("self:"):
-        raise ValueError(f"draft {spec!r}: the port serves the self / self:N "
-                         f"early-exit drafts only")
-    n = int(spec.split(":", 1)[1]) if ":" in spec else 1
-    return slice_draft_params(params, cfg, n), self_draft_config(cfg, n)
+    if spec == "self" or spec.startswith("self:"):
+        n = int(spec.split(":", 1)[1]) if ":" in spec else 1
+        return slice_draft_params(params, cfg, n), self_draft_config(cfg, n)
+    dcfg = registry.get_config(spec, ffn="fff").reduced(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, vocab=cfg.vocab_size,
+        seq=cfg.max_seq_len)
+    if any(b.mixer != "attn" for b in dcfg.period):
+        raise ValueError(f"draft {spec!r}: the engine's pooled-cache "
+                         f"contract needs attention mixers in the draft too")
+    return lm.init(dcfg, seed=seed, device=params["embed"]["tok"].device), dcfg
 
 
 # ---------------------------------------------------------------------------

@@ -98,10 +98,10 @@ def jax_tokens(model, mode):
     return model["jax_tokens"][mode]
 
 
-def engine(model, mode="monolithic", **kw):
+def engine(model, mode="monolithic", draft=None, **kw):
     ecfg = EngineConfig(num_slots=SLOTS, max_len=MAX_LEN, max_prompt_len=PROMPT,
                         device="cpu", **{**MODES[mode], **kw})
-    return ContinuousBatchingEngine(model["tp"], model["tcfg"], ecfg)
+    return ContinuousBatchingEngine(model["tp"], model["tcfg"], ecfg, draft=draft)
 
 
 def generate(model, prompt, steps=GEN):
@@ -456,7 +456,7 @@ def test_engine_validates(model):
         engine(model, prefill_chunk=6)
     with pytest.raises(ValueError, match="spec_k == 0"):
         engine(model, draft_config="self")
-    with pytest.raises(ValueError, match="self / self:N"):
+    with pytest.raises(KeyError, match="unknown arch 'llama'"):
         engine(model, spec_k=2, draft_config="llama")
     eng = engine(model)
     with pytest.raises(ValueError, match="max_len"):
@@ -465,6 +465,97 @@ def test_engine_validates(model):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ContinuousBatchingEngine(model["tp"], model["tcfg"], EngineConfig(
                 num_slots=SLOTS, max_len=MAX_LEN, max_prompt_len=PROMPT))
+
+
+# ---------------------------------------------------------------------------
+# registry-arch drafts (--draft-config <arch>)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def registry_draft(model):
+    """JAX's starcoder2-15b draft for the target: its config and weights."""
+    return jspec.build_draft("starcoder2-15b", model["jp"], model["jcfg"], seed=0)
+
+
+def test_registry_draft_config_matches_jax(model, registry_draft):
+    """The port's draft config is JAX's field for field, and its weights are
+    an independent init with JAX's tree layout."""
+    from test_torch_archs import same_fields
+    jdp, jdcfg = registry_draft
+    dp, dcfg = spec.build_draft("starcoder2-15b", model["tp"], model["tcfg"], seed=0)
+    same_fields(dcfg, jdcfg)
+    assert (dcfg.d_model, dcfg.n_heads, dcfg.vocab_size) == (
+        model["tcfg"].d_model, model["tcfg"].n_heads, model["tcfg"].vocab_size)
+    assert dp["embed"]["tok"] is not model["tp"]["embed"]["tok"]
+    want = weights.from_jax(jax.tree_util.tree_map(np.asarray, jdp), dcfg,
+                            device="cpu")
+    shapes = lambda t: jax.tree_util.tree_map(lambda a: tuple(a.shape), t)
+    assert shapes(dp) == shapes(want)
+
+
+def test_registry_draft_matches_jax_engine(model, registry_draft):
+    """JAX's draft weights, passed to both engines as ``draft=``, give JAX's
+    greedy tokens and acceptance counts, request for request."""
+    jdp, jdcfg = registry_draft
+    _, dcfg = spec.build_draft("starcoder2-15b", model["tp"], model["tcfg"])
+    dp = weights.from_jax(jax.tree_util.tree_map(np.asarray, jdp), dcfg,
+                          device="cpu")
+    kw = dict(num_slots=SLOTS, max_len=MAX_LEN, max_prompt_len=PROMPT, spec_k=2)
+    jeng = jengine.ContinuousBatchingEngine(
+        model["jp"], model["jcfg"],
+        jengine.EngineConfig(fff_backend="reference", **kw), draft=(jdp, jdcfg))
+    want, _ = jeng.run(requests(model, JRequest))
+    got, m = ContinuousBatchingEngine(
+        model["tp"], model["tcfg"], EngineConfig(device="cpu", **kw),
+        draft=(dp, dcfg)).run(requests(model))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, np.asarray(w.tokens),
+                                      err_msg=f"rid {g.rid}")
+        assert (g.n_drafted, g.n_accepted) == (w.n_drafted, w.n_accepted)
+    assert m.draft_tokens > 0
+
+
+def test_draft_with_another_leaf_count(model):
+    """A draft whose FFF sites have another leaf count than the target's
+    (starcoder2's tree cut to depth 2: 4 leaves against 8) folds only its
+    overflow into the telemetry; greedy tokens stay the target's own."""
+    _, dcfg = spec.build_draft("starcoder2-15b", model["tp"], model["tcfg"])
+    dcfg = dataclasses.replace(dcfg, period=tuple(
+        dataclasses.replace(b, ffn=dataclasses.replace(b.ffn, fff_depth=2))
+        for b in dcfg.period))
+    dp = lm.init(dcfg, seed=1, device="cpu")
+    want = {r.rid: r.tokens for r in engine(model).run(requests(model))[0]}
+    for mode in ("monolithic", "chunked"):
+        eng = engine(model, mode, spec_k=2, draft=(dp, dcfg))
+        res, m = eng.run(requests(model))
+        for r in res:
+            np.testing.assert_array_equal(r.tokens, want[r.rid], err_msg=f"rid {r.rid}")
+        assert m.draft_tokens > 0 and eng._overflow["draft"][1] > 0
+
+
+def test_registry_draft_refusals(model):
+    """A draft whose period is not all attention, and an unknown arch, are
+    refused with JAX's messages (the list of known archs aside: the port
+    has no paper-vit); so are a draft of another vocabulary, with
+    recurrent mixers or with learned positions handed to the engine."""
+    for arch, exc in (("jamba-1.5-large-398b", ValueError),
+                      ("no-such-arch", KeyError)):
+        with pytest.raises(exc) as want:
+            jspec.build_draft(arch, model["jp"], model["jcfg"])
+        with pytest.raises(exc) as got:
+            spec.build_draft(arch, model["tp"], model["tcfg"])
+        assert str(got.value).split(";")[0] == str(want.value).split(";")[0]
+    dp, dcfg = spec.build_draft("starcoder2-15b", model["tp"], model["tcfg"])
+    with pytest.raises(ValueError, match="draft vocab 300 != target vocab"):
+        engine(model, spec_k=2, draft=(dp, dataclasses.replace(dcfg, vocab_size=300)))
+    jamba = registry.get_config("jamba-1.5-large-398b").reduced(
+        d_model=dcfg.d_model, n_heads=dcfg.n_heads, vocab=dcfg.vocab_size)
+    with pytest.raises(ValueError, match="draft model requires attention mixers"):
+        engine(model, spec_k=2, draft=(dp, jamba))
+    # the engine takes positions from the cache lengths: a learned-position
+    # draft (whisper-small's decoder) would read none
+    with pytest.raises(ValueError, match="the draft's pos_emb 'learned'"):
+        engine(model, spec_k=2, draft_config="whisper-small")
 
 
 def test_serve_cli_engine_on_cpu(capsys):

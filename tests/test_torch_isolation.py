@@ -39,6 +39,11 @@ CHECKPOINT_MODULES = ("repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
                       "repro_torch.distributed.straggler",
                       "repro_torch.core.ff", "repro_torch.core.regions",
                       "repro_torch.data.synthetic", "repro_torch.data.pipeline")
+#: the disaggregated serving cluster's modules
+CLUSTER_MODULES = ("repro_torch.cluster", "repro_torch.cluster.bus",
+                   "repro_torch.cluster.control", "repro_torch.cluster.handoff",
+                   "repro_torch.cluster.placement", "repro_torch.cluster.router",
+                   "repro_torch.cluster.worker")
 
 
 def test_every_module_imports_without_jax():
@@ -58,7 +63,8 @@ def test_every_module_imports_without_jax():
     assert out.stdout.startswith("ok")
     assert set(TRAINING_MODULES) <= set(MODULES)
     assert set(CHECKPOINT_MODULES) <= set(MODULES)
-    assert len(MODULES) >= 67
+    assert set(CLUSTER_MODULES) <= set(MODULES)
+    assert len(MODULES) >= 88
 
 
 def _imports(path):
