@@ -277,11 +277,53 @@ Phases (any failure raises, and the exit code is non-zero):
               two drafts' greedy tokens must be equal); then
               fp32 at 2 layers: with the draft and without speculation the
               engine gives lm.generate's tokens, off near-ties.
+23. model_parallel — (runs after draft, on its 8-layer bf16 model)
+              serve --model-parallel 2: two ranks spawned on the one card
+              (launch/mesh.spawn_ranks, gloo, a bounded join), layout
+              (1, 2).  Each rank first logs which collectives gloo takes on
+              CUDA tensors and times a 64 MB all_gather through gloo's own
+              copies and through the port's pinned staging; then draws the
+              model from the seed and keeps its share
+              (launch/serve.setup_model_parallel): it must hold 8 of each
+              tree's 16 leaves, half of one process's leaf bytes; every
+              other tensor stays whole on each rank, so a pass moves only
+              grouped_ep's tokens between the ranks.  Both
+              ranks run the fixed loop (batch 8, prompt 128, 16 greedy
+              steps) and the engine (8 slots, 8 requests of 16-128 prompt
+              tokens, 16 new tokens, fcfs, monolithic, no speculation), the
+              launch counts set to 0 just before each run and read just
+              after: grouped_matmul and grouped_matmul_dual once per call of
+              the grouped leaf MLP (at least one a layer a dispatch), every
+              other kernel 0, grouped_ep the only backend.  Both ranks'
+              tokens must be equal, and in float32 at 2 layers equal to one
+              process's grouped_ep run.  Prints the bytes staged through
+              pinned host memory a rank, decode p50, engine tok/s and peak
+              memory a rank beside one process's (this process, grouped_ep
+              alone), and the bf16 token differences; then both grouped
+              kernels at rank 0's buffers (E/M 8 leaves x M*C rows, the
+              prefill slab's and a decode step's) against their plain
+              versions, as rows of the arch_kernels JSON under
+              "internlm2-20b model_parallel rank 0" with the engine run's
+              launches.
+24. train_mesh — (runs after train) train --mesh host: olmoe-1b-7b FFF at
+              full width, 2 of 16 layers, bf16, two ranks on the card, batch
+              8 x 128 split over them, 3 steps, twice: at the
+              straight-through FFF's default capacity (per data rank, so
+              other tokens overflow than in one process) and at a capacity
+              factor of 8 (a leaf holds the whole batch: none overflows).
+              Each step's loss within the bf16 tolerance of a one-process
+              run on the same batches; the step-0 gradient norm of the
+              second run within 1% of one process's (a reduction skipped
+              or not averaged would be far off); both ranks end each run
+              with bit-equal parameters (weights_checksum) and losses; then
+              compressed_psum of a 64 MB float32 CUDA tensor a rank within
+              0.05 relative of the exact sum.
 
 Each phase's seconds print as a "[time]" line.  Prints the new archs' kernel rows as one JSON line ({"arch_kernels": ...},
 jamba's rows tagged with their site, trees x leaves x width; whisper's
 SwiGLU probe rows tagged "[swiglu probe]", 0 launches; the draft's site
-under "starcoder2-15b draft"),
+under "starcoder2-15b draft"; the grouped kernels at a model-parallel
+rank's shapes under "internlm2-20b model_parallel rank 0"),
 the kernel table as one JSON line (launches from the monolithic engine
 run), the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
@@ -357,6 +399,14 @@ WHISPER_CPU_B, INTERNVL_LAYERS = 2, 8
 # the cluster phases: a decode worker SIGKILLed after this many results; the
 # registry arch the draft phase serves as --draft-config
 CLUSTER_KILL_AFTER, DRAFT_ARCH = 4, "starcoder2-15b"
+# model_parallel and train_mesh: ranks on the one card over gloo, the
+# engine's requests and new tokens, olmoe-1b-7b's layers and steps, the bytes
+# of a rank's tensor in the gloo and compressed_psum checks, each spawn's limit
+MP_RANKS, MP_REQS, MP_GEN, MESH_LAYERS, MESH_STEPS = 2, 8, 16, 2, 3
+MP_PROBE_BYTES, MP_LIMIT_S = 64 * 2 ** 20, 600
+# train_mesh: the step-0 gradient norm of two ranks against one process's, no
+# token overflowing (bf16 rounding of a sum over ~1e9 elements)
+MESH_NORM_RTOL = 0.01
 
 
 def log(msg: str) -> None:
@@ -1671,10 +1721,15 @@ def phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG) -> None:
                                          max_len, backend="reference", mode="infer")
     exact = dict(capacity_factor=0.5, overflow_policy="exact_dense")
     ties = {}
-    for label, kw in (("grouped exact_dense cf 0.5", dict(backend="grouped", **exact)),
-                      ("grouped_ep", dict(backend="grouped_ep"))):
-        got, _ = generate_with_margins(api, fff, lm, cfg, params, reqs, steps,
-                                       max_len, mode="infer", **kw)
+    for label, kw in (("grouped exact_dense cf 0.5",
+                       dict(backend="grouped", mode="infer", **exact)),
+                      ("grouped_ep", {})):
+        with (grouped_ep_alone(api) if not kw else contextlib.nullcontext()), \
+                backends_ran(api) as ran:
+            got, _ = generate_with_margins(api, fff, lm, cfg, params, reqs, steps,
+                                           max_len, **kw)
+        if {n for _, n in ran} != {label.split()[0]}:
+            raise AssertionError(f"[grouped parity] {label}: backends {set(ran)} ran")
         ties[label] = near_tie_check(f"[grouped parity] lm.generate {label}", got,
                                      want, margin)
     for spec_k in (0, SPEC_K):
@@ -2896,6 +2951,22 @@ def backends_ran(api):
         api._REGISTRY.update(saved)
 
 
+@contextlib.contextmanager
+def grouped_ep_alone(api):
+    """``overrides(backend="grouped_ep")`` in one process: its supports
+    predicate asks for a model group of more than one rank (auto's rule),
+    so an override would fall through to the kernel backends; inside this
+    context it is eligible wherever the tree has a leaf to route to."""
+    fn, pred = api.get_backend("infer", "grouped_ep"), api._SUPPORTS[("infer", "grouped_ep")]
+    api.register_backend("infer", "grouped_ep", fn,
+                         supports=lambda params, cfg: cfg.depth > 0)
+    try:
+        with api.overrides(backend="grouped_ep", mode="infer"):
+            yield
+    finally:
+        api.register_backend("infer", "grouped_ep", fn, supports=pred)
+
+
 def swiglu_probe(label, cfg, params) -> dict:
     """The two dual kernels, which a GELU site never runs, at the site's
     shapes (D, E leaves of width L) on random SwiGLU leaves, routed by
@@ -3531,6 +3602,422 @@ def draft_parity(api, fff, lm, serve_mod, base_cfg) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# model_parallel and train_mesh: ranks over gloo on the one card
+# ---------------------------------------------------------------------------
+
+def quiet_stdout():
+    """A rank's prints (the serve and train drivers report) go nowhere: the
+    phase prints what the ranks return."""
+    import io
+    return contextlib.redirect_stdout(io.StringIO())
+
+
+def gloo_on_cuda(rank: int) -> dict:
+    """Which collectives this torch's gloo takes on CUDA tensors, and a 64
+    MB all_gather through gloo's own copies against the pinned host
+    staging of ``distributed/collectives``."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    x = torch.full((1024,), float(rank + 1), device="cuda")
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x),
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+    }
+    took = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            took[name] = True
+        except (RuntimeError, ValueError) as e:
+            took[name] = f"{type(e).__name__}: {str(e)[:120]}"
+    big = torch.randn(MP_PROBE_BYTES // 4, device="cuda")
+    parts = [torch.empty_like(big) for _ in range(2)]
+
+    def wall(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    ms = {"gloo's copies": wall(lambda: dist.all_gather(parts, big))
+          if took["all_gather"] is True else None,
+          "pinned staging": wall(lambda: collectives.all_gather_cat(big, dist.group.WORLD))}
+    return {"took": took, "all_gather_ms": ms}
+
+
+def mp_ecfg(**kw):
+    from repro_torch.serving.engine import EngineConfig
+    return EngineConfig(num_slots=SLOTS, max_len=ENGINE_PROMPT + MP_GEN + 1,
+                        max_prompt_len=ENGINE_PROMPT, scheduler="fcfs", seed=0,
+                        device="cuda", **kw)
+
+
+def mp_requests(serve_mod, cfg):
+    return serve_mod.build_requests(cfg.vocab_size, MP_REQS, ENGINE_PROMPT, MP_GEN,
+                                    seed=0, min_prompt_len=ENGINE_MIN_PROMPT)
+
+
+def leaf_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for layer in params["stack"]
+               for k, t in layer["ffn"].items() if k.startswith("leaf_"))
+
+
+def mp_serve_rank(rank: int, world: int) -> dict:
+    """One rank of the model_parallel phase (module docstring, phase 23):
+    the 8-layer bf16 model's share and the two serving runs under the
+    layout, each run's launch counts, calls of the grouped leaf MLP,
+    backends and bytes staged; then the 2-layer float32 loop."""
+    from repro_torch.configs.internlm2_20b import FFF_CONFIG
+    from repro_torch.core import api, routing
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import lm
+    torch.cuda.set_device(0)
+    out = {"gloo": gloo_on_cuda(rank)}
+    cfg = dataclasses.replace(FFF_CONFIG, n_layers=SERVE_LAYERS)
+    t0 = time.perf_counter()
+    with quiet_stdout():
+        _, ctx, local = serve_mod.setup_model_parallel(
+            cfg, world, params=lm.init(cfg, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["setup_s"] = time.perf_counter() - t0
+    out["leaf_bytes"] = leaf_bytes(local)
+    out["held"] = [layer["ffn"]["leaf_wg"].shape[1] for layer in local["stack"]]
+    calls = [0]
+    inner = routing._leaf_mlp_on_buffers
+    routing._leaf_mlp_on_buffers = lambda *a, **kw: (
+        calls.__setitem__(0, calls[0] + 1), inner(*a, **kw))[1]
+    torch.cuda.reset_peak_memory_stats()
+    out["resident"] = torch.cuda.memory_allocated()
+
+    def measured(name, run):
+        common.reset_launch_counts()
+        collectives.reset_staged()
+        calls[0] = 0
+        t = time.perf_counter()
+        with backends_ran(api) as ran:
+            res = run()
+        torch.cuda.synchronize()
+        out[name] = {"counts": common.launch_counts(), "calls": calls[0],
+                     "backends": sorted({n for _, n in ran}),
+                     "staged": collectives.staged_bytes(),
+                     "wall_s": time.perf_counter() - t}
+        return res
+
+    with ctx(), quiet_stdout():
+        res = measured("loop", lambda: serve_mod.serve(
+            cfg, batch=PREFILL_B, prompt_len=PREFILL_S, gen=GEN, device="cuda",
+            params=local))
+        out["loop"].update(tokens=res.tokens.cpu().numpy(), p50=res.steady.p50_ms,
+                           prefill_ms=res.prefill_s * 1e3)
+        run = measured("engine", lambda: serve_mod.serve_engine(
+            cfg, mp_ecfg(), mp_requests(serve_mod, cfg), params=local))
+        out["engine"].update(tokens=by_rid(run.results), tok_s=run.metrics.throughput_tok_s,
+                             steps=run.metrics.n_steps, shapes=run.shapes)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del local
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(FFF_CONFIG, n_layers=PARITY_LAYERS,
+                                param_dtype=torch.float32, accum_dtype=torch.float32)
+    with quiet_stdout():
+        _, ctx32, local32 = serve_mod.setup_model_parallel(
+            cfg32, world, params=lm.init(cfg32, seed=0, device="cuda"))
+        with ctx32():
+            out["fp32"] = serve_mod.serve(cfg32, batch=PARITY_B, prompt_len=PARITY_S,
+                                          gen=PARITY_STEPS, device="cuda",
+                                          params=local32).tokens.cpu().numpy()
+    routing._leaf_mlp_on_buffers = inner
+    return out
+
+
+def ep_buffer(fff, api, params, cfg, M, m, B, seed=11):
+    """Rank ``m``'s (E/M, M*C, D) buffer of a B-token slab's tokens under a
+    model group of M (what it receives from every source rank), routed
+    through layer 0's tree as grouped_ep routes, and its leaves."""
+    from repro_torch.distributed import dispatch
+    from repro_torch.core import routing
+    from repro_torch.nn import mlp
+    p = params["stack"][0]["ffn"]
+    fc = mlp.make_fff_config(cfg.period[0].ffn, cfg.d_model,
+                             param_dtype=cfg.param_dtype, accum_dtype=cfg.accum_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, cfg.d_model, generator=gen, device="cuda").to(cfg.param_dtype)
+    idx = fff.route_hard(p, fc, x)[:, 0]
+    E, Bl = fc.num_leaves, B // M
+    C = dispatch.ep_capacity(Bl, E, api.DEFAULT_CAPACITY_EP)
+    recv = []
+    for s in range(M):
+        i = idx[s * Bl:(s + 1) * Bl].long()
+        plan = dispatch.make_ep_plan(i, routing.group_slots(i, E + 1), i < E, E, M, C)
+        recv.append(dispatch.ep_scatter(x[s * Bl:(s + 1) * Bl], plan)[m])
+    xg = torch.stack(recv).transpose(0, 1).reshape(E // M, M * C, cfg.d_model).contiguous()
+    El = E // M
+    leaves = [p[k][0, m * El:(m + 1) * El] for k in ("leaf_wg", "leaf_wu", "leaf_wd")]
+    return xg, leaves, C
+
+
+def phase_model_parallel(common, api, fff, lm, serve_mod, cfg, params) -> dict:
+    """serve --model-parallel 2 on the one card (module docstring, phase
+    23).  Returns the grouped kernels' rows at a rank's shapes with rank
+    0's engine-run launches."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.configs.internlm2_20b import FFF_CONFIG
+    M = MP_RANKS
+    # one process: the same model and requests on grouped_ep (local grouped
+    # dispatch and the same exact repair)
+    one = {"leaf_bytes": leaf_bytes(params)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one["resident"] = torch.cuda.memory_allocated()
+    with quiet_stdout(), grouped_ep_alone(api), backends_ran(api) as ran:
+        res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S, gen=GEN,
+                              device="cuda", params=params)
+        run = serve_mod.serve_engine(cfg, mp_ecfg(), mp_requests(serve_mod, cfg),
+                                     params=params)
+        one.update(loop=res.tokens.cpu().numpy(), p50=res.steady.p50_ms,
+                   engine=by_rid(run.results), tok_s=run.metrics.throughput_tok_s,
+                   peak=torch.cuda.max_memory_allocated())
+        cfg32 = dataclasses.replace(FFF_CONFIG, n_layers=PARITY_LAYERS,
+                                    param_dtype=torch.float32, accum_dtype=torch.float32)
+        p32 = lm.init(cfg32, seed=0, device="cuda")
+        one["fp32"] = serve_mod.serve(cfg32, batch=PARITY_B, prompt_len=PARITY_S,
+                                      gen=PARITY_STEPS, device="cuda",
+                                      params=p32).tokens.cpu().numpy()
+    if {n for _, n in ran} != {"grouped_ep"}:
+        raise AssertionError(f"[model_parallel] one process ran backends {set(ran)}")
+    del p32
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn_ranks(mp_serve_rank, M, timeout_s=MP_LIMIT_S)
+    wall = time.perf_counter() - t0
+    g = ranks[0]["gloo"]
+    log(f"[model_parallel] gloo (torch {torch.__version__}) on CUDA tensors: "
+        + ", ".join(f"{k} {'takes them' if v is True else v}" for k, v in g["took"].items())
+        + f"; all_gather of {MP_PROBE_BYTES / 2 ** 20:.0f} MB a rank, 2 ranks: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in g["all_gather_ms"].items() if v is not None)
+        + " (host clock; the port stages through pinned memory)")
+    E = 2 ** cfg.period[0].ffn.fff_depth
+    n = cfg.n_layers
+    for r, rk in enumerate(ranks):
+        if rk["held"] != [E // M] * n or rk["leaf_bytes"] * M != one["leaf_bytes"]:
+            raise AssertionError(f"[model_parallel] rank {r} holds {rk['held']} leaves a "
+                                 f"layer, {rk['leaf_bytes']} leaf bytes (one process "
+                                 f"{one['leaf_bytes']})")
+        for name in ("loop", "engine"):
+            c = rk[name]
+            k = c["calls"]
+            want = {"grouped_matmul": k, "grouped_matmul_dual": k, "tree_router": 0,
+                    "gathered_matmul": 0, "gathered_matmul_dual": 0,
+                    "fused_forest_decode": 0}
+            least = n * (1 + GEN) if name == "loop" else n * c.get("steps", 1)
+            if c["counts"] != want or k < least or c["backends"] != ["grouped_ep"]:
+                raise AssertionError(f"[model_parallel] rank {r} {name}: launches "
+                                     f"{c['counts']} for {k} grouped leaf MLP calls "
+                                     f"(at least {least}), backends {c['backends']}")
+    a, b = ranks
+    if not (np.array_equal(a["loop"]["tokens"], b["loop"]["tokens"])
+            and all(np.array_equal(a["engine"]["tokens"][i], b["engine"]["tokens"][i])
+                    for i in a["engine"]["tokens"])
+            and np.array_equal(a["fp32"], b["fp32"])):
+        raise AssertionError("[model_parallel] the two ranks' tokens differ")
+    d32 = int((a["fp32"] != one["fp32"]).sum())
+    if d32:
+        raise AssertionError(f"[model_parallel] fp32, {PARITY_LAYERS} layers: {d32} greedy "
+                             f"tokens differ from one process's grouped_ep run")
+    loop_rows = int((a["loop"]["tokens"] != one["loop"]).any(1).sum())
+    eng_diff = sum(not np.array_equal(a["engine"]["tokens"][i], one["engine"][i])
+                   for i in one["engine"])
+    gib = lambda x: x / 2 ** 30
+    log(f"[model_parallel] {cfg.arch_id} FFF full width, {n} layers {cfg.param_dtype}, "
+        f"--model-parallel {M}: {M} ranks on cuda:0 over gloo, layout (1, {M}); "
+        f"spawn to results {wall:.1f}s (rank setup {a['setup_s']:.1f}s); each rank "
+        f"holds {E // M} of each tree's {E} leaves: {gib(a['leaf_bytes']):.3f} GiB of "
+        f"leaves a rank against {gib(one['leaf_bytes']):.3f} GiB in one process")
+    for name, what in (("loop", f"loop batch {PREFILL_B} x prompt {PREFILL_S}, {GEN} "
+                                 f"greedy steps"),
+                       ("engine", f"engine {SLOTS} slots, {MP_REQS} requests of "
+                                  f"{ENGINE_MIN_PROMPT}-{ENGINE_PROMPT} prompt tokens, "
+                                  f"{MP_GEN} new, fcfs, monolithic")):
+        log(f"[model_parallel] {what}: launches per rank "
+            + " | ".join(str(rk[name]["counts"]) for rk in ranks)
+            + f" ({[rk[name]['calls'] for rk in ranks]} grouped leaf MLP calls; only "
+            f"grouped_ep ran); staged through pinned host memory per rank "
+            + ", ".join(f"{rk[name]['staged'] / 1e9:.3f} GB" for rk in ranks)
+            + f"; wall {a[name]['wall_s']:.1f}s")
+    log(f"[model_parallel] decode p50 (loop, host clock) {a['loop']['p50']:.2f} ms "
+        f"(one process {one['p50']:.2f} ms); engine {a['engine']['tok_s']:.1f} tok/s "
+        f"(one process {one['tok_s']:.1f}); peak device memory a rank "
+        + ", ".join(f"{gib(rk['peak']):.2f} GiB (resident {gib(rk['resident']):.2f})"
+                    for rk in ranks)
+        + f", one process {gib(one['peak']):.2f} GiB (resident {gib(one['resident']):.2f}; "
+        f"it also holds the earlier phases' state)")
+    log(f"[model_parallel] both ranks' tokens equal; bf16 against one process: "
+        f"{loop_rows} of {PREFILL_B} loop rows and {eng_diff} of {len(one['engine'])} "
+        f"engine requests differ; fp32 at {PARITY_LAYERS} layers: 0 of "
+        f"{a['fp32'].size} greedy tokens differ")
+    # the grouped kernels at a rank's shapes: the prefill slab's and a
+    # decode step's buffers of rank 0, layer 0
+    rows = {}
+    with torch.inference_mode():
+        for tag, B in (("", PREFILL_B * PREFILL_S), ("@decode", DECODE_B)):
+            xg, leaves, C = ep_buffer(fff, api, params, cfg, M, 0, B)
+            gs = torch.full((E // M,), M * C, dtype=torch.int32, device="cuda")
+            _, r = grouped_rows(f"[model_parallel] rank 0{tag} (E/M {E // M}, M*C "
+                                f"{M * C})", xg, leaves[:2], leaves[2], gs, "swiglu",
+                                cfg.param_dtype)
+            # the engine run's calls: one a layer per decode step, the rest
+            # one a layer per admission slab
+            decode = n * a["engine"]["steps"]
+            for k, v in r.items():
+                rows[k + tag] = dict(v, capacity=C, launches=(
+                    decode if tag else a["engine"]["counts"][k] - decode))
+    log_rows(rows, tag="[model_parallel kernels]")
+    return rows
+
+
+def mesh_witness(cfg) -> float:
+    """The capacity factor at which no token of the straight-through FFF
+    can overflow: a leaf's capacity is then the whole batch."""
+    return float(2 ** cfg.period[0].ffn.fff_depth)
+
+
+def mesh_train(train_mod, api, cfg, capacity=None, **kw):
+    """``train_mesh``'s run: (the train result, the step-0 gradient's
+    global norm, as the optimizer sees it: averaged over the data ranks)."""
+    from repro_torch import utils
+    norm0 = []
+
+    def inspect(i, grads, metrics):
+        if i == 0:
+            norm0.append(float(utils.tree_global_norm(grads)))
+
+    with (api.overrides(capacity_factor=capacity) if capacity
+          else contextlib.nullcontext()):
+        r = train_mod.train(cfg, steps=MESH_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                            device="cuda", log=lambda *a: None, inspect=inspect,
+                            **kw)
+    return r, norm0[0]
+
+
+def mp_train_rank(rank: int, world: int) -> dict:
+    """One rank of the train_mesh phase (module docstring, phase 24)."""
+    from repro_torch.cluster.worker import weights_checksum
+    from repro_torch.configs.olmoe_1b_7b import FFF_CONFIG
+    from repro_torch.core import api
+    from repro_torch.distributed import collectives, compression
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_mod
+    torch.cuda.set_device(0)
+    cfg = dataclasses.replace(FFF_CONFIG, n_layers=MESH_LAYERS)
+    layout = mesh_lib.make_host_mesh()
+    collectives.reset_staged()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"layout": layout.shape}
+    for name, cf in (("default", None), ("no overflow", mesh_witness(cfg))):
+        r, norm0 = mesh_train(train_mod, api, cfg, cf, layout=layout)
+        out[name] = {"losses": r.losses, "step_ms": r.step_ms, "norm0": norm0,
+                     "checksum": weights_checksum(r.placements.gather(r.params))}
+        if name == "default":
+            out.update(staged=collectives.staged_bytes(),
+                       peak=torch.cuda.max_memory_allocated())
+        del r
+        torch.cuda.empty_cache()
+    group = layout.groups()["data"]
+    gen = torch.Generator(device="cuda").manual_seed(100 + rank)
+    x = torch.randn(MP_PROBE_BYTES // 4, generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    y = compression.compressed_psum(x, group)
+    torch.cuda.synchronize()
+    out["psum_ms"] = (time.perf_counter() - t0) * 1e3
+    exact = collectives.all_reduce(x, group)
+    out["psum_rel"] = float((y - exact).abs().max() / exact.abs().max())
+    out["psum_shape"] = tuple(y.shape)
+    return out
+
+
+def phase_train_mesh(common, api, lm) -> None:
+    """train --mesh host on 2 ranks of the one card (module docstring,
+    phase 24)."""
+    from repro_torch.configs.olmoe_1b_7b import FFF_CONFIG
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_mod
+    cfg = dataclasses.replace(FFF_CONFIG, n_layers=MESH_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    one = {}
+    for name, cf in (("default", None), ("no overflow", mesh_witness(cfg))):
+        r, norm0 = mesh_train(train_mod, api, cfg, cf)
+        one[name] = {"losses": r.losses, "step_ms": r.step_ms, "norm0": norm0}
+        del r
+        torch.cuda.empty_cache()
+    one_peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    common.reset_launch_counts()
+    ranks = mesh_lib.spawn_ranks(mp_train_rank, MP_RANKS, timeout_s=MP_LIMIT_S)
+    wall = time.perf_counter() - t0
+    tol = TOL[cfg.param_dtype]
+    gaps = {}
+    for r, rk in enumerate(ranks):
+        for name in one:
+            got, want = rk[name]["losses"], one[name]["losses"]
+            bad = [i for i, (a, b) in enumerate(zip(got, want))
+                   if not (math.isfinite(a) and abs(a - b) <= tol + tol * abs(b))]
+            if len(got) != MESH_STEPS or bad:
+                raise AssertionError(f"[train_mesh] rank {r} ({name}): losses {got} "
+                                     f"against one process's {want} (tolerance {tol})")
+            gaps[name] = [abs(a - b) for a, b in zip(got, want)]
+        # the data-parallel gradient the optimizer sees is the whole batch's:
+        # a reduction skipped (a half batch's gradient) or not averaged (2x)
+        # is far outside bf16 rounding of a norm at step 0, where no token
+        # overflows and both runs hold the same parameters
+        n0, n1 = rk["no overflow"]["norm0"], one["no overflow"]["norm0"]
+        if not abs(n0 - n1) <= MESH_NORM_RTOL * n1:
+            raise AssertionError(f"[train_mesh] rank {r}: step-0 gradient norm {n0} "
+                                 f"against one process's {n1} (relative limit "
+                                 f"{MESH_NORM_RTOL})")
+        if rk["psum_rel"] >= 0.05 or rk["psum_shape"] != (MP_PROBE_BYTES // 4,):
+            raise AssertionError(f"[train_mesh] rank {r}: compressed_psum relative error "
+                                 f"{rk['psum_rel']:.4f} (limit 0.05)")
+    a, b = ranks
+    for name in one:
+        if a[name]["losses"] != b[name]["losses"] or a[name]["checksum"] != b[name]["checksum"]:
+            raise AssertionError(f"[train_mesh] ({name}) the ranks end with different "
+                                 f"losses or parameters")
+    log(f"[train_mesh] {cfg.arch_id} FFF full width, {cfg.n_layers} of 16 layers "
+        f"{cfg.param_dtype}, --mesh host: {MP_RANKS} ranks on cuda:0 over gloo, layout "
+        f"{a['layout']}, zero_stage {cfg.zero_stage} (parameters replicated, gradients "
+        f"averaged), batch {TRAIN_B} x seq {TRAIN_S} split over the ranks, "
+        f"{MESH_STEPS} steps; spawn to results {wall:.1f}s; both ranks end with "
+        f"bit-equal parameters (weights_checksum)")
+    for name in one:
+        what = ("the straight-through FFF's default capacity (per data rank)"
+                if name == "default" else
+                f"capacity factor {mesh_witness(cfg):.0f} (a leaf holds the whole "
+                f"batch: no token overflows)")
+        log(f"[train_mesh] {what}: losses {a[name]['losses']} against one process's "
+            f"{one[name]['losses']}, gaps {gaps[name]} (within {tol} + {tol}|loss|); "
+            f"step-0 gradient norm {a[name]['norm0']} against {one[name]['norm0']}; "
+            f"step ms (CUDA events) {a[name]['step_ms']} against "
+            f"{one[name]['step_ms']}")
+    log(f"[train_mesh] staged through pinned host memory a rank (default run) "
+        f"{a['staged'] / 1e9:.3f} GB; peak device memory a rank "
+        f"{a['peak'] / 2 ** 30:.2f} GiB, one process {one_peak / 2 ** 30:.2f} GiB")
+    log(f"[train_mesh] compressed_psum of {MP_PROBE_BYTES / 2 ** 20:.0f} MB a rank (float32 "
+        f"on the card, int8 payload summed as int32): relative error "
+        + ", ".join(f"{rk['psum_rel']:.4f}" for rk in ranks)
+        + f" against the exact sum (limit 0.05); {a['psum_ms']:.1f} ms (host clock)")
+
+
 @contextlib.contextmanager
 def timed(name: str):
     """Logs the seconds the phase inside took."""
@@ -3580,6 +4067,8 @@ def main() -> int:
         phase_cluster_proc(serve_mod, lm, FFF_CONFIG)
     with timed("draft"):
         draft_rows = phase_draft(common, api, fff, lm, serve_mod, cfg, params)
+    with timed("model_parallel"):
+        mp_rows = phase_model_parallel(common, api, fff, lm, serve_mod, cfg, params)
     with timed("parity"):
         phase_parity(api, fff, lm, FFF_CONFIG)
         phase_engine_parity(api, fff, lm, serve_mod, FFF_CONFIG)
@@ -3592,6 +4081,8 @@ def main() -> int:
         phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG)
     with timed("train"):
         phase_train(common, api, fff, lm, FFF_CONFIG)
+    with timed("train_mesh"):
+        phase_train_mesh(common, api, lm)
     with timed("ckpt"):
         phase_ckpt(common, lm, serve_mod, FFF_CONFIG)
     with timed("dense"):
@@ -3615,6 +4106,7 @@ def main() -> int:
     with timed("internvl"):
         phase_internvl(common, api, fff, lm, serve_mod)
     archs[f"{DRAFT_ARCH} draft"] = draft_rows
+    archs[f"{cfg.arch_id} model_parallel rank 0"] = mp_rows
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
 
     table = []

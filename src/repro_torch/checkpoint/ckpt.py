@@ -29,6 +29,8 @@ from typing import Any, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch import utils
+
 PyTree = Any
 
 _SEP = "/"
@@ -68,22 +70,6 @@ def flatten_with_paths(tree: PyTree, prefix: str = "") -> Iterator[tuple[str, An
         yield from flatten_with_paths(child, f"{prefix}{_SEP}{name}" if prefix else name)
 
 
-def _map_with_paths(fn, tree: PyTree, prefix: str = "") -> PyTree:
-    """``fn(key, leaf)`` over the leaves, keeping the structure."""
-    if tree is None:
-        return None
-    key = lambda name: f"{prefix}{_SEP}{name}" if prefix else name
-    if isinstance(tree, dict):
-        return {k: _map_with_paths(fn, v, key(str(k))) for k, v in tree.items()}
-    if _is_namedtuple(tree):
-        return type(tree)(*(_map_with_paths(fn, v, key(f))
-                            for f, v in zip(tree._fields, tree)))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_with_paths(fn, v, key(str(i)))
-                          for i, v in enumerate(tree))
-    return fn(prefix, tree)
-
-
 def _host_copy(leaf):
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
@@ -96,7 +82,7 @@ def snapshot(tree: PyTree) -> PyTree:
     """The tree with every tensor copied to host memory (a new tensor even
     for one already there): what a later in-place update of ``tree``
     cannot reach."""
-    return _map_with_paths(lambda _, leaf: _host_copy(leaf), tree)
+    return utils.tree_map_with_paths(lambda _, leaf: _host_copy(leaf), tree)
 
 
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
@@ -182,7 +168,7 @@ def restore_tree(directory: str, like: PyTree) -> tuple[PyTree, int, dict]:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
             return _place(key, where[key][key], dtypes.get(key, ""), leaf)
 
-        tree = _map_with_paths(load, like)
+        tree = utils.tree_map_with_paths(load, like)
     finally:
         for z in files:
             z.close()

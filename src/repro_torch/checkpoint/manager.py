@@ -13,6 +13,10 @@ first copies every leaf to host memory on the caller's thread
 was called whatever the caller does next.  The background thread only
 serializes, commits and collects old checkpoints; it never touches a
 device tensor.  Its error is raised at the next ``wait`` or ``save``.
+
+Under ranks (``placements=``, ``distributed/sharding.Placements``) every
+rank holds slices: a save gathers the whole arrays, so the format stays
+the one-process format, and a restore keeps each rank's slices.
 """
 from __future__ import annotations
 
@@ -23,7 +27,12 @@ import threading
 import time
 from typing import Any, Optional
 
-from repro_torch.checkpoint import ckpt
+import torch
+
+from repro_torch import utils
+from repro_torch.checkpoint import ckpt, elastic
+from repro_torch.distributed import collectives
+from repro_torch.distributed.layout import world_rank
 
 PyTree = Any
 
@@ -35,10 +44,12 @@ class CheckpointManager:
     thread) and ``write_s`` (serialize and commit), and the newest
     restore's ``restore_s``, in host-clock seconds."""
 
-    def __init__(self, root: str, keep: int = 3, async_save: bool = True):
+    def __init__(self, root: str, keep: int = 3, async_save: bool = True,
+                 placements=None):
         self.root = root
         self.keep = keep
         self.async_save = async_save
+        self.placements = placements
         self.timings: dict[str, float] = {}
         self._worker: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -47,7 +58,13 @@ class CheckpointManager:
     # -- write ---------------------------------------------------------------
     def save(self, step: int, tree: PyTree, meta: Optional[dict] = None,
              block: bool = False) -> None:
+        """Save ``tree`` as step ``step``.  Under ranks every rank calls
+        it: the whole arrays are gathered, rank 0 writes them (blocking)
+        and every rank waits at a barrier after the commit."""
         self.wait()                      # one in-flight save at a time
+        if self.placements is not None:
+            self._save_ranks(step, tree, meta)
+            return
         t0 = time.perf_counter()
         host = ckpt.snapshot(tree)
         self.timings["snapshot_s"] = time.perf_counter() - t0
@@ -57,6 +74,14 @@ class CheckpointManager:
             self._worker.start()
         else:
             self._save_impl(step, host, meta)
+
+    def _save_ranks(self, step: int, tree: PyTree, meta: Optional[dict]):
+        t0 = time.perf_counter()
+        host = ckpt.snapshot(self.placements.gather(tree))
+        self.timings["snapshot_s"] = time.perf_counter() - t0
+        if world_rank() == 0:
+            self._save_impl(step, host, meta)
+        collectives.barrier()
 
     def _save_thread(self, step: int, host: PyTree, meta: Optional[dict]):
         try:
@@ -103,14 +128,29 @@ class CheckpointManager:
     def restore(self, like: PyTree, step: Optional[int] = None
                 ) -> tuple[PyTree, int, dict]:
         """Restore ``step`` (default the newest committed) into the
-        structure, dtypes and devices of ``like``."""
+        structure, dtypes and devices of ``like`` (under ranks: this
+        rank's slices of the whole arrays, ``elastic.reshard_restore``)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.root}")
         t0 = time.perf_counter()
-        out = ckpt.restore_tree(os.path.join(self.root, f"step_{step}"), like)
+        out = self._restore(os.path.join(self.root, f"step_{step}"), like)
         self.timings["restore_s"] = time.perf_counter() - t0
         return out
+
+    def _restore(self, directory: str, like: PyTree):
+        if self.placements is None:
+            return ckpt.restore_tree(directory, like)
+        pls = self.placements
+        # the whole arrays on the host, this rank's slices of them moved
+        # to the device and dtype of their counterparts in ``like``
+        got, step, meta = elastic.reshard_restore(
+            directory, pls.whole_like(like), pls.layout, pls.spec_fn)
+        flat = dict(ckpt.flatten_with_paths(got))
+        placed = utils.tree_map_with_paths(
+            lambda p, leaf: flat[p].to(device=leaf.device, dtype=leaf.dtype)
+            .contiguous() if isinstance(leaf, torch.Tensor) else flat[p], like)
+        return placed, step, meta
 
     # -- retention -----------------------------------------------------------
     def _gc(self):

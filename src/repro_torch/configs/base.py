@@ -6,9 +6,9 @@ of the JAX schema is here: attention, Mamba (``mamba_*``) and xLSTM
 (``lstm_heads``) mixers, cross-attention decoder blocks over an
 ``EncoderSpec`` stack (whisper-small), the ``frontend`` stubs over
 precomputed frame or patch embeddings, and learned or sinusoidal
-positions.  ``attn_logit_softcap``, ``scan_layers`` and ``zero_stage``
-are recorded fields: the JAX package reads no softcap, and the port
-unrolls its layers and has no sharding yet.
+positions.  ``attn_logit_softcap`` and ``scan_layers`` are recorded
+fields: the JAX package reads no softcap, and the port unrolls its layers.
+``zero_stage`` picks the training layout (``launch/train``).
 """
 from __future__ import annotations
 
@@ -123,8 +123,8 @@ class ModelConfig:
     scan_layers: bool = True
     remat: str = "none"
     grad_accum: int = 1
-    # 1: params replicated, moments sharded; 3: params sharded too.  A
-    # recorded field: nothing reads it until distributed/sharding is ported
+    # 1: params replicated over the data axes; 3: sharded over them too
+    # (launch/train.train: sharding.Placements.of(fsdp=zero_stage >= 3))
     zero_stage: int = 1
     attn_chunk: int = 1024         # flash-attention chunk size
     subquadratic: bool = False

@@ -49,6 +49,7 @@ import torch
 from repro_torch import utils
 from repro_torch.core import fff as fff_lib
 from repro_torch.distributed import act as dist_act
+from repro_torch.distributed import sharding
 from repro_torch.kernels.fused_decode import ops as fd_ops
 from repro_torch.kernels.fused_fff import ops as fused_ops
 from repro_torch.kernels.leaf_gemm import ops as gemm_ops
@@ -322,23 +323,26 @@ _CONTEXT_FIELDS = ("override", "capacity_override", "overflow_override",
 
 
 def thread_context() -> tuple:
-    """This thread's overrides, routing tap and installed process groups,
-    for ``context_installed`` to reinstate in another thread: autograd runs
-    a CUDA backward, and with it the recompute of a checkpointed layer, in
-    a thread of its own, where these thread-local settings are unset."""
+    """This thread's overrides, routing tap, installed process groups and
+    parameter placements, for ``context_installed`` to reinstate in
+    another thread: autograd runs a CUDA backward, and with it the
+    recompute of a checkpointed layer, in a thread of its own, where these
+    thread-local settings are unset."""
     return ({f: getattr(_thread_state, f, None) for f in _CONTEXT_FIELDS},
-            dist_act.current_groups() if dist_act.mesh_installed() else None)
+            dist_act.current_groups() if dist_act.mesh_installed() else None,
+            sharding.current_placements())
 
 
 @contextlib.contextmanager
 def context_installed(ctx: tuple):
     """Install a ``thread_context()`` for the dynamic extent of the block."""
-    fields, groups = ctx
+    fields, groups, placements = ctx
     prev = {f: getattr(_thread_state, f, None) for f in _CONTEXT_FIELDS}
     for f, v in fields.items():
         setattr(_thread_state, f, v)
     try:
-        with dist_act.groups_installed(groups):
+        with dist_act.groups_installed(groups), \
+                sharding.use_placements(placements):
             yield
     finally:
         for f, v in prev.items():
@@ -452,6 +456,9 @@ def apply(params: dict, cfg: fff_lib.FFFConfig, x: torch.Tensor,
     if name == "auto":
         name = _resolve_auto(params, cfg, spec.mode, x_shape=tuple(x.shape),
                              x_device=x.device)
+    if name != "grouped_ep":
+        # leaves stored sharded over the model axis are whole for the rest
+        params = sharding.whole_leaves(params, cfg.num_leaves)
     y, out = get_backend(spec.mode, name)(params, cfg, x, spec)
     if cfg.master_leaf and not (name == "cuda_decode" and cfg.depth > 0):
         y = y + fff_lib.master_apply(params, cfg, x).to(y.dtype)

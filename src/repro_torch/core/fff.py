@@ -549,7 +549,8 @@ def _forward_hard_ep(params: Params, cfg: FFFConfig, x: torch.Tensor,
                      ) -> tuple[torch.Tensor, dict]:
     """FORWARD_I via expert-parallel all_to_all dispatch
     (``routing.grouped_leaf_apply_ep``): routing runs on every rank, and
-    tokens travel to the rank owning their leaf.  Under the default
+    tokens travel to the rank owning their leaf.  The leaves may be stored
+    sharded (each rank's E/M, ``distributed/sharding``).  Under the default
     "exact_dense" over-capacity tokens are repaired, so outputs match the
     reference backend; "master_leaf" and "drop" skip the repair round.
     ``overflow_fraction`` reports the true over-capacity rate either way."""
@@ -557,7 +558,7 @@ def _forward_hard_ep(params: Params, cfg: FFFConfig, x: torch.Tensor,
         return routing_lib.grouped_leaf_apply_ep(
             xf, idx, tl, cfg.activation, capacity_factor=capacity_factor,
             accum_dtype=cfg.accum_dtype, overflow_policy=overflow_policy,
-            return_kept=True)
+            return_kept=True, num_leaves=cfg.num_leaves)
 
     return _forward_hard_capacity(
         params, cfg, x,

@@ -18,14 +18,14 @@
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch import utils
 from repro_torch.distributed import act as dist_act
+from repro_torch.distributed import collectives
 from repro_torch.distributed import dispatch as dispatch_lib
 from repro_torch.kernels.leaf_gemm import kernel as gemm_kernel
 from repro_torch.kernels.leaf_gemm import ref as gemm_ref
@@ -321,20 +321,12 @@ def _repair(y: torch.Tensor, dropped: torch.Tensor, x: torch.Tensor,
     return y
 
 
-def _all_gather_cat(t: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along dim 0 in group-rank order."""
-    if t.dtype == torch.bool:
-        return _all_gather_cat(t.to(torch.uint8), group).bool()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts)
-
-
 def grouped_leaf_apply_ep(x: torch.Tensor, leaf_idx: torch.Tensor,
                           params: dict, activation: str,
                           capacity_factor: float = 1.25,
                           accum_dtype=torch.float32, return_kept: bool = False,
-                          overflow_policy: str = "exact_dense"):
+                          overflow_policy: str = "exact_dense",
+                          num_leaves: Optional[int] = None):
     """Expert-parallel grouped leaf execution, exact by default.
 
     Over the model group M that ``distributed/act`` installs (and the data
@@ -344,10 +336,11 @@ def grouped_leaf_apply_ep(x: torch.Tensor, leaf_idx: torch.Tensor,
     one ``all_to_all`` over the model group delivers each leaf's tokens to
     its owner, the owner runs its leaves at (E/M, M*C), and the inverse
     ``all_to_all`` returns the results.  Capacity is per (source rank, leaf)
-    (``dispatch.ep_capacity``).  Every rank passes the full ``params`` and
-    the global ``x`` and reads only its own leaves and tokens; the global
-    outputs are reassembled with an ``all_gather``, so every rank returns
-    the same (B, O).
+    (``dispatch.ep_capacity``).  Every rank passes the global ``x`` and
+    reads only its own tokens, and either its own E/M leaves (stored
+    sharded: ``num_leaves`` gives E) or all E, of which it reads only its
+    own; the global outputs are reassembled with an ``all_gather``, so
+    every rank returns the same (B, O).
 
     ``overflow_policy``: "exact_dense" (default) repairs over-capacity
     tokens when any rank dropped one (an ``all_reduce`` of the count): an
@@ -360,9 +353,13 @@ def grouped_leaf_apply_ep(x: torch.Tensor, leaf_idx: torch.Tensor,
     the local grouped dispatch plus the same repair.  Returns (B, O), or
     ``(y, kept)`` with ``return_kept=True``; ``kept`` False marks tokens
     that overflowed and took the policy's overflow path."""
-    E = _num_leaves(params)
+    held = _num_leaves(params)
+    E = held if num_leaves is None else num_leaves
     M = dist_act.model_shard_count()
     if not dist_act.mesh_installed() or M <= 1 or E % M:
+        if held != E:
+            raise ValueError(f"{held} of {E} leaves held without a model "
+                             f"group of {E // held} ranks installed")
         y, kept = grouped_leaf_apply(
             x, leaf_idx, params, activation, capacity_factor=capacity_factor,
             accum_dtype=accum_dtype, serving=True, return_kept=True)
@@ -377,14 +374,20 @@ def grouped_leaf_apply_ep(x: torch.Tensor, leaf_idx: torch.Tensor,
     model, data = dist_act.current_groups()
     S = dist_act.data_shard_count() * M
     E_local = E // M
-    m = dist.get_rank(model)
-    s = (dist.get_rank(data) if data is not None else 0) * M + m
+    m = collectives.group_rank(model)
+    s = collectives.group_rank(data) * M + m
     x, leaf_idx = _pad_tokens(x, leaf_idx, S, E)
     Bl = x.shape[0] // S
     C = dispatch_lib.ep_capacity(Bl, E, capacity_factor)
     x_l = x[s * Bl:(s + 1) * Bl]
     idx_l = leaf_idx[s * Bl:(s + 1) * Bl].long()
-    leaves_l = {k: v[m * E_local:(m + 1) * E_local] for k, v in params.items()}
+    if held == E_local:
+        leaves_l = params              # stored sharded: this rank's own
+    elif held == E:
+        leaves_l = {k: v[m * E_local:(m + 1) * E_local] for k, v in params.items()}
+    else:
+        raise ValueError(f"{held} leaves held: neither all {E} nor this "
+                         f"rank's {E_local}")
 
     valid = idx_l < E
     slot = group_slots(idx_l, E + 1)       # pads slot into a virtual group
@@ -398,29 +401,28 @@ def grouped_leaf_apply_ep(x: torch.Tensor, leaf_idx: torch.Tensor,
         dropped = valid & ~plan.kept
         n_drop = dropped.sum().reshape(1)
         for g in (model, data):
-            if g is not None:
-                dist.all_reduce(n_drop, group=g)
+            n_drop = collectives.all_reduce(n_drop, g)
         if int(n_drop) > 0:
             # every model peer sees every dropped token of its data row,
             # evaluates the leaves it owns, and an all_reduce assembles them
-            xg = _all_gather_cat(torch.where(dropped[:, None], x_l,
-                                             torch.zeros_like(x_l)), model)
-            ig = _all_gather_cat(torch.where(dropped, idx_l, 0), model)
-            dg = _all_gather_cat(dropped, model)
+            xg = collectives.all_gather_cat(
+                torch.where(dropped[:, None], x_l, torch.zeros_like(x_l)), model)
+            ig = collectives.all_gather_cat(torch.where(dropped, idx_l, 0), model)
+            dg = collectives.all_gather_cat(dropped, model)
             off = m * E_local
             own = dg & (ig >= off) & (ig < off + E_local)
             yd = torch.zeros((M * Bl, y_l.shape[-1]), dtype=accum_dtype,
                              device=x.device)
             yd = _repair(yd, own, xg, (ig - off).clamp(0, E_local - 1),
                          leaves_l, activation, accum_dtype)
-            dist.all_reduce(yd, group=model)
+            yd = collectives.all_reduce(yd, model)
             mine = yd[m * Bl:(m + 1) * Bl]
             y_l = torch.where(dropped[:, None], mine, y_l)
 
     y, kept = y_l, plan.kept
     for g in (model, data):
-        if g is not None:
-            y, kept = _all_gather_cat(y, g), _all_gather_cat(kept, g)
+        y = collectives.all_gather_cat(y, g)
+        kept = collectives.all_gather_cat(kept, g)
     y, kept = y[:B], kept[:B]
     return (y, kept) if return_kept else y
 

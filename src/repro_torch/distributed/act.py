@@ -1,12 +1,12 @@
 """The process groups the expert-parallel dispatch runs over (port of the
 part of ``repro/distributed/act.py`` that the FFF backends read).
 
-The launch layer installs a model-axis process group (and optionally a
-data-axis one) for the dynamic extent of a ``with use_groups(...)`` block;
-``core/api`` resolves ``auto`` to ``grouped_ep`` when a model group of more
-than one rank is installed, and ``core/routing`` exchanges tokens over it.
-With nothing installed every count is 1 and the backends run on one
-process.
+``launch/mesh.serving_context`` installs a model-axis process group (and
+optionally a data-axis one) for the dynamic extent of a ``with
+use_groups(...)`` block; ``core/api`` resolves ``auto`` to ``grouped_ep``
+when a model group of more than one rank is installed, and
+``core/routing`` exchanges tokens over it.  With nothing installed every
+count is 1 and the backends run on one process.
 
 JAX's activation layout constraints (``shard`` and the activation kinds it
 takes) tell the SPMD partitioner how to lay out a traced program; eager
@@ -18,7 +18,10 @@ import contextlib
 import threading
 from typing import Optional
 
+import torch
 import torch.distributed as dist
+
+from repro_torch.distributed import collectives
 
 _state = threading.local()
 
@@ -78,3 +81,17 @@ def data_shard_count() -> int:
     capacity is per (data shard, leaf) as under the JAX package's mesh."""
     g = _groups()
     return 1 if g is None or g[1] is None else dist.get_world_size(g[1])
+
+
+def agree_min(n: int) -> int:
+    """The least ``n`` over every rank of the installed groups (``n`` when
+    none is installed): ranks that serve together take a decision read off
+    their own clocks by the rank that saw least, so they all take the
+    same branch."""
+    g = _groups()
+    if g is None:
+        return n
+    t = torch.tensor([n], dtype=torch.int64)
+    for group in g:
+        t = collectives.all_reduce(t, group, op=dist.ReduceOp.MIN)
+    return int(t)

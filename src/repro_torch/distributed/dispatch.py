@@ -15,7 +15,8 @@ Layout contract (shapes per rank):
 * each source rank slots its ``Bl`` local tokens per group with capacity
   ``C`` per (source rank, group) pair and scatters them into an
   ``(M, E/M, C, D)`` send buffer;
-* one ``all_to_all_single`` with equal splits delivers, to each owner, the
+* one ``all_to_all_single`` with equal splits (``collectives``: CUDA
+  tensors through pinned host memory) delivers, to each owner, the
   ``(M, E/M, C, D)`` buffer of its groups' tokens from every peer, viewed as
   ``(E/M, M*C, D)`` per-group runs;
 * the inverse exchange returns results in exactly the send layout, so the
@@ -31,9 +32,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch import utils
+from repro_torch.distributed import collectives
 
 
 class EPPlan(NamedTuple):
@@ -92,8 +93,7 @@ def ep_scatter(x: torch.Tensor, plan: EPPlan) -> torch.Tensor:
 def ep_exchange(send: torch.Tensor, group, plan: EPPlan) -> torch.Tensor:
     """all_to_all the send buffer to the group owners: (M, E/M, C, D) ->
     (E/M, M*C, D) per-local-group token runs (sources concatenated)."""
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send.contiguous(), group=group)
+    recv = collectives.all_to_all_single(send.contiguous(), group)
     return recv.transpose(0, 1).reshape(
         plan.groups_local, plan.num_shards * plan.capacity, send.shape[-1])
 
@@ -103,9 +103,8 @@ def ep_combine(y: torch.Tensor, group, plan: EPPlan) -> torch.Tensor:
     source ranks, flattened to the (E*C, O) send-buffer layout."""
     M, C, O = plan.num_shards, plan.capacity, y.shape[-1]
     back = y.reshape(plan.groups_local, M, C, O).transpose(0, 1).contiguous()
-    ysend = torch.empty_like(back)
-    dist.all_to_all_single(ysend, back, group=group)
-    return ysend.reshape(plan.num_groups * C, O)
+    return collectives.all_to_all_single(back, group).reshape(
+        plan.num_groups * C, O)
 
 
 def ep_gather(y_flat: torch.Tensor, plan: EPPlan) -> torch.Tensor:

@@ -32,6 +32,13 @@ each with its own CUDA context on the card) or ``local`` (in process);
 ``--cluster-verify`` replays the workload on one engine and reports
 whether every token matched (``parity_ok``), ``--drain`` drains the fleet
 at the end.
+``--model-parallel M`` lays the world's ranks out as (world/M, M) on
+("data", "model") (``launch/mesh.serving_context``), keeps each rank's
+share of the leaves (``distributed/sharding.shard_leaves``: E/M leaves of
+every FFF site where M divides E; every other tensor whole on each rank)
+and serves every FFF site expert-parallel (``grouped_ep``): every rank serves the same requests to the same tokens
+and rank 0 reports; one process a rank, e.g. under ``python -m
+torch.distributed.run``; it refuses ``--cluster``, as the JAX driver does.
 ``--engine off`` keeps the fixed-batch loop: one batched prefill, then a
 greedy decode loop.  Both print latency percentiles, tokens/s and how many
 times each CUDA kernel launched.
@@ -60,12 +67,15 @@ is the default; ``--device cpu`` runs the plain PyTorch versions on the host::
       --scheduler weighted_leaf_aware --metrics-json /tmp/metrics.json
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --cluster 1 1 --cluster-bus local --cluster-verify
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.serve --model-parallel 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import time
 from typing import Optional
@@ -78,7 +88,9 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import api
 from repro_torch.data import tokens as tokens_lib
+from repro_torch.distributed import sharding
 from repro_torch.kernels import common
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm
 from repro_torch.serving import metrics as metrics_lib
 from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
@@ -410,6 +422,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--eos-id", type=int, default=-1,
                     help=">= 0: stop each sequence at this token id")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="model-axis size of the serving layout; >1 lays "
+                         "the world's ranks out as (data, model), stores "
+                         "each rank's share of the FFF leaves and serves "
+                         "the FFF sites expert-parallel (grouped_ep); run "
+                         "one process a rank, e.g. under python -m "
+                         "torch.distributed.run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch versions)")
@@ -471,6 +490,9 @@ def run_cluster(args, cfg: ModelConfig) -> None:
     n_prefill, n_decode = args.cluster
     if n_prefill < 1 or n_decode < 1:
         raise ValueError("--cluster needs >= 1 prefill and >= 1 decode worker")
+    if args.model_parallel > 1:
+        raise ValueError("--cluster and --model-parallel are exclusive: "
+                         "cluster workers are single-process engines")
     page = args.page_size or 16         # the handoff moves pages: paging is on
     weights = parse_tenant_weights(args.tenant_weights)
     sched_kw = ({"weights": weights}
@@ -579,6 +601,28 @@ def run_cluster(args, cfg: ModelConfig) -> None:
         print(f"wrote metrics to {args.metrics_json}")
 
 
+def setup_model_parallel(cfg: ModelConfig, model_parallel: int, *,
+                         seed: int = 0, device="cuda", params=None):
+    """The serving layout of ``model_parallel`` ranks on the model axis over
+    the world (``launch/mesh.serving_context``) and this rank's share of
+    the parameters (``sharding.shard_leaves``: E/M leaves of each FFF site,
+    the rest whole; ``params`` default ``lm.init(cfg, seed=seed)``, which
+    every rank draws alike).
+    Returns (layout, ctx, params): serve under ``with ctx():``.  With
+    ``model_parallel`` 1: (None, nullcontext, params)."""
+    if model_parallel > 1:
+        mesh_lib.init_ranks()
+    layout, ctx = mesh_lib.serving_context(model_parallel)
+    if params is None:
+        params = lm.init(cfg, seed=seed, device=device)
+        print(f"{cfg.arch_id}: {lm.param_count(params)/1e6:.1f}M params")
+    if layout is not None:
+        params = sharding.shard_leaves(params, layout)
+        print(f"layout: {layout.shape} (expert-parallel serving, "
+              f"{mesh_lib.num_chips(layout)} ranks)")
+    return layout, ctx, params
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     cfg = registry.get_config(args.arch, ffn=args.ffn)
@@ -586,12 +630,23 @@ def main(argv=None) -> None:
     if args.cluster is not None:
         run_cluster(args, cfg)
         return
+    rank = mesh_lib.init_ranks()[0] if args.model_parallel > 1 else 0
+    # every rank serves the same requests; rank 0 reports
+    with (contextlib.redirect_stdout(io.StringIO()) if rank
+          else contextlib.nullcontext()):
+        _serve_main(args, cfg, rank)
+
+
+def _serve_main(args, cfg: ModelConfig, rank: int) -> None:
+    layout, ctx, params = setup_model_parallel(
+        cfg, args.model_parallel, seed=args.seed, device=args.device)
     if args.engine == "off":
-        serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen,
-              fff_backend=args.fff_backend,
-              capacity_factor=args.capacity_factor,
-              overflow_policy=args.overflow_policy, eos_id=args.eos_id,
-              seed=args.seed, device=args.device)
+        with ctx():
+            serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                  gen=args.gen, fff_backend=args.fff_backend,
+                  capacity_factor=args.capacity_factor,
+                  overflow_policy=args.overflow_policy, eos_id=args.eos_id,
+                  seed=args.seed, device=args.device, params=params)
         return
     weights = parse_tenant_weights(args.tenant_weights)
     sched_kw = ({"max_prefilling": args.max_prefilling}
@@ -618,7 +673,9 @@ def main(argv=None) -> None:
                           args.prompt_len, args.gen, eos_id=args.eos_id,
                           seed=args.seed, shared_prefix=args.shared_prefix,
                           tenants=sorted(weights) or None)
-    serve_engine(cfg, ecfg, reqs, metrics_json=args.metrics_json)
+    with ctx():
+        serve_engine(cfg, ecfg, reqs, params=params,
+                     metrics_json="" if rank else args.metrics_json)
 
 
 if __name__ == "__main__":

@@ -18,20 +18,29 @@ As there, each step of an encoder model (whisper-small) adds
 ``enc_embeds`` and a frontend model without an encoder (internvl2-26b)
 trains on ``embeds`` in place of tokens, both float32 N(0, 1) from
 ``np.random.default_rng(i)`` at step i.
+``--mesh host|prod`` trains data-parallel over a layout of the world's
+ranks (``launch/mesh``; ``host`` is every rank on one data axis, ``prod``
+the 256-rank production layout): each rank takes its share of each step's
+batch (the batch one process would draw) and the parameters are stored as
+the config's ``zero_stage`` says (``distributed/sharding.shard_params``,
+``fsdp`` at stage 3; replicated below it, and the gradients mean-reduced
+over the data axes); each rank's optimizer updates its own slices, and
+the clip reads the norm of the whole gradient.  Run one process a rank
+under ``python -m torch.distributed.run``; one process is a world of one.
 The card is the default; ``--device cpu`` runs on the host::
 
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 6 \\
       --ckpt-every 3 --ckpt-dir /path/to/ckpt --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
       --ffn native --reduced --steps 3 --device cpu
-
-The JAX driver's ``--mesh`` is not offered: its counterpart is
-multi-process ``torch.distributed`` with sharded parameters.
+  python -m torch.distributed.run --nproc-per-node 2 -m \\
+      repro_torch.launch.train --reduced --steps 3 --mesh host --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 from typing import Callable, Optional
 
@@ -43,7 +52,8 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import tokens as tokens_lib
-from repro_torch.distributed import fault, straggler
+from repro_torch.distributed import fault, sharding, straggler
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm
 
 
@@ -103,6 +113,10 @@ class TrainResult:
     ckpt_timings: dict = dataclasses.field(default_factory=dict)
                                    # with a checkpoint directory: the manager's
                                    # newest snapshot_s, write_s and restore_s
+    placements: Optional[sharding.Placements] = None
+                                   # with a layout: where the slices in params
+                                   # and opt_state lie (its gather makes them
+                                   # whole)
 
     @property
     def losses(self) -> list:
@@ -114,7 +128,8 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           params: Optional[dict] = None,
           inspect: Optional[Callable] = None, log=print,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 10, keep: int = 2,
-          failure_hook: Optional[Callable[[int], bool]] = None) -> TrainResult:
+          failure_hook: Optional[Callable[[int], bool]] = None,
+          layout=None) -> TrainResult:
     """``steps`` steps of ``chain_clip(adamw(cosine_warmup(lr, steps // 10
     + 1, steps)), 1.0)`` on ``MarkovTokenSource(cfg.vocab_size, seed)``
     batches (``step_batch`` at step i), from
@@ -126,26 +141,57 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     checkpoint of ``{"params", "opt"}`` every ``ckpt_every`` steps and at
     the end (``keep`` kept), resuming from the directory's newest one, and
     ``failure_hook(i) -> True`` failing step ``i`` (the supervisor
-    restores and replays, on the same device)."""
+    restores and replays, on the same device).
+
+    With ``layout`` (``launch/mesh``; every rank of the world calls
+    ``train`` alike) the steps run data-parallel over its data axes: this
+    rank takes its share of each step's batch, ``params`` (whole, the same
+    on every rank) are placed by ``sharding.Placements.of(params, layout,
+    fsdp=cfg.zero_stage >= 3)`` and each rank keeps its slices, the gradients are averaged over the data ranks,
+    the clip reads the whole gradient's norm, checkpoints hold whole arrays
+    (rank 0 writes), and ``metrics`` are the data ranks' means.  The
+    returned parameters and optimizer state are this rank's slices
+    (``placements.gather`` of the result makes them whole)."""
     dev = utils.resolve_device(device)
     if params is None:
         params = lm.init(cfg, seed=seed, device=dev)
     log(f"{cfg.arch_id}: {lm.param_count(params) / 1e6:.1f}M params, "
         f"device={dev}")
+    norm_fn = utils.tree_global_norm
+    share = slice(None)
+    placements = None
+    if layout is not None:
+        placements = sharding.Placements.of(params, layout,
+                                            fsdp=cfg.zero_stage >= 3)
+        params = placements.shard(params)
+        norm_fn = functools.partial(sharding.global_norm,
+                                    placements=placements)
+        d, n = mesh_lib.data_index(layout, mesh_lib.world_rank())
+        if batch % n:
+            raise ValueError(f"batch {batch} does not split over {n} data ranks")
+        share = slice(d * batch // n, (d + 1) * batch // n)
+        log(f"layout: {layout.shape} (data-parallel over {n} ranks, "
+            f"zero_stage {cfg.zero_stage})")
     opt = optim.chain_clip(
-        optim.adamw(optim.cosine_warmup(lr, steps // 10 + 1, steps)), 1.0)
+        optim.adamw(optim.cosine_warmup(lr, steps // 10 + 1, steps)), 1.0,
+        norm_fn)
     source = tokens_lib.MarkovTokenSource(cfg.vocab_size, seed=seed)
     grad_fn = optim.value_and_grad(lambda p, b, g: lm.loss_fn(p, cfg, b, g))
     on_card = dev.type == "cuda"
     runs = {}                      # step -> (metrics, ms) of its newest run
 
     def one_step(params, opt_state, i):
-        b = step_batch(cfg, source, batch, seq, seed, i)
+        b = {k: v[share] for k, v in
+             step_batch(cfg, source, batch, seq, seed, i).items()}
         if on_card:
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
         t0 = time.perf_counter()
-        (_, metrics), grads = grad_fn(params, b, step_generator(seed, i, dev))
+        with sharding.use_placements(placements):
+            (_, metrics), grads = grad_fn(params, b, step_generator(seed, i, dev))
+        if layout is not None:
+            grads = sharding.reduce_gradients(grads, placements)
+            metrics = sharding.data_mean(metrics, layout)
         if inspect is not None:
             inspect(i, grads, metrics)
         updates, opt_state = opt.update(grads, opt_state, params)
@@ -173,7 +219,8 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
             params, opt_state, _ = one_step(params, opt_state, i)
         end = steps
     else:
-        manager = CheckpointManager(ckpt_dir, keep=keep)
+        manager = CheckpointManager(ckpt_dir, keep=keep,
+                                    placements=placements)
         tracker = straggler.StepTimeTracker(1)
         start = manager.latest_step() or 0
         if start:
@@ -196,15 +243,14 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     return TrainResult(params=params, opt_state=opt_state,
                        metrics=[runs[i][0] for i in done],
                        step_ms=[runs[i][1] for i in done], start=start, end=end,
-                       restarts=restarts, ckpt_timings=timings)
+                       restarts=restarts, ckpt_timings=timings,
+                       placements=placements)
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Train an LM with FFF (or dense or MoE) FFN sites on "
-                    "Markov-source data.",
-        epilog="Not offered: the JAX driver's --mesh (multi-process "
-               "torch.distributed with sharded parameters is not ported).")
+                    "Markov-source data.")
     ap.add_argument("--arch", default="olmoe-1b-7b",
                     choices=list(registry.ARCH_IDS),
                     help="registry arch (default olmoe-1b-7b, the JAX "
@@ -226,6 +272,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "(default: no checkpoints)")
     ap.add_argument("--ckpt-every", type=int, default=10,
                     help="steps between checkpoints (with --ckpt-dir)")
+    ap.add_argument("--mesh", default="host", choices=["host", "prod"],
+                    help="the layout of the world's ranks: host = every rank "
+                         "on one data axis; prod = the (16, 16) production "
+                         "layout, 256 ranks (one process a rank, e.g. under "
+                         "python -m torch.distributed.run)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--balance-weight", type=float, default=0.0,
                     help="load-balancing aux weight over FFF soft leaf "
@@ -246,9 +297,17 @@ def main(argv=None) -> TrainResult:
     if args.balance_weight or args.master_leaf:
         cfg = _with_fff_training_opts(cfg, balance=args.balance_weight,
                                       master=args.master_leaf)
+    rank, world = mesh_lib.init_ranks()
+    layout = (mesh_lib.make_production_mesh() if args.mesh == "prod"
+              else mesh_lib.make_host_mesh() if world > 1 else None)
     return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                  lr=args.lr, seed=args.seed, device=args.device,
-                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                 layout=layout, log=print if rank == 0 else _quiet)
+
+
+def _quiet(*_a, **_kw) -> None:
+    """The log of a rank other than 0: rank 0 reports for the world."""
 
 
 if __name__ == "__main__":

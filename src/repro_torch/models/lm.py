@@ -20,6 +20,7 @@ import torch
 
 from repro_torch import utils
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.nn import embeddings, norms, rope as rope_lib, transformer
 
 Params = dict
@@ -91,13 +92,14 @@ def encode(params: Params, cfg: ModelConfig, enc_embeds) -> torch.Tensor:
     as in the JAX package, so its FFF sites compute FORWARD_T's soft
     mixture over every leaf (no kernel) even when serving; their aux
     terms are dropped."""
-    x = embeddings.frontend(params["enc_frontend"],
-                            torch.as_tensor(enc_embeds, device=_device(params)),
-                            cfg.accum_dtype)
+    x = embeddings.frontend(
+        sharding.gathered(params["enc_frontend"], "enc_frontend"),
+        torch.as_tensor(enc_embeds, device=_device(params)), cfg.accum_dtype)
     x = x + rope_lib.sinusoidal_embedding(x.shape[1], cfg.d_model,
                                           device=x.device).to(x.dtype)
     x, _, _ = transformer.stack_forward(params["enc_stack"], cfg, x, mode="train",
-                                        causal=False, period=cfg.encoder.period)
+                                        causal=False, period=cfg.encoder.period,
+                                        name="enc_stack")
     return norms.norm_apply(cfg.norm, params["enc_norm"], x)
 
 
@@ -115,13 +117,13 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: dict,
     whatever the offset, as the JAX package adds them."""
     dev = _device(params)
     if cfg.frontend != "none" and cfg.encoder is None and "embeds" in batch:
-        x = embeddings.frontend(params["frontend"],
-                                torch.as_tensor(batch["embeds"], device=dev),
-                                cfg.accum_dtype)
+        x = embeddings.frontend(
+            sharding.gathered(params["frontend"], "frontend"),
+            torch.as_tensor(batch["embeds"], device=dev), cfg.accum_dtype)
     else:
-        x = embeddings.embed(params["embed"],
-                             torch.as_tensor(batch["tokens"], device=dev),
-                             cfg.accum_dtype)
+        x = embeddings.embed(
+            sharding.gathered({"tok": params["embed"]["tok"]}, "embed"),
+            torch.as_tensor(batch["tokens"], device=dev), cfg.accum_dtype)
     if cfg.pos_emb == "learned":
         x = embeddings.learned_pos(params["pos"], x, pos_offset)
     elif cfg.pos_emb == "sinusoidal":
@@ -132,7 +134,9 @@ def _embed_inputs(params: Params, cfg: ModelConfig, batch: dict,
 
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = norms.norm_apply(cfg.norm, params["final_norm"], x)
-    return embeddings.logits(params["embed"], x)
+    key = "head" if "head" in params["embed"] else "tok"
+    return embeddings.logits(sharding.gathered({key: params["embed"][key]},
+                                               "embed"), x)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

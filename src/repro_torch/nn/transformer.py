@@ -37,6 +37,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.core import api
+from repro_torch.distributed import sharding
 from repro_torch.nn import attention, mamba, mlp, norms, xlstm
 
 Params = dict
@@ -284,7 +285,8 @@ def stack_forward(params: list[Params], cfg: ModelConfig, x: torch.Tensor, *,
                   period: Optional[tuple[BlockSpec, ...]] = None,
                   chunk_valid: Optional[torch.Tensor] = None,
                   decode_mask: Optional[torch.Tensor] = None,
-                  token_valid: Optional[torch.Tensor] = None
+                  token_valid: Optional[torch.Tensor] = None,
+                  name: str = "stack"
                   ) -> tuple[torch.Tensor, Optional[list[Cache]], dict]:
     """Run the whole stack.  ``train`` and ``eval`` take no caches and
     return None for them.  In ``train`` mode aux holds the per-layer sums
@@ -294,7 +296,10 @@ def stack_forward(params: list[Params], cfg: ModelConfig, x: torch.Tensor, *,
     periods (overflow weighted by slots), as the JAX package reports.
     ``period`` (default ``cfg.period``) and ``causal`` select the stack
     (the encoder: its own period, non-causal); ``enc_out`` reaches every
-    cross-attention block."""
+    cross-attention block.  Under installed placements
+    (``distributed/sharding.use_placements``) each layer's sharded tensors,
+    placed under ``name/i``, are gathered whole just before layer ``i``
+    runs."""
     period = period or cfg.period
     n_pos = len(period)
     no_cache = mode in ("train", "eval")
@@ -305,6 +310,7 @@ def stack_forward(params: list[Params], cfg: ModelConfig, x: torch.Tensor, *,
     def block(i, p, c, x):
         lg = (None if seeds is None else
               torch.Generator(device=x.device).manual_seed(seeds[i]))
+        p = sharding.gathered(p, f"{name}/{i}")
         return block_forward(p, cfg, period[i % n_pos], x, mode=mode,
                              cache=c, gen=lg, enc_out=enc_out, causal=causal,
                              chunk_valid=chunk_valid,

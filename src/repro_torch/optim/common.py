@@ -53,18 +53,22 @@ def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
                               params, updates)
 
 
-def clip_by_global_norm(grads: PyTree, max_norm: float
+def clip_by_global_norm(grads: PyTree, max_norm: float,
+                        norm_fn: Callable = utils.tree_global_norm
                         ) -> tuple[PyTree, torch.Tensor]:
     """grads scaled by ``min(1, max_norm / norm)``; as in JAX the float32
-    scale promotes every clipped gradient to float32."""
-    norm = utils.tree_global_norm(grads)
+    scale promotes every clipped gradient to float32.  ``norm_fn(grads)``
+    is the norm (a layout's ranks each hold slices:
+    ``sharding.global_norm``)."""
+    norm = norm_fn(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return utils.tree_map(lambda g: g.float() * scale, grads), norm
 
 
-def chain_clip(opt: Optimizer, max_norm: float) -> Optimizer:
+def chain_clip(opt: Optimizer, max_norm: float,
+               norm_fn: Callable = utils.tree_global_norm) -> Optimizer:
     """Wrap an optimizer with global-norm gradient clipping."""
     def update(grads, state, params=None, **kw):
-        grads, _ = clip_by_global_norm(grads, max_norm)
+        grads, _ = clip_by_global_norm(grads, max_norm, norm_fn)
         return opt.update(grads, state, params, **kw)
     return Optimizer(opt.init, update)

@@ -1092,7 +1092,12 @@ class ContinuousBatchingEngine:
         t_start = self.now()
         self._last_decode_end = None    # decode gaps don't span runs
         while pending or self.has_work():
-            while pending and t_start + pending[0].arrival_time <= self.now():
+            due = 0
+            while due < len(pending) and \
+                    t_start + pending[due].arrival_time <= self.now():
+                due += 1
+            # ranks serving together admit alike, whatever their clocks read
+            for _ in range(dist_act.agree_min(due)):
                 r = pending.popleft()
                 self.submit(r, arrival_time=t_start + r.arrival_time)
             if not self.has_work():

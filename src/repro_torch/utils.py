@@ -69,6 +69,31 @@ def tree_map(fn, tree, *rest):
     return None if tree is None else fn(tree, *rest)
 
 
+def tree_map_with_paths(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over the leaves, keeping the structure; a leaf's
+    path is its dict keys, list indices and NamedTuple field names joined
+    by ``/`` (``stack/0/mixer/wq``); a None leaf stays None."""
+    if tree is None:
+        return None
+    key = lambda name: f"{prefix}/{name}" if prefix else str(name)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_paths(fn, v, key(k)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_paths(fn, v, key(f))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_paths(fn, v, key(i))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def tree_leaves_with_paths(tree) -> list:
+    """(path, leaf) pairs of ``tree_map_with_paths``' leaves, in its order."""
+    out = []
+    tree_map_with_paths(lambda p, t: out.append((p, t)), tree)
+    return out
+
+
 def tree_global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32."""
     leaves = tree_leaves(tree)

@@ -300,5 +300,8 @@ def test_reshard_restore_without_a_mesh(tmp_path):
     assert step == 7 and meta == {"tag": "t"}
     assert torch.equal(got["params"]["w"], state(2)["params"]["w"])
     assert got["params"]["b"].device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        checkpoint.reshard_restore(str(tmp_path), state(), mesh=object())
+    # onto a layout of one rank: every slice is the whole tensor
+    from repro_torch.launch import mesh
+    got, step, _ = checkpoint.reshard_restore(
+        str(tmp_path), state(), layout=mesh.make_mesh((1, 1), ("data", "model")))
+    assert step == 7 and torch.equal(got["params"]["w"], state(2)["params"]["w"])

@@ -39,6 +39,11 @@ CHECKPOINT_MODULES = ("repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
                       "repro_torch.distributed.straggler",
                       "repro_torch.core.ff", "repro_torch.core.regions",
                       "repro_torch.data.synthetic", "repro_torch.data.pipeline")
+#: the layouts, sharding and compression over process groups
+SHARDING_MODULES = ("repro_torch.launch.mesh", "repro_torch.distributed.layout",
+                    "repro_torch.distributed.sharding",
+                    "repro_torch.distributed.compression",
+                    "repro_torch.distributed.collectives")
 #: the disaggregated serving cluster's modules
 CLUSTER_MODULES = ("repro_torch.cluster", "repro_torch.cluster.bus",
                    "repro_torch.cluster.control", "repro_torch.cluster.handoff",
@@ -64,7 +69,8 @@ def test_every_module_imports_without_jax():
     assert set(TRAINING_MODULES) <= set(MODULES)
     assert set(CHECKPOINT_MODULES) <= set(MODULES)
     assert set(CLUSTER_MODULES) <= set(MODULES)
-    assert len(MODULES) >= 88
+    assert set(SHARDING_MODULES) <= set(MODULES)
+    assert len(MODULES) >= 93
 
 
 def _imports(path):
