@@ -319,11 +319,55 @@ Phases (any failure raises, and the exit code is non-zero):
               compressed_psum of a 64 MB float32 CUDA tensor a rank within
               0.05 relative of the exact sum.
 
+25. vit     — (runs after internvl) the paper's Table-3 ViT (configs/
+              paper_vit: d128, 4 layers, 4 heads, learned positions over the
+              64 patch tokens, the vision stub, float32) whole, through
+              examples/vit_cifar_fff_torch.py on synthetic CIFAR-like data:
+              the dense baseline and FFF leaf widths 32, 8 and 1 (depth 2, 4
+              and 7), each trained the example's default 150 AdamW steps
+              (FORWARD_T; no kernel may launch), its first 3 losses within
+              1e-3 of a CPU run from the same weights and batches; then
+              G_A over the 1024 test images in batches of 256 (hard
+              FORWARD_I, 16384 tokens a site: tree_router and
+              grouped_matmul up (gelu) and down, their launch counts set to
+              0 just before and read just after, > 0 asserted, every other
+              kernel 0).  The share of each site's tokens that the
+              grouped buffers hold (the rest run the plain overflow repair)
+              is printed and recorded: the trained models route most
+              tokens to one leaf.  For each FFF model the first eval batch
+              through the kernels against the reference backend, site by
+              site (leaves exact off near-ties, outputs within 1e-4) and as
+              logits on the images without a near-tie; the router and both
+              grouped_matmul calls at layer 0's site against their plain
+              versions, twice and bit-identical (rows "paper-vit lN" of the
+              arch_kernels JSON, with the eval launches and the share
+              kept); the same at the eval's shapes on a site whose routing
+              spreads (16384 N(0, 1) tokens through a fresh FFF(depth,
+              leaf), as the FFN-site timing draws them), at least
+              VIT_KEPT_FLOOR of its tokens kept asserted, and its cuda
+              output against the reference backend's (rows "paper-vit lN
+              balanced"); the FFN-site speedup of dense FF(128) over hard
+              FFF at batch 2048 on the reference backend (the JAX
+              benchmark's) and on cuda.  Prints G_A, the drop against dense
+              and the widths.
+26. examples — the ported examples in this process: serve_fff_kernels_torch
+              (256 tokens through tree_router, grouped_matmul_dual and
+              grouped_matmul, 8 through tree_router and the gathered
+              kernels; its own routing-agreement assertion, errors within
+              1e-3), quickstart_torch (300 SGD steps; its leaves carry
+              biases, so auto serves on the reference backend and no kernel
+              launches) and train_lm_fff_torch --small (20 steps under the
+              supervisor with checkpoints every 10, run again to resume at
+              step 20; the greedy sample through the gathered and fused
+              decode kernels), launch counts asserted.
+
 Each phase's seconds print as a "[time]" line.  Prints the new archs' kernel rows as one JSON line ({"arch_kernels": ...},
 jamba's rows tagged with their site, trees x leaves x width; whisper's
 SwiGLU probe rows tagged "[swiglu probe]", 0 launches; the draft's site
 under "starcoder2-15b draft"; the grouped kernels at a model-parallel
-rank's shapes under "internlm2-20b model_parallel rank 0"),
+rank's shapes under "internlm2-20b model_parallel rank 0"; the ViT's
+site at each leaf width under "paper-vit lN", and at a site that routes
+evenly under "paper-vit lN balanced"),
 the kernel table as one JSON line (launches from the monolithic engine
 run), the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
@@ -407,6 +451,17 @@ MP_PROBE_BYTES, MP_LIMIT_S = 64 * 2 ** 20, 600
 # train_mesh: the step-0 gradient norm of two ranks against one process's, no
 # token overflowing (bf16 rounding of a sum over ~1e9 elements)
 MESH_NORM_RTOL = 0.01
+# vit: the paper's Table-3 ViT (configs/paper_vit) at these FFF leaf widths
+# beside its dense baseline; the first VIT_CPU_STEPS training losses on the
+# card held against a CPU run at E2E; the examples phase's LM run
+VIT_LEAVES, VIT_CPU_STEPS = (32, 8, 1), 3
+# the least share of a balanced site's tokens the grouped buffers must hold
+# (the rest run the plain overflow repair); N(0, 1) tokens keep all of them
+VIT_KEPT_FLOOR = 0.95
+# an arch_kernels JSON row's keys; the ViT's rows add the share of tokens kept
+ARCH_ROW_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "kept", "eval_kept_min")
+EXAMPLE_LM_STEPS, EXAMPLE_LM_CKPT_EVERY = 20, 10
 
 
 def log(msg: str) -> None:
@@ -464,10 +519,12 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 # Each kernel's bound from its inputs in this run: every input read once
 # (each routed leaf's weights once), every output written once.
 
-def router_bound(B, N, d, dtype) -> tuple[float, str]:
-    """B tokens of width d down N nodes: x, weights, biases in; (B,) int32 out."""
+def router_bound(B, N, d, depth, dtype) -> tuple[float, str]:
+    """B tokens of width d down a tree of N nodes: x, weights, biases in;
+    (B,) int32 out.  A hard descent takes one node a level, so its
+    operations are ``depth`` dot products a token, not N."""
     sz = torch.finfo(dtype).bits // 8
-    return bound(B * d * sz + N * (d + 1) * sz + B * 4, 2 * B * N * d, dtype)
+    return bound(B * d * sz + N * (d + 1) * sz + B * 4, 2 * B * depth * d, dtype)
 
 
 def grouped_bound(gs, C, k_in, n_out, n_mats, dtype) -> tuple[float, str]:
@@ -492,12 +549,13 @@ def gathered_bound(idx, k_in, n_out, n_mats, dtype) -> tuple[float, str]:
 def decode_bound(idx, N, d, L, n_mats, dtype) -> tuple[float, str]:
     """The fused decode step: idx (B, T) leaves over T trees of N nodes;
     each tree's distinct leaves' n_mats (d, L) matrices, every node, x in
-    and y out."""
+    and y out; the descent's operations one node a level of each tree."""
     sz = torch.finfo(dtype).bits // 8
     B, T = idx.shape
+    depth = (N + 1).bit_length() - 1
     distinct = sum(int(torch.unique(idx[:, t]).numel()) for t in range(T))
     return bound(distinct * n_mats * d * L * sz + T * N * (d + 1) * sz + B * 2 * d * sz,
-                 2 * B * (T * N * d + n_mats * T * d * L), dtype)
+                 2 * B * (T * depth * d + n_mats * T * d * L), dtype)
 
 
 def margins(x, nw, nb, depth):
@@ -621,7 +679,8 @@ def router_row(label, x, nw, nb, depth=DEPTH) -> dict:
     _, ties = routed(label, x, nw, nb, depth)
     row = kernel_row(0.0, lambda: trk.tree_router(x, nw, nb, depth=depth),
                      lambda: trr.tree_router_ref(x, nw, nb, depth=depth),
-                     router_bound(x.shape[0], nw.shape[0], x.shape[1], x.dtype))
+                     router_bound(x.shape[0], nw.shape[0], x.shape[1], depth,
+                                  x.dtype))
     out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
     logits = lambda: torch.addmm(nb, x, nw.T)
     log(f"{label} yardsticks {str(x.dtype):15s} torch.addmm logits "
@@ -4018,6 +4077,352 @@ def phase_train_mesh(common, api, lm) -> None:
         + f" against the exact sum (limit 0.05); {a['psum_ms']:.1f} ms (host clock)")
 
 
+# ---------------------------------------------------------------------------
+# the paper's ViT and the examples
+# ---------------------------------------------------------------------------
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the folder is not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def site_calls(api, name: str):
+    """Yields a list that takes (x, leaf_idx, y, params, cfg) of every call
+    of the inference backend ``name`` inside the context."""
+    fn, pred = api.get_backend("infer", name), api._SUPPORTS.get(("infer", name))
+    calls = []
+
+    def recorded(p, c, x, spec):
+        y, out = fn(p, c, x, spec)
+        calls.append((x, out.leaf_idx, y, p, c))
+        return y, out
+
+    api.register_backend("infer", name, recorded, supports=pred)
+    try:
+        yield calls
+    finally:
+        api.register_backend("infer", name, fn, supports=pred)
+
+
+def vit_eval_parity(api, ex, cfg, params, proj, x) -> tuple[int, int, float, float, list]:
+    """The ViT's hard evaluation of ``x`` (B, S, dpatch) on the kernels
+    (``auto``: ``cuda``) against the ``reference`` backend on the same card,
+    in float32.  Site by site: the kernel backend on the reference run's
+    input takes the reference's leaf on every token whose deciding node
+    logits all exceed NEAR_TIE, and its output agrees on the tokens whose
+    leaf agrees (kernel tolerance).  Whole images: an image any of whose
+    tokens meets a near-tie at any site is set aside (attention carries a
+    legitimately different leaf to its other tokens); every other image
+    takes the reference's leaves at every site and its logits agree within
+    the kernel tolerance.  Returns the near-tie tokens over all sites, the
+    images set aside, the largest site and logit errors, and the kernel
+    run's site calls."""
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    kernel_spec = api.ExecutionSpec(mode="infer", backend="cuda")
+    B = x.shape[0]
+    with torch.inference_mode():
+        with site_calls(api, "cuda") as kc:
+            got, _ = ex.vit_forward(params, cfg, proj, x, "eval")
+        with api.overrides(backend="reference", mode="infer"), \
+                site_calls(api, "reference") as rc:
+            want, _ = ex.vit_forward(params, cfg, proj, x, "eval")
+        if len(kc) != cfg.n_layers or len(rc) != cfg.n_layers:
+            raise AssertionError(f"[vit] {len(kc)} kernel and {len(rc)} reference "
+                                 f"site calls for {cfg.n_layers} layers")
+        near_img = torch.zeros(B, dtype=torch.bool, device=x.device)
+        ties, site_err = 0, 0.0
+        for i, (xr, ir, y_ref, p, c) in enumerate(rc):
+            nw, nb = fd_ops.collapse_nodes(p, c)
+            _, margin = margins(xr.reshape(-1, xr.shape[-1]), nw[0], nb[0], c.depth)
+            y, out = api.apply(p, c, xr, kernel_spec)
+            agree, n, _ = compare_idx(f"[vit] layer {i} site", out.leaf_idx.reshape(-1),
+                                      ir.reshape(-1), margin)
+            ties += n
+            site_err = max(site_err, compare(
+                f"[vit] layer {i} site cuda vs reference", y.reshape(agree.numel(), -1),
+                y_ref.reshape(agree.numel(), -1), torch.float32, rows=agree))
+            near_img |= (margin < NEAR_TIE).reshape(B, -1).any(1)
+        for i, (k, r) in enumerate(zip(kc, rc)):
+            differ = (k[1].reshape(B, -1) != r[1].reshape(B, -1)).any(1) & ~near_img
+            if bool(differ.any()):
+                raise AssertionError(f"[vit] layer {i}: {int(differ.sum())} images "
+                                     f"routed differently away from any near-tie")
+    err = (compare("[vit] eval logits cuda vs reference", got, want, torch.float32,
+                   rows=~near_img) if bool((~near_img).any()) else float("nan"))
+    return ties, int(near_img.sum()), site_err, err, kc
+
+
+def vit_capacity(B: int, E: int) -> int:
+    """The grouped path's per-leaf capacity for B tokens over E leaves, as
+    ``leaf_gemm.ops.fff_leaf_mlp`` sizes it at the cuda backend's default
+    capacity factor."""
+    from repro_torch import utils
+    from repro_torch.core import api
+    return max(128, utils.round_up(int(api.DEFAULT_CAPACITY_INFER * utils.cdiv(B, E)), 128))
+
+
+def kept_share(leaf_idx, E: int) -> tuple[float, int]:
+    """One site call's (share of its tokens that the capacity-bounded
+    grouped buffers hold, leaves with a token); the other tokens run the
+    plain overflow repair."""
+    li = leaf_idx.reshape(-1).long()
+    gs = torch.bincount(li, minlength=E)[:E]
+    return float(gs.clamp(max=vit_capacity(li.numel(), E)).sum()) / li.numel(), int((gs > 0).sum())
+
+
+def vit_site_rows(label, x, p, c) -> dict:
+    """The router and both grouped_matmul calls at one ViT FFN site's
+    shapes (float32), each twice and bit-identical, against the plain
+    versions, capacity as the kernel path sizes it; each row records the
+    share of the site's tokens the grouped buffers hold (``kept``)."""
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    from repro_torch.kernels.leaf_gemm import ops as gemm_ops
+    x = x.reshape(-1, x.shape[-1]).contiguous()
+    nw, nb = (t[0].contiguous() for t in fd_ops.collapse_nodes(p, c))
+    rows = {"tree_router": router_row(f"{label} tree_router", x, nw, nb, c.depth)}
+    leaf, _ = routed(f"{label} tree_router", x, nw, nb, c.depth)
+    E = c.num_leaves
+    C = vit_capacity(x.shape[0], E)
+    lay = gemm_ops.scatter_to_groups(x, leaf, E, C)
+    _, r = grouped_rows(label, lay.x_grouped, (p["leaf_w1"][0].contiguous(),),
+                        p["leaf_w2"][0].contiguous(), lay.group_sizes, c.activation,
+                        torch.float32)
+    rows.update({k: dict(v, capacity=C) for k, v in r.items()})
+    kept = float(lay.group_sizes.sum()) / x.shape[0]
+    return {k: dict(v, kept=kept) for k, v in rows.items()}
+
+
+def vit_balanced_site(api, label, leaf: int, B: int):
+    """A site at the ViT eval's shapes whose routing spreads: B N(0, 1)
+    tokens of width 128 through a fresh FFF(log2(128 / leaf), leaf), drawn
+    as ``ffn_site_speedup`` draws its input and FFF (seeds 0 and 2).  Holds
+    the cuda backend's output against the reference backend's (leaves
+    exact off near-ties, outputs within 1e-4) and asserts at least
+    VIT_KEPT_FLOOR of the tokens kept.  Returns (x, params, cfg, share
+    kept, site max|err|)."""
+    from repro_torch.core import fff as fff_lib
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    x = torch.randn((B, 128), generator=gen(0), device="cuda")
+    c = fff_lib.FFFConfig(dim_in=128, dim_out=128, depth=int(math.log2(128 // leaf)),
+                          leaf_width=leaf, activation="gelu", leaf_bias=False)
+    p = fff_lib.init(gen(2), c)
+    with torch.inference_mode():
+        y, out = api.apply(p, c, x, api.ExecutionSpec(mode="infer", backend="cuda"))
+        y_ref, ref = api.apply(p, c, x, api.ExecutionSpec(mode="infer", backend="reference"))
+        nw, nb = fd_ops.collapse_nodes(p, c)
+        _, margin = margins(x, nw[0], nb[0], c.depth)
+        agree, _, _ = compare_idx(f"{label} site", out.leaf_idx.reshape(-1),
+                                  ref.leaf_idx.reshape(-1), margin)
+        err = compare(f"{label} site cuda vs reference", y, y_ref, torch.float32,
+                      rows=agree)
+    kept, live = kept_share(out.leaf_idx, c.num_leaves)
+    if kept < VIT_KEPT_FLOOR:
+        raise AssertionError(f"{label} site: {kept:.4f} of {B} tokens kept ({live} "
+                             f"leaves live), below {VIT_KEPT_FLOOR}")
+    return x, p, c, kept, err
+
+
+def host_copy(tree):
+    """A copy of a tensor tree on the host."""
+    from repro_torch import utils
+    return utils.tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def phase_vit(common, api) -> dict:
+    """The paper's Table-3 ViT (configs/paper_vit: d128, 4 layers, 64 patch
+    tokens of 48 values, float32) whole, through examples/
+    vit_cifar_fff_torch.py's pieces on synthetic CIFAR-like data: the dense
+    baseline and FFF leaf widths VIT_LEAVES, each trained the example's
+    default steps (AdamW, batch 128, FORWARD_T: no kernel may launch) and
+    evaluated on the 1024 test images in batches of 256 (hard FORWARD_I:
+    16384 tokens a site, router + grouped kernels; their launch counts set
+    to 0 just before and read just after, > 0 asserted, every other kernel
+    0; each site call's share of tokens that the grouped buffers hold
+    printed, the rest running the plain overflow repair).  For each FFF
+    model: the first eval batch against the reference backend
+    (``vit_eval_parity``), the router and grouped kernels at layer 0's
+    site (rows "paper-vit lN" of the arch_kernels JSON with the eval
+    launches and the share kept) and at a site of the same shapes whose
+    routing spreads (``vit_balanced_site``, rows "paper-vit lN balanced"),
+    the FFN-site speedup at batch 2048 on the reference backend (the JAX
+    benchmark's) and on cuda; the first VIT_CPU_STEPS losses against a
+    CPU run from the same weights and batches within E2E.  Prints G_A, the
+    drop against dense and the widths.  Returns the rows."""
+    from repro_torch.configs.paper_vit import vit_config
+    from repro_torch.data import synthetic
+    ex = load_example("vit_cifar_fff_torch")
+    label, t0 = "[vit]", time.perf_counter()
+    ds = synthetic.make("cifar10_like")
+    xtr, xte = ex.vit_batchify(ds)
+    log(f"{label} cifar10_like: {len(xtr)} train / {len(xte)} test images, "
+        f"{xtr.shape[1]} patches of {xtr.shape[2]} values; {ex.DEFAULT_STEPS} "
+        f"steps each ({time.perf_counter() - t0:.1f}s to make the data)")
+    archs, base = {}, None
+    for leaf in (0,) + VIT_LEAVES:
+        cfg = vit_config("dense") if leaf == 0 else vit_config("fff", leaf_width=leaf)
+        tag = "dense" if leaf == 0 else f"l{leaf}"
+        params, proj = ex.make_vit(cfg, xtr.shape[-1], device="cuda")
+        cpu_losses = []
+        ex.vit_train(cfg, host_copy(params), proj.cpu(), xtr, ds.y_train, VIT_CPU_STEPS,
+                     losses=cpu_losses)
+        losses = []
+        common.reset_launch_counts()
+        t1 = time.perf_counter()
+        params = ex.vit_train(cfg, params, proj, xtr, ds.y_train, ex.DEFAULT_STEPS,
+                              losses=losses)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        if any(common.launch_counts().values()):
+            raise AssertionError(f"{label} {tag} training launched {common.launch_counts()}")
+        for i, (a, b) in enumerate(zip(losses, cpu_losses)):
+            if not abs(a - b) <= E2E * (1 + abs(b)):
+                raise AssertionError(f"{label} {tag} step {i} loss {a} on the card, "
+                                     f"{b} on the CPU")
+        with backends_ran(api) as ran, site_calls(api, "cuda") as ec:
+            common.reset_launch_counts()
+            t1 = time.perf_counter()
+            ga = ex.vit_accuracy(cfg, params, proj, xte, ds.y_test)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t1
+            counts = common.launch_counts()
+        fff_sites = {k for k in ran if k[0] == "infer"}
+        shares = [kept_share(call[1], call[4].num_leaves) for call in ec]
+        E = ec[0][4].num_leaves if ec else 0
+        del ec
+        if leaf == 0:
+            if any(counts.values()) or fff_sites:
+                raise AssertionError(f"{label} dense eval: {counts}, {fff_sites}")
+            base = ga
+            log(f"{label} dense: G_A {ga:.4f}, training width 128, inference width "
+                f"128; losses {losses[0]:.4f} -> {losses[-1]:.4f}, first "
+                f"{VIT_CPU_STEPS} within {E2E} of the CPU's; train {train_s:.1f}s, "
+                f"eval {eval_s:.2f}s, no kernel launched")
+            continue
+        others = {k: v for k, v in counts.items()
+                  if k not in ("tree_router", "grouped_matmul") and v}
+        if (counts["tree_router"] <= 0 or counts["grouped_matmul"] <= 0 or others
+                or fff_sites != {("infer", "cuda")}):
+            raise AssertionError(f"{label} {tag} eval: launches {counts}, "
+                                 f"backends {fff_sites}")
+        x0 = torch.as_tensor(xte[:ex.EVAL_BATCH], device="cuda")
+        ties, near, site_err, err, kc = vit_eval_parity(api, ex, cfg, params, proj, x0)
+        x_site, _, _, p_site, c_site = kc[0]
+        with torch.inference_mode():
+            rows = vit_site_rows(f"{label} {tag}", x_site, p_site, c_site)
+        del kc, x_site, p_site
+        xb, pb, cb, kept_b, err_b = vit_balanced_site(api, f"{label} {tag} balanced", leaf,
+                                                      x0.shape[0] * x0.shape[1])
+        with torch.inference_mode():
+            rows_b = vit_site_rows(f"{label} {tag} balanced", xb, pb, cb)
+        del xb, pb
+        per_layer = [[k for k, _ in shares[i::cfg.n_layers]] for i in range(cfg.n_layers)]
+        spd_ref = ex.ffn_site_speedup(leaf, device="cuda")
+        spd_cuda = ex.ffn_site_speedup(leaf, device="cuda", backend="cuda")
+        depth = int(math.log2(128 // leaf))
+        log(f"{label} {tag}: G_A {ga:.4f}, drop {(base - ga) / max(base, 1e-9) * 100:.2f}% "
+            f"against dense; training width {2 ** depth * leaf} (size "
+            f"{2 ** depth - 1 + 128}), inference width {leaf}; FFN-site speedup "
+            f"at batch {ex.SITE_BATCH}: reference {spd_ref:.3f}x, cuda {spd_cuda:.3f}x; "
+            f"eval launches tree_router {counts['tree_router']}, grouped_matmul "
+            f"{counts['grouped_matmul']}; cuda vs reference on {ex.EVAL_BATCH} images: "
+            f"sites max|err| {site_err:.3e} ({ties} of "
+            f"{cfg.n_layers * x0.shape[0] * x0.shape[1]} site tokens take another leaf at a "
+            f"near-tie), logits max|err| {err:.3e} "
+            f"({near} images set aside at near-ties); losses "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}, first {VIT_CPU_STEPS} within "
+            f"{E2E} of the CPU's; train {train_s:.1f}s, eval {eval_s:.2f}s")
+        log(f"{label} {tag} eval: share of each site's tokens in the grouped buffers "
+            f"(capacity {vit_capacity(x0.shape[0] * x0.shape[1], E)} a leaf of {E}; "
+            f"the rest run the plain overflow "
+            f"repair), by layer over the {len(shares) // cfg.n_layers} batches: "
+            + "; ".join(f"layer {i} " + ", ".join(f"{k:.4f}" for k in ks)
+                        for i, ks in enumerate(per_layer))
+            + f"; leaves live at most {max(n for _, n in shares)}")
+        log(f"{label} {tag} balanced site ({x0.shape[0] * x0.shape[1]} N(0, 1) tokens, "
+            f"a fresh FFF): {kept_b:.4f} kept (floor {VIT_KEPT_FLOOR}), cuda vs "
+            f"reference max|err| {err_b:.3e}")
+        log_rows(rows, f"{label} {tag} kernel", counts)
+        log_rows(rows_b, f"{label} {tag} balanced kernel", counts)
+        eval_kept = min(k for k, _ in shares)
+        archs[f"paper-vit {tag}"] = {k: dict(v, launches=counts.get(kernel_of(k), 0),
+                                             eval_kept_min=eval_kept)
+                                     for k, v in rows.items()}
+        archs[f"paper-vit {tag} balanced"] = {
+            k: dict(v, launches=counts.get(kernel_of(k), 0)) for k, v in rows_b.items()}
+        del params
+        torch.cuda.empty_cache()
+    log(f"{label} done in {time.perf_counter() - t0:.1f}s")
+    return archs
+
+
+def phase_examples(common) -> None:
+    """The ported examples in this process on the card, each with its own
+    assertions: serve_fff_kernels_torch (D 512, 16 SwiGLU leaves of 256:
+    256 tokens through tree_router, grouped_matmul_dual and
+    grouped_matmul, 8 through tree_router and the gathered kernels) and
+    quickstart_torch (its 300 SGD steps; its leaves carry biases, which
+    the kernel path refuses, so auto serves the 1024 test images on the
+    reference backend), their launch counts asserted;
+    train_lm_fff_torch --small EXAMPLE_LM_STEPS steps under the supervisor
+    with checkpoints, run again to resume from its last checkpoint, the
+    greedy sample through the gathered and fused decode kernels."""
+    import tempfile
+    label = "[examples]"
+    sk = load_example("serve_fff_kernels_torch")
+    common.reset_launch_counts()
+    r = sk.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = common.launch_counts()
+    want = ("tree_router", "grouped_matmul_dual", "grouped_matmul",
+            "gathered_matmul_dual", "gathered_matmul")
+    if (any(counts[k] <= 0 for k in want) or counts["fused_forest_decode"]
+            or not r["max_abs_err"] <= E2E or not r["decode_max_abs_err"] <= E2E):
+        raise AssertionError(f"{label} serve_fff_kernels: {r}, launches {counts}")
+    log(f"{label} serve_fff_kernels_torch: max|err| {r['max_abs_err']:.3e} (256 "
+        f"tokens), {r['decode_max_abs_err']:.3e} (8), routing agreement "
+        f"{r['routing_agreement']:.4f}; launches {counts}")
+    qs = load_example("quickstart_torch")
+    common.reset_launch_counts()
+    q = qs.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = common.launch_counts()
+    # its leaves carry biases, which the kernel path refuses: auto serves
+    # them on the reference backend, and no kernel may launch
+    on_kernels = q["backend"] == "cuda"
+    if (on_kernels != (counts["tree_router"] > 0 and counts["grouped_matmul"] > 0)
+            or (not on_kernels and any(counts.values()))
+            or not q["max_abs_err"] <= E2E or not q["routing_agreement"] > 0.99):
+        raise AssertionError(f"{label} quickstart: {q}, launches {counts}")
+    log(f"{label} quickstart_torch: accuracy {q['accuracy']:.4f}, auto -> "
+        f"{q['backend']}, max|err| {q['max_abs_err']:.3e}, routing agreement "
+        f"{q['routing_agreement']:.4f}; launches {counts}")
+    tl = load_example("train_lm_fff_torch")
+    root = tempfile.mkdtemp(prefix="lm_example_")
+    try:
+        argv = ["--small", "--steps", str(EXAMPLE_LM_STEPS), "--device", "cuda",
+                "--ckpt-dir", root, "--ckpt-every", str(EXAMPLE_LM_CKPT_EVERY)]
+        common.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = tl.main(argv)
+        torch.cuda.synchronize()
+        took, counts = time.perf_counter() - t0, common.launch_counts()
+        again = tl.main(argv)
+        if (res.step != EXAMPLE_LM_STEPS or res.restarts or again.step != EXAMPLE_LM_STEPS
+                or counts["gathered_matmul"] <= 0 or counts["fused_forest_decode"] <= 0):
+            raise AssertionError(f"{label} train_lm_fff: steps {res.step}, {again.step}, "
+                                 f"launches {counts}")
+        log(f"{label} train_lm_fff_torch --small: {res.step} steps and the sample in "
+            f"{took:.1f}s; the second run resumed at step {again.step}; launches {counts}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 @contextlib.contextmanager
 def timed(name: str):
     """Logs the seconds the phase inside took."""
@@ -4105,6 +4510,10 @@ def main() -> int:
         archs["whisper-small"] = phase_whisper(common, api, fff, lm, serve_mod)
     with timed("internvl"):
         phase_internvl(common, api, fff, lm, serve_mod)
+    with timed("vit"):
+        archs.update(phase_vit(common, api))
+    with timed("examples"):
+        phase_examples(common)
     archs[f"{DRAFT_ARCH} draft"] = draft_rows
     archs[f"{cfg.arch_id} model_parallel rank 0"] = mp_rows
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
@@ -4119,8 +4528,7 @@ def main() -> int:
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"arch_kernels": {
-        arch: [dict(name=k, **{f: r[f] for f in ("launches", "max_abs_err", "ms", "plain_ms",
-                                                  "bound_ms", "bound_by", "library_ms")})
+        arch: [dict(name=k, **{f: r[f] for f in ARCH_ROW_KEYS if f in r})
                for k, r in rows.items()] for arch, rows in archs.items()}}))
     print(json.dumps({"kernels": table}))
     print(smi)

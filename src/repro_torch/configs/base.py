@@ -8,7 +8,8 @@ of the JAX schema is here: attention, Mamba (``mamba_*``) and xLSTM
 precomputed frame or patch embeddings, and learned or sinusoidal
 positions.  ``attn_logit_softcap`` and ``scan_layers`` are recorded
 fields: the JAX package reads no softcap, and the port unrolls its layers.
-``zero_stage`` picks the training layout (``launch/train``).
+``zero_stage`` picks the training layout (``launch/train``).  ``SHAPES``
+are the four input shapes of the LM family that ``launch/dryrun`` sizes.
 """
 from __future__ import annotations
 
@@ -141,6 +142,10 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def n_periods(self) -> int:
+        return self.n_layers // len(self.period)
+
     def with_ffn_kind(self, kind: str, **fff_kw) -> "ModelConfig":
         """Swap every FFN site to dense/fff/moe — the --ffn flag."""
         def convert(b: BlockSpec) -> BlockSpec:
@@ -196,3 +201,31 @@ class ModelConfig:
             vocab_size=vocab, max_seq_len=seq, period=new_period, encoder=enc,
             scan_layers=False, attn_chunk=32, remat="none",
             param_dtype=torch.float32, accum_dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the input shapes of the LM family (four cells an arch; launch/dryrun)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                      # train|prefill|decode
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """Whether an (arch, shape) cell runs: the 500k-token decode needs
+    sub-quadratic attention (a constant-state mixer or a hybrid)."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "long_500k skipped: pure full-attention arch (quadratic)"
+    return True, ""

@@ -1,8 +1,9 @@
 """Arch registry: ``--arch <id>`` lookup (port of ``repro/configs/
-registry.py``), every arch of the JAX registry but its paper-vit.
-``get_config(arch_id, ffn="fff")`` returns the FFF variant;
-``ffn="native"`` the published baseline (dense or MoE as the source model
-ships)."""
+registry.py``), every arch of the JAX registry.  ``get_config(arch_id,
+ffn="fff")`` returns the FFF variant; ``ffn="native"`` the published
+baseline (dense or MoE as the source model ships).  ``paper-vit`` (the
+paper's Table-3 ViT, leaf width 32) resolves but is not in ``ARCH_IDS``,
+the LM archs the drivers and the dry-run sweep."""
 from __future__ import annotations
 
 import importlib
@@ -20,9 +21,10 @@ _MODULES = {
     "command-r-35b": "repro_torch.configs.command_r_35b",
     "internvl2-26b": "repro_torch.configs.internvl2_26b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
+    "paper-vit": "repro_torch.configs.paper_vit",
 }
 
-ARCH_IDS = tuple(_MODULES)
+ARCH_IDS = tuple(k for k in _MODULES if k != "paper-vit")
 
 
 def get_config(arch_id: str, ffn: str = "fff") -> ModelConfig:

@@ -122,9 +122,10 @@ class ExecutionSpec:
                      no capacity and count in no overflow; the kernel
                      backends only report them at the sentinel leaf.  Exact
                      backends' outputs are per-token exact regardless.
-    gen:             generator for the stochastic training feature (child
-                     transposition, ``cfg.transposition_prob``) on x's
-                     device; unused by inference backends (JAX ``rng``)
+    rng:             ``torch.Generator`` for the stochastic training
+                     feature (child transposition,
+                     ``cfg.transposition_prob``) on x's device; unused by
+                     inference backends
     """
     mode: str = "infer"
     backend: str = "auto"
@@ -132,7 +133,7 @@ class ExecutionSpec:
     overflow_policy: Optional[str] = None
     dense_levels: int = 8
     valid: Optional[torch.Tensor] = None
-    gen: Optional[torch.Generator] = None
+    rng: Optional[torch.Generator] = None
 
     def validate(self) -> "ExecutionSpec":
         if self.mode not in MODES:
@@ -163,6 +164,12 @@ class FFFOutput:
     mixture: Optional[torch.Tensor] = None
     entropy: Optional[torch.Tensor] = None
     overflow_fraction: Optional[torch.Tensor] = None
+
+    def as_dict(self) -> dict:
+        """The aux-dict view of the fields the backend produced (the
+        tensors themselves, no copies)."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -475,7 +482,7 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
 
 def _train_reference(params, cfg, x, spec):
     """FORWARD_T: the soft mixture over all leaves (paper Algorithm 1)."""
-    y, aux = fff_lib._forward_soft_mixture(params, cfg, x, gen=spec.gen)
+    y, aux = fff_lib._forward_soft_mixture(params, cfg, x, gen=spec.rng)
     return y, FFFOutput(node_probs=aux["node_probs"], mixture=aux["mixture"],
                         entropy=aux["entropy"])
 
@@ -485,7 +492,7 @@ def _train_grouped(params, cfg, x, spec):
     dispatch (O(l) leaf cost per token), on the differentiable einsums."""
     cf = (spec.capacity_factor if spec.capacity_factor is not None
           else DEFAULT_CAPACITY_TRAIN_ST)
-    y, aux = fff_lib._forward_st_grouped(params, cfg, x, gen=spec.gen,
+    y, aux = fff_lib._forward_st_grouped(params, cfg, x, gen=spec.rng,
                                          capacity_factor=cf)
     return y, FFFOutput(leaf_idx=aux["leaf_idx"],
                         node_probs=aux["node_probs"], mixture=aux["mixture"],

@@ -32,6 +32,14 @@ class FFConfig:
     param_dtype: Any = torch.float32
     accum_dtype: Any = torch.float32
 
+    @property
+    def training_width(self) -> int:   # symmetry with FFFConfig
+        return self.width
+
+    @property
+    def inference_width(self) -> int:
+        return self.width
+
 
 def init(gen: torch.Generator, cfg: FFConfig) -> Params:
     """The JAX package's distributions drawn from ``gen`` on its device."""

@@ -65,6 +65,23 @@ class FFFConfig:
         return 2 ** self.depth - 1
 
     @property
+    def training_width(self) -> int:
+        return self.trees * self.num_leaves * self.leaf_width
+
+    @property
+    def inference_width(self) -> int:
+        return self.trees * self.leaf_width
+
+    @property
+    def training_size(self) -> int:
+        return self.trees * (self.num_nodes * self.node_width
+                             + self.num_leaves * self.leaf_width)
+
+    @property
+    def inference_size(self) -> int:
+        return self.trees * (self.depth * self.node_width + self.leaf_width)
+
+    @property
     def master_hidden(self) -> int:
         return self.master_width or self.leaf_width
 
@@ -78,6 +95,16 @@ class FFFConfig:
         if self.activation != "swiglu":
             utils.get_activation(self.activation)
         return self
+
+
+def for_ffn(dim: int, d_ff: int, leaf_width: int, *, trees: int = 1,
+            activation: str = "swiglu", **kw) -> FFFConfig:
+    """The paper's "user manual" Case 1: replace a width-``d_ff`` FFN
+    keeping the training width, ``2^d * l * trees == next_pow2(d_ff)``."""
+    per_tree = utils.cdiv(d_ff, trees)
+    depth = max(0, math.ceil(math.log2(max(1, utils.cdiv(per_tree, leaf_width)))))
+    return FFFConfig(dim_in=dim, dim_out=dim, depth=depth, leaf_width=leaf_width,
+                     trees=trees, activation=activation, leaf_bias=False, **kw)
 
 
 def init(gen: torch.Generator, cfg: FFFConfig) -> Params:

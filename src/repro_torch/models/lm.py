@@ -31,13 +31,15 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Params:
     tensor by tensor on ``device`` in the config's parameter dtype.  Same
     layout as ``repro.models.lm.init`` except the stacks, which are one
     dict per layer (``nn/transformer.py``); ``weights.from_jax`` carries
-    JAX weights over instead.  Learned positions add ``pos`` (a
+    JAX weights over instead.  On ``device="meta"`` the tensors have
+    their shapes and dtypes and no storage (``launch/dryrun``).  Learned
+    positions add ``pos`` (a
     ``max_seq_len``-row table); a frontend model without an encoder adds
     ``frontend``; an encoder-decoder model adds ``enc_frontend``,
     ``enc_stack`` (non-causal, over the encoder's period) and
     ``enc_norm``."""
     dev = utils.resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = utils.generator(dev, seed)
     pd = cfg.param_dtype
     p = {
         "embed": embeddings.embed_init(gen, cfg.vocab_size, cfg.d_model,
@@ -187,6 +189,25 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, caches: list[dict]
                                              mode="prefill", caches=caches,
                                              enc_out=enc_out)
     return _head(params, cfg, x[:, -1:, :])[:, 0], caches
+
+
+def prefill_padded(params: Params, cfg: ModelConfig, batch: dict,
+                   caches: list[dict], true_len: torch.Tensor):
+    """Prefill RIGHT-PADDED prompts: ``batch["tokens"]`` (B, S_pad), row b's
+    real prompt its first ``true_len[b]`` tokens.  Causal attention keeps
+    positions below ``true_len`` independent of the pad to their right; the
+    pad's K/V land in the cache and are masked by setting each row's
+    cache length to ``true_len`` (decode appends overwrite them).  Returns
+    (logits at each row's last real token (B, V), caches, the routing
+    stats of an active ``api.collect_routing`` tap or None).  Attention
+    stacks only: a recurrent mixer would fold the pad into its state."""
+    x = _embed_inputs(params, cfg, batch)
+    x, caches, aux = transformer.stack_forward(params["stack"], cfg, x,
+                                               mode="prefill", caches=caches)
+    true_len = torch.as_tensor(true_len, device=x.device)
+    last = (true_len.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
+    logits = _head(params, cfg, torch.gather(x, 1, last))
+    return logits[:, 0], set_cache_lengths(caches, true_len), aux.get("routing")
 
 
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,

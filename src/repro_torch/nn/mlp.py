@@ -70,7 +70,7 @@ def forward(params: Params, spec: FFNSpec, d_model: int, x: torch.Tensor, *,
     site); at inference it holds 'routing' (RoutingStats) for an FFF site
     when an ``api.collect_routing`` tap is active, else nothing (the
     serving path allocates no zero scalars).
-    ``gen`` drives the stochastic training feature (ExecutionSpec.gen; a
+    ``gen`` drives the stochastic training feature (ExecutionSpec.rng; a
     MoE site's gating noise);
     ``valid`` marks phantom tokens for the FFF dispatch
     (ExecutionSpec.valid)."""
@@ -96,7 +96,7 @@ def forward(params: Params, spec: FFNSpec, d_model: int, x: torch.Tensor, *,
     # one entry point; backend="auto" picks the execution strategy per site
     # (and the launch layer can steer it with api.overrides)
     y, out = api.apply(params, cfg, x, api.ExecutionSpec(
-        mode="train" if train else "infer", gen=gen, valid=valid))
+        mode="train" if train else "infer", rng=gen, valid=valid))
     if train:
         aux["hardening"] = (spec.hardening_scale
                             * fff.hardening_loss(out.node_probs)).float()

@@ -1,5 +1,5 @@
-"""Learning-rate schedules, including the paper's plateau-halving rule
-(port of ``repro/optim/schedules.py``).  A schedule maps the step, a Python
+"""Learning-rate schedules, including the paper's plateau-halving rule, and
+early stopping (port of ``repro/optim/schedules.py``).  A schedule maps the step, a Python
 int, to a Python float, so reading it never waits for the device."""
 from __future__ import annotations
 
@@ -54,3 +54,26 @@ class PlateauHalver:
 
 def plateau_halving(lr: float, patience: int, **kw) -> PlateauHalver:
     return PlateauHalver(lr, patience, **kw)
+
+
+class EarlyStopper:
+    """Early stopping on a validation metric (the paper: 350-epoch
+    patience)."""
+
+    def __init__(self, patience: int, mode: str = "max"):
+        self.patience = patience
+        self.mode = mode
+        self.best = -math.inf if mode == "max" else math.inf
+        self.bad = 0
+        self.best_step = 0
+
+    def step(self, metric: float, step: int) -> bool:
+        """Returns True when training should stop."""
+        better = metric > self.best if self.mode == "max" else metric < self.best
+        if better:
+            self.best = metric
+            self.best_step = step
+            self.bad = 0
+            return False
+        self.bad += 1
+        return self.bad >= self.patience

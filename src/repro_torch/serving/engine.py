@@ -84,10 +84,6 @@ from repro_torch.serving.request import Request, RequestResult, SlotState
 from repro_torch.serving.scheduler import Scheduler, SchedulerView, make_scheduler
 
 
-# weight of the newest routing histogram in a slot's occupancy average
-_OCCUPANCY_EWMA = 0.5
-
-
 class TenantQueues:
     """The engine's waiting queue: arrival order globally, FIFO per tenant.
 
@@ -110,6 +106,9 @@ class TenantQueues:
         q.remove(req)
         if not q:
             del self.per_tenant[req.tenant]
+
+    def depth(self, tenant: str) -> int:
+        return len(self.per_tenant.get(tenant, ()))
 
     def __len__(self):
         return len(self._order)
@@ -165,8 +164,11 @@ def _to_host(parts: Sequence[torch.Tensor]) -> List[np.ndarray]:
 class EngineConfig:
     """Engine shape and policy knobs.  ``max_len`` bounds prompt +
     generation per slot; monolithic prefill pads a prompt to the static
-    set of slab widths ``buckets()``: powers of two from 16 up to
-    ``max_prompt_len``.
+    set of slab widths ``buckets()``: ``prefill_buckets`` when given (the
+    largest must be ``max_prompt_len``), else powers of two from 16 up to
+    ``max_prompt_len``.  ``telemetry`` collects the FFF sites' routing
+    histograms, which fold into each slot's leaf occupancy with weight
+    ``occupancy_ewma`` for the newest.
 
     ``prefill_chunk``: 0 = monolithic prefill (one bucket-padded slab per
     admission); > 0 = chunked prefill through a shared ``(num_slots,
@@ -200,6 +202,7 @@ class EngineConfig:
     num_slots: int = 8
     max_len: int = 128
     max_prompt_len: int = 64
+    prefill_buckets: Tuple[int, ...] = ()
     max_prefills_per_step: int = 2
     prefill_chunk: int = 0
     prefill_budget: int = 1
@@ -209,6 +212,8 @@ class EngineConfig:
     cuda_decode: bool = False
     capacity_factor: Optional[float] = None
     overflow_policy: Optional[str] = None
+    telemetry: bool = True
+    occupancy_ewma: float = 0.5
     learn_profiles: bool = True
     profile_ewma: float = 0.3
     profile_min_updates: int = 1
@@ -222,6 +227,8 @@ class EngineConfig:
     device: str = "cuda"
 
     def buckets(self) -> Tuple[int, ...]:
+        if self.prefill_buckets:
+            return tuple(sorted(set(self.prefill_buckets)))
         return _pow2_buckets(min(16, self.max_prompt_len), self.max_prompt_len)
 
 
@@ -264,6 +271,11 @@ class ContinuousBatchingEngine:
         if ecfg.max_prompt_len >= ecfg.max_len:
             raise ValueError("max_prompt_len must leave room to generate "
                              "(max_prompt_len < max_len)")
+        if ecfg.buckets()[-1] != ecfg.max_prompt_len:
+            raise ValueError(
+                f"prefill_buckets {ecfg.buckets()} must top out at "
+                f"max_prompt_len {ecfg.max_prompt_len} — the two knobs "
+                f"would otherwise disagree on the servable prompt length")
         if ecfg.prefill_chunk:
             c = ecfg.prefill_chunk
             if c < 1 or (c & (c - 1)):
@@ -476,7 +488,8 @@ class ContinuousBatchingEngine:
             es.enter_context(api.overrides(**kw))
         if decode and self.ecfg.cuda_decode:
             es.enter_context(api.overrides(backend="cuda_decode", mode="infer"))
-        es.enter_context(api.collect_routing())
+        if self.ecfg.telemetry:
+            es.enter_context(api.collect_routing())
         return es
 
     def _dispatch_topology(self) -> Tuple[int, Optional[float]]:
@@ -616,7 +629,7 @@ class ContinuousBatchingEngine:
         eligible to update the profile store."""
         if counts is None:
             return
-        a = _OCCUPANCY_EWMA
+        a = self.ecfg.occupancy_ewma
         for r in rows:
             tot = counts[r].sum()
             if tot <= 0:

@@ -1,14 +1,23 @@
 """Small shared utilities (port of ``repro/utils.py``): shape helpers, the
 activation table, initializers on an explicit ``torch.Generator``, the
-pytree helpers the optimizers walk parameter trees with, and the device
-check every entry point runs."""
+pytree helpers the optimizers walk parameter trees with, the config and
+size-formatting helpers, and the device check every entry point runs."""
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Mapping
 
 import torch
 import torch.nn.functional as F
+
+
+def next_pow2(x: int) -> int:
+    return 1 if x <= 1 else 2 ** math.ceil(math.log2(x))
+
+
+def is_pow2(x: int) -> bool:
+    return x > 0 and (x & (x - 1)) == 0
 
 
 def cdiv(a: int, b: int) -> int:
@@ -94,6 +103,35 @@ def tree_leaves_with_paths(tree) -> list:
     return out
 
 
+def _tensors(tree) -> list:
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def tree_size(tree) -> int:
+    """Total number of scalar elements of the tensors in a tree (meta
+    tensors count too: nothing is read; other leaves, such as a cache's
+    ``paged`` flag, count nothing)."""
+    return sum(t.numel() for t in _tensors(tree))
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def tree_cast(tree, dtype):
+    return tree_map(lambda t: t.to(dtype), tree)
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_finite(tree) -> torch.Tensor:
+    """True (a 0-d bool tensor) iff every leaf is finite everywhere."""
+    leaves = [torch.isfinite(t).all() for t in tree_leaves(tree)]
+    return torch.stack(leaves).all()
+
+
 def tree_global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32."""
     leaves = tree_leaves(tree)
@@ -119,6 +157,26 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 # float32 as a whole.
 # ---------------------------------------------------------------------------
 
+class MetaGenerator(torch.Generator):
+    """A host generator that reports the meta device: the initializers
+    given it allocate meta tensors (shapes and dtypes, no storage) and
+    their draws do no work, so ``lm.init(cfg, device="meta")`` lays out a
+    full-size model without memory."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def generator(device, seed: int = 0) -> torch.Generator:
+    """A generator seeded with ``seed`` whose draws land on ``device`` (a
+    ``MetaGenerator`` for the meta device)."""
+    dev = torch.device(device)
+    gen = MetaGenerator() if dev.type == "meta" else torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
 def _normal(gen: torch.Generator, shape) -> torch.Tensor:
     return torch.randn(tuple(shape), generator=gen, device=gen.device,
                        dtype=torch.float32)
@@ -134,6 +192,8 @@ SLICED_INIT_ABOVE = 2 ** 31
 def _by_slices(gen: torch.Generator, shape: tuple, dtype, draw):
     """``draw(slice_shape)`` for each slice of the first axis, into one
     tensor of ``dtype``; None when ``shape`` is drawn whole."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     if math.prod(shape) <= SLICED_INIT_ABOVE or len(shape) < 2:
         return None
     out = torch.empty(shape, dtype=dtype, device=gen.device)
@@ -186,3 +246,31 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name not in ACTIVATIONS:
         raise ValueError(f"unknown activation {name!r}; have {sorted(ACTIVATIONS)}")
     return ACTIVATIONS[name]
+
+
+# ---------------------------------------------------------------------------
+# dataclass config plumbing and size formatting
+# ---------------------------------------------------------------------------
+
+def replace(cfg, **kw):
+    return dataclasses.replace(cfg, **kw)
+
+
+def asdict_shallow(cfg) -> dict:
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f}{unit}"
+        n /= 1024.0
+    return f"{n:.2f}PiB"
+
+
+def human_flops(n: float) -> str:
+    for unit in ("F", "KF", "MF", "GF", "TF"):
+        if abs(n) < 1e3:
+            return f"{n:.2f}{unit}"
+        n /= 1e3
+    return f"{n:.2f}PF"

@@ -76,12 +76,14 @@ def np_tree(tree):
 
 def test_registry_ids():
     """Every arch of the JAX registry, in its order (the encoder and
-    frontend archs too)."""
+    frontend archs too); paper-vit resolves outside ``ARCH_IDS``, as in
+    JAX, and an unknown id raises."""
     assert set(registry.ARCH_IDS) == set(NEW_ARCHS) | {
         "internlm2-20b", "whisper-small", "internvl2-26b"}
     assert registry.ARCH_IDS == jregistry.ARCH_IDS
+    same_fields(registry.get_config("paper-vit"), jregistry.get_config("paper-vit"))
     with pytest.raises(KeyError, match="unknown arch"):
-        registry.get_config("paper-vit")
+        registry.get_config("no-such-arch")
 
 
 def same_fields(tc, jc):

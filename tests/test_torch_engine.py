@@ -535,8 +535,8 @@ def test_draft_with_another_leaf_count(model):
 
 def test_registry_draft_refusals(model):
     """A draft whose period is not all attention, and an unknown arch, are
-    refused with JAX's messages (the list of known archs aside: the port
-    has no paper-vit); so are a draft of another vocabulary, with
+    refused with JAX's messages (the list of known archs aside); so are a
+    draft of another vocabulary, with
     recurrent mixers or with learned positions handed to the engine."""
     for arch, exc in (("jamba-1.5-large-398b", ValueError),
                       ("no-such-arch", KeyError)):

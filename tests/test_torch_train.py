@@ -217,7 +217,7 @@ def test_train_layer_matches_jax(backend, case):
         lambda p, x: layer_objective(japi, p, jcfg, x, jspec, ct),
         argnums=(0, 1), has_aux=True))(jp, jnp.asarray(x))
     spec = api.ExecutionSpec(mode="train", backend=backend, capacity_factor=cf,
-                             gen=torch.Generator().manual_seed(0))
+                             rng=torch.Generator().manual_seed(0))
     (obj, (y, out)), grads = optim.value_and_grad(
         lambda tree: layer_objective(api, tree["p"], tcfg, tree["x"], spec, t(ct)))(
         {"p": tp, "x": t(x)})
