@@ -39,8 +39,17 @@ Phases (any failure raises, and the exit code is non-zero):
               kernels' guard for leaf indices outside [0, E) and their
               per-leaf token-count edges, and the
               grouped kernels at their tile edges: group sizes 0, 1, 63,
-              64, 65, 127 and 128 in one call, capacity 256, and D and H
-              off the bf16 kernel's k-step and column tile.
+              64, 65, 127 and 128 in one call, capacity 256 with sizes 0
+              to 256 around each 64-row slice, capacity 264, D and H off
+              the bf16 kernels' k-step and column atoms, N 384, whisper-
+              small's up projection (a D split), x rows past the group
+              sizes holding non-zero values (their outputs must be exactly
+              zero) and an x off 16 bytes (the masked path), every call
+              twice and bit-identical.  Every grouped call in the run
+              counts its launch by path (kernels/leaf_gemm/kernel.py
+              plan); each full-width call, the serve and engine runs' and
+              the arch sites' included, must count on the TMA path in
+              bf16 and on the CUDA-core path in float32.
    router   — the router at depths 1-8, D = 6144, 20 and 24, B = 1, 31,
               33, 65, 256 and 1031, an unaligned x, all-left and all-right
               routings; both dtypes, every case twice and bit-identical.
@@ -595,6 +604,42 @@ def twice(name, fn):
     return first
 
 
+def full_width_path(dtype) -> str:
+    """The path every full-width grouped GEMM call takes (kernels/leaf_gemm/
+    kernel.py::plan): the TMA kernel in bf16, the CUDA-core kernel in
+    float32."""
+    return "tma" if dtype == torch.bfloat16 else "cuda_cores"
+
+
+def twice_on(name, fn, kernel, path):
+    """``twice`` of a grouped GEMM call, both launches counted on ``path``
+    by the kernel's per-path launch count."""
+    before = dict(kernel.paths)
+    out = twice(name, fn)
+    grew = {k: v - before.get(k, 0) for k, v in kernel.paths.items()
+            if v != before.get(k, 0)}
+    if grew != {path: 2}:
+        raise AssertionError(f"{name}: launches by path {grew}, expected 2 on {path!r}")
+    return out
+
+
+def check_grouped_paths(common, label, counts, dtype) -> dict:
+    """Every grouped GEMM launch of a run (the counts read just after it)
+    was counted on the full-width path of its dtype; returns the paths."""
+    want, paths = full_width_path(dtype), common.path_counts()
+    for k in ("grouped_matmul", "grouped_matmul_dual"):
+        got = paths.get(k, {})
+        if sum(got.values()) != counts.get(k, 0) or got.get(want, 0) != counts.get(k, 0):
+            raise AssertionError(f"{label}: {k} launches by path {got}, expected all "
+                                 f"{counts.get(k, 0)} on {want!r}")
+    return paths
+
+
+def plan_tag(p) -> str:
+    """A grouped GEMM plan in a log line: path, tile, split of D, grid."""
+    return f"{p.path} {p.rows}x{p.cols} split {p.splits} grid {p.grid}"
+
+
 def edge_routing(gen, n, leaf=5, B=EDGE_B, num_leaves=E):
     """B int32 leaf indices in [0, num_leaves), exactly n of them `leaf`."""
     dev = torch.device("cuda")
@@ -707,19 +752,23 @@ def grouped_rows(label, xg, up_w, wd, gs, act, dtype, timed=True):
         up_name = "grouped_matmul (up)"
         up = lambda: gk.grouped_matmul(xg, up_w[0], gs, act=act)
         up_ref = lambda: gr.grouped_matmul_ref(xg, up_w[0], gs, act=act)
-    h = twice(f"{label} {up_name}", up)
+    path = full_width_path(dtype)
+    h = twice_on(f"{label} {up_name}", up, gk.GMM_DUAL if act == "swiglu" else gk.GMM, path)
     err_up = compare(f"{label} {up_name}", h, up_ref(), dtype)
     down = lambda: gk.grouped_matmul(h, wd, gs)
     down_ref = lambda: gr.grouped_matmul_ref(h, wd, gs)
-    err_down = compare(f"{label} grouped_matmul", twice(f"{label} grouped_matmul", down),
+    err_down = compare(f"{label} grouped_matmul",
+                       twice_on(f"{label} grouped_matmul", down, gk.GMM, path),
                        down_ref(), dtype)
     if not timed:
         return h, {}
-    return h, {up_name: kernel_row(err_up, up, up_ref,
-                                   grouped_bound(gs, C, d, L, len(up_w), dtype)),
-               "grouped_matmul": kernel_row(err_down, down, down_ref,
-                                            grouped_bound(gs, C, L, O, 1, dtype),
-                                            library=lambda: torch.bmm(h, wd))}
+    return h, {up_name: dict(kernel_row(err_up, up, up_ref,
+                                        grouped_bound(gs, C, d, L, len(up_w), dtype)),
+                             plan=plan_tag(gk.launch_plan(xg, up_w))),
+               "grouped_matmul": dict(kernel_row(err_down, down, down_ref,
+                                                 grouped_bound(gs, C, L, O, 1, dtype),
+                                                 library=lambda: torch.bmm(h, wd)),
+                                      plan=plan_tag(gk.launch_plan(h, (wd,))))}
 
 
 def gathered_rows(label, x, up_w, wd, idx, act, dtype, timed=True):
@@ -959,6 +1008,7 @@ def log_rows(rows, tag="[kernels]", counts=None) -> None:
             + (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "n/a")
             + (f"  serve launches {counts.get(kernel_of(name), 0)}" if counts else "")
             + (f"  capacity {r['capacity']}" if "capacity" in r else "")
+            + (f"  plan {r['plan']}" if "plan" in r else "")
             + (f"  near-ties {r['near_ties']}" if "near_ties" in r else "")
             + (f"  distinct leaves {r['distinct_leaves']}" if "distinct_leaves" in r else ""))
 
@@ -1007,9 +1057,13 @@ def phase_ragged(gen) -> None:
             mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
             x = randn(E, C, d, dtype=dtype) * mask
             w, w2 = (randn(E, d, H, scale=d ** -0.5, dtype=dtype) for _ in range(2))
-            compare("grouped_matmul (ragged)", gk.grouped_matmul(x, w, gs, act=act),
+            compare("grouped_matmul (ragged)",
+                    twice("grouped_matmul (ragged)",
+                          lambda: gk.grouped_matmul(x, w, gs, act=act)),
                     gr.grouped_matmul_ref(x, w, gs, act=act), dtype)
-            compare("grouped_matmul_dual (ragged)", gk.grouped_matmul_dual(x, w, w2, gs),
+            compare("grouped_matmul_dual (ragged)",
+                    twice("grouped_matmul_dual (ragged)",
+                          lambda: gk.grouped_matmul_dual(x, w, w2, gs)),
                     gr.grouped_matmul_dual_ref(x, w, w2, gs), dtype)
             checked += 2
         for act, leaf, master in (("gelu", 4, False), ("swiglu", 8, True),
@@ -1127,38 +1181,69 @@ def phase_router(gen) -> None:
 
 
 def grouped_edges(gen) -> int:
-    """The grouped kernels at their tile edges: group sizes 0, 1, 63, 64,
-    65, 127 and 128 in one call at capacity 128 (empty, partial and full
-    64-row halves), capacity 256 (two row blocks), and widths off the
-    bf16 kernel's 64-deep k-steps and 128- (dual) or 256-column (down)
-    tiles, every activation, both dtypes.  Returns the cases checked."""
+    """The grouped kernels at their tile edges, every call twice (bit-
+    identical) against its plain version and counted on the path the plan
+    names: capacity 128 with group sizes 0, 1, 63, 64, 65, 127 and 128
+    (empty, partial and full 64-row slices), also with D and H off the bf16
+    kernels' 64-deep steps and 64-column atoms and with N 384; capacity 256
+    (a whole leaf in one row tile) with 0, 1, 63, 64, 65, 127, 128, 129,
+    192, 255 and 256; capacity 264 (past one 256-row tile); whisper-small's
+    up projection (8 leaves, 768 -> 384 at capacity 256), whose units are
+    too few for the card, so D is split; x holding non-zero rows past the
+    group sizes, whose outputs must still be exactly zero; and an x 8 bytes
+    off its alignment, which takes the masked path.  Every activation, both
+    dtypes.  Returns the cases checked."""
     from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
     dev = torch.device("cuda")
-    checked = 0
-    cases = [(128, [0, 1, 63, 64, 65, 127, 128], 256, 1024),   # tile-aligned
-             (128, [0, 1, 63, 64, 65, 127, 128], 136, 200),    # D, H off the tiles
-             (256, [0, 100, 200, 256], 192, 328)]              # two row blocks
+    checked, split_in = 0, set()
+    edge, edge256 = [0, 1, 63, 64, 65, 127, 128], [0, 1, 63, 64, 65, 127, 128, 129, 192, 255, 256]
+    # (C, group sizes, D, H, x past the sizes non-zero, x off 16 bytes)
+    cases = [(128, edge, 256, 1024, False, False),
+             (128, edge, 136, 200, False, False),
+             (128, edge, 256, 384, False, False),
+             (256, [0, 100, 200, 256], 192, 328, False, False),
+             (256, edge256, 192, 328, False, False),
+             (264, [0, 1, 255, 256, 257, 263, 264], 136, 200, False, False),
+             (256, [128, 100, 150, 0, 256, 64, 1, 129], 768, 384, False, False),
+             (256, edge256, 192, 328, True, False),
+             (128, edge, 256, 1024, False, True)]
     for dtype in (torch.float32, torch.bfloat16):
-        for C, sizes, d, H in cases:
+        for C, sizes, d, H, junk, off in cases:
             gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
             E_ = gs.numel()
             mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
-            x = (torch.randn((E_, C, d), generator=gen, device=dev) * mask).to(dtype)
+            x = torch.randn((E_, C, d), generator=gen, device=dev)
+            x = (x if junk else x * mask).to(dtype)
+            if off:
+                skip = 8 // x.element_size()
+                buf = torch.empty(x.numel() + skip, dtype=dtype, device=dev)
+                x = buf[skip:].view(E_, C, d).copy_(x)
             w, w2 = ((torch.randn((E_, d, H), generator=gen, device=dev) * d ** -0.5).to(dtype)
                      for _ in range(2))
-            tag = f"C={C} D={d} H={H}"
-            y2 = gk.grouped_matmul_dual(x, w, w2, gs)
+            path = "masked" if off and dtype == torch.bfloat16 else full_width_path(dtype)
+            tag = (f"C={C} D={d} H={H}" + (" x non-zero past the sizes" if junk else "")
+                   + (" x off 16 bytes" if off else ""))
+            if gk.launch_plan(x, (w,)).splits > 1:
+                split_in.add(dtype)
+            y2 = twice_on(f"grouped_matmul_dual (edges {tag})",
+                          lambda: gk.grouped_matmul_dual(x, w, w2, gs), gk.GMM_DUAL, path)
             compare(f"grouped_matmul_dual (edges {tag})", y2,
                     gr.grouped_matmul_dual_ref(x, w, w2, gs), dtype)
+            rows_past = ~mask[..., 0]
             for act in ACTS:
-                y = gk.grouped_matmul(x, w, gs, act=act)
+                y = twice_on(f"grouped_matmul {act} (edges {tag})",
+                             lambda: gk.grouped_matmul(x, w, gs, act=act), gk.GMM, path)
                 compare(f"grouped_matmul {act} (edges {tag})", y,
                         gr.grouped_matmul_ref(x, w, gs, act=act), dtype)
-            rows_past = ~mask[..., 0]
-            if float(y2[rows_past].abs().max()) != 0.0 or float(y[rows_past].abs().max()) != 0.0:
-                raise AssertionError(f"grouped kernels ({tag}): a row past its "
+                if float(y[rows_past].abs().max()) != 0.0:
+                    raise AssertionError(f"grouped_matmul {act} ({tag}): a row past its "
+                                         f"group's size is not zero")
+            if float(y2[rows_past].abs().max()) != 0.0:
+                raise AssertionError(f"grouped_matmul_dual ({tag}): a row past its "
                                      f"group's size is not zero")
             checked += 1 + len(ACTS)
+    if len(split_in) != 2:
+        raise AssertionError(f"grouped edges: D was split only in {split_in}")
     return checked
 
 
@@ -1219,6 +1304,7 @@ def phase_serve(common, api, serve_mod, cfg, params, label="[serve]"):
             "gathered_matmul": 0, "gathered_matmul_dual": 0}
     if counts != want:
         raise AssertionError(f"{label} serve: launch counts {counts} != expected {want}")
+    paths = check_grouped_paths(common, f"{label} serve", counts, cfg.param_dtype)
     toks = res.tokens
     if tuple(toks.shape) != (PREFILL_B, GEN + 1) or not bool(
             ((toks >= 0) & (toks < cfg.vocab_size)).all()):
@@ -1230,8 +1316,8 @@ def phase_serve(common, api, serve_mod, cfg, params, label="[serve]"):
     log(f"{label} serve batch {PREFILL_B} x prompt {PREFILL_S}, {GEN} decode steps: "
         f"prefill {res.prefill_s * 1e3:.2f} ms (first call); decode p50 "
         f"{res.steady.p50_ms:.2f} ms p90 {res.steady.p90_ms:.2f} ms; "
-        f"{res.tokens_per_s:.1f} tok/s; launches {counts} (as expected); reference "
-        f"backend never ran")
+        f"{res.tokens_per_s:.1f} tok/s; launches {counts} (as expected; grouped by path "
+        f"{paths}); reference backend never ran")
     return counts, res
 
 
@@ -1412,6 +1498,7 @@ def phase_engine(common, api, serve_mod, cfg, params) -> dict:
         m = run.metrics
         rounds, slabs = check_engine_run(f"[engine] {mode}", cfg, run, counts,
                                          chunk, len(reqs))
+        check_grouped_paths(common, f"[engine] {mode}", counts, cfg.param_dtype)
         shapes = run.shapes
         log(f"[engine] {mode}: TTFT p50 {m.ttft.p50_ms:.2f} ms p90 "
             f"{m.ttft.p90_ms:.2f} ms; per-token p50 {m.per_token.p50_ms:.2f} ms "
@@ -1685,10 +1772,13 @@ def grouped_capacities(rows) -> None:
             gs = torch.tensor([0, 1, C - 1, C] * (E // 4), dtype=torch.int32, device=dev)
             mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
             xg = randn(E, C, D, dtype=dtype) * mask
-            h = gk.grouped_matmul_dual(xg, wg, wu, gs)
+            path = full_width_path(dtype)
+            h = twice_on(f"grouped_matmul_dual (C={C})",
+                         lambda: gk.grouped_matmul_dual(xg, wg, wu, gs), gk.GMM_DUAL, path)
             err_d = compare(f"grouped_matmul_dual (C={C})", h,
                             gr.grouped_matmul_dual_ref(xg, wg, wu, gs), dtype)
-            y = gk.grouped_matmul(h, wd, gs)
+            y = twice_on(f"grouped_matmul (C={C})", lambda: gk.grouped_matmul(h, wd, gs),
+                         gk.GMM, path)
             err = compare(f"grouped_matmul (C={C})", y, gr.grouped_matmul_ref(h, wd, gs), dtype)
             past = ~mask[..., 0]
             if float(h[past].abs().max()) != 0.0 or float(y[past].abs().max()) != 0.0:
@@ -1703,7 +1793,8 @@ def grouped_capacities(rows) -> None:
                 f"leaves): grouped_matmul_dual {ms_d:.4f} ms (bound {b_d:.4f}, "
                 f"kernel/bound {ms_d / b_d:.2f}, max|err| {err_d:.3e}); grouped_matmul "
                 f"{ms:.4f} ms (bound {b:.4f} {by}, kernel/bound {ms / b:.2f}, max|err| "
-                f"{err:.3e}); table row C=128: {table[0]:.4f} / {table[1]:.4f} ms")
+                f"{err:.3e}); table row C=128: {table[0]:.4f} / {table[1]:.4f} ms; plans "
+                f"{plan_tag(gk.launch_plan(xg, (wg, wu)))} / {plan_tag(gk.launch_plan(h, (wd,)))}")
         del wg, wu, wd
         torch.cuda.empty_cache()
 

@@ -125,13 +125,16 @@ def load_library(source: str) -> ctypes.CDLL:
 class Kernel:
     """One hand-written CUDA kernel: the library it is built into, its C
     entry point (returning ``cudaGetLastError()`` after the launch), and
-    ``launches``, the number of successful launches since the last reset."""
+    ``launches``, the number of successful launches since the last reset;
+    a wrapper whose kernel has more than one path counts each launch in
+    ``paths`` too, by path name."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes: list,
                  replaces: str):
         self.name, self.source, self.symbol = name, source, symbol
         self.argtypes, self.replaces = argtypes, replaces
         self.launches = 0
+        self.paths: dict[str, int] = {}
         self._fn = None
 
     def launch(self, *args) -> None:
@@ -161,9 +164,15 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def path_counts() -> dict[str, dict[str, int]]:
+    """Launches by path of each kernel that counts them."""
+    return {name: dict(k.paths) for name, k in KERNELS.items() if k.paths}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.paths.clear()
 
 
 def check(t: torch.Tensor, name: str, *, like: Optional[torch.Tensor] = None,

@@ -77,6 +77,11 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
+// activate with the activation fixed at compile time: the switch folds away,
+// so an unrolled epilogue stays one short run of code
+template <int kAct>
+__device__ __forceinline__ float activate_as(float v) { return activate(v, kAct); }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

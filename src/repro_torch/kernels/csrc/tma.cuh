@@ -24,6 +24,13 @@ __device__ __forceinline__ int swz(int r, int j) { return r * kRowBytes + ((j ^ 
 __device__ __forceinline__ void mbar_init(uint32_t bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
 }
+// a barrier whose phase completes after `count` arrivals
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
 __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                ::"r"(bar), "r"(bytes) : "memory");

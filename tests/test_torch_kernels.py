@@ -478,14 +478,60 @@ def stub_launch(monkeypatch):
     return launched
 
 
-def test_cuda_branches_marshal_their_c_signatures(stub_launch):
+def test_cuda_branches_marshal_their_c_signatures(stub_launch, monkeypatch):
     from repro_torch.kernels.tree_router import kernel as trk
+    common.reset_launch_counts()
+    grouped, workspaces = [], []
+    stub, ptr = common.Kernel.launch, common.ptr
+    monkeypatch.setattr(common.Kernel, "launch", lambda self, *a: (
+        grouped.append(a) if self.name.startswith("grouped") else None, stub(self, *a))[1])
+    monkeypatch.setattr(common, "ptr", lambda t: (workspaces.append(t), ptr(t))[1])
     out = trk._launch(torch.zeros(5, 16), torch.zeros(7, 16), torch.zeros(7), 3)
     assert out.shape == (5,) and out.dtype == torch.int32
     x, w = torch.zeros(3, 16, 8), torch.zeros(3, 8, 4)
     gs = torch.zeros(3, dtype=torch.int32)
     assert gk._launch(gk.GMM, x, (w,), gs, (0,)).shape == (3, 16, 4)
     assert gk._launch(gk.GMM_DUAL, x, (w, w), gs, ()).shape == (3, 16, 4)
+    # the plan reaches C as (path, rows, cols, splits, grid) after the
+    # dtype code; D = 8 is one step of the float32 kernel, so no split and a
+    # null workspace
+    for args, ops in zip(grouped, (1, 2)):
+        assert args[4 + ops:4 + ops + 4] == (3, 16, 8, 4)
+        assert args[-7:-2] == (gk.PATH_CODES["cuda_cores"], 64, 64, 1, 3)
+        assert args[ops + 3] is None
+    assert workspaces == [None, None]
+    # a split of D brings a float32 workspace of (splits, operands, E, C,
+    # H): 2 blocks of 64 x 64 split D = 256 into its 16 steps
+    del grouped[:], workspaces[:]
+    xs, ws_ = torch.zeros(2, 64, 256), torch.zeros(2, 256, 16)
+    gs2 = torch.zeros(2, dtype=torch.int32)
+    gk._launch(gk.GMM, xs, (ws_,), gs2, (0,))
+    gk._launch(gk.GMM_DUAL, xs, (ws_, ws_), gs2, ())
+    assert [a[-7:-2] for a in grouped] == [(0, 64, 64, 16, 32)] * 2
+    assert [tuple(t.shape) for t in workspaces] == [(16, 1, 2, 64, 16), (16, 2, 2, 64, 16)]
+    assert all(t.dtype == torch.float32 for t in workspaces)
+    assert [a[ops + 3] for a, ops in zip(grouped, (1, 2))] == [t.data_ptr() for t in workspaces]
+    # bf16 at whisper-small's up projection: the TMA path, D in 2 ranges
+    xb = torch.zeros(8, 256, 768, dtype=torch.bfloat16)
+    wb = torch.zeros(8, 768, 384, dtype=torch.bfloat16)
+    gsb = torch.zeros(8, dtype=torch.int32)
+    del grouped[:], workspaces[:]
+    assert gk._launch(gk.GMM, xb, (wb,), gsb, (2,)).shape == (8, 256, 384)
+    assert grouped[0][-7:-2] == (gk.PATH_CODES["tma"], 256, 64, 2, 96)
+    assert grouped[0][4] == workspaces[0].data_ptr()
+    assert tuple(workspaces[0].shape) == (2, 1, 8, 256, 384)
+    # no split where a range would keep fewer than MIN_SPLIT_STEPS steps
+    # of D: a null workspace
+    assert gk._launch(gk.GMM, torch.zeros(16, 128, 64, dtype=torch.bfloat16),
+                      (torch.zeros(16, 64, 1024, dtype=torch.bfloat16),),
+                      torch.zeros(16, dtype=torch.int32), (0,)).shape == (16, 128, 1024)
+    p = gk.plan(16, 128, 64, 1024)
+    assert p.splits == 1 and grouped[1][-7:-2] == (gk.PATH_CODES["tma"], *p[1:4], p.grid)
+    assert grouped[1][4] is None and workspaces[1] is None
+    assert gk.GMM.paths == {"cuda_cores": 2, "tma": 2}
+    assert gk.GMM_DUAL.paths == {"cuda_cores": 2}
+    assert common.path_counts() == {"grouped_matmul": gk.GMM.paths,
+                                    "grouped_matmul_dual": gk.GMM_DUAL.paths}
     for act, master in (("gelu", False), ("swiglu", True)):
         _, _, tp, tcfg = fff_pair(40, act=act, trees=2, master=master)
         nw, nb = fd_ops.collapse_nodes(tp, tcfg)
@@ -494,7 +540,10 @@ def test_cuda_branches_marshal_their_c_signatures(stub_launch):
                              fd_ops._master_weights(tp, tcfg))
         assert y.shape == (6, 16) and idx.shape == (6, 2)
     assert stub_launch == ["tree_router", "grouped_matmul", "grouped_matmul_dual",
-                           "fused_forest_decode", "fused_forest_decode"]
+                           "grouped_matmul", "grouped_matmul_dual", "grouped_matmul",
+                           "grouped_matmul", "fused_forest_decode", "fused_forest_decode"]
+    common.reset_launch_counts()
+    assert common.path_counts() == {}
     with pytest.raises(ValueError, match="expected shape"):
         gk._launch(gk.GMM, x, (torch.zeros(3, 9, 4),), gs, (0,))
 

@@ -1,6 +1,7 @@
-"""Same-card A/B of the gathered leaf matmuls and the fused decode kernel:
-this checkout's kernels against another checkout's (for example a parent
-commit unpacked with ``git archive``), each side through its own wrappers.
+"""Same-card A/B of the leaf matmul kernels (gathered and grouped) and the
+fused decode kernel: this checkout's kernels against another checkout's
+(for example a parent commit unpacked with ``git archive``), each side
+through its own wrappers.
 
     python3 tools/kernel_ab.py BASELINE_CHECKOUT
 
@@ -14,7 +15,17 @@ shapes in both dtypes:
 - ``gathered_matmul_dual`` (32 x 6144 -> 1024) and ``gathered_matmul``
   (1024 -> 6144), E = 16, on three routings of the 32-token verify slab:
   random, every token on one leaf, and 16 tokens on 16 distinct leaves;
-- ``fused_forest_decode`` at decode batch 8, one tree of 16 SwiGLU leaves.
+- ``fused_forest_decode`` at decode batch 8, one tree of 16 SwiGLU leaves;
+- ``grouped_matmul_dual`` and ``grouped_matmul`` (down) on 1024 randomly
+  routed prefill tokens at the main path's shapes (16 leaves, capacity 128,
+  6144 -> 1024 -> 6144) and at olmoe-1b-7b's (8 leaves, capacity 256, 2048
+  -> 1024 -> 2048), and ``grouped_matmul`` up (gelu) and down at
+  whisper-small's (8 leaves of 384, D 768, capacity 256), in bf16; each
+  also as a loop of 20 launches (``chip_smoke.time_ms``), whose excess over
+  the device time is the wrapper's host cost while the device is the slower
+  of the two, and as the host clock's time to enqueue 200 calls (the host
+  cost itself, whichever is slower); and the starcoder2 draft's float32 up
+  projection (8 leaves of 16, D 6144, capacity 256).
 
 Prints the card's name and power limit, then one line per kernel, dtype and
 routing with the four readings.  Needs one CUDA card.
@@ -24,10 +35,15 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 D, L_W, O, E, VERIFY_B, DECODE_B, DEPTH = 6144, 1024, 6144, 16, 32, 8, 4
+PREFILL_TOKENS = 1024
+# grouped sites: (name, leaves, capacity, d_model, leaf width, dual)
+GROUPED_SITES = (("main", 16, 128, 6144, 1024, True), ("olmoe", 8, 256, 2048, 1024, True),
+                 ("whisper", 8, 256, 768, 384, False))
 
 
 def measure(checkout: Path) -> dict:
@@ -35,10 +51,11 @@ def measure(checkout: Path) -> dict:
     wrappers, on inputs drawn from fixed seeds."""
     import torch
     sys.path[:0] = [str(checkout / "src"), str(ROOT)]
-    from chip_smoke import device_ms
+    from chip_smoke import device_ms, time_ms
     from repro_torch.kernels import common
     from repro_torch.kernels.fused_decode import kernel as fdk
     from repro_torch.kernels.fused_fff import kernel as fk
+    from repro_torch.kernels.leaf_gemm import kernel as gk
 
     common.build_all()
     dev = torch.device("cuda")
@@ -73,6 +90,56 @@ def measure(checkout: Path) -> dict:
                 lambda: fdk.fused_forest_decode(xd, nw, nb, leaves, depth=DEPTH, act="swiglu"))
             del wg, wu, wd, leaves
             torch.cuda.empty_cache()
+        out.update(measure_grouped(gk, device_ms, time_ms))
+    return out
+
+
+def host_ms(call, n: int = 200) -> float:
+    """Host clock per call over n calls enqueued back to back (fewer than
+    the launch queue holds, so the host never waits for the device)."""
+    import torch
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / n * 1e3
+
+
+def measure_grouped(gk, device_ms, time_ms) -> dict:
+    """The grouped GEMMs' device and loop ms at GROUPED_SITES (bf16) and the
+    draft's float32 up projection."""
+    import torch
+    dev = torch.device("cuda")
+    out = {}
+    for name, n, C, d, L, dual in GROUPED_SITES + (("draft", 8, 256, 6144, 16, False),):
+        dtype = torch.float32 if name == "draft" else torch.bfloat16
+        gen = torch.Generator(device=dev).manual_seed(1)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+        leaf = torch.randint(0, n, (PREFILL_TOKENS,), generator=gen, device=dev)
+        gs = torch.bincount(leaf, minlength=n).clamp(max=C).to(torch.int32)
+        mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
+        x = randn(n, C, d) * mask
+        wg, wu, wd = randn(n, d, L, scale=d ** -0.5), randn(n, d, L, scale=d ** -0.5), \
+            randn(n, L, d, scale=L ** -0.5)
+        up = ((lambda: gk.grouped_matmul_dual(x, wg, wu, gs)) if dual else
+              (lambda: gk.grouped_matmul(x, wg, gs, act="gelu")))
+        h = up()
+        calls = {"grouped_matmul_dual" if dual else "grouped_matmul (up)": up}
+        if name != "draft":
+            calls["grouped_matmul"] = lambda: gk.grouped_matmul(h, wd, gs)
+        for kname, call in calls.items():
+            tag = f"{kname} {str(dtype)[6:]} {name} (E {n}, C {C})"
+            out[tag] = device_ms(call)
+            out[f"{tag} loop"] = time_ms(call)
+            out[f"{tag} host"] = host_ms(call)
+        del x, wg, wu, wd, h
+        torch.cuda.empty_cache()
     return out
 
 
@@ -95,10 +162,23 @@ def main() -> int:
         if proc.returncode != 0:
             raise SystemExit(f"kernel_ab: measuring {side} failed:\n{proc.stderr[-4000:]}")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    print("device ms per call, runs in the order baseline, this, this, baseline")
+    print("device ms per call (a key ending in \"loop\": a loop of 20 launches, "
+          "host cost in; \"host\": the host clock's enqueue time), runs in the order "
+          "baseline, this, this, baseline")
     for key in runs[1]:
         b1, t1, t2, b2 = (r.get(key, float("nan")) for r in runs)
         print(f"{key:58s} this {t1:.4f} / {t2:.4f}  baseline {b1:.4f} / {b2:.4f}")
+    print("host cost per call, this / baseline, mean of each side's two runs: loop less "
+          "device ms; the host clock's enqueue time")
+    for key in runs[1]:
+        if key.endswith(" loop") and key[:-5] in runs[1]:
+            base = key[:-5]
+            over = [r.get(key, float("nan")) - r.get(base, float("nan")) for r in runs]
+            host = [r.get(f"{base} host", float("nan")) for r in runs]
+            print(f"{base:58s} loop less device: this {(over[1] + over[2]) / 2 * 1e3:.2f} us "
+                  f"baseline {(over[0] + over[3]) / 2 * 1e3:.2f} us; enqueue: this "
+                  f"{(host[1] + host[2]) / 2 * 1e3:.2f} us baseline "
+                  f"{(host[0] + host[3]) / 2 * 1e3:.2f} us")
     return 0
 
 
