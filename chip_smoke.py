@@ -625,19 +625,32 @@ def twice_on(name, fn, kernel, path):
 
 def check_grouped_paths(common, label, counts, dtype) -> dict:
     """Every grouped GEMM launch of a run (the counts read just after it)
-    was counted on the full-width path of its dtype; returns the paths."""
+    was counted on the full-width path of its dtype, and every fused decode
+    launch on its TMA path (kernels/fused_decode/kernel.py::plan); returns
+    the paths."""
     want, paths = full_width_path(dtype), common.path_counts()
-    for k in ("grouped_matmul", "grouped_matmul_dual"):
+    for k, path in (("grouped_matmul", want), ("grouped_matmul_dual", want),
+                    ("fused_forest_decode", "tma")):
         got = paths.get(k, {})
-        if sum(got.values()) != counts.get(k, 0) or got.get(want, 0) != counts.get(k, 0):
+        if sum(got.values()) != counts.get(k, 0) or got.get(path, 0) != counts.get(k, 0):
             raise AssertionError(f"{label}: {k} launches by path {got}, expected all "
-                                 f"{counts.get(k, 0)} on {want!r}")
+                                 f"{counts.get(k, 0)} on {path!r}")
     return paths
 
 
 def plan_tag(p) -> str:
     """A grouped GEMM plan in a log line: path, tile, split of D, grid."""
     return f"{p.path} {p.rows}x{p.cols} split {p.splits} grid {p.grid}"
+
+
+def decode_plan_tag(p) -> str:
+    """A fused decode plan in a log line: path, chunk, splits of D and of l,
+    ring stages, the grids, and which passes run."""
+    passes = ["route", "up"] + (["finish"] if p.splits_up > 1 else []) + ["down"] + (
+        [] if p.direct else ["combine"])
+    return (f"{p.path} chunk {p.chunk} split D {p.splits_up} l {p.splits_down} stages "
+            f"{p.stages_up}/{p.stages_down} up {p.up_grid} down {p.down_grid} "
+            f"passes {'+'.join(passes)}")
 
 
 def edge_routing(gen, n, leaf=5, B=EDGE_B, num_leaves=E):
@@ -803,16 +816,26 @@ def gathered_rows(label, x, up_w, wd, idx, act, dtype, timed=True):
     return h, {k: dict(r, distinct_leaves=distinct) for k, r in rows.items()}
 
 
-def decode_row(label, x, nw, nb, leaves, depth, act, dtype) -> dict:
+def decode_checked(label, x, nw, nb, leaves, depth, act, dtype, master_w=None):
     """The fused decode kernel on x (B, d) over a forest (nw (T, N, d), nb
-    (T, N), leaves (T, E, ...) each), called twice (bit-identical): every
-    tree's leaf indices exact against the float32 descent off near-ties,
-    the output against the plain version on the rows whose every tree
-    agreed; its row."""
+    (T, N), leaves (T, E, ...) each; ``master_w`` the optional master
+    leaf), called twice (bit-identical, both launches counted on the TMA
+    path: every caller's shapes are full width): every tree's leaf indices
+    exact against the float32 descent off near-ties, the output against the
+    plain version on the rows whose every tree agreed.  Returns (the call,
+    the plain version, y, leaf indices, max |err|, near-ties)."""
     from repro_torch.kernels.fused_decode import kernel as fdk, ref as fdr
-    call = lambda: fdk.fused_forest_decode(x, nw, nb, leaves, depth=depth, act=act)
-    plain = lambda: fdr.fused_decode_ref(x, nw, nb, leaves, depth=depth, act=act)
+    call = lambda: fdk.fused_forest_decode(x, nw, nb, leaves, depth=depth, act=act,
+                                           master_w=master_w)
+    plain = lambda: fdr.fused_decode_ref(x, nw, nb, leaves, depth=depth, act=act,
+                                         master_w=master_w)
+    before = dict(fdk.KERNEL.paths)
     y, idx = twice(f"{label} fused_forest_decode", call)
+    grew = {k: v - before.get(k, 0) for k, v in fdk.KERNEL.paths.items()
+            if v != before.get(k, 0)}
+    if grew != {"tma": 2}:
+        raise AssertionError(f"{label} fused_forest_decode: launches by path {grew}, "
+                             f"expected 2 on 'tma'")
     y_ref, idx_ref = plain()
     agree, ties = torch.ones(x.shape[0], dtype=torch.bool, device=x.device), 0
     for t in range(nw.shape[0]):
@@ -821,10 +844,110 @@ def decode_row(label, x, nw, nb, leaves, depth, act, dtype) -> dict:
                               idx_ref[:, t], margin)
         agree, ties = agree & a, ties + n
     err = compare(f"{label} fused_forest_decode", y, y_ref, dtype, rows=agree)
+    return call, plain, y, idx, err, ties
+
+
+def decode_graph_check(label, run, x1, x2) -> tuple:
+    """``run(x)`` -> (y, leaf_idx) of the fused decode kernels captured in a
+    CUDA graph on a copy of x1; with x2 (routed otherwise) copied into the
+    captured input the replay must give the eager ``run(x2)`` bit for bit,
+    leaf indices too.  Returns the leaf indices of x2 and of x1."""
+    xin = x1.clone()
+    y_eager, idx_eager = run(x2)
+    run(xin)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_g, idx_g = run(xin)
+    graph.replay()
+    torch.cuda.synchronize()
+    idx_1 = idx_g.clone()
+    xin.copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    if torch.equal(idx_1, idx_eager):
+        raise AssertionError(f"{label} fused decode graph check: x1 and x2 route alike")
+    if not (torch.equal(y_g, y_eager) and torch.equal(idx_g, idx_eager)):
+        raise AssertionError(f"{label} fused decode graph check: the replay on x2 differs "
+                             f"from the eager call on x2")
+    del graph
+    return idx_eager, idx_1
+
+
+def decode_row(label, x, nw, nb, leaves, depth, act, dtype) -> dict:
+    """``decode_checked`` of the fused decode kernel and its row, with the
+    plan the call took (logged), and ``decode_graph_check`` on x and -x
+    (every logit negated, so each token takes its mirror leaf off ties)."""
+    from repro_torch.kernels.fused_decode import kernel as fdk
+    call, plain, _, idx, err, ties = decode_checked(label, x, nw, nb, leaves, depth, act,
+                                                    dtype)
+    decode_graph_check(label, lambda v: fdk.fused_forest_decode(
+        v, nw, nb, leaves, depth=depth, act=act), x, -x)
     row = kernel_row(err, call, plain, decode_bound(idx, nw.shape[1], x.shape[1],
                                                     leaves[-1].shape[2], len(leaves), dtype))
     distinct = sum(int(torch.unique(idx[:, t]).numel()) for t in range(nw.shape[0]))
-    return dict(row, near_ties=ties, distinct_leaves=distinct)
+    tag = decode_plan_tag(fdk.launch_plan(x, nw, leaves, depth, None))
+    log(f"{label} fused_forest_decode {str(dtype):15s} plan: {tag}")
+    return dict(row, near_ties=ties, distinct_leaves=distinct, plan=tag)
+
+
+def pick_rows(gen, n, nw, nb, depth, dtype, pool=512):
+    """n rows of x (d,) each routed away from any near-tie by the float32
+    descent of one tree (nw (N, d), nb (N,)): ``pick_rows(...)[0]`` all to
+    the leaf most of a pool reaches, ``[1]`` to n distinct leaves."""
+    dev = nw.device
+    x = torch.randn((pool, nw.shape[1]), generator=gen, device=dev).to(dtype)
+    leaf, margin = margins(x, nw, nb, depth)
+    ok = margin >= 10 * NEAR_TIE
+    common = int(torch.mode(leaf[ok]).values)
+    same = torch.nonzero(ok & (leaf == common)).flatten()[:n]
+    firsts = [int(torch.nonzero(ok & (leaf == e)).flatten()[0])
+              for e in torch.unique(leaf[ok]).tolist()][:n]
+    if same.numel() < n or len(firsts) < n:
+        raise AssertionError(f"pick_rows: a pool of {pool} rows cannot give {n} tokens on "
+                             f"one leaf and on {n} distinct leaves")
+    return x[same], x[torch.tensor(firsts, device=dev)]
+
+
+def decode_cases(gen, dtype, nw, nb, leaves) -> None:
+    """The fused decode kernel at the main path's full width beyond the
+    table's batch of 8: batch 1, 8 tokens on one leaf, 8 on 8 distinct
+    leaves, 24 (the cluster engine's slots), 64, and 8 with a master leaf of
+    width 1024; each through ``decode_checked`` (twice, bit-identical, TMA
+    path, leaf indices exact off near-ties, the plain version's output) and
+    timed.  Then the graph check: the call captured in a CUDA graph on x1,
+    x2 (routed otherwise) copied into the captured input, the replay must
+    give the eager call's output on x2 bit for bit, leaf indices too."""
+    from repro_torch.kernels.fused_decode import kernel as fdk
+    dev = torch.device("cuda")
+    one, distinct = pick_rows(gen, DECODE_B, nw[0], nb[0], DEPTH, dtype)
+    randn = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen, device=dev)
+                                       * scale).to(dtype)
+    master = (randn(D, L_W, scale=D ** -0.5), randn(D, L_W, scale=D ** -0.5),
+              randn(L_W, O, scale=L_W ** -0.5))
+    cases = [("batch 1", randn(1, D), None), (f"{DECODE_B} on one leaf", one, None),
+             (f"{DECODE_B} on {DECODE_B} leaves", distinct, None),
+             (f"batch {SLOTS * 3}", randn(SLOTS * 3, D), None), ("batch 64", randn(64, D), None),
+             (f"batch {DECODE_B} + master leaf", randn(DECODE_B, D), master)]
+    for name, x, mst in cases:
+        label = f"[kernels] fused decode, {name}"
+        call, _, _, idx, err, ties = decode_checked(label, x, nw, nb, leaves, DEPTH, "swiglu",
+                                                    dtype, master_w=mst)
+        p = fdk.launch_plan(x, nw, leaves, DEPTH, mst)
+        b, by = decode_bound(idx, N_NODES, D, L_W, 3, dtype)
+        if mst is not None:   # the master leaf's three matrices, read once
+            b += 3 * D * L_W * (torch.finfo(dtype).bits // 8) / HBM_BYTES_PER_S * 1e3
+        ms = device_ms(call)
+        log(f"{label} {str(dtype):15s} {ms:.4f} ms (bound {b:.4f}, {by}, kernel/bound "
+            f"{ms / b:.2f}); distinct leaves {int(torch.unique(idx).numel())}; max|err| "
+            f"{err:.3e}; near-ties {ties}; plan {decode_plan_tag(p)}")
+    idx_2, idx_1 = decode_graph_check(
+        f"[kernels] {dtype}", lambda v: fdk.fused_forest_decode(v, nw, nb, leaves, depth=DEPTH,
+                                                                act="swiglu"),
+        randn(DECODE_B, D), distinct)
+    log(f"[kernels] fused decode {str(dtype):15s} graph check: captured on x1, replayed "
+        f"on x2 (leaves {idx_2.flatten().tolist()} against x1's {idx_1.flatten().tolist()}):"
+        f" output and leaf indices equal the eager call's bit for bit")
 
 
 def phase_kernels(gen) -> dict:
@@ -862,6 +985,8 @@ def phase_kernels(gen) -> dict:
         rows[("fused_forest_decode", dtype)] = decode_row(
             "[kernels]", xd, nw[None], nb[None], (wg[None], wu[None], wd[None]), DEPTH,
             "swiglu", dtype)
+        decode_cases(torch.Generator(device=dev).manual_seed(3), dtype, nw[None], nb[None],
+                     (wg[None], wu[None], wd[None]))
         del wg, wu, wd
         torch.cuda.empty_cache()
     log_rows(rows)
@@ -1087,6 +1212,8 @@ def phase_ragged(gen) -> None:
                 a, _, _ = compare_idx("fused_forest_decode (ragged)", idx[:, t], idx_ref[:, t], margin)
                 agree &= a
             compare("fused_forest_decode (ragged)", y, y_ref, dtype, rows=agree)
+            decode_graph_check("(ragged)", lambda v: fdk.fused_forest_decode(
+                v, nw, nb, leaves, depth=depth, act=act, master_w=mst), x, -x)
             checked += 1
         # gathered: H = 8 takes the 16-byte loads in both dtypes, 12 in
         # float32 only, 13 in neither; B = 7 routes two tokens outside
@@ -1338,9 +1465,20 @@ def profile_report(label, prof, wall_s, steps) -> None:
     syncs = sum(e.count for e in averages if e.key == "cudaStreamSynchronize")
     d2h = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
     top = sorted(events, key=dev, reverse=True)[:8]
+    # kernels launched as programmatic dependents (the fused decode's) start
+    # while the kernel before them drains, so their spans overlap and the sum
+    # above counts the overlap twice; the union counts each instant once
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(e.device_type).endswith("CUDA")
+                   and not e.name.startswith("ProfilerStep"))
+    union_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        union_us += max(0.0, b - max(a, end))
+        end = max(end, b)
     log(f"[profile] {label}: {wall_s / steps * 1e3:.2f} ms per step (host "
         f"clock, profiler on); device busy {busy_us / 1e3 / steps:.2f} ms "
-        f"per step = {busy_us / 1e6 / wall_s:.1%} of the window; "
+        f"per step (kernel time summed; {union_us / 1e3 / steps:.2f} ms as the union of "
+        f"their spans) = {busy_us / 1e6 / wall_s:.1%} of the window; "
         f"{launches / steps:.0f} kernel launches, {syncs / steps:.0f} stream "
         f"syncs and {d2h / steps:.0f} device-to-host copies per step; matmul "
         f"kernels {mm_us / 1e3 / steps:.2f} ms, the rest "

@@ -25,7 +25,7 @@ Inference backends:
   then per-token gathered leaf matmuls for slabs of at most
   ``PALLAS_DECODE_MAX_TOKENS`` tokens and the grouped SwiGLU/MLP GEMMs
   above (counterpart of JAX ``pallas``);
-* ``cuda_decode`` — the one-launch fused decode kernel for seq-len-1
+* ``cuda_decode`` — the one-call fused decode kernels for seq-len-1
   batches (counterpart of JAX ``pallas_decode``).
 
 ``backend="auto"`` resolves in the JAX package's order: ``grouped_ep``
@@ -563,7 +563,7 @@ def _infer_cuda(params, cfg, x, spec):
 
 
 def _infer_cuda_decode(params, cfg, x, spec):
-    """FORWARD_I on the one-launch fused decode kernel (counterpart of JAX
+    """FORWARD_I on the one-call fused decode kernels (counterpart of JAX
     ``pallas_decode``).  Exact for any batch; ``spec.valid`` only masks
     the reported ``leaf_idx`` to the sentinel leaf so phantom rows stay out
     of routing telemetry."""

@@ -51,7 +51,7 @@ def _operands(x: torch.Tensor, params: dict, cfg: fff_lib.FFFConfig):
 
 def fused_decode(x: torch.Tensor, params: dict, cfg: fff_lib.FFFConfig, *,
                  return_leaf_idx: bool = False):
-    """Exact FORWARD_I for decode-shaped batches in one kernel launch.
+    """Exact FORWARD_I for decode-shaped batches in one kernel call.
     x (B, D) -> (B, dim_out) summed over trees; with ``return_leaf_idx``
     also the (B, trees) leaf indices.  Every operand goes to the kernel in
     the widest of x's and the parameters' dtypes."""

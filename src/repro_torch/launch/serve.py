@@ -363,7 +363,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cuda-decode", action="store_true",
                     help="engine: steer one-token decode steps (and the "
                          "speculative draft steps) to the cuda_decode backend, "
-                         "the one-launch fused decode kernel; prefill and "
+                         "the one-call fused decode kernels; prefill and "
                          "verify slabs keep the normal resolution (the JAX "
                          "driver's --pallas-decode)")
     ap.add_argument("--engine", default="continuous",

@@ -551,20 +551,13 @@ def test_cuda_branches_marshal_their_c_signatures(stub_launch, monkeypatch):
 @pytest.mark.parametrize("master", [False, True])
 def test_fused_decode_marshals_its_slots_and_counter(stub_launch, monkeypatch,
                                                      master):
-    """The fused decode wrapper's CUDA branch hands the kernel one float32
-    partial-output slot per block of a token, S x B x O with S = trees x
-    ceil(l / 32) + ceil(mw / 32) (mw = 0 without a master leaf), which the
-    kernel sums in slot order and which needs no fill, and a zeroed int32
-    arrival counter of B."""
-    made = {}
-    for name in ("empty", "zeros"):
-        def record(*a, _fn=getattr(torch, name), **kw):
-            t = _fn(*a, **kw)
-            made[t.data_ptr()] = t
-            return t
-        monkeypatch.setattr(torch, name, record)
-    args = []
-    monkeypatch.setattr(common.Kernel, "launch", lambda self, *a: args.append(a))
+    """The fused decode wrapper's CUDA branch hands the kernel its plan
+    (``kernel.plan``: path, tokens a chunk, splits of D and of l, ranks a
+    tree's blocks cover, ring stages) and one uint8 workspace of the plan's
+    bytes from torch.empty, laid out by ``kernel.workspace_layout``: h, the
+    master's hm and, with two trees, the f32 slots the combine sums in tree
+    order, one a tree and the master's.  The kernels write every byte they
+    read, so nothing is zero-filled: no arrival counter, no memset."""
     trees, leaf, B = 2, 40, 6
     _, _, tp, tcfg = fff_pair(41, act="swiglu", trees=trees, leaf=leaf,
                               master=master)
@@ -572,12 +565,34 @@ def test_fused_decode_marshals_its_slots_and_counter(stub_launch, monkeypatch,
     leaf_w, _ = fd_ops._leaf_weights(tp, tcfg)
     master_w = fd_ops._master_weights(tp, tcfg)
     mw = master_w[0].shape[1] if master else 0
-    fdk._launch(torch.zeros(B, 16), nw, nb, leaf_w, 3, "swiglu", master_w)
+    x = torch.zeros(B, 16)
+    made, filled = {}, []
+    empty = torch.empty
+
+    def record(*a, **kw):
+        t = empty(*a, **kw)
+        made[t.data_ptr()] = t
+        return t
+    monkeypatch.setattr(torch, "empty", record)
+    monkeypatch.setattr(torch, "zeros", lambda *a, **kw: filled.append(a))
+    args = []
+    monkeypatch.setattr(common.Kernel, "launch", lambda self, *a: args.append(a))
+    fdk._launch(x, nw, nb, leaf_w, 3, "swiglu", master_w)
     (call,) = args
-    part, counter = made[call[10]], made[call[11]]
-    slots = trees * -(-leaf // 32) + -(-mw // 32)
-    assert slots == (6 if master else 4)
-    assert part.dtype == torch.float32 and part.shape == (slots, B, 16)
-    assert counter.dtype == torch.int32 and counter.shape == (B,)
-    assert not counter.any()
-    assert call[-5] == mw
+    p = fdk.launch_plan(x, nw, leaf_w, 3, master_w)
+    ws = made[call[11]]
+    assert not filled
+    assert ws.dtype == torch.uint8 and ws.numel() == p.workspace
+    assert made[call[9]].shape == (B, 16) and made[call[10]].shape == (B, trees)
+    assert call[12:20] == (B, 16, trees, 3, 8, leaf, 16, mw)
+    assert call[20:29] == (common.ACT_CODES["swiglu"], common.DTYPE_CODES[torch.float32],
+                           fdk.PATH_CODES[p.path], p.chunk, p.splits_up, p.splits_down,
+                           p.rmax, p.stages_up, p.stages_down)
+    assert (p.path, p.chunk, p.rmax) == ("tma", 32, 6)
+    lay = fdk.workspace_layout(trees, B, leaf, 16, mw, 2, 4, p.splits_up,
+                               p.splits_down, p.direct)
+    assert lay["total"] == p.workspace and not p.direct
+    assert lay["hm"] - lay["h"] >= trees * B * leaf * 4      # h (T, B, l)
+    assert lay["part_down"] - lay["hm"] >= B * mw * 4          # hm (B, mw)
+    slots = trees + master                                     # one a tree, the master's
+    assert p.workspace - lay["part_down"] == p.splits_down * slots * B * 16 * 4

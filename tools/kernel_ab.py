@@ -15,7 +15,10 @@ shapes in both dtypes:
 - ``gathered_matmul_dual`` (32 x 6144 -> 1024) and ``gathered_matmul``
   (1024 -> 6144), E = 16, on three routings of the 32-token verify slab:
   random, every token on one leaf, and 16 tokens on 16 distinct leaves;
-- ``fused_forest_decode`` at decode batch 8, one tree of 16 SwiGLU leaves;
+- ``fused_forest_decode`` at decode batch 8, one tree of 16 SwiGLU leaves,
+  and in bf16 at batch 8 at three other sites of the registry (``DECODE_SITES``:
+  jamba-1.5-large's 2 x 8 x 24576 forest, command-r-35b's and
+  olmoe-1b-7b's), each on inputs drawn from its own seed;
 - ``grouped_matmul_dual`` and ``grouped_matmul`` (down) on 1024 randomly
   routed prefill tokens at the main path's shapes (16 leaves, capacity 128,
   6144 -> 1024 -> 6144) and at olmoe-1b-7b's (8 leaves, capacity 256, 2048
@@ -44,6 +47,9 @@ PREFILL_TOKENS = 1024
 # grouped sites: (name, leaves, capacity, d_model, leaf width, dual)
 GROUPED_SITES = (("main", 16, 128, 6144, 1024, True), ("olmoe", 8, 256, 2048, 1024, True),
                  ("whisper", 8, 256, 768, 384, False))
+# fused decode sites, SwiGLU in bf16: (name, trees, depth, d_model, leaf width)
+DECODE_SITES = (("jamba 2x8x24576", 2, 3, 8192, 24576), ("command-r", 1, 4, 8192, 1408),
+                ("olmoe", 8, 3, 2048, 1024))
 
 
 def measure(checkout: Path) -> dict:
@@ -91,6 +97,30 @@ def measure(checkout: Path) -> dict:
             del wg, wu, wd, leaves
             torch.cuda.empty_cache()
         out.update(measure_grouped(gk, device_ms, time_ms))
+        out.update(measure_decode_sites(fdk, device_ms))
+    return out
+
+
+def measure_decode_sites(fdk, device_ms) -> dict:
+    """The fused decode kernel's device ms at DECODE_SITES (bf16, batch 8)."""
+    import torch
+    dev = torch.device("cuda")
+    out = {}
+    for name, trees, depth, d, L in DECODE_SITES:
+        gen = torch.Generator(device=dev).manual_seed(2)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+        E, N = 2 ** depth, 2 ** depth - 1
+        leaves = (randn(trees, E, d, L, scale=d ** -0.5), randn(trees, E, d, L, scale=d ** -0.5),
+                  randn(trees, E, L, d, scale=L ** -0.5))
+        nw, nb = randn(trees, N, d, scale=d ** -0.5), randn(trees, N, scale=0.1)
+        x = randn(DECODE_B, d)
+        out[f"fused_forest_decode bfloat16 {name} batch {DECODE_B}"] = device_ms(
+            lambda: fdk.fused_forest_decode(x, nw, nb, leaves, depth=depth, act="swiglu"))
+        del leaves
+        torch.cuda.empty_cache()
     return out
 
 
