@@ -45,7 +45,11 @@ Phases (any failure raises, and the exit code is non-zero):
               small's up projection (a D split), x rows past the group
               sizes holding non-zero values (their outputs must be exactly
               zero) and an x off 16 bytes (the masked path), every call
-              twice and bit-identical.  Every grouped call in the run
+              twice and bit-identical; and the float32 forms' edges (N 1,
+              8, 16, 32 narrow, 33, 64, 96 wide; group sizes 0, 1, 31, 32,
+              33, 127, 128; capacity 264; D 100 and 45, off the 32-float
+              step and off 4; D 1000 split; rows past the sizes non-zero;
+              an x 4 bytes off 16).  Every grouped call in the run
               counts its launch by path (kernels/leaf_gemm/kernel.py
               plan); each full-width call, the serve and engine runs' and
               the arch sites' included, must count on the TMA path in
@@ -378,7 +382,9 @@ rank's shapes under "internlm2-20b model_parallel rank 0"; the ViT's
 site at each leaf width under "paper-vit lN", and at a site that routes
 evenly under "paper-vit lN balanced"),
 the kernel table as one JSON line (launches from the monolithic engine
-run), the card's name and power limit, and, last,
+run; the grouped GEMMs' float32 rows at the main shape beside their bf16
+ones, "dtype" float32, launches from the float32 grouped parity runs),
+the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -1153,7 +1159,8 @@ def phase_ragged(gen) -> None:
     """The kernels' masked and element-wise paths, at the CPU tests' small
     sizes (which the full-width shapes never reach): odd batches, D = 20
     and 24, leaf widths 4 and 8, a two-tree forest, the master leaf, every
-    activation."""
+    activation; then the grouped kernels' tile edges in both dtypes
+    (``grouped_edges``) and the float32 forms' (``grouped_f32_edges``)."""
     from repro_torch.kernels.fused_decode import kernel as fdk, ref as fdr
     from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
     from repro_torch.kernels.tree_router import kernel as trk
@@ -1245,6 +1252,7 @@ def phase_ragged(gen) -> None:
                               w, w2, idx, "gelu", dtype)
                 checked += 2
     checked += grouped_edges(gen)
+    checked += grouped_f32_edges(gen)
     torch.cuda.synchronize()
     log(f"[ragged] {checked} small kernel cases agree with their plain "
         f"versions (fp32 and bf16)")
@@ -1371,6 +1379,70 @@ def grouped_edges(gen) -> int:
             checked += 1 + len(ACTS)
     if len(split_in) != 2:
         raise AssertionError(f"grouped edges: D was split only in {split_in}")
+    return checked
+
+
+def grouped_f32_edges(gen) -> int:
+    """The float32 grouped kernels at the edges of their two forms (csrc/
+    leaf_gemm.cu), every call twice (bit-identical) against its plain
+    version and counted on the CUDA-core path: N = 1, 8, 16 and 32 (the
+    narrow form: one column group, then 4 rows a thread), 33, 64 and 96
+    (the wide form, N off its 128-column tile); group sizes 0, 1, 31, 32,
+    33, 127 and 128 in one call of capacity 128 (dead, partial and whole
+    32-row slices) and 0 to 264 at capacity 264 (three row tiles); D = 100
+    (off the 32-float step) and 45 (off 4: element-wise copies); D = 1000
+    with 7 leaves, whose blocks are too few for the card, so D is split; x
+    holding non-zero rows past the group sizes, whose outputs must be
+    exactly zero; an x 4 bytes off its 16-byte alignment; and N = 16 at
+    capacities 264 and 384 with D = 512 (split), where the narrow form's
+    longest row tile (512) fits a block's shared memory only without the
+    dual form's second panel.  Every activation and the dual form.  Returns
+    the cases checked."""
+    from repro_torch.kernels.leaf_gemm import kernel as gk, ref as gr
+    dev = torch.device("cuda")
+    checked, split_in, longest = 0, set(), False
+    edge, edge264 = [0, 1, 31, 32, 33, 127, 128], [0, 1, 31, 32, 33, 127, 128, 129, 255, 264]
+    edge384 = edge264[:-1] + [256, 257, 383, 384]
+    # (N, C, group sizes, D, x off 16 bytes)
+    cases = ([(n, 128, edge, d, False) for n in (1, 8, 16, 32, 33, 64, 96) for d in (100, 45)]
+             + [(n, 264, edge264, 100, False) for n in (16, 96)]
+             + [(16, 264, edge264, 512, False), (16, 384, edge384, 512, False)]
+             + [(n, 128, edge, 100, True) for n in (32, 96)]
+             + [(n, 128, edge, 1000, False) for n in (16, 64)])
+    for N, C, sizes, d, off in cases:
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        E_ = gs.numel()
+        past = ~(torch.arange(C, device=dev)[None, :] < gs[:, None])
+        x = torch.randn((E_, C, d), generator=gen, device=dev)   # non-zero past the sizes
+        if off:
+            buf = torch.empty(x.numel() + 1, device=dev)
+            x = buf[1:].view(E_, C, d).copy_(x)
+        w, w2 = (torch.randn((E_, d, N), generator=gen, device=dev) * d ** -0.5
+                 for _ in range(2))
+        p = gk.launch_plan(x, (w,))
+        if p.splits > 1:
+            split_in.add(gk.f32_form(N))
+        longest |= p.rows == 512
+        tag = (f"float32 {gk.f32_form(N)} N={N} C={C} D={d}" + (" x off 16 bytes" if off else ""))
+        y2 = twice_on(f"grouped_matmul_dual ({tag})",
+                      lambda: gk.grouped_matmul_dual(x, w, w2, gs), gk.GMM_DUAL, "cuda_cores")
+        compare(f"grouped_matmul_dual ({tag})", y2, gr.grouped_matmul_dual_ref(x, w, w2, gs),
+                torch.float32)
+        outs = [y2]
+        for act in ACTS:
+            y = twice_on(f"grouped_matmul {act} ({tag})",
+                         lambda: gk.grouped_matmul(x, w, gs, act=act), gk.GMM, "cuda_cores")
+            compare(f"grouped_matmul {act} ({tag})", y, gr.grouped_matmul_ref(x, w, gs, act=act),
+                    torch.float32)
+            outs.append(y)
+        if any(float(o[past].abs().max()) != 0.0 for o in outs):
+            raise AssertionError(f"grouped kernels ({tag}): a row past its group's size "
+                                 f"is not zero")
+        checked += 1 + len(ACTS)
+    if split_in != {"narrow", "wide"}:
+        raise AssertionError(f"grouped float32 edges: D was split only in {split_in}")
+    if not longest:
+        raise AssertionError("grouped float32 edges: no narrow row tile of 512")
     return checked
 
 
@@ -1995,7 +2067,9 @@ def phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG) -> None:
     ("exact_dense", cf 0.5) and through one-process grouped_ep (its default
     "exact_dense", cf 1.25), and the engine on grouped ("exact_dense", cf
     0.5, plain and speculative), all against the reference backend's
-    lm.generate, request by request, except at near-ties."""
+    lm.generate, request by request, except at near-ties.  Returns the
+    float32 grouped GEMM launches of these runs (counts set to 0 just
+    before, read just after), every one asserted on the CUDA-core path."""
     from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
     cfg = dataclasses.replace(FFF_CONFIG, n_layers=PARITY_LAYERS,
                               param_dtype=torch.float32,
@@ -2004,6 +2078,8 @@ def phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG) -> None:
     slots, prompt, steps = 4, 32, 8
     reqs = serve_mod.build_requests(cfg.vocab_size, 8, prompt, steps, seed=2,
                                     min_prompt_len=8)
+    from repro_torch.kernels import common
+    common.reset_launch_counts()
     max_len = prompt + steps + 1
     want, margin = generate_with_margins(api, fff, lm, cfg, params, reqs, steps,
                                          max_len, backend="reference", mode="infer")
@@ -2036,8 +2112,16 @@ def phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG) -> None:
         f"reference backend's lm.generate for every request; near-tie "
         f"differences and engine overflow means {ties}; smallest deciding margin "
         f"{min(margin.values()):.3e}")
+    counts, paths = common.launch_counts(), common.path_counts()
+    grouped = {k: counts[k] for k in ("grouped_matmul", "grouped_matmul_dual")}
+    for k, n in grouped.items():
+        if n <= 0 or paths.get(k, {}) != {"cuda_cores": n}:
+            raise AssertionError(f"[grouped parity] {k}: {n} launches by path "
+                                 f"{paths.get(k)}, expected all on 'cuda_cores'")
+    log(f"[grouped parity] float32 grouped launches, all on the CUDA-core path: {grouped}")
     del params
     torch.cuda.empty_cache()
+    return grouped
 
 
 def train_card_vs_cpu(api, lm, base_cfg, backends=("reference", "grouped"),
@@ -4712,7 +4796,7 @@ def main() -> int:
         phase_grouped_serving(common, api, serve_mod, cfg, params)
         del params
         torch.cuda.empty_cache()
-        phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG)
+        f32_launches = phase_grouped_parity(api, fff, lm, serve_mod, FFF_CONFIG)
     with timed("train"):
         phase_train(common, api, fff, lm, FFF_CONFIG)
     with timed("train_mesh"):
@@ -4747,15 +4831,21 @@ def main() -> int:
     archs[f"{cfg.arch_id} model_parallel rank 0"] = mp_rows
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
 
+    # bf16 rows: the engine's launches; the grouped GEMMs' float32 rows
+    # beside them: the float32 grouped parity runs' launches
     table = []
-    for kname, k in common.KERNELS.items():
-        r = rows[(kname, torch.bfloat16)]
-        table.append({"name": kname, "route": "cuda",
-                      "source": f"src/repro_torch/kernels/csrc/{k.source}",
-                      "replaces": k.replaces, "launches": counts[kname],
+    for kname, dtype, launches in (
+            [(kname, torch.bfloat16, counts[kname]) for kname in common.KERNELS]
+            + [(kname, torch.float32, f32_launches[kname])
+               for kname in ("grouped_matmul_dual", "grouped_matmul")]):
+        k, r = common.KERNELS[kname], rows[(kname, dtype)]
+        table.append({"name": kname if dtype == torch.bfloat16 else f"{kname} (float32)",
+                      "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{k.source}",
+                      "replaces": k.replaces, "launches": launches,
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                      "dtype": str(dtype)[6:]})
     print(json.dumps({"arch_kernels": {
         arch: [dict(name=k, **{f: r[f] for f in ARCH_ROW_KEYS if f in r})
                for k, r in rows.items()] for arch, rows in archs.items()}}))

@@ -73,12 +73,57 @@
 // into the swizzled layout, with masked element copies at ragged edges and
 // zeros for rows past the group's size.
 //
-// float32 runs on the CUDA cores in full float32 (no TF32): one block per
-// (leaf, 64 rows, 64 columns[, range of D]), 16-deep slices of x and w
-// staged in shared memory, each of 256 threads accumulating a 4x4 output
-// patch (two for the dual form) in registers.  Where that grid has fewer
-// blocks than the card has SMs (the starcoder2 draft's 16-wide leaves) D is
-// split over blocks through the same fixed-order partial pass.
+// float32 runs on the CUDA cores in full float32 (fused multiply-adds, no
+// TF32) in one of two forms, which kernels/leaf_gemm/kernel.py::plan names
+// by N, the output columns.  Bound on the H100: at the main shape the
+// operations (the dual's 25.8 GFLOP over 1024 tokens at 67 TFLOP/s, 0.385 ms,
+// against 0.24 ms for its weights' bytes); at the ViT's and the draft's
+// narrow leaves, x's bytes.  Both forms stream k-steps of 32 floats (one
+// 128-byte row of x) through a ring of kF32Stages shared-memory stages that
+// every thread fills with 16-byte cp.async copies, so the next steps' loads
+// are in flight while one is multiplied.  x's rows lie 144 bytes apart in a
+// stage (a 16-byte pad), so the 8 rows a warp reads at one k fall in
+// distinct banks.  Operands a 16-byte copy cannot describe (D or H off 4, a
+// base off 16 bytes) take element-wise copies by every thread into the same
+// layout, in the same kernel.
+//
+// Wide form (N > 32): a block is (leaf, 128 or 64 rows, 128 weight
+// columns[, range of D]): 128 output columns, or the dual form's 64 of g
+// beside the same 64 of u, so that one read of x feeds both.  Its warps are
+// 4 or 2 row slices of 32 by 4 column groups, each thread a 4 x 8 patch of
+// accumulators: for 4 k it reads its 4 rows of x as float4s along k and 4
+// rows of its 8 weight columns, 12 loads for 128 multiply-adds.  The plan
+// takes 128 rows where D is long (a weight panel streams once for them) and
+// 64 (two blocks an SM) where D is short or C small.  A warp whose slice
+// lies wholly at or past the group's size issues no multiply-add (at ~64 +-
+// 8 tokens a leaf of capacity 128, a sixth of the products fall on dead
+// rows, where a 64-row granularity wastes a third); each scheduler of the SM
+// holds one warp of every slice, so 64 or 96 live rows keep all four busy;
+// and where a leaf has one row tile, the dual form deals the leaves to the
+// blocks most live rows first.  A thread's copies keep fixed sources that
+// advance by the step.  (On the
+// H100: an 8 x 8 patch, at 128 registers for two blocks an SM or with 8
+// warps for one, ran slower; so did a break inside the full steps' loop,
+// and multiplying only 16 rows of a slice with at most 16 live (faster at
+// one shape, slower at others).  Dealing leaves by load is compiled into
+// the dual form only: its code slowed the down projection's instances,
+// which never took it.)
+// Capacities above the tile take more row tiles in the grid.
+//
+// Narrow form (N <= 32): a block is (leaf, R rows, all N columns[, range of
+// D]) with its threads over (rows, group of CT columns), CT (the plan's
+// cols) the largest of 8, 4, 2 and 1 that divides N, so that no thread
+// computes a column that does not exist; a thread takes 4 rows where N has
+// more than one group (each load of the panel feeds 4 rows), else 1.  A
+// stage holds the R rows of x and the step's 32 rows of the leaf's weight
+// panel (32 x N floats, read by broadcast).  The plan splits a long D over
+// blocks (the starcoder2 draft's 6144 at 8 leaves), shortens R where a
+// short D leaves few blocks, and keeps the ring within the 227 KB a block
+// may hold.
+//
+// Either form splits D only where its blocks are fewer than the SMs; each
+// range writes f32 partials to the workspace, and split_sum_kernel sums
+// them in split order.
 #include <algorithm>
 #include <mutex>
 #include <type_traits>
@@ -97,104 +142,439 @@ constexpr int kMaxDevices = 16;
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
-constexpr int BM = 64, BN = 64, BK = 16, kThreads = 256;
+constexpr int kF32Step = 32;      // k-step: 32 floats, one 128-byte row of x
+constexpr int kXRow = 36;         // floats from one row of x to the next in a stage
+constexpr int kF32Stages = 3;     // ring: two steps in flight beside the one multiplied
+constexpr int kF32Threads = 256;  // narrow form: a block's most threads
+constexpr int kWideCols = 128;    // wide form: a block's weight columns
+constexpr int kNarrowMax = 32;    // N at or below which the narrow form runs
 
-// grid (H / BN, C / BM, E x splits): blockIdx.z = split * E + leaf.
-// Unsplit (kSplit false) it writes y, the activation kAct fixed at compile
-// time; split, the block's f32 sums over its range of D go to ws (splits,
-// ops, E, C, H) and split_sum_kernel finishes.  Each instance holds one
-// epilogue: compiled together, the split and unsplit stores and a switch
-// over the activations made the unsplit kernel slower on the H100.
-template <typename T, bool kDual, bool kSplit, int kAct>
-__global__ void __launch_bounds__(kThreads)
-grouped_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                      const T* __restrict__ w2, const int* __restrict__ gs,
-                      T* __restrict__ y, float* __restrict__ ws, int E, int C, int D, int H,
-                      int splits) {
-  const int e = kSplit ? blockIdx.z % E : blockIdx.z;
-  const int c0 = blockIdx.y * BM, h0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// 4 floats from src into shared dst (16-byte aligned), the first `valid` of
+// them read and the rest zero: one async 16-byte copy when vec (src 16-byte
+// aligned), else element by element
+__device__ __forceinline__ void copy4(float* dst, const float* src, int valid, bool vec) {
+  if (valid <= 0) {
+    *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else if (vec) {
+    cp_async16(smem_addr(dst), src, 4 * min(valid, 4));
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) dst[t] = t < valid ? __ldg(src + t) : 0.0f;
+  }
+}
+
+// rows [r0, r0 + n) of x (row length D) at k-step k0 into a stage, row i's
+// 32 floats at st + i * kXRow; columns past D are zeros
+__device__ __forceinline__ void load_x(float* st, const float* xb, int r0, int n, int k0, int D,
+                                       bool vec, int tid, int nthreads) {
+  for (int i = tid; i < n * 8; i += nthreads) {
+    const int r = i >> 3, k = k0 + 4 * (i & 7);
+    copy4(st + r * kXRow + 4 * (i & 7), xb + static_cast<size_t>(r0 + r) * D + k, D - k, vec);
+  }
+}
+
+// n floats (a multiple of 4) from src, the first `valid` read and the rest
+// zero, into shared dst: 16-byte copies where src is 16-byte aligned
+__device__ __forceinline__ void load_flat(float* dst, const float* src, int valid, int n,
+                                          int tid, int nthreads) {
+  const bool vec = aligned16(src);
+  for (int i = tid; i < n / 4; i += nthreads) copy4(dst + 4 * i, src + 4 * i, valid - 4 * i, vec);
+}
+
+// 4 floats into columns c..c+3 of a row of length H: one 16-byte store when
+// vec (H % 4 == 0, the row 16-byte aligned), else masked element stores
+__device__ __forceinline__ void store4(float* row, int c, int H, float4 v, bool vec) {
+  if (c >= H) return;
+  if (vec) {
+    *reinterpret_cast<float4*>(row + c) = v;
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    if (c + t < H) row[c + t] = e[t];
+}
+
+__device__ __forceinline__ float lane_of(const float4& a, int q) {
+  return q == 0 ? a.x : q == 1 ? a.y : q == 2 ? a.z : a.w;
+}
+
+// With one row tile a leaf (C <= 128) a block's work grows with its leaf's
+// live 32-row slices.  Slot s of the leaves then goes to the leaf of rank s
+// in the order of most live slices first (ties by index), so the blocks the
+// scheduler starts first carry the most work and the last wave the least.
+// Every thread returns the same leaf; gs is read on the device.
+__device__ __forceinline__ int leaf_by_load(const int* gs, int E, int C, int slot, int tid,
+                                            int nthreads) {
+  __shared__ int leaf;
+  for (int t = tid; t < E; t += nthreads) {
+    const int mine = (min(gs[t], C) + 31) / 32;
+    int rank = 0;
+    for (int e = 0; e < E; ++e) {
+      const int s = (min(gs[e], C) + 31) / 32;
+      rank += s > mine || (s == mine && e < t);
+    }
+    if (rank == slot) leaf = t;
+  }
+  __syncthreads();
+  return leaf;
+}
+constexpr int kMaxSortedLeaves = 256;   // more leaves keep their index order
+
+// Wide form.  One block per (leaf, kRows-row tile, column tile[, range of
+// D]), blockIdx.x = ((split * E + leaf) * row tiles + row tile) * column
+// tiles + column tile (kernel.py::work's order), of kRows / 8 warps: row
+// slices of 32 by 4 column groups of 32 weight columns, a thread 4 rows (rg
+// + 8 i) by 8 weight columns.  Warp w takes column group w % 4 and slice w
+// / 4, so each of the SM's four schedulers holds one warp of every slice,
+// and a group of 64 or 96 live rows keeps all four busy; with one row tile
+// a leaf, the dual form takes the leaves in leaf_by_load's order.  Unsplit
+// (kSplit false) it writes y with the activation kAct fixed at compile
+// time; split, its f32 sums over its range of D go to ws (splits, ops, E,
+// C, H) and split_sum_kernel finishes.  vec_x: D % 4 == 0 and x on 16 bytes; vec_w:
+// H % 4 == 0 and the weights on 16 bytes.
+constexpr int kTR = 4, kLR = 8, kLC = 4;   // a thread's rows; a warp's row and column lanes
+
+template <int kRows, bool kDual, bool kSplit, int kAct>
+__global__ void __launch_bounds__(kRows * 4, kRows == 64 ? 2 : 1)
+f32_wide_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ w2, const int* __restrict__ gs, float* __restrict__ y,
+                float* __restrict__ ws, int E, int C, int D, int H, int splits, int vec_x,
+                int vec_w) {
+  constexpr int kThreads = kRows * 4;                               // 32-row slices x 4 groups
+  constexpr int kOut = kDual ? kWideCols / 2 : kWideCols;           // output columns a block
+  constexpr int kXFloats = kRows * kXRow;
+  constexpr int kStage = kXFloats + kF32Step * kWideCols;           // floats a stage
+  const int ctiles = (H + kOut - 1) / kOut, rtiles = (C + kRows - 1) / kRows;
+  const int ct = blockIdx.x % ctiles, rt = blockIdx.x / ctiles % rtiles;
+  const int z = blockIdx.x / (ctiles * rtiles), split = z / E;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int e = z % E;
+  if constexpr (kDual)
+    if (rtiles == 1 && E <= kMaxSortedLeaves) e = leaf_by_load(gs, E, C, e, tid, kThreads);
+  const int r0 = rt * kRows, n0 = ct * kOut;
   const int rows = min(gs[e], C);
-  T* yb = y + static_cast<size_t>(e) * C * H;
-  if (c0 >= rows) {  // no live row: zeros (under a split the second pass
+  float* yb = y + static_cast<size_t>(e) * C * H;
+  if (r0 >= rows) {  // no live row: zeros (under a split the second pass
                      // writes them), no weight traffic
     if constexpr (!kSplit)
-      for (int i = tid; i < BM * BN; i += kThreads) {
-        const int r = c0 + i / BN, c = h0 + i % BN;
-        if (r < C && c < H) yb[static_cast<size_t>(r) * H + c] = fff::from_f32<T>(0.0f);
+      for (int i = tid; i < kRows * kOut / 4; i += kThreads) {
+        const int r = r0 + i / (kOut / 4);
+        if (r < C)
+          store4(yb + static_cast<size_t>(r) * H, n0 + 4 * (i % (kOut / 4)), H,
+                 make_float4(0.0f, 0.0f, 0.0f, 0.0f), (H & 3) == 0);
       }
     return;
   }
-  __shared__ float As[BK][BM + 4];          // x slice, transposed [k][m]
-  __shared__ __align__(16) float Bs[BK][BN];
-  __shared__ __align__(16) float Bs2[kDual ? BK : 1][BN];
-  const T* xb = x + static_cast<size_t>(e) * C * D;
-  const T* wb = w + static_cast<size_t>(e) * D * H;
-  const T* w2b = kDual ? w2 + static_cast<size_t>(e) * D * H : nullptr;
-  int k_begin = 0, k_end = D;
-  if constexpr (kSplit) {
-    const int split = blockIdx.z / E, nk = (D + BK - 1) / BK;
-    k_begin = split * nk / splits * BK;
-    k_end = min(D, (split + 1) * nk / splits * BK);
+  const int live = min(rows - r0, kRows);   // the tile's live rows
+  const int slice = warp >> 2, cgrp = warp & 3;
+  const int rg = lane / kLC, cg = lane % kLC;   // the lane's rows rg + kLR i
+  const bool mine = slice * 32 < live;          // a slice past the group's size: no products
+  // the lane's two groups of 4 weight columns in the stage, [c0, c0 + 4)
+  // and [c1, c1 + 4): of the down projection's 128, or g's and u's of the
+  // same 4 output columns for the dual form
+  const int c0 = kDual ? cgrp * 4 * kLC + cg * 4 : cgrp * 8 * kLC + cg * 4;
+  const int c1 = kDual ? kWideCols / 2 + c0 : c0 + 4 * kLC;
+  const int nk = (D + kF32Step - 1) / kF32Step;
+  const int kb = split * nk / splits, ke = (split + 1) * nk / splits;
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const float* xb = x + static_cast<size_t>(e) * C * D;
+  const float* wb = w + static_cast<size_t>(e) * D * H;
+  const float* w2b = kDual ? w2 + static_cast<size_t>(e) * D * H : nullptr;
+
+  // a k-step's stage: x's live rows, then 32 weight rows of kWideCols
+  // columns ([n0, n0 + 128) of w, or [n0, n0 + 64) of w then of w2).  A
+  // thread's pieces are fixed across steps: where every piece of the step
+  // is whole (vec, k0 + 32 <= D, the tile inside H), each is one 16-byte
+  // copy from a source that advances by the step
+  constexpr int kXPieces = kRows * 8 / kThreads;   // a thread's x pieces at most
+  constexpr int kWPieces = kF32Step * kWideCols / 4 / kThreads;
+  // piece j of the thread: x row tid / 8 + j kRows / 2, weight row tid / 32
+  // + j kThreads / 32, at a fixed column
+  const float* xsrc = xb + static_cast<size_t>(r0 + (tid >> 3)) * D + 4 * (tid & 7);
+  const uint32_t xdst = 4 * ((tid >> 3) * kXRow + 4 * (tid & 7));
+  const int q = tid & 31;
+  const bool second = kDual && q >= kWideCols / 8;
+  const float* wsrc = (second ? w2b : wb) + static_cast<size_t>(tid >> 5) * H + n0 + 4 * q -
+                      (second ? kWideCols / 2 : 0);
+  const uint32_t wdst = 4 * (kXFloats + (tid >> 5) * kWideCols + 4 * q);
+  const bool whole = vec_x && vec_w && n0 + kOut <= H;
+  auto load = [&](int kt) {
+    float* st = smem + (kt - kb) % kF32Stages * kStage;
+    const int k0 = kt * kF32Step;
+    if (whole && k0 + kF32Step <= D) {
+      const uint32_t base = smem_addr(st);
+#pragma unroll
+      for (int j = 0; j < kXPieces; ++j)
+        if (tid + j * kThreads < live * 8)
+          cp_async16(base + xdst + 4 * j * (kRows / 2) * kXRow,
+                     xsrc + static_cast<size_t>(j * (kRows / 2)) * D + k0, 16);
+#pragma unroll
+      for (int j = 0; j < kWPieces; ++j)
+        cp_async16(base + wdst + 4 * j * (kThreads / 32) * kWideCols,
+                   wsrc + static_cast<size_t>(k0 + j * (kThreads / 32)) * H, 16);
+      return;
+    }
+    load_x(st, xb, r0, live, k0, D, vec_x, tid, kThreads);
+    float* sw = st + kXFloats;
+    for (int i = tid; i < kF32Step * kWideCols / 4; i += kThreads) {
+      const int k = i / (kWideCols / 4), q = i % (kWideCols / 4), kk = k0 + k;
+      const float* src = wb;
+      int c = n0 + 4 * q;
+      if constexpr (kDual)
+        if (q >= kWideCols / 8) {
+          src = w2b;
+          c -= kWideCols / 2;
+        }
+      copy4(sw + k * kWideCols + 4 * q, src + static_cast<size_t>(kk) * H + c,
+            kk < D ? H - c : 0, vec_w);
+    }
+  };
+
+  float acc[kTR][8];
+#pragma unroll
+  for (int i = 0; i < kTR; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kF32Stages - 1; ++s) {
+    if (kb + s < ke) load(kb + s);
+    cp_async_commit();
   }
-  float acc[4][4] = {}, acc2[4][4] = {};
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+  for (int kt = kb; kt < ke; ++kt) {
+    cp_async_wait<kF32Stages - 2>();   // this thread's copies of step kt landed
+    __syncthreads();                   // everyone's, and step kt-1's products are done
+    if (kt + kF32Stages - 1 < ke) load(kt + kF32Stages - 1);
+    cp_async_commit();
+    if (!mine) continue;
+    const float* st = smem + (kt - kb) % kF32Stages * kStage;
+    const float* xs = st + (slice * 32 + rg) * kXRow;
+    const float* sw = st + kXFloats;
+    // 4 k at a time; a step that ends past D skips its zero pieces, in an
+    // instance of its own: a break or a bound read at run time inside the
+    // full steps' loop costs the H100 its overlap of one piece's loads with
+    // the last one's products
+    auto multiply = [&](auto whole_step) {
+      const int pieces = (min(kF32Step, D - kt * kF32Step) + 3) / 4;
 #pragma unroll
-    for (int i = 0; i < BM * BK / kThreads; ++i) {
-      const int idx = tid + i * kThreads, m = idx / BK, k = idx % BK;
-      const int r = c0 + m, kk = k0 + k;
-      As[k][m] = (r < C && kk < D) ? fff::to_f32(xb[static_cast<size_t>(r) * D + kk]) : 0.0f;
-    }
+      for (int kk = 0; kk < kF32Step / 4; ++kk) {
+        if constexpr (!decltype(whole_step)::value)
+          if (kk >= pieces) break;
+        float4 a[kTR];   // 4 k of each of the lane's rows
 #pragma unroll
-    for (int i = 0; i < BK * BN / kThreads; ++i) {
-      const int idx = tid + i * kThreads, k = idx / BN, n = idx % BN;
-      const int kk = k0 + k, c = h0 + n;
-      const bool ok = kk < D && c < H;
-      const size_t off = static_cast<size_t>(kk) * H + c;
-      Bs[k][n] = ok ? fff::to_f32(wb[off]) : 0.0f;
-      if constexpr (kDual) Bs2[k][n] = ok ? fff::to_f32(w2b[off]) : 0.0f;
-    }
-    __syncthreads();
+        for (int i = 0; i < kTR; ++i)
+          a[i] = *reinterpret_cast<const float4*>(xs + i * kLR * kXRow + 4 * kk);
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[4];
+        for (int q = 0; q < 4; ++q) {
+          const float* wr = sw + (4 * kk + q) * kWideCols;
+          const float4 b0 = *reinterpret_cast<const float4*>(wr + c0);
+          const float4 b1 = *reinterpret_cast<const float4*>(wr + c1);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+          for (int i = 0; i < kTR; ++i) {
+            const float v = lane_of(a[i], q);
+            acc[i][0] = fmaf(v, b0.x, acc[i][0]);
+            acc[i][1] = fmaf(v, b0.y, acc[i][1]);
+            acc[i][2] = fmaf(v, b0.z, acc[i][2]);
+            acc[i][3] = fmaf(v, b0.w, acc[i][3]);
+            acc[i][4] = fmaf(v, b1.x, acc[i][4]);
+            acc[i][5] = fmaf(v, b1.y, acc[i][5]);
+            acc[i][6] = fmaf(v, b1.z, acc[i][6]);
+            acc[i][7] = fmaf(v, b1.w, acc[i][7]);
+          }
+        }
+      }
+    };
+    if ((kt + 1) * kF32Step <= D) multiply(std::true_type{});
+    else multiply(std::false_type{});
+  }
+  cp_async_wait<0>();
+
+  const bool vec_y = (H & 3) == 0;
+  const size_t plane = static_cast<size_t>(E) * C * H;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * bv[j];
+  for (int i = 0; i < kTR; ++i) {
+    const int r = r0 + slice * 32 + rg + kLR * i;
+    if (r >= C) continue;
+    const bool keep = r < rows;
+    const float4 lo = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    const float4 hi = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    if constexpr (kSplit) {
+      if (!keep) continue;
+      float* p = ws + static_cast<size_t>(split) * (kDual ? 2 : 1) * plane +
+                 (static_cast<size_t>(e) * C + r) * H;
+      store4(p, n0 + c0, H, lo, vec_y);
+      if constexpr (kDual) store4(p + plane, n0 + c0, H, hi, vec_y);
+      else store4(p, n0 + c1, H, hi, vec_y);
+    } else {
+      float* p = yb + static_cast<size_t>(r) * H;
       if constexpr (kDual) {
-        const float4 b2 = *reinterpret_cast<const float4*>(&Bs2[k][tx * 4]);
-        const float bv2[4] = {b2.x, b2.y, b2.z, b2.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc2[i][j] += a[i] * bv2[j];
+        const float4 v = make_float4(fff::silu(lo.x) * hi.x, fff::silu(lo.y) * hi.y,
+                                     fff::silu(lo.z) * hi.z, fff::silu(lo.w) * hi.w);
+        store4(p, n0 + c0, H, keep ? v : zero, vec_y);
+      } else {
+        auto act4 = [&](const float4& v) {
+          return keep ? make_float4(fff::activate_as<kAct>(v.x), fff::activate_as<kAct>(v.y),
+                                    fff::activate_as<kAct>(v.z), fff::activate_as<kAct>(v.w))
+                      : zero;
+        };
+        store4(p, n0 + c0, H, act4(lo), vec_y);
+        store4(p, n0 + c1, H, act4(hi), vec_y);
       }
     }
-    __syncthreads();
   }
+}
+
+// Narrow form.  One block per (leaf, R-row tile[, range of D]), blockIdx.x =
+// (split * E + leaf) * row tiles + row tile, of G x R / kRT threads (G = N /
+// kCT column groups): thread t computes rows t / G + (R / kRT) i (i < kRT)
+// of the tile and columns [g kCT, (g + 1) kCT) for g = t % G.  Stores and
+// splits as the wide form.
+template <int kCT, int kRT, bool kDual, bool kSplit, int kAct>
+__global__ void __launch_bounds__(kF32Threads)
+f32_narrow_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ w2, const int* __restrict__ gs, float* __restrict__ y,
+                  float* __restrict__ ws, int E, int C, int D, int H, int splits, int R,
+                  int vec_x) {
+  constexpr int kOps = kDual ? 2 : 1;
+  const int G = H / kCT, RL = R / kRT, rtiles = (C + R - 1) / R;
+  const int rt = blockIdx.x % rtiles, z = blockIdx.x / rtiles, e = z % E, split = z / E;
+  const int r0 = rt * R, rows = min(gs[e], C);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  float* yb = y + static_cast<size_t>(e) * C * H;
+  if (r0 >= rows) {  // no live row: zeros (or, split, nothing), no weight traffic
+    if constexpr (!kSplit)
+      for (int i = tid; i < min(R, C - r0) * H; i += nthreads)
+        yb[static_cast<size_t>(r0) * H + i] = 0.0f;
+    return;
+  }
+  const int live = min(rows - r0, R);
+  const int g = tid % G, rl = tid / G;
+  const bool any = rl < live;   // this thread's first row is live
+  const int nk = (D + kF32Step - 1) / kF32Step;
+  const int kb = split * nk / splits, ke = (split + 1) * nk / splits;
+  const int xfloats = R * kXRow, panel = kF32Step * H;   // a stage: x's rows, then the
+  const int stage = xfloats + kOps * panel;              // panel's 32 rows an operand
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const float* xb = x + static_cast<size_t>(e) * C * D;
+  const float* wb[2] = {w + static_cast<size_t>(e) * D * H,
+                        kDual ? w2 + static_cast<size_t>(e) * D * H : nullptr};
+
+  auto load = [&](int kt) {
+    float* st = smem + (kt - kb) % kF32Stages * stage;
+    const int k0 = kt * kF32Step;
+    load_x(st, xb, r0, live, k0, D, vec_x, tid, nthreads);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = c0 + ty * 4 + i;
-    if (r >= C) continue;
+    for (int op = 0; op < kOps; ++op)   // the panel's 32 rows are contiguous in w
+      load_flat(st + xfloats + op * panel, wb[op] + static_cast<size_t>(k0) * H,
+                min(kF32Step, D - k0) * H, panel, tid, nthreads);
+  };
+
+  float acc[kOps][kRT][kCT];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = h0 + tx * 4 + j;
-      if (c >= H) continue;
-      if constexpr (kSplit) {
-        const size_t plane = static_cast<size_t>(E) * C * H;
-        float* p = ws + static_cast<size_t>(blockIdx.z / E) * (kDual ? 2 : 1) * plane +
-                   (static_cast<size_t>(e) * C + r) * H + c;
-        p[0] = acc[i][j];
-        if constexpr (kDual) p[plane] = acc2[i][j];
+  for (int op = 0; op < kOps; ++op)
+#pragma unroll
+    for (int i = 0; i < kRT; ++i)
+#pragma unroll
+      for (int j = 0; j < kCT; ++j) acc[op][i][j] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kF32Stages - 1; ++s) {
+    if (kb + s < ke) load(kb + s);
+    cp_async_commit();
+  }
+  for (int kt = kb; kt < ke; ++kt) {
+    cp_async_wait<kF32Stages - 2>();
+    __syncthreads();
+    if (kt + kF32Stages - 1 < ke) load(kt + kF32Stages - 1);
+    cp_async_commit();
+    if (!any) continue;
+    const float* st = smem + (kt - kb) % kF32Stages * stage;
+    const float* xs = st + rl * kXRow;
+    const float* wp = st + xfloats + g * kCT;
+    auto multiply = [&](auto whole_step) {   // as the wide form's
+      const int pieces = (min(kF32Step, D - kt * kF32Step) + 3) / 4;
+#pragma unroll
+      for (int kk = 0; kk < kF32Step / 4; ++kk) {
+        if constexpr (!decltype(whole_step)::value)
+          if (kk >= pieces) break;
+        float4 a[kRT];   // 4 k of each of the thread's rows (a dead row's are never stored)
+#pragma unroll
+        for (int i = 0; i < kRT; ++i)
+          a[i] = *reinterpret_cast<const float4*>(xs + i * RL * kXRow + 4 * kk);
+#pragma unroll
+        for (int op = 0; op < kOps; ++op) {
+          const float* wr = wp + op * panel + 4 * kk * H;
+          float b[4][kCT];   // the panel at 4 k by the thread's kCT columns
+          if constexpr (kCT % 4 == 0) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+              for (int j = 0; j < kCT; j += 4) {
+                const float4 t = *reinterpret_cast<const float4*>(wr + q * H + j);
+                b[q][j] = t.x, b[q][j + 1] = t.y, b[q][j + 2] = t.z, b[q][j + 3] = t.w;
+              }
+          } else if (G == 1) {   // N = kCT: the 4 k's rows are 4 kCT adjacent floats
+#pragma unroll
+            for (int j = 0; j < kCT; ++j) {
+              const float4 t = *reinterpret_cast<const float4*>(wr + 4 * j);
+              const float f[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+              for (int u = 0; u < 4; ++u) b[(4 * j + u) / kCT][(4 * j + u) % kCT] = f[u];
+            }
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+              for (int j = 0; j < kCT; ++j) b[q][j] = wr[q * H + j];
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int i = 0; i < kRT; ++i) {
+              const float v = lane_of(a[i], q);
+#pragma unroll
+              for (int j = 0; j < kCT; ++j) acc[op][i][j] = fmaf(v, b[q][j], acc[op][i][j]);
+            }
+        }
+      }
+    };
+    if ((kt + 1) * kF32Step <= D) multiply(std::true_type{});
+    else multiply(std::false_type{});
+  }
+  cp_async_wait<0>();
+
+  const size_t plane = static_cast<size_t>(E) * C * H;
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    const int r = r0 + rl + RL * i;
+    const bool keep = rl + RL * i < live;
+    if (r >= C || (kSplit && !keep)) continue;
+    float out[kCT];
+#pragma unroll
+    for (int j = 0; j < kCT; ++j)
+      out[j] = !keep ? 0.0f
+               : kDual ? fff::silu(acc[0][i][j]) * acc[kOps - 1][i][j]
+                       : fff::activate_as<kAct>(acc[0][i][j]);
+#pragma unroll
+    for (int op = 0; op < (kSplit ? kOps : 1); ++op) {
+      float* p = kSplit ? ws + (static_cast<size_t>(split) * kOps + op) * plane +
+                              (static_cast<size_t>(e) * C + r) * H + g * kCT
+                        : yb + static_cast<size_t>(r) * H + g * kCT;
+      const float* v = kSplit ? acc[op][i] : out;
+      if constexpr (kCT % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < kCT; j += 4)
+          *reinterpret_cast<float4*>(p + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+      } else if constexpr (kCT == 2) {
+        *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
       } else {
-        const float v = kDual ? fff::silu(acc[i][j]) * acc2[i][j]
-                              : fff::activate_as<kAct>(acc[i][j]);
-        yb[static_cast<size_t>(r) * H + c] = fff::from_f32<T>(r < rows ? v : 0.0f);
+        p[0] = v[0];
       }
     }
   }
@@ -932,6 +1312,92 @@ cudaError_t launch_tma(const bf16* x, const bf16* w, const bf16* w2, const int* 
   return cudaErrorInvalidValue;
 }
 
+// one float32 kernel instance on a plan's grid, its dynamic shared memory
+// allowed once a device
+template <auto kKernel, typename... A>
+cudaError_t run_f32(int grid, int threads, int smem, int device, cudaStream_t s, A... args) {
+  static int allowed[kMaxDevices] = {};
+  if (const cudaError_t err =
+          allow_smem(allowed, reinterpret_cast<const void*>(kKernel), smem, device))
+    return err;
+  kKernel<<<grid, threads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+// The float32 plan (kernel.py::plan): the narrow form where H <= kNarrowMax
+// (rows = R, a power of two; cols = the columns a thread, 8, 4, 2 or 1
+// dividing H; a thread takes 4 rows where its columns are not all of H,
+// else 1; G R / (rows a thread) <= 256 threads), else the wide form (rows
+// 128 or 64, cols 128, or 64 for the dual form); grid = leaves x row tiles
+// x column tiles x splits.  Anything else is refused.
+template <bool kDual>
+cudaError_t launch_f32(const float* x, const float* w, const float* w2, const int* gs, float* y,
+                       float* ws, int E, int C, int D, int H, int act, int rows, int cols,
+                       int splits, int grid, int device, cudaStream_t s) {
+  constexpr int kOps = kDual ? 2 : 1;
+  if (splits > (D + kF32Step - 1) / kF32Step) return cudaErrorInvalidValue;
+  if (!aligned16(y) || (ws != nullptr && !aligned16(ws))) return cudaErrorInvalidValue;
+  const int vec_x = D % 4 == 0 && aligned16(x);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (H <= kNarrowMax) {
+    const int ct = cols, G = H / ct, rt = ct == H ? 1 : 4;
+    if ((ct != 8 && ct != 4 && ct != 2 && ct != 1) || H % ct != 0 || rows < rt ||
+        (rows & (rows - 1)) != 0 || G * rows / rt > kF32Threads)
+      return cudaErrorInvalidValue;
+    if (static_cast<long long>(E) * ((C + rows - 1) / rows) * splits != grid)
+      return cudaErrorInvalidValue;
+    const int smem = kF32Stages * (rows * kXRow + kOps * kF32Step * H) * 4;
+    auto run = [&](auto kct, auto krt, auto split, auto k) {
+      constexpr int kRT = decltype(krt)::value;
+      err = run_f32<f32_narrow_kernel<decltype(kct)::value, kRT, kDual, decltype(split)::value,
+                                      decltype(k)::value>>(
+          grid, G * rows / kRT, smem, device, s, x, w, w2, gs, y, ws, E, C, D, H, splits, rows,
+          vec_x);
+    };
+    // the column groups' rows a thread: 1 where one group covers N, else 4
+    auto by_act = [&](auto kct) {
+      auto with_rt = [&](auto krt) {
+        if (splits > 1)
+          run(kct, krt, std::true_type{}, std::integral_constant<int, fff::kActNone>{});
+        else
+          with_act<kDual>(act, [&](auto k) { run(kct, krt, std::false_type{}, k); });
+      };
+      if (rt == 1) with_rt(std::integral_constant<int, 1>{});
+      else with_rt(std::integral_constant<int, 4>{});
+    };
+    switch (ct) {
+      case 8: by_act(std::integral_constant<int, 8>{}); break;
+      case 4: by_act(std::integral_constant<int, 4>{}); break;
+      case 2: by_act(std::integral_constant<int, 2>{}); break;
+      default: by_act(std::integral_constant<int, 1>{});
+    }
+  } else {
+    const int out = kDual ? kWideCols / 2 : kWideCols;
+    if ((rows != 64 && rows != 128) || cols != out) return cudaErrorInvalidValue;
+    if (static_cast<long long>(E) * ((C + rows - 1) / rows) * ((H + out - 1) / out) * splits !=
+        grid)
+      return cudaErrorInvalidValue;
+    const int vec_w = H % 4 == 0 && aligned16(w) && (!kDual || aligned16(w2));
+    auto run = [&](auto krows, auto split, auto k) {
+      constexpr int kRows = decltype(krows)::value;
+      constexpr int smem = kF32Stages * (kRows * kXRow + kF32Step * kWideCols) * 4;
+      err = run_f32<f32_wide_kernel<kRows, kDual, decltype(split)::value, decltype(k)::value>>(
+          grid, kRows * 4, smem, device, s, x, w, w2, gs, y, ws, E, C, D, H, splits, vec_x,
+          vec_w);
+    };
+    auto by_rows = [&](auto krows) {
+      if (splits > 1)
+        run(krows, std::true_type{}, std::integral_constant<int, fff::kActNone>{});
+      else
+        with_act<kDual>(act, [&](auto k) { run(krows, std::false_type{}, k); });
+    };
+    if (rows == 64) by_rows(std::integral_constant<int, 64>{});
+    else by_rows(std::integral_constant<int, 128>{});
+  }
+  if (err != cudaSuccess) return err;
+  return splits > 1 ? split_sum<float, kDual>(ws, gs, y, E, C, H, splits, act, s) : cudaSuccess;
+}
+
 template <bool kDual>
 int launch(const void* x, const void* w, const void* w2, const int* gs, void* y, void* ws,
            int E, int C, int D, int H, int act, int dtype, int path, int rows, int cols,
@@ -942,25 +1408,9 @@ int launch(const void* x, const void* w, const void* w2, const int* gs, void* y,
   float* part = static_cast<float*>(ws);
   cudaError_t err = cudaErrorInvalidValue;
   if (path == kPathCudaCores && dtype == fff::kF32) {
-    if (splits > (D + BK - 1) / BK || static_cast<long long>(E) * splits > 65535)
-      return cudaErrorInvalidValue;
-    const dim3 blocks((H + BN - 1) / BN, (C + BM - 1) / BM, E * splits);
-    const float* xf = static_cast<const float*>(x);
-    float* yf = static_cast<float*>(y);
-    auto run = [&](auto kernel) {
-      kernel<<<blocks, kThreads, 0, s>>>(xf, static_cast<const float*>(w),
-                                         static_cast<const float*>(w2), gs, yf, part, E, C, D,
-                                         H, splits);
-    };
-    if (splits > 1)
-      run(grouped_matmul_kernel<float, kDual, true, fff::kActNone>);
-    else
-      with_act<kDual>(act, [&](auto k) {
-        run(grouped_matmul_kernel<float, kDual, false, decltype(k)::value>);
-      });
-    err = cudaGetLastError();
-    if (err == cudaSuccess && splits > 1)
-      err = split_sum<float, kDual>(part, gs, yf, E, C, H, splits, act, s);
+    err = launch_f32<kDual>(static_cast<const float*>(x), static_cast<const float*>(w),
+                            static_cast<const float*>(w2), gs, static_cast<float*>(y), part, E,
+                            C, D, H, act, rows, cols, splits, grid, device, s);
   } else if (path == kPathMasked && dtype == fff::kBF16 && splits == 1) {
     using T = TcTile<kDual>;
     auto kernel = grouped_matmul_wgmma_kernel<kDual>;

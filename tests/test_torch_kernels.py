@@ -493,22 +493,29 @@ def test_cuda_branches_marshal_their_c_signatures(stub_launch, monkeypatch):
     assert gk._launch(gk.GMM, x, (w,), gs, (0,)).shape == (3, 16, 4)
     assert gk._launch(gk.GMM_DUAL, x, (w, w), gs, ()).shape == (3, 16, 4)
     # the plan reaches C as (path, rows, cols, splits, grid) after the
-    # dtype code; D = 8 is one step of the float32 kernel, so no split and a
-    # null workspace
+    # dtype code; N = 4 takes the narrow float32 form (16 rows, the C of 16,
+    # by all 4 columns, a block a leaf; cols names a thread's 4 columns), and
+    # D = 8 is one step of it, so no split and a null workspace
     for args, ops in zip(grouped, (1, 2)):
+        p = gk.plan(3, 16, 8, 4, torch.float32, dual=ops == 2)
         assert args[4 + ops:4 + ops + 4] == (3, 16, 8, 4)
-        assert args[-7:-2] == (gk.PATH_CODES["cuda_cores"], 64, 64, 1, 3)
+        assert args[-7:-2] == (gk.PATH_CODES[p.path], p.rows, p.cols, p.splits, p.grid)
+        assert args[-7:-2] == (gk.PATH_CODES["cuda_cores"], 16, 4, 1, 3)
         assert args[ops + 3] is None
     assert workspaces == [None, None]
     # a split of D brings a float32 workspace of (splits, operands, E, C,
-    # H): 2 blocks of 64 x 64 split D = 256 into its 16 steps
+    # H): the narrow form's 2 blocks (64 rows by 16 columns, 8 a thread)
+    # split D = 1024 into its 32 steps
     del grouped[:], workspaces[:]
-    xs, ws_ = torch.zeros(2, 64, 256), torch.zeros(2, 256, 16)
+    xs, ws_ = torch.zeros(2, 64, 1024), torch.zeros(2, 1024, 16)
     gs2 = torch.zeros(2, dtype=torch.int32)
     gk._launch(gk.GMM, xs, (ws_,), gs2, (0,))
     gk._launch(gk.GMM_DUAL, xs, (ws_, ws_), gs2, ())
-    assert [a[-7:-2] for a in grouped] == [(0, 64, 64, 16, 32)] * 2
-    assert [tuple(t.shape) for t in workspaces] == [(16, 1, 2, 64, 16), (16, 2, 2, 64, 16)]
+    for args, ops in zip(grouped, (1, 2)):
+        p = gk.plan(2, 64, 1024, 16, torch.float32, dual=ops == 2)
+        assert args[-7:-2] == (gk.PATH_CODES[p.path], p.rows, p.cols, p.splits, p.grid)
+    assert [a[-7:-2] for a in grouped] == [(0, 64, 8, 32, 64)] * 2
+    assert [tuple(t.shape) for t in workspaces] == [(32, 1, 2, 64, 16), (32, 2, 2, 64, 16)]
     assert all(t.dtype == torch.float32 for t in workspaces)
     assert [a[ops + 3] for a, ops in zip(grouped, (1, 2))] == [t.data_ptr() for t in workspaces]
     # bf16 at whisper-small's up projection: the TMA path, D in 2 ranges

@@ -3,13 +3,15 @@ plan``), on the CPU: which path each shape takes, its tile, its split of D
 and its grid, and that the work the plan hands the blocks covers every
 (leaf, row, column, range of D) exactly once.  The kernels themselves run
 on the card (``chip_smoke.py``); these shapes are the ones it and the port
-launch: the internlm2-20b main path, every bf16 arch site, the ViT's
-float32 sites, the JAX grouped capacities and the CPU tests' small widths.
+launch: the internlm2-20b main path (both dtypes), every bf16 arch site, the
+ViT's and the starcoder2 draft's float32 sites, the JAX grouped capacities
+and the CPU tests' small widths.
 """
 from __future__ import annotations
 
 import itertools
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,6 +27,8 @@ SMS = gk.H100_SMS
 # under SwiGLU) and its down projection, at 1024 prefill tokens
 MAIN = [("internlm2 up", 16, 128, 6144, 1024, True, BF16),
         ("internlm2 down", 16, 128, 1024, 6144, False, BF16)]
+MAIN_F32 = [("internlm2 up float32", 16, 128, 6144, 1024, True, F32),
+            ("internlm2 down float32", 16, 128, 1024, 6144, False, F32)]
 ARCH_SITES = [
     ("phi3 up", 16, 128, 5120, 1120, True, BF16),
     ("phi3 down", 16, 128, 1120, 5120, False, BF16),
@@ -56,7 +60,19 @@ CAPACITIES = [(f"C={C} {d} {str(dt)[6:]}", 16, C, *dims, dual, dt)
 SMALL = [(f"small D={d} H={h} {str(dt)[6:]}{' dual' if dual else ''}", 3, 16, d, h, dual, dt)
          for d, h, dt, dual in itertools.product((20, 24), (4, 8), (F32, BF16),
                                                  (False, True))]
-SHAPES = MAIN + ARCH_SITES + VIT + DRAFT + CAPACITIES + SMALL
+# float32 narrow leaves off the sites' widths: odd N, N not a power of two,
+# a D split, the dual form
+NARROW_EXTRA = [(f"narrow N={n} D={d}", 7, 128, d, n, dual, F32)
+                for n, d, dual in ((1, 45, False), (3, 20, True), (5, 100, False),
+                                   (12, 1000, True), (31, 8, False), (32, 6144, True))]
+# the narrow form's longest row tile (512 at N = 16) where its ring would
+# pass the shared memory a block may hold: a SwiGLU draft's up projection
+# (8 leaves of 16, D 6144) past 1024 prefill tokens, and D 512
+RING_EDGES = [(f"narrow N=16 C={C} D={d}{' dual' if dual else ''}", 8, C, d, 16, dual, F32)
+              for C, d in ((264, 6144), (384, 512), (512, 6144)) for dual in (False, True)]
+SHAPES = (MAIN + MAIN_F32 + ARCH_SITES + VIT + DRAFT + CAPACITIES + SMALL + NARROW_EXTRA
+          + RING_EDGES)
+F32_SHAPES = [s for s in SHAPES if s[-1] == F32]
 FULL_WIDTH_BF16 = [s for s in MAIN + ARCH_SITES + CAPACITIES if s[-1] == BF16]
 
 
@@ -77,7 +93,10 @@ def partition(ranges, n):
 def test_plan_covers_every_leaf_row_column_and_range_once(shape):
     _, E, C, D, H, dual, _ = shape
     p = plan_of(shape)
-    work = gk.work(p, E, C, D, H)
+    # group sizes from a seed: the float32 wide dual form deals its leaves
+    # by them, so each block's leaf is the one the kernel computes
+    gs = np.random.default_rng(E * C + H).integers(0, C + 1, E)
+    work = gk.work(p, E, C, D, H, gs)
     assert all(0 <= b < p.grid for b, *_ in work)
     assert {b for b, *_ in work} == set(range(p.grid))   # no idle block
     per_leaf = {}
@@ -147,8 +166,94 @@ def test_plans_at_the_sites_the_redesign_names():
     assert by["C=264 down bfloat16"].rows == 256                 # two row tiles
     assert len({r for _, _, r, _, _ in gk.work(
         by["C=264 down bfloat16"], 16, 264, 1024, 6144)}) == 2
-    assert by["starcoder2 draft up"].splits == 4                 # 32 blocks -> 128
+    assert by["starcoder2 draft up"].splits == 16                # 8 blocks -> 128
     assert all(by[s[0]].splits == 1 for s in VIT)                # the ViT's as they were
+
+
+# Each float32 site's form, tile (rows, output columns), split of D and
+# grid: the wide form's blocks of 128 output columns (64 of the dual form's
+# g and u) by 128 rows where D is long, 64 where D is short (the ViT's and
+# the draft's down projections), C is at most 64, or D is at most 1024 with
+# four waves of 128-row blocks (the main down projection); row tiles past
+# the first in the grid; the narrow form's R rows by all N columns (its
+# plan's cols: the columns a thread), D split where it is long (the draft's
+# 6144), R no longer than C's power of two (the small widths) and its ring
+# within a block's shared memory.
+F32_SITES = {
+    "internlm2 up float32": ("wide", 128, 64, 1, 256),
+    "internlm2 down float32": ("wide", 64, 128, 1, 1536),
+    "vit l32 up": ("narrow", 256, 8, 1, 128),
+    "vit l32 down": ("wide", 64, 128, 1, 512),
+    "vit l8 up": ("narrow", 256, 8, 1, 128),
+    "vit l8 down": ("wide", 64, 128, 1, 512),
+    "vit l1 up": ("narrow", 256, 1, 1, 128),
+    "vit l1 down": ("wide", 64, 128, 1, 512),
+    "starcoder2 draft up": ("narrow", 256, 8, 16, 128),
+    "starcoder2 draft down": ("wide", 64, 128, 1, 1536),
+    **{f"C={C} dual float32": ("wide", rows, 64, 1, 16 * utils.cdiv(C, rows) * 16)
+       for C, rows in ((8, 64), (16, 64), (136, 128), (264, 128))},
+    **{f"C={C} down float32": ("wide", 64, 128, 1, 16 * utils.cdiv(C, 64) * 48)
+       for C in (8, 16, 136, 264)},
+    **{s[0]: ("narrow", 16, s[4], 1, 3) for s in SMALL if s[-1] == F32},
+    # 512 rows where the ring fits (the down form), else 256
+    "narrow N=16 C=264 D=6144": ("narrow", 512, 8, 16, 128),
+    "narrow N=16 C=264 D=6144 dual": ("narrow", 256, 8, 8, 128),
+    "narrow N=16 C=384 D=512 dual": ("narrow", 256, 8, 8, 128),
+    "narrow N=16 C=512 D=6144 dual": ("narrow", 256, 8, 8, 128),
+}
+
+
+@pytest.mark.parametrize("shape", [s for s in F32_SHAPES if s[0] in F32_SITES],
+                         ids=lambda s: s[0])
+def test_float32_plan_names_each_sites_form_tile_and_split(shape):
+    _, E, C, D, H, dual, _ = shape
+    p = plan_of(shape)
+    assert (gk.f32_form(H), p.rows, p.cols, p.splits, p.grid) == F32_SITES[shape[0]]
+    assert p.path == "cuda_cores" and p.units == p.grid
+
+
+@pytest.mark.parametrize("shape", [s for s in F32_SHAPES if s[4] <= gk.NARROW_MAX],
+                         ids=lambda s: s[0])
+def test_narrow_blocks_cover_no_column_past_n(shape):
+    """A narrow block covers all N columns and none past them, its threads
+    take column groups that divide N exactly, and they fit one block."""
+    _, E, C, D, H, dual, _ = shape
+    p = plan_of(shape)
+    ct = p.cols                 # the columns a thread, which the kernel takes
+    assert gk.f32_form(H) == "narrow" and ct == gk.narrow_cols(H)
+    assert ct in (8, 4, 2, 1) and H % ct == 0
+    assert {cols for _, _, _, cols, _ in gk.work(p, E, C, D, H)} == {(0, H)}
+    assert p.rows & (p.rows - 1) == 0 and p.rows >= gk.narrow_rt(H)
+    assert (H // ct) * p.rows // gk.narrow_rt(H) <= gk.F32_THREADS
+
+
+@pytest.mark.parametrize("shape", F32_SHAPES, ids=lambda s: s[0])
+def test_float32_ring_fits_a_blocks_shared_memory(shape):
+    """Three stages of x's rows (36 floats apart) and a step's 32 weight
+    rows (the wide form's 128 columns, the narrow form's N an operand)
+    within the H100's 227 KB (232,448 bytes) a block."""
+    _, E, C, D, H, dual, _ = shape
+    p = plan_of(shape)
+    w = 128 if H > 32 else (2 if dual else 1) * H
+    assert 3 * (p.rows * 36 + 32 * w) * 4 <= 232448
+    assert gk.f32_smem(p.rows, p.cols, H, dual) == 3 * (p.rows * 36 + 32 * w) * 4
+
+
+def test_wide_dual_deals_leaves_most_live_slices_first():
+    """The float32 dual form with one row tile a leaf: the first blocks take
+    the leaf of most live 32-row slices, ties by index; a down projection,
+    or more than one row tile a leaf, keeps the index order."""
+    gs = [64, 96, 0, 65, 33, 128] + [1] * 10
+    p = plan_of(MAIN_F32[0])
+    leaves = [e for _, e, *_ in gk.work(p, 16, 128, 6144, 1024, gs)]
+    tiles = 1024 // p.cols
+    assert leaves[::tiles] == [5, 1, 3, 0, 4] + list(range(6, 16)) + [2]
+    by = {s[0]: s for s in SHAPES}
+    for shape in (MAIN_F32[1], by["C=136 dual float32"]):   # down; two row tiles
+        _, E, C, D, H, dual, _ = shape
+        q = plan_of(shape)
+        assert [e for _, e, *_ in gk.work(q, E, C, D, H, gs)] == [
+            e for _, e, *_ in gk.work(q, E, C, D, H)]
 
 
 def test_plan_refuses_empty_shapes():

@@ -27,8 +27,19 @@ shapes in both dtypes:
   also as a loop of 20 launches (``chip_smoke.time_ms``), whose excess over
   the device time is the wrapper's host cost while the device is the slower
   of the two, and as the host clock's time to enqueue 200 calls (the host
-  cost itself, whichever is slower); and the starcoder2 draft's float32 up
-  projection (8 leaves of 16, D 6144, capacity 256).
+  cost itself, whichever is slower);
+- the same grouped GEMMs in float32 at the main path's shapes, at an
+  engine admission slab of 256 tokens in the same groups, at the JAX
+  grouped path's capacities 136 and 264 (as many tokens as half the
+  capacity a leaf), and the starcoder2 draft's float32 up (gelu) and down
+  projections (8 leaves of 16, D 6144, capacity 256);
+- ``grouped_matmul`` up (gelu) and down in float32 at the paper ViT's
+  evenly routed site for leaf widths 32, 8 and 1 (``chip_smoke.py``'s
+  balanced site: 16384 N(0, 1) tokens of width 128 through a fresh FFF,
+  seeds 0 and 2, routed by the plain descent, the cuda backend's capacity);
+- the ViT's FFN-site speedup at batch 2048 on the cuda backend (the
+  paper's quantity: dense FF(128) against hard FFF, host clock, each
+  checkout's ``examples/vit_cifar_fff_torch.py::ffn_site_speedup``).
 
 Prints the card's name and power limit, then one line per kernel, dtype and
 routing with the four readings.  Needs one CUDA card.
@@ -43,10 +54,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 D, L_W, O, E, VERIFY_B, DECODE_B, DEPTH = 6144, 1024, 6144, 16, 32, 8, 4
-PREFILL_TOKENS = 1024
-# grouped sites: (name, leaves, capacity, d_model, leaf width, dual)
-GROUPED_SITES = (("main", 16, 128, 6144, 1024, True), ("olmoe", 8, 256, 2048, 1024, True),
-                 ("whisper", 8, 256, 768, 384, False))
+# grouped sites: (name, leaves, capacity, d_model, leaf width, dual, dtype,
+# randomly routed tokens)
+GROUPED_SITES = (("main", 16, 128, 6144, 1024, True, "bfloat16", 1024),
+                 ("olmoe", 8, 256, 2048, 1024, True, "bfloat16", 1024),
+                 ("whisper", 8, 256, 768, 384, False, "bfloat16", 1024),
+                 ("main", 16, 128, 6144, 1024, True, "float32", 1024),
+                 ("slab 256", 16, 128, 6144, 1024, True, "float32", 256),
+                 ("jax C 136", 16, 136, 6144, 1024, True, "float32", 1088),
+                 ("jax C 264", 16, 264, 6144, 1024, True, "float32", 2112),
+                 ("draft", 8, 256, 6144, 16, False, "float32", 1024))
+# the paper ViT's leaf widths and its site's tokens
+VIT_LEAVES, VIT_TOKENS = (32, 8, 1), 16384
 # fused decode sites, SwiGLU in bf16: (name, trees, depth, d_model, leaf width)
 DECODE_SITES = (("jamba 2x8x24576", 2, 3, 8192, 24576), ("command-r", 1, 4, 8192, 1408),
                 ("olmoe", 8, 3, 2048, 1024))
@@ -97,7 +116,9 @@ def measure(checkout: Path) -> dict:
             del wg, wu, wd, leaves
             torch.cuda.empty_cache()
         out.update(measure_grouped(gk, device_ms, time_ms))
+        out.update(measure_vit_sites(gk, device_ms))
         out.update(measure_decode_sites(fdk, device_ms))
+    out.update(measure_vit_speedup(checkout))
     return out
 
 
@@ -139,19 +160,18 @@ def host_ms(call, n: int = 200) -> float:
 
 
 def measure_grouped(gk, device_ms, time_ms) -> dict:
-    """The grouped GEMMs' device and loop ms at GROUPED_SITES (bf16) and the
-    draft's float32 up projection."""
+    """The grouped GEMMs' device and loop ms at GROUPED_SITES."""
     import torch
     dev = torch.device("cuda")
     out = {}
-    for name, n, C, d, L, dual in GROUPED_SITES + (("draft", 8, 256, 6144, 16, False),):
-        dtype = torch.float32 if name == "draft" else torch.bfloat16
+    for name, n, C, d, L, dual, dname, tokens in GROUPED_SITES:
+        dtype = getattr(torch, dname)
         gen = torch.Generator(device=dev).manual_seed(1)
 
         def randn(*shape, scale=1.0):
             return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-        leaf = torch.randint(0, n, (PREFILL_TOKENS,), generator=gen, device=dev)
+        leaf = torch.randint(0, n, (tokens,), generator=gen, device=dev)
         gs = torch.bincount(leaf, minlength=n).clamp(max=C).to(torch.int32)
         mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
         x = randn(n, C, d) * mask
@@ -160,17 +180,60 @@ def measure_grouped(gk, device_ms, time_ms) -> dict:
         up = ((lambda: gk.grouped_matmul_dual(x, wg, wu, gs)) if dual else
               (lambda: gk.grouped_matmul(x, wg, gs, act="gelu")))
         h = up()
-        calls = {"grouped_matmul_dual" if dual else "grouped_matmul (up)": up}
-        if name != "draft":
-            calls["grouped_matmul"] = lambda: gk.grouped_matmul(h, wd, gs)
+        calls = {"grouped_matmul_dual" if dual else "grouped_matmul (up)": up,
+                 "grouped_matmul": lambda: gk.grouped_matmul(h, wd, gs)}
         for kname, call in calls.items():
-            tag = f"{kname} {str(dtype)[6:]} {name} (E {n}, C {C})"
+            tag = f"{kname} {dname} {name} (E {n}, C {C})"
             out[tag] = device_ms(call)
             out[f"{tag} loop"] = time_ms(call)
             out[f"{tag} host"] = host_ms(call)
         del x, wg, wu, wd, h
         torch.cuda.empty_cache()
     return out
+
+
+def measure_vit_sites(gk, device_ms) -> dict:
+    """``grouped_matmul`` up (gelu) and down at the paper ViT's evenly
+    routed site for each of VIT_LEAVES, float32, drawn and routed as
+    ``chip_smoke.py``'s ``vit_balanced_site`` and ``vit_site_rows`` do."""
+    import math
+    import torch
+    from chip_smoke import vit_capacity
+    from repro_torch.core import fff as fff_lib
+    from repro_torch.kernels.fused_decode import ops as fd_ops
+    from repro_torch.kernels.leaf_gemm import ops as gemm_ops
+    from repro_torch.kernels.tree_router import ref as trr
+    out = {}
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    for leaf in VIT_LEAVES:
+        x = torch.randn((VIT_TOKENS, 128), generator=gen(0), device="cuda")
+        c = fff_lib.FFFConfig(dim_in=128, dim_out=128, depth=int(math.log2(128 // leaf)),
+                              leaf_width=leaf, activation="gelu", leaf_bias=False)
+        p = fff_lib.init(gen(2), c)
+        nw, nb = (t[0].contiguous() for t in fd_ops.collapse_nodes(p, c))
+        idx = trr.tree_router_ref(x, nw, nb, depth=c.depth)
+        lay = gemm_ops.scatter_to_groups(x, idx, c.num_leaves,
+                                         vit_capacity(VIT_TOKENS, c.num_leaves))
+        w1, w2 = p["leaf_w1"][0].contiguous(), p["leaf_w2"][0].contiguous()
+        xg, gs = lay.x_grouped, lay.group_sizes
+        h = gk.grouped_matmul(xg, w1, gs, act="gelu")
+        tag = f"float32 vit l{leaf} balanced (E {c.num_leaves}, C {xg.shape[1]})"
+        out[f"grouped_matmul (up) {tag}"] = device_ms(
+            lambda: gk.grouped_matmul(xg, w1, gs, act="gelu"))
+        out[f"grouped_matmul {tag}"] = device_ms(lambda: gk.grouped_matmul(h, w2, gs))
+    return out
+
+
+def measure_vit_speedup(checkout: Path) -> dict:
+    """The ViT's FFN-site speedup at batch 2048 on the cuda backend, through
+    ``checkout``'s example (host clock; the paper's quantity)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "vit_example", checkout / "examples" / "vit_cifar_fff_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    return {f"vit FFN-site speedup l{leaf} (cuda, batch {ex.SITE_BATCH}; x, not ms)":
+            ex.ffn_site_speedup(leaf, device="cuda", backend="cuda") for leaf in VIT_LEAVES}
 
 
 def main() -> int:
@@ -193,11 +256,11 @@ def main() -> int:
             raise SystemExit(f"kernel_ab: measuring {side} failed:\n{proc.stderr[-4000:]}")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
     print("device ms per call (a key ending in \"loop\": a loop of 20 launches, "
-          "host cost in; \"host\": the host clock's enqueue time), runs in the order "
-          "baseline, this, this, baseline")
+          "host cost in; \"host\": the host clock's enqueue time; the ViT speedups are "
+          "ratios), runs in the order baseline, this, this, baseline")
     for key in runs[1]:
         b1, t1, t2, b2 = (r.get(key, float("nan")) for r in runs)
-        print(f"{key:58s} this {t1:.4f} / {t2:.4f}  baseline {b1:.4f} / {b2:.4f}")
+        print(f"{key:72s} this {t1:.4f} / {t2:.4f}  baseline {b1:.4f} / {b2:.4f}")
     print("host cost per call, this / baseline, mean of each side's two runs: loop less "
           "device ms; the host clock's enqueue time")
     for key in runs[1]:
