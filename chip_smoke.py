@@ -56,7 +56,11 @@ Phases (any failure raises, and the exit code is non-zero):
               bf16 and on the CUDA-core path in float32.
    router   — the router at depths 1-8, D = 6144, 20 and 24, B = 1, 31,
               33, 65, 256 and 1031, an unaligned x, all-left and all-right
-              routings; both dtypes, every case twice and bit-identical.
+              routings; both dtypes; and its float32 resident form's edges
+              (D 4, 32, 64, 100, 128, 200, 500, 1024, 1025; B up to 16384,
+              both lane layouts at D <= 128); every case twice and
+              bit-identical, each counted on the form
+              kernels/tree_router/kernel.py::plan picks.
 4. serve    — internlm2-20b FFF at full width (bf16) with 8 of its 48
               layers, random weights from a seeded CUDA generator: batch 8,
               prompt 128, 16 greedy decode steps through
@@ -344,8 +348,11 @@ Phases (any failure raises, and the exit code is non-zero):
               FORWARD_I, 16384 tokens a site: tree_router and
               grouped_matmul up (gelu) and down, their launch counts set to
               0 just before and read just after, > 0 asserted, every other
-              kernel 0).  The share of each site's tokens that the
-              grouped buffers hold (the rest run the plain overflow repair)
+              kernel 0, every router launch counted on its float32
+              resident form; the serve, engine and draft runs' router
+              launches must count on its cluster form).  The share of
+              each site's tokens that the grouped buffers hold (the rest
+              run the plain overflow repair)
               is printed and recorded: the trained models route most
               tokens to one leaf.  For each FFF model the first eval batch
               through the kernels against the reference backend, site by
@@ -383,7 +390,9 @@ site at each leaf width under "paper-vit lN", and at a site that routes
 evenly under "paper-vit lN balanced"),
 the kernel table as one JSON line (launches from the monolithic engine
 run; the grouped GEMMs' float32 rows at the main shape beside their bf16
-ones, "dtype" float32, launches from the float32 grouped parity runs),
+ones, "dtype" float32, launches from the float32 grouped parity runs; the
+router's float32 resident form at the ViT's evenly routed l1 site, depth 7,
+launches from the three FFF models' evals),
 the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
 """
@@ -429,6 +438,9 @@ ACTS = ("none", "relu", "gelu", "silu")
 LEAF_EDGES, EDGE_B = (0, 1, 31, 32, 33, 64), 64
 # the capacities of the JAX grouped path (multiples of 8, not of 128)
 GROUPED_CAPS = (8, 16, 136, 264)
+# the router's resident form (float32): its widths' edges (off 4, the ViT's,
+# its widest, the first past it) and one of each lane layout the plan picks
+RESIDENT_DS = (4, 32, 64, 100, 128, 200, 500, 1024, 1025)
 # the train phase: full width, 4 layers, the JAX driver's defaults; the loss
 # must fall by TRAIN_MARGIN (nats, last 5 steps' mean against step 0)
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_MARGIN = 4, 20, 8, 128, 3e-4, 1.0
@@ -618,8 +630,8 @@ def full_width_path(dtype) -> str:
 
 
 def twice_on(name, fn, kernel, path):
-    """``twice`` of a grouped GEMM call, both launches counted on ``path``
-    by the kernel's per-path launch count."""
+    """``twice`` of a kernel call, both launches counted on ``path`` by the
+    kernel's per-path launch count."""
     before = dict(kernel.paths)
     out = twice(name, fn)
     grew = {k: v - before.get(k, 0) for k, v in kernel.paths.items()
@@ -629,14 +641,15 @@ def twice_on(name, fn, kernel, path):
     return out
 
 
-def check_grouped_paths(common, label, counts, dtype) -> dict:
+def check_paths(common, label, counts, dtype) -> dict:
     """Every grouped GEMM launch of a run (the counts read just after it)
-    was counted on the full-width path of its dtype, and every fused decode
-    launch on its TMA path (kernels/fused_decode/kernel.py::plan); returns
-    the paths."""
+    was counted on the full-width path of its dtype, every fused decode
+    launch on its TMA path (kernels/fused_decode/kernel.py::plan) and every
+    router launch on the cluster form (kernels/tree_router/kernel.py::plan:
+    the model's D 6144); returns the paths."""
     want, paths = full_width_path(dtype), common.path_counts()
     for k, path in (("grouped_matmul", want), ("grouped_matmul_dual", want),
-                    ("fused_forest_decode", "tma")):
+                    ("fused_forest_decode", "tma"), ("tree_router", "cluster")):
         got = paths.get(k, {})
         if sum(got.values()) != counts.get(k, 0) or got.get(path, 0) != counts.get(k, 0):
             raise AssertionError(f"{label}: {k} launches by path {got}, expected all "
@@ -1259,28 +1272,59 @@ def phase_ragged(gen) -> None:
 
 
 def phase_router(gen) -> None:
-    """The router wherever its design branches: every depth 1-8 (one 8-node
-    tile per warp up to depth 4, up to 8 tiles at depths 5-7, 16 at depth
-    8), D = 6144 and the CPU tests' 20 (element-wise copies) and 24
-    (16-byte copies), B = 1, 31, 33, 65, 256 and 1031 (partial 64-token
-    tiles, one and several clusters), an x one element off its alignment
-    (element-wise copies at full width), and all-left and all-right
-    routings (zero node weights, bias -1 or +1); both dtypes, each case
-    called twice and bit-identical (the cluster reduction runs in a fixed
-    order)."""
+    """The router wherever its design branches, each case called twice and
+    bit-identical (both forms sum in a fixed order) and counted on the form
+    ``plan`` picks.  The cluster form: every depth 1-8 (one 8-node tile per
+    warp up to depth 4, up to 8 tiles at depths 5-7, 16 at depth 8), D =
+    6144 and the CPU tests' 20 (element-wise copies) and 24 (16-byte
+    copies), B = 1, 31, 33, 65, 256 and 1031 (partial 64-token tiles, one
+    and several clusters), an x one element off its alignment (element-wise
+    copies at full width), and all-left and all-right routings (zero node
+    weights, bias -1 or +1); both dtypes (float32 at D 20 and 24 takes the
+    resident form).  The resident form (float32, ``RESIDENT_DS``): D 4, 32,
+    64, 100 (off 4: element-wise loads), 128 (the ViT's), 200 and 500 (16
+    and 32 lanes a token), 1024 (its widest: 32 lanes of 8 float4 pieces;
+    depths 6-8 pass its shared memory and take the cluster form) and 1025
+    (past it: the cluster form), depths 1-8, B = 1, 31, 33, 65, 1031 and
+    16384 (ragged lane groups; 16384 down 4 or more levels at D <= 128
+    takes 4 lanes a token in the flipped order, the rest 8 or more), an x
+    one element off its alignment and all-left and all-right routings."""
     from repro_torch.kernels.tree_router import kernel as trk
     dev = torch.device("cuda")
     checked = ties = 0
+    forms = {}
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     def check(label, x, nw, nb, depth):
-        got = trk.tree_router(x, nw, nb, depth=depth)
-        if not torch.equal(got, trk.tree_router(x, nw, nb, depth=depth)):
-            raise AssertionError(f"{label}: two calls on one input differ")
+        path = trk.plan(x.shape[0], x.shape[1], depth, x.dtype).path
+        got = twice_on(label, lambda: trk.tree_router(x, nw, nb, depth=depth), trk.KERNEL,
+                       path)
+        forms[path] = forms.get(path, 0) + 1
         want, margin = margins(x, nw, nb, depth)
         return got, compare_idx(label, got, want, margin)[1]
+
+    def edges(d, depth, dtype):
+        """An x off its alignment; all-left and all-right routings."""
+        nonlocal ties
+        N = 2 ** depth - 1
+        nw = randn(N, d, scale=d ** -0.5, dtype=dtype)
+        nb = randn(N, scale=0.1, dtype=dtype)
+        x = randn(33 * d + 1, dtype=dtype)[1:].view(33, d)
+        _, t = check(f"tree_router (unaligned x, D {d}, depth {depth}, {dtype})", x, nw, nb,
+                     depth)
+        ties += t
+        x = randn(1031, d, dtype=dtype)
+        for bias, leaf in ((-1.0, 0), (1.0, 2 ** depth - 1)):
+            nw = torch.zeros(N, d, dtype=dtype, device=dev)
+            nb = torch.full((N,), bias, dtype=dtype, device=dev)
+            got, _ = check(f"tree_router (bias {bias}, D {d}, depth {depth}, {dtype})",
+                           x, nw, nb, depth)
+            if not bool((got == leaf).all()):
+                raise AssertionError(f"tree_router: zero weights and bias {bias} "
+                                     f"must send every token to leaf {leaf}")
+        return 3
 
     for dtype in (torch.float32, torch.bfloat16):
         for depth in range(1, 9):
@@ -1294,25 +1338,22 @@ def phase_router(gen) -> None:
                     ties += t
                     checked += 1
         for depth in (4, 8):
+            checked += edges(D, depth, dtype)
+    for d in RESIDENT_DS:
+        for depth in range(1, 9):
             N = 2 ** depth - 1
-            nw = randn(N, D, scale=D ** -0.5, dtype=dtype)
-            nb = randn(N, scale=0.1, dtype=dtype)
-            x = randn(33 * D + 1, dtype=dtype)[1:].view(33, D)
-            _, t = check(f"tree_router (unaligned x, depth {depth}, {dtype})", x, nw, nb, depth)
-            ties += t
-            x = randn(1031, D, dtype=dtype)
-            for bias, leaf in ((-1.0, 0), (1.0, 2 ** depth - 1)):
-                nw = torch.zeros(N, D, dtype=dtype, device=dev)
-                nb = torch.full((N,), bias, dtype=dtype, device=dev)
-                got, _ = check(f"tree_router (bias {bias}, depth {depth}, {dtype})",
-                               x, nw, nb, depth)
-                if not bool((got == leaf).all()):
-                    raise AssertionError(f"tree_router: zero weights and bias {bias} "
-                                         f"must send every token to leaf {leaf}")
-            checked += 3
+            nw, nb = randn(N, d, scale=d ** -0.5), randn(N, scale=0.1)
+            for B in (1, 31, 33, 65, 1031, 16384):
+                _, t = check(f"tree_router (depth {depth}, D {d}, B {B}, float32)",
+                             randn(B, d), nw, nb, depth)
+                ties += t
+                checked += 1
+        for depth in (4, 8):
+            checked += edges(d, depth, torch.float32)
     torch.cuda.synchronize()
     log(f"[router] {checked} router cases agree with the plain descent ({ties} "
-        f"near-tie differences), each called twice with bit-identical outputs")
+        f"near-tie differences), each called twice with bit-identical outputs, "
+        f"each on the form the plan picks (cases by form: {forms})")
 
 
 def grouped_edges(gen) -> int:
@@ -1503,7 +1544,7 @@ def phase_serve(common, api, serve_mod, cfg, params, label="[serve]"):
             "gathered_matmul": 0, "gathered_matmul_dual": 0}
     if counts != want:
         raise AssertionError(f"{label} serve: launch counts {counts} != expected {want}")
-    paths = check_grouped_paths(common, f"{label} serve", counts, cfg.param_dtype)
+    paths = check_paths(common, f"{label} serve", counts, cfg.param_dtype)
     toks = res.tokens
     if tuple(toks.shape) != (PREFILL_B, GEN + 1) or not bool(
             ((toks >= 0) & (toks < cfg.vocab_size)).all()):
@@ -1708,7 +1749,7 @@ def phase_engine(common, api, serve_mod, cfg, params) -> dict:
         m = run.metrics
         rounds, slabs = check_engine_run(f"[engine] {mode}", cfg, run, counts,
                                          chunk, len(reqs))
-        check_grouped_paths(common, f"[engine] {mode}", counts, cfg.param_dtype)
+        check_paths(common, f"[engine] {mode}", counts, cfg.param_dtype)
         shapes = run.shapes
         log(f"[engine] {mode}: TTFT p50 {m.ttft.p50_ms:.2f} ms p90 "
             f"{m.ttft.p90_ms:.2f} ms; per-token p50 {m.per_token.p50_ms:.2f} ms "
@@ -3873,6 +3914,7 @@ def phase_draft(common, api, fff, lm, serve_mod, cfg, params) -> dict:
             common.reset_launch_counts()
             run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
             counts = common.launch_counts()
+            router_paths = common.path_counts().get("tree_router", {})
         plain, _ = ContinuousBatchingEngine(params, cfg, EngineConfig(**kw)).run(reqs)
         selfspec, _ = ContinuousBatchingEngine(params, cfg, EngineConfig(
             spec_k=SPEC_K, draft_config="self:1", **kw)).run(reqs)
@@ -3893,6 +3935,9 @@ def phase_draft(common, api, fff, lm, serve_mod, cfg, params) -> dict:
             "tree_router": L * rounds + L * slabs + mine["tree_router"]}
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts} != expected {want}")
+    if router_paths != {"cluster": counts["tree_router"]}:   # the draft's D 6144, fp32
+        raise AssertionError(f"{label}: tree_router launches by path {router_paths}, "
+                             f"expected all {counts['tree_router']} on the cluster form")
     got, ref, own = by_rid(run.results), by_rid(plain), by_rid(selfspec)
     diff = [rid for rid in ref if not np.array_equal(got[rid], ref[rid])]
     own_diff = [rid for rid in ref if not np.array_equal(own[rid], ref[rid])]
@@ -3907,7 +3952,8 @@ def phase_draft(common, api, fff, lm, serve_mod, cfg, params) -> dict:
         f"{m.decode_step.p50_ms:.2f} ms), {slabs} admission slabs; acceptance "
         f"{m.spec_acceptance:.3f} ({m.accepted_tokens}/{m.draft_tokens}; random "
         f"weights); launches {counts} (as expected; the draft's, measured around "
-        f"its calls: {mine}); {cfg.param_dtype} tokens: "
+        f"its calls: {mine}; the router's all on the cluster form); {cfg.param_dtype} "
+        f"tokens: "
         f"{len(diff)} of {len(reqs)} requests differ from the no-spec engine's"
         + "".join(f"; rid {rid} from token {first_diff(got[rid], ref[rid])}"
                   for rid in diff))
@@ -4604,6 +4650,7 @@ def phase_vit(common, api) -> dict:
             torch.cuda.synchronize()
             eval_s = time.perf_counter() - t1
             counts = common.launch_counts()
+            router_paths = common.path_counts().get("tree_router", {})
         fff_sites = {k for k in ran if k[0] == "infer"}
         shares = [kept_share(call[1], call[4].num_leaves) for call in ec]
         E = ec[0][4].num_leaves if ec else 0
@@ -4623,6 +4670,10 @@ def phase_vit(common, api) -> dict:
                 or fff_sites != {("infer", "cuda")}):
             raise AssertionError(f"{label} {tag} eval: launches {counts}, "
                                  f"backends {fff_sites}")
+        if router_paths != {"resident": counts["tree_router"]}:   # float32, D 128
+            raise AssertionError(f"{label} {tag} eval: tree_router launches by path "
+                                 f"{router_paths}, expected all {counts['tree_router']} "
+                                 f"on the resident form")
         x0 = torch.as_tensor(xte[:ex.EVAL_BATCH], device="cuda")
         ties, near, site_err, err, kc = vit_eval_parity(api, ex, cfg, params, proj, x0)
         x_site, _, _, p_site, c_site = kc[0]
@@ -4642,7 +4693,8 @@ def phase_vit(common, api) -> dict:
             f"against dense; training width {2 ** depth * leaf} (size "
             f"{2 ** depth - 1 + 128}), inference width {leaf}; FFN-site speedup "
             f"at batch {ex.SITE_BATCH}: reference {spd_ref:.3f}x, cuda {spd_cuda:.3f}x; "
-            f"eval launches tree_router {counts['tree_router']}, grouped_matmul "
+            f"eval launches tree_router {counts['tree_router']} (all on the resident "
+            f"form), grouped_matmul "
             f"{counts['grouped_matmul']}; cuda vs reference on {ex.EVAL_BATCH} images: "
             f"sites max|err| {site_err:.3e} ({ties} of "
             f"{cfg.n_layers * x0.shape[0] * x0.shape[1]} site tokens take another leaf at a "
@@ -4746,7 +4798,7 @@ def timed(name: str):
 
 def main() -> int:
     t_start = time.perf_counter()
-    name, smi = phase_device()
+    device_name, smi = phase_device()
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.internlm2_20b import CONFIG, FFF_CONFIG
     from repro_torch.core import api, fff
@@ -4832,14 +4884,21 @@ def main() -> int:
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f}s")
 
     # bf16 rows: the engine's launches; the grouped GEMMs' float32 rows
-    # beside them: the float32 grouped parity runs' launches
+    # beside them: the float32 grouped parity runs' launches; the router's
+    # float32 resident form: the ViT's l1 site (depth 7), the evals' launches
     table = []
-    for kname, dtype, launches in (
-            [(kname, torch.bfloat16, counts[kname]) for kname in common.KERNELS]
-            + [(kname, torch.float32, f32_launches[kname])
-               for kname in ("grouped_matmul_dual", "grouped_matmul")]):
-        k, r = common.KERNELS[kname], rows[(kname, dtype)]
-        table.append({"name": kname if dtype == torch.bfloat16 else f"{kname} (float32)",
+    vit_router = sum(archs[f"paper-vit l{leaf}"]["tree_router"]["launches"]
+                     for leaf in VIT_LEAVES)
+    for row_name, kname, dtype, launches, r in (
+            [(kname, kname, torch.bfloat16, counts[kname], rows[(kname, torch.bfloat16)])
+             for kname in common.KERNELS]
+            + [(f"{kname} (float32)", kname, torch.float32, f32_launches[kname],
+                rows[(kname, torch.float32)])
+               for kname in ("grouped_matmul_dual", "grouped_matmul")]
+            + [("tree_router (float32, resident)", "tree_router", torch.float32, vit_router,
+                archs["paper-vit l1 balanced"]["tree_router"])]):
+        k = common.KERNELS[kname]
+        table.append({"name": row_name,
                       "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{k.source}",
                       "replaces": k.replaces, "launches": launches,
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -4852,7 +4911,7 @@ def main() -> int:
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}))
     return 0
 
 

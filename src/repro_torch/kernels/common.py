@@ -12,6 +12,7 @@ into ``kernels/build/``, keyed by a hash of its sources and flags.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: activation codes the C entry points take
 ACT_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3, "swiglu": 4}
+#: SMs of an H100 SXM, what the launch plans assume without a card
+H100_SMS = 132
 
 
 def pick_tile(n: int, preferred: int, align: int = 8) -> int:
@@ -228,6 +231,15 @@ def stream_of(t: torch.Tensor) -> tuple[int, int]:
 
 def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """SMs of CUDA device ``device`` (``tensor.get_device()``); a CPU
+    tensor (-1) only reaches a launch plan in tests, and gets H100_SMS."""
+    if device < 0:
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 P, I = ctypes.c_void_p, ctypes.c_int

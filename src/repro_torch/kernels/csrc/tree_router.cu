@@ -1,18 +1,21 @@
 // FFF tree descent (FORWARD_I routing) for a token batch.
 //
 // Replaces repro/kernels/tree_router/kernel.py::tree_router (the Pallas TPU
-// kernel, body _router_kernel): logits x . node_w^T + node_b for all
+// kernel, body _router_kernel): logits x . node_w^T + node_b for the
 // N = 2^depth - 1 collapsed node hyperplanes, f32 accumulation, then the
 // descent idx = 2 idx + (logit[2^m - 1 + idx] >= 0) -- ties go right.
 //
-// Bound on the H100: bytes.  The work is 2 N D operations per token
-// against 2 D bytes of token (bf16), ~15 operations per byte at depth 4,
-// far below the ~295 where the tensor cores would be the limit: at
-// internlm2-20b width (D = 6144, N = 15) 1024 tokens move 12.8 MB, 3.8 us
-// at 3.35 TB/s, and the 32-token verify slab 0.58 MB, 0.17 us, where one
-// launch costs more than the bytes.
+// Bound on the H100: bytes.  A hard descent needs depth dot products a
+// token against D elements of token read: at internlm2-20b width (D = 6144,
+// bf16) 1024 tokens move 12.8 MB, 3.8 us at 3.35 TB/s, and the 32-token
+// verify slab 0.58 MB, 0.17 us, where one launch costs more than the bytes;
+// the paper ViT's site (16384 tokens, D = 128, float32) moves 8.4 MB, 2.5 us.
 //
-// Design.  The TPU kernel does one MXU product for all node logits of a
+// Two forms; kernels/tree_router/kernel.py::plan picks one by shape alone
+// and passes it here (path, lanes, vecs, warps, grid).
+//
+// The cluster form (every bf16 shape; float32 past the resident form's
+// limits).  The TPU kernel does one MXU product for all node logits of a
 // 256-token tile with the node matrix in VMEM.  Here a 64-token tile is one
 // thread-block cluster, and each of its blocks takes every kCluster-th
 // 128-byte column chunk of D: a tile's bytes spread over kCluster SMs, and
@@ -48,6 +51,38 @@
 // floats of pushed partials (64 KB at depth 8).  D off the 16-byte vector,
 // or a base pointer off 16 bytes, which a tensor map cannot describe, takes
 // element-wise copies by every thread into the same layout, zero past D.
+//
+// The resident form (float32, D <= 1024, the node matrix within one
+// block's shared memory: at D = 128 every depth 1-8).  At the ViT's narrow,
+// deep trees the cluster form leaves most of a cluster idle (D = 128 is
+// four 128-byte chunks) and computes all N logits where a descent needs
+// depth.  Here one persistent block an SM (4-16 warps, the fewest that
+// spread B over the SMs; grid min(SMs, B / the block's tokens at once); no
+// cluster, no tensor map) copies node_w and node_b into shared memory once
+// (16-byte cp.async where node_w's rows are whole float4s on a 16-byte
+// base, else element-wise, zero past D), and each token descends one node
+// a level: `lanes` lanes a token, lane l holding float4 pieces l, l +
+// lanes, .. of its x row (`vecs` of them, up to 8, loaded straight from
+// HBM, the next token's row in flight while this one descends).  Up to
+// D = 128 a batch that fills the SMs, down 4 or more levels, takes 4 lanes
+// a token (a warp descends 8 tokens at once: fewer shuffles a token);
+// anything else 8 (a shorter chain a level); wider rows 16 or 32.  Per
+// level: the node row's pieces from shared memory (the 8 lanes a 16-byte
+// load serves at once read 8 distinct bank groups: at 4 lanes a token the
+// second token of the 8 takes its pieces in a flipped order), FMAs in
+// a fixed order, a butterfly __shfl_xor_sync sum over the token's lanes
+// (both partners of a step add the same two values, so every lane holds
+// the same logit), + node_b, then idx = 2 idx + (logit >= 0).  No atomics:
+// two calls give the same bits.  D off 4 or an x off 16 bytes takes
+// element-wise loads into the same registers, zero past D.  What bounds it
+// on the H100 is the SM's shared-memory and shuffle pipe: a token reads a
+// whole node row (4 x 128 bytes at D = 128) a level, so its time grows
+// with depth.  (Probes on the H100 at the ViT's 16384 tokens with 16 or 32
+// lanes a token, 4 without the flipped order, 2 tokens a lane group, both
+// children's rows read ahead, 32 warps a block, or the top levels' rows
+// held in registers were slower, or no faster.)
+#include <type_traits>
+
 #include "tma.cuh"
 
 namespace {
@@ -310,6 +345,167 @@ cudaError_t by_depth(const T* x, const T* nw, const T* nb, int* out, int B, int 
   return launch<T, kCluster, 16, 4, kTma>(x, nw, nb, out, B, D, depth, device, s);
 }
 
+// ---------------------------------------------------------------------------
+// the resident form
+// ---------------------------------------------------------------------------
+
+constexpr int kResMaxThreads = 512;   // 16 warps; the plan may launch fewer
+
+// kLanes: lanes a token (4, 8, 16 or 32); kVecs: float4 pieces of x a lane
+// (1, 2, 4 or 8); kAligned: x's rows are whole float4s on a 16-byte base.
+// nw_aligned: the same of node_w.  blockDim.x: the plan's warps x 32.
+template <int kLanes, int kVecs, bool kAligned>
+__global__ void __launch_bounds__(kResMaxThreads, 1)
+resident_kernel(const float* __restrict__ x, const float* __restrict__ nw,
+                const float* __restrict__ nb, int* __restrict__ out, int B, int D,
+                int depth, bool nw_aligned) {
+  extern __shared__ float4 res_smem[];
+  constexpr int kPer = 32 / kLanes;                 // tokens a warp descends at once
+  const int N = (1 << depth) - 1;
+  const int C4 = (D + 3) / 4;                       // float4 pieces of a row
+  float4* rows = res_smem;                          // [N][C4], zero past D
+  float* bias = reinterpret_cast<float*>(rows + N * C4);
+  const int tid = threadIdx.x, lane = tid % 32, threads = blockDim.x;
+  const int lg = lane % kLanes;                     // this lane's place in its token's group
+  // A 16-byte load serves a warp 8 lanes at a time.  With 4 lanes a token
+  // those 8 lanes are two tokens in two node rows, and rows 512 bytes apart
+  // would meet in the same banks; so the odd group takes its pieces in the
+  // order k ^ 1 (the other 64 bytes of each 128), and every 8 lanes read 8
+  // distinct bank groups.  Pieces k and k ^ 1 are summed as one pair, so
+  // the sum is the same either way.
+  const int flip = kLanes == 4 && kVecs > 1 ? (lane / kLanes) & 1 : 0;
+  const int warp0 = (blockIdx.x * threads + tid) / 32 * kPer;
+  const int stride = gridDim.x * threads / 32 * kPer;   // tokens a pass of the grid
+
+  // token t's pieces lg + kLanes (k ^ flip); zeros past D and for t >= B
+  auto load_x = [&](int t, float4 (&v)[kVecs]) {
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      const int c = lg + (k ^ flip) * kLanes;
+      v[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (t < B && c < C4) {
+        const float* p = x + static_cast<size_t>(t) * D + 4 * c;
+        if constexpr (kAligned) {
+          v[k] = __ldcs(reinterpret_cast<const float4*>(p));
+        } else {
+          const int n = min(4, D - 4 * c);
+          v[k].x = p[0];
+          if (n > 1) v[k].y = p[1];
+          if (n > 2) v[k].z = p[2];
+          if (n > 3) v[k].w = p[3];
+        }
+      }
+    }
+  };
+  float4 xc[kVecs];
+  load_x(warp0 + lane / kLanes, xc);   // in flight while the node matrix arrives
+
+  if (nw_aligned) {   // node_w's layout is the shared one: copy it as it lies
+    for (int i = tid; i < N * C4; i += threads)
+      cp_async16(smem_addr(rows + i), nw + 4 * static_cast<size_t>(i), 16);
+    cp_async_commit();
+  } else {
+    float* r = reinterpret_cast<float*>(rows);
+    for (int i = tid; i < N * C4 * 4; i += threads) {
+      const int n = i / (4 * C4), col = i % (4 * C4);
+      r[i] = col < D ? nw[static_cast<size_t>(n) * D + col] : 0.0f;
+    }
+  }
+  for (int n = tid; n < N; n += threads) bias[n] = nb[n];
+  if (nw_aligned) cp_async_wait<0>();
+  __syncthreads();
+
+  for (int base = warp0; base < B; base += stride) {   // warp-uniform
+    const int t = base + lane / kLanes;
+    float4 xn[kVecs];
+    load_x(t + stride, xn);   // the next pass's row, in flight during this descent
+    int idx = 0;
+    const float4* level = rows;   // level m's first node row
+    for (int m = 0; m < depth; ++m) {
+      const float4* w = level + idx * C4;
+      float part[kVecs];
+#pragma unroll
+      for (int k = 0; k < kVecs; ++k) {
+        const int c = lg + (k ^ flip) * kLanes;
+        part[k] = 0.0f;
+        if (c < C4) {
+          const float4 v = w[c];
+          part[k] = fmaf(xc[k].w, v.w, fmaf(xc[k].z, v.z, fmaf(xc[k].y, v.y, xc[k].x * v.x)));
+        }
+      }
+#pragma unroll
+      for (int h = 1; h < kVecs; h *= 2)   // pairwise, in a fixed order
+#pragma unroll
+        for (int k = 0; k < kVecs; k += 2 * h) part[k] += part[k + h];
+      float s = part[0];
+#pragma unroll
+      for (int o = kLanes / 2; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+      idx = 2 * idx + (s + bias[(1 << m) - 1 + idx] >= 0.0f ? 1 : 0);
+      level += (1 << m) * C4;
+    }
+    if (lg == 0 && t < B) out[t] = idx;
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) xc[k] = xn[k];
+  }
+}
+
+template <int kLanes, int kVecs, bool kAligned>
+cudaError_t launch_resident(const float* x, const float* nw, const float* nb, int* out, int B,
+                            int D, int depth, int warps, int grid, int device,
+                            cudaStream_t s) {
+  const int N = (1 << depth) - 1;
+  const int smem = N * ((D + 3) / 4) * 16 + N * 4;   // node rows, node_b
+  auto kernel = resident_kernel<kLanes, kVecs, kAligned>;
+  static int allowed[kMaxDevices] = {};   // dynamic shared memory allowed so far
+  if (device >= kMaxDevices || allowed[device] < smem) {
+    if (const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+      return err;
+    if (device < kMaxDevices) allowed[device] = smem;
+  }
+  const bool nw_aligned = D % 4 == 0 && (reinterpret_cast<uintptr_t>(nw) & 15) == 0;
+  kernel<<<grid, warps * 32, smem, s>>>(x, nw, nb, out, B, D, depth, nw_aligned);
+  return cudaGetLastError();
+}
+
+template <int kLanes, int kVecs>
+cudaError_t resident_as(const float* x, const float* nw, const float* nb, int* out, int B,
+                        int D, int depth, int warps, int grid, int device, cudaStream_t s) {
+  const bool aligned = D % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  return aligned ? launch_resident<kLanes, kVecs, true>(x, nw, nb, out, B, D, depth, warps,
+                                                        grid, device, s)
+                 : launch_resident<kLanes, kVecs, false>(x, nw, nb, out, B, D, depth, warps,
+                                                         grid, device, s);
+}
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// the plan's (lanes, vecs): 4 lanes of 1-8 pieces, 8 of 1-4, 16 of 4, 32 of 4 or 8
+cudaError_t resident(const float* x, const float* nw, const float* nb, int* out, int B, int D,
+                     int depth, int lanes, int vecs, int warps, int grid, int device,
+                     cudaStream_t s) {
+  if (warps < 1 || warps * 32 > kResMaxThreads || grid < 1 || 4 * lanes * vecs < D)
+    return cudaErrorInvalidValue;
+  const auto as = [&](auto lanes_c, auto vecs_c) {
+    return resident_as<decltype(lanes_c)::value, decltype(vecs_c)::value>(
+        x, nw, nb, out, B, D, depth, warps, grid, device, s);
+  };
+  switch (lanes * 16 + vecs) {
+    case 4 * 16 + 1: return as(Int<4>{}, Int<1>{});
+    case 4 * 16 + 2: return as(Int<4>{}, Int<2>{});
+    case 4 * 16 + 4: return as(Int<4>{}, Int<4>{});
+    case 4 * 16 + 8: return as(Int<4>{}, Int<8>{});
+    case 8 * 16 + 1: return as(Int<8>{}, Int<1>{});
+    case 8 * 16 + 2: return as(Int<8>{}, Int<2>{});
+    case 8 * 16 + 4: return as(Int<8>{}, Int<4>{});
+    case 16 * 16 + 4: return as(Int<16>{}, Int<4>{});
+    case 32 * 16 + 4: return as(Int<32>{}, Int<4>{});
+    case 32 * 16 + 8: return as(Int<32>{}, Int<8>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t dispatch(const void* xv, const void* nwv, const void* nbv, int* out, int B, int D,
                      int depth, int device, cudaStream_t s) {
@@ -329,16 +525,30 @@ cudaError_t dispatch(const void* xv, const void* nwv, const void* nbv, int* out,
 
 }  // namespace
 
+// path codes (kernels/tree_router/kernel.py PATH_CODES)
+constexpr int kPathCluster = 0;
+constexpr int kPathResident = 1;
+
 // x (B, D), nw (N, D), nb (N,) of one dtype, N = 2^depth - 1 with
-// 1 <= depth <= 8; out (B,) int32.  Returns the first CUDA error (a refused
-// cluster launch or tensor map included), else cudaGetLastError() after the
-// launch.
+// 1 <= depth <= 8; out (B,) int32.  `path` is the plan's form; the resident
+// form (float32 only) takes the plan's lanes a token, float4 pieces a lane,
+// warps a block and grid, which the cluster form ignores.  Returns the first
+// CUDA error (a refused cluster launch, tensor map or shared-memory size
+// included), else cudaGetLastError() after the launch.
 extern "C" int tree_router(const void* x, const void* nw, const void* nb,
-                           int* out, int B, int D, int depth, int dtype,
-                           int device, void* stream) {
+                           int* out, int B, int D, int depth, int dtype, int path,
+                           int lanes, int vecs, int warps, int grid, int device,
+                           void* stream) {
   if (const cudaError_t err = cudaSetDevice(device)) return static_cast<int>(err);
   if (B < 1 || D < 1 || depth < 1 || depth > 8) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  if (path == kPathResident) {
+    if (dtype != fff::kF32) return cudaErrorInvalidValue;
+    return static_cast<int>(resident(static_cast<const float*>(x), static_cast<const float*>(nw),
+                                     static_cast<const float*>(nb), out, B, D, depth, lanes,
+                                     vecs, warps, grid, device, s));
+  }
+  if (path != kPathCluster) return cudaErrorInvalidValue;
   if (dtype == fff::kF32)
     return static_cast<int>(dispatch<float>(x, nw, nb, out, B, D, depth, device, s));
   if (dtype == fff::kBF16)

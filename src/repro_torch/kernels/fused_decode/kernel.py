@@ -34,8 +34,7 @@ KERNEL = common.register(common.Kernel(
 
 #: path codes the C entry point takes
 PATH_CODES = {"elementwise": 0, "tma": 1}
-#: SMs of an H100 SXM, what ``plan`` assumes without a card
-H100_SMS = 132
+H100_SMS = common.H100_SMS
 #: a block's shared memory on the H100 (227 KB)
 SMEM_LIMIT = 232448
 #: a stream block's static shared memory: a full and an empty mbarrier for
@@ -286,13 +285,6 @@ def work(p: Plan, leaf_idx) -> list[Work]:
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: int) -> int:
-    if device < 0:                # a CPU tensor only reaches here in tests
-        return H100_SMS
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def fused_forest_decode(x: torch.Tensor, nw: torch.Tensor, nb: torch.Tensor,
                         leaf_w: tuple, *, depth: int, act: str = "gelu",
                         master_w: Optional[tuple] = None
@@ -321,7 +313,7 @@ def launch_plan(x: torch.Tensor, nw: torch.Tensor, leaf_w: tuple, depth: int,
     mw = master_w[0].shape[1] if master_w is not None else 0
     return plan(x.shape[0], x.shape[1], nw.shape[0], depth, leaf_w[0].shape[3],
                 leaf_w[-1].shape[3], mw, x.dtype, len(leaf_w) == 3, bases % 16 == 0,
-                _sms(x.get_device()))
+                common.sm_count(x.get_device()))
 
 
 def _launch(x, nw, nb, leaf_w, depth, act, master_w):

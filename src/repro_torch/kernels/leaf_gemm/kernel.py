@@ -33,8 +33,7 @@ GMM_DUAL = common.register(common.Kernel(
 
 #: path codes the C entry points take
 PATH_CODES = {"cuda_cores": 0, "masked": 1, "tma": 2}
-#: SMs of an H100 SXM, what ``plan`` assumes without a card
-H100_SMS = 132
+H100_SMS = common.H100_SMS
 #: D's step in the bf16 kernels (one 128-byte row of x)
 K_STEP = 64
 #: the TMA kernel's column tiles by form (dual?) and row tile
@@ -248,13 +247,6 @@ def work(p: Plan, E: int, C: int, D: int, H: int,
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: int) -> int:
-    if device < 0:                # a CPU tensor only reaches here in tests
-        return H100_SMS
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                    group_sizes: torch.Tensor, *, act: str = "none"
                    ) -> torch.Tensor:
@@ -283,7 +275,7 @@ def launch_plan(x: torch.Tensor, ws) -> Plan:
     E, C, D = x.shape
     bases = x.data_ptr() | ws[0].data_ptr() | ws[-1].data_ptr()
     return plan(E, C, D, ws[0].shape[2], x.dtype, len(ws) == 2, bases % 16 == 0,
-                _sms(x.get_device()))
+                common.sm_count(x.get_device()))
 
 
 def _launch(kernel, x, ws, group_sizes, act_code):

@@ -191,6 +191,20 @@ def test_router_deep_trees_match_jax(depth, dim, B, dtype):
     same(got, jrouter_ref.tree_router_ref(jx, jw, jb, depth=depth))
 
 
+@pytest.mark.parametrize("B", [33, 1031])
+@pytest.mark.parametrize("depth", [2, 4, 7, 8])
+def test_router_vit_width_matches_jax(depth, B):
+    """The paper ViT's sites (float32, D 128, depth log2(128 / leaf width)),
+    which the CUDA kernel's resident form takes on the card."""
+    from repro_torch.kernels.tree_router import kernel as trk
+    assert trk.plan(B, 128, depth, torch.float32).path == "resident"
+    (jx, tx), (jw, tw), (jb, tb) = _router_inputs(depth * 10000 + B, B, depth, dim=128)
+    got = router.route(tx, tw, tb, depth=depth)
+    assert got.dtype == torch.int32
+    same(got, jrouter.route(jx, jw, jb, depth=depth, interpret=True))
+    same(got, jrouter_ref.tree_router_ref(jx, jw, jb, depth=depth))
+
+
 def test_route_hands_back_the_kernel_output(monkeypatch):
     """With every level dense, ``route`` returns the kernel's int32 tensor
     itself: no widening and narrowing launches around it."""
@@ -481,13 +495,21 @@ def stub_launch(monkeypatch):
 def test_cuda_branches_marshal_their_c_signatures(stub_launch, monkeypatch):
     from repro_torch.kernels.tree_router import kernel as trk
     common.reset_launch_counts()
-    grouped, workspaces = [], []
+    grouped, workspaces, routers = [], [], []
     stub, ptr = common.Kernel.launch, common.ptr
     monkeypatch.setattr(common.Kernel, "launch", lambda self, *a: (
-        grouped.append(a) if self.name.startswith("grouped") else None, stub(self, *a))[1])
+        grouped.append(a) if self.name.startswith("grouped") else
+        routers.append(a) if self.name == "tree_router" else None, stub(self, *a))[1])
     monkeypatch.setattr(common, "ptr", lambda t: (workspaces.append(t), ptr(t))[1])
     out = trk._launch(torch.zeros(5, 16), torch.zeros(7, 16), torch.zeros(7), 3)
     assert out.shape == (5,) and out.dtype == torch.int32
+    # the router's plan reaches C as (path, lanes, vecs, warps, grid) after
+    # (B, D, depth, dtype): float32 at D 16 takes the resident form, 8 lanes
+    # a token holding one float4 piece each, 4 warps, one block
+    p = trk.plan(5, 16, 3, torch.float32)
+    assert routers[0][4:13] == (5, 16, 3, 0, trk.PATH_CODES[p.path], p.lanes, p.vecs,
+                                p.warps, p.grid)
+    assert routers[0][8:13] == (trk.PATH_CODES["resident"], 8, 1, 4, 1)
     x, w = torch.zeros(3, 16, 8), torch.zeros(3, 8, 4)
     gs = torch.zeros(3, dtype=torch.int32)
     assert gk._launch(gk.GMM, x, (w,), gs, (0,)).shape == (3, 16, 4)
@@ -538,7 +560,8 @@ def test_cuda_branches_marshal_their_c_signatures(stub_launch, monkeypatch):
     assert gk.GMM.paths == {"cuda_cores": 2, "tma": 2}
     assert gk.GMM_DUAL.paths == {"cuda_cores": 2}
     assert common.path_counts() == {"grouped_matmul": gk.GMM.paths,
-                                    "grouped_matmul_dual": gk.GMM_DUAL.paths}
+                                    "grouped_matmul_dual": gk.GMM_DUAL.paths,
+                                    "tree_router": {"resident": 1}}
     for act, master in (("gelu", False), ("swiglu", True)):
         _, _, tp, tcfg = fff_pair(40, act=act, trees=2, master=master)
         nw, nb = fd_ops.collapse_nodes(tp, tcfg)

@@ -1,7 +1,7 @@
-"""Same-card A/B of the leaf matmul kernels (gathered and grouped) and the
-fused decode kernel: this checkout's kernels against another checkout's
-(for example a parent commit unpacked with ``git archive``), each side
-through its own wrappers.
+"""Same-card A/B of the leaf matmul kernels (gathered and grouped), the
+fused decode kernel and the router: this checkout's kernels against
+another checkout's (for example a parent commit unpacked with ``git
+archive``), each side through its own wrappers.
 
     python3 tools/kernel_ab.py BASELINE_CHECKOUT
 
@@ -37,6 +37,12 @@ shapes in both dtypes:
   evenly routed site for leaf widths 32, 8 and 1 (``chip_smoke.py``'s
   balanced site: 16384 N(0, 1) tokens of width 128 through a fresh FFF,
   seeds 0 and 2, routed by the plain descent, the cuda backend's capacity);
+- ``tree_router`` at the same ViT sites (float32, D 128, depths 2, 4 and
+  7 for l32, l8 and l1), and on the first 2048 of those tokens at l1 (the
+  FFN-site timing's batch); in float32 at the starcoder2 draft's router (D
+  6144, depth 3) and in bf16 at internlm2-20b's (D 6144, depth 4), each at
+  1024 and 32 tokens; each also as a loop of 20 launches and the host
+  clock's enqueue time;
 - the ViT's FFN-site speedup at batch 2048 on the cuda backend (the
   paper's quantity: dense FF(128) against hard FFF, host clock, each
   checkout's ``examples/vit_cifar_fff_torch.py::ffn_site_speedup``).
@@ -116,7 +122,8 @@ def measure(checkout: Path) -> dict:
             del wg, wu, wd, leaves
             torch.cuda.empty_cache()
         out.update(measure_grouped(gk, device_ms, time_ms))
-        out.update(measure_vit_sites(gk, device_ms))
+        out.update(measure_vit_sites(gk, device_ms, time_ms))
+        out.update(measure_routers(device_ms, time_ms))
         out.update(measure_decode_sites(fdk, device_ms))
     out.update(measure_vit_speedup(checkout))
     return out
@@ -192,17 +199,48 @@ def measure_grouped(gk, device_ms, time_ms) -> dict:
     return out
 
 
-def measure_vit_sites(gk, device_ms) -> dict:
-    """``grouped_matmul`` up (gelu) and down at the paper ViT's evenly
-    routed site for each of VIT_LEAVES, float32, drawn and routed as
-    ``chip_smoke.py``'s ``vit_balanced_site`` and ``vit_site_rows`` do."""
+def timed_three_ways(tag, call, device_ms, time_ms) -> dict:
+    """Device ms of ``call``, the loop of 20 launches and the enqueue time."""
+    return {tag: device_ms(call), f"{tag} loop": time_ms(call), f"{tag} host": host_ms(call)}
+
+
+def measure_routers(device_ms, time_ms) -> dict:
+    """``tree_router`` at the starcoder2 draft's float32 router (D 6144,
+    depth 3) and internlm2-20b's bf16 one (D 6144, depth 4), at 1024 and
+    32 tokens."""
+    import torch
+    from repro_torch.kernels.tree_router import kernel as trk
+    dev = torch.device("cuda")
+    out = {}
+    for name, dtype, depth in (("draft", torch.float32, 3), ("main", torch.bfloat16, DEPTH)):
+        gen = torch.Generator(device=dev).manual_seed(3)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+        N = 2 ** depth - 1
+        nw, nb = randn(N, D, scale=D ** -0.5), randn(N, scale=0.1)
+        for B in (1024, VERIFY_B):
+            x = randn(B, D)
+            out.update(timed_three_ways(
+                f"tree_router {str(dtype)[6:]} {name} ({B} tok, D {D}, depth {depth})",
+                lambda: trk.tree_router(x, nw, nb, depth=depth), device_ms, time_ms))
+    return out
+
+
+def measure_vit_sites(gk, device_ms, time_ms) -> dict:
+    """``tree_router`` and ``grouped_matmul`` up (gelu) and down at the
+    paper ViT's evenly routed site for each of VIT_LEAVES, float32, drawn
+    and routed as ``chip_smoke.py``'s ``vit_balanced_site`` and
+    ``vit_site_rows`` do; the router also on the site's first 2048 tokens
+    at l1."""
     import math
     import torch
     from chip_smoke import vit_capacity
     from repro_torch.core import fff as fff_lib
     from repro_torch.kernels.fused_decode import ops as fd_ops
     from repro_torch.kernels.leaf_gemm import ops as gemm_ops
-    from repro_torch.kernels.tree_router import ref as trr
+    from repro_torch.kernels.tree_router import kernel as trk, ref as trr
     out = {}
     gen = lambda s: torch.Generator(device="cuda").manual_seed(s)
     for leaf in VIT_LEAVES:
@@ -218,6 +256,11 @@ def measure_vit_sites(gk, device_ms) -> dict:
         xg, gs = lay.x_grouped, lay.group_sizes
         h = gk.grouped_matmul(xg, w1, gs, act="gelu")
         tag = f"float32 vit l{leaf} balanced (E {c.num_leaves}, C {xg.shape[1]})"
+        for B in (VIT_TOKENS, 2048) if leaf == 1 else (VIT_TOKENS,):
+            xb = x[:B]
+            out.update(timed_three_ways(
+                f"tree_router float32 vit l{leaf} balanced ({B} tok, D 128, depth {c.depth})",
+                lambda: trk.tree_router(xb, nw, nb, depth=c.depth), device_ms, time_ms))
         out[f"grouped_matmul (up) {tag}"] = device_ms(
             lambda: gk.grouped_matmul(xg, w1, gs, act="gelu"))
         out[f"grouped_matmul {tag}"] = device_ms(lambda: gk.grouped_matmul(h, w2, gs))
