@@ -68,6 +68,10 @@ Phases (any failure raises, and the exit code is non-zero):
               each kernel's launch count on that run and that no site fell
               back to the reference, and reports how many prefill tokens
               overflowed a leaf's capacity (and took the dense repair).
+              The loop's decode step is a replayed CUDA graph
+              (serving/graphs.py); the same run op by op
+              (graphs.disabled()) follows, the same counts asserted, and
+              both decode p50s are logged.
    profile  — a warm prefill and warm decode steps of that model under
               torch.profiler: device busy share and the top kernels.
 5. engine   — the same model and weights through the continuous-batching
@@ -78,9 +82,17 @@ Phases (any failure raises, and the exit code is non-zero):
               chunked (16-token chunks) admission.  Asserts the launch
               counts of each run (both gathered kernels once per layer per
               verify round, the fused decode kernel once per draft step,
-              the grouped kernels once per layer per admission slab), the
-              fixed dispatch shapes, and that the reference never ran.
-   engine profile — three warm speculative rounds under torch.profiler.
+              the grouped kernels once per layer per admission slab; a
+              replayed graph credits the launches it holds), the fixed
+              dispatch shapes, one captured graph for the spec round
+              (compiled_shapes()), and that the reference never ran.  An
+              A/B in the same process follows: the monolithic run op by
+              op (graphs.disabled()), then on graphs in a fresh engine;
+              every request's tokens must be bit-identical to the first
+              run's, and each run's tok/s, TTFT and round p50 are logged.
+   engine profile — three warm speculative rounds under torch.profiler,
+              replayed graphs and then op by op: host and graph launches,
+              kernels executed, stream syncs per round.
    paged    — the same model and weights through the engine on the paged KV
               cache: 16 requests with a shared 64-token system prompt
               (prompts 65-128 tokens, 32 new tokens each, two tenants), 8
@@ -1531,20 +1543,35 @@ def phase_serve(common, api, serve_mod, cfg, params, label="[serve]"):
     dual and down; otherwise grouped_matmul up and down), the fused decode
     kernel once per FFF layer per step.  Returns (counts, the serve
     result)."""
+    from repro_torch.serving import graphs
     sites = [fc for fc in site_configs(cfg) if fc is not None]
     trees = sum(fc.trees for fc in sites)
     swiglu = sum(fc.trees for fc in sites if fc.activation == "swiglu")
-    with kept_masks() as layouts, no_reference(api):
-        common.reset_launch_counts()
-        res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S, gen=GEN,
-                              device="cuda", params=params)
-        counts = common.launch_counts()
     want = {"fused_forest_decode": len(sites) * GEN, "tree_router": trees,
             "grouped_matmul_dual": swiglu, "grouped_matmul": 2 * trees - swiglu,
             "gathered_matmul": 0, "gathered_matmul_dual": 0}
-    if counts != want:
-        raise AssertionError(f"{label} serve: launch counts {counts} != expected {want}")
-    paths = check_paths(common, f"{label} serve", counts, cfg.param_dtype)
+    runs = {}
+    # the decode step as a replayed CUDA graph (the default), then op by op
+    for how, ctx in (("graphs", contextlib.nullcontext), ("eager", graphs.disabled)):
+        with kept_masks() as layouts, no_reference(api), ctx():
+            common.reset_launch_counts()
+            res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S,
+                                  gen=GEN, device="cuda", params=params)
+            counts = common.launch_counts()
+        if counts != want:
+            raise AssertionError(f"{label} serve ({how}): launch counts {counts} "
+                                 f"!= expected {want}")
+        runs[how] = (res, layouts, check_paths(common, f"{label} serve ({how})",
+                                               counts, cfg.param_dtype))
+    (res, layouts, paths), eager = runs["graphs"], runs["eager"][0]
+    same = bool(torch.equal(res.tokens, eager.tokens))
+    # a loop the capture rule keeps eager (learned positions, a MoE site)
+    # captures nothing: both of its columns then run op by op
+    log(f"{label} serve A/B, decode p50 / p90 (host clock): graphs "
+        f"{res.steady.p50_ms:.2f} / {res.steady.p90_ms:.2f} ms (decode graphs "
+        f"captured {res.graphs or 'none: eager by the capture rule'}), op by op "
+        f"{eager.steady.p50_ms:.2f} / {eager.steady.p90_ms:.2f} ms; tokens "
+        f"bit-identical: {same}")
     toks = res.tokens
     if tuple(toks.shape) != (PREFILL_B, GEN + 1) or not bool(
             ((toks >= 0) & (toks < cfg.vocab_size)).all()):
@@ -1561,7 +1588,10 @@ def phase_serve(common, api, serve_mod, cfg, params, label="[serve]"):
     return counts, res
 
 
-def profile_report(label, prof, wall_s, steps) -> None:
+def profile_report(label, prof, wall_s, steps, plain_s=None) -> None:
+    """Logs a profiled window of ``steps`` steps; ``plain_s``, the same
+    number of steps timed without the profiler, gives the device-busy share
+    of an unprofiled step beside the profiled one."""
     averages = prof.key_averages()
     # kernels, memsets, copies; not the device span a scheduled profiler's
     # step annotation (ProfilerStep#) reports over them
@@ -1574,6 +1604,12 @@ def profile_report(label, prof, wall_s, steps) -> None:
         n in e.key.lower() for n in ("gemm", "nvjet", "xmma", "cutlass", "matmul")))
     launches = sum(e.count for e in averages if e.key.startswith(
         ("cudaLaunchKernel", "cuLaunchKernel")))
+    # a replayed CUDA graph is one launch on the host; its kernels execute
+    # on the device all the same
+    graph_launches = sum(e.count for e in averages if e.key.startswith(
+        "cudaGraphLaunch"))
+    executed = sum(e.count for e in events
+                   if not e.key.startswith(("Memcpy", "Memset")))
     # each blocking copy (.cpu(), float(t), a pageable upload) syncs the host
     syncs = sum(e.count for e in averages if e.key == "cudaStreamSynchronize")
     d2h = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
@@ -1591,8 +1627,12 @@ def profile_report(label, prof, wall_s, steps) -> None:
     log(f"[profile] {label}: {wall_s / steps * 1e3:.2f} ms per step (host "
         f"clock, profiler on); device busy {busy_us / 1e3 / steps:.2f} ms "
         f"per step (kernel time summed; {union_us / 1e3 / steps:.2f} ms as the union of "
-        f"their spans) = {busy_us / 1e6 / wall_s:.1%} of the window; "
-        f"{launches / steps:.0f} kernel launches, {syncs / steps:.0f} stream "
+        f"their spans) = {busy_us / 1e6 / wall_s:.1%} of the window"
+        + (f"; {busy_us / 1e6 / plain_s:.1%} of the same steps unprofiled "
+           f"({plain_s / steps * 1e3:.2f} ms a step)" if plain_s else "")
+        + f"; {launches / steps:.0f} kernel launches and {graph_launches / steps:.0f} "
+        f"graph launches on the host, {executed / steps:.0f} kernels executed, "
+        f"{syncs / steps:.0f} stream "
         f"syncs and {d2h / steps:.0f} device-to-host copies per step; matmul "
         f"kernels {mm_us / 1e3 / steps:.2f} ms, the rest "
         f"{(busy_us - mm_us) / 1e3 / steps:.2f} ms per step")
@@ -1726,17 +1766,21 @@ def phase_engine(common, api, serve_mod, cfg, params) -> dict:
     width: monolithic, then chunked admission, each run's launch counts
     reset just before it and read just after.  Returns the monolithic
     run's counts."""
+    from repro_torch.serving import graphs
     from repro_torch.serving.engine import EngineConfig
     reqs = serve_mod.build_requests(cfg.vocab_size, ENGINE_REQS, ENGINE_PROMPT,
                                     ENGINE_GEN, seed=0,
                                     min_prompt_len=ENGINE_MIN_PROMPT)
     n_layers = cfg.n_layers
-    out = {}
-    for mode, chunk in (("monolithic", 0), ("chunked", ENGINE_CHUNK)):
-        ecfg = EngineConfig(num_slots=SLOTS, max_len=ENGINE_PROMPT + ENGINE_GEN + 1,
+    out, runs = {}, {}
+
+    def ecfg_of(chunk):
+        return EngineConfig(num_slots=SLOTS, max_len=ENGINE_PROMPT + ENGINE_GEN + 1,
                             max_prompt_len=ENGINE_PROMPT, prefill_chunk=chunk,
                             spec_k=SPEC_K, draft_config=f"self:{DRAFT_LAYERS}",
                             scheduler="fcfs", seed=0, device="cuda")
+    for mode, chunk in (("monolithic", 0), ("chunked", ENGINE_CHUNK)):
+        ecfg = ecfg_of(chunk)
         log(f"[engine] {mode}: {cfg.arch_id} FFF full width, {n_layers} layers "
             f"{cfg.param_dtype}, {SLOTS} slots, spec_k {SPEC_K}, draft "
             f"self:{DRAFT_LAYERS}, {len(reqs)} requests, prompts "
@@ -1750,6 +1794,8 @@ def phase_engine(common, api, serve_mod, cfg, params) -> dict:
         rounds, slabs = check_engine_run(f"[engine] {mode}", cfg, run, counts,
                                          chunk, len(reqs))
         check_paths(common, f"[engine] {mode}", counts, cfg.param_dtype)
+        check_graphs(f"[engine] {mode}", run)
+        runs[mode] = run
         shapes = run.shapes
         log(f"[engine] {mode}: TTFT p50 {m.ttft.p50_ms:.2f} ms p90 "
             f"{m.ttft.p90_ms:.2f} ms; per-token p50 {m.per_token.p50_ms:.2f} ms "
@@ -1761,15 +1807,65 @@ def phase_engine(common, api, serve_mod, cfg, params) -> dict:
             f"expected: each gathered kernel {n_layers} per verify round); "
             f"dispatch shapes {sorted((k, sorted(v)) for k, v in shapes.items())}")
         out[mode] = counts
+    engine_ab(common, api, serve_mod, cfg, params, reqs, ecfg_of(0), runs["monolithic"])
     phase_engine_profile(cfg, params)
+    with graphs.disabled():
+        phase_engine_profile(cfg, params, label=", op by op (graphs.disabled())")
     return out["monolithic"]
+
+
+def check_graphs(tag, run) -> None:
+    """A speculative run on the kernels captures its round once: one graph
+    for the (spec_round, (SLOTS, SPEC_K + 1), greedy) key, and no round ran
+    eagerly (an eager round would count its draft and verify shapes)."""
+    if run.compiled.get("spec_round") != 1 or {"draft", "verify"} & set(run.compiled):
+        raise AssertionError(f"{tag}: compiled {run.compiled}: want one spec-round "
+                             f"graph and no eager round")
+
+
+def engine_ab(common, api, serve_mod, cfg, params, reqs, ecfg, first) -> None:
+    """The monolithic run again op by op (graphs.disabled()), then on graphs
+    in a fresh engine, in one process on one card: every request's tokens
+    must be bit-identical across the three runs, and the launch counts of
+    each equal the first's."""
+    from repro_torch.serving import graphs
+    runs = {"graphs": first}
+    for how, ctx in (("eager", graphs.disabled), ("graphs again", contextlib.nullcontext)):
+        with no_reference(api), ctx():
+            common.reset_launch_counts()
+            run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
+            counts = common.launch_counts()
+        if counts != first.launches:
+            raise AssertionError(f"[engine A/B] {how}: launch counts {counts} != "
+                                 f"{first.launches}")
+        runs[how] = run
+    check_graphs("[engine A/B] graphs again", runs["graphs again"])
+    if runs["eager"].compiled.get("spec_round") is not None:
+        raise AssertionError(f"[engine A/B] eager: compiled {runs['eager'].compiled}")
+    want = by_rid(first.results)
+    for how, run in runs.items():
+        got = by_rid(run.results)
+        diff = [rid for rid in want if not np.array_equal(got[rid], want[rid])]
+        if diff:
+            raise AssertionError(f"[engine A/B] {how}: tokens differ from the first "
+                                 f"graphs run for rids {diff}")
+    log("[engine A/B] monolithic, one card, one process; graphs / op by op / "
+        "graphs again: " + "; ".join(
+            f"{how} {r.metrics.throughput_tok_s:.1f} tok/s, TTFT p50 "
+            f"{r.metrics.ttft.p50_ms:.2f} ms, round p50 "
+            f"{r.metrics.decode_step.p50_ms:.2f} ms p90 "
+            f"{r.metrics.decode_step.p90_ms:.2f} ms" for how, r in runs.items())
+        + f"; every request's tokens bit-identical ({len(want)} requests); "
+        f"compiled {runs['graphs again'].compiled} against op by op "
+        f"{runs['eager'].compiled}")
 
 
 def phase_engine_profile(cfg, params, steps=3, label="", **ecfg_kw) -> None:
     """Where a warm speculative round's time goes: a warm engine with every
-    slot live and no admission pending, ``steps`` rounds under
-    torch.profiler; ``ecfg_kw`` adds engine knobs (the grouped phase's
-    backend and policy)."""
+    slot live and no admission pending, ``steps`` rounds on the host clock
+    alone, then ``steps`` rounds under torch.profiler (whose tracing slows
+    the host, most of all around graph replays); ``ecfg_kw`` adds engine
+    knobs (the grouped phase's backend and policy)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
     from repro_torch.serving.request import Request
@@ -1786,16 +1882,21 @@ def phase_engine_profile(cfg, params, steps=3, label="", **ecfg_kw) -> None:
     eng.step()                       # admit every slot, then one warm round
     eng.step()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    if eng.n_steps != steps + 2 or eng.queue:
+    if eng.n_steps != 2 * steps + 2 or eng.queue:
         raise AssertionError("[engine profile] the window was not spec rounds alone")
     profile_report(f"spec round (4 draft steps + 32-token verify){label}", prof,
-                   wall, steps)
+                   wall, steps, plain_s=plain)
 
 
 def phase_paged(common, api, serve_mod, cfg, params) -> None:
@@ -3972,8 +4073,14 @@ def phase_draft(common, api, fff, lm, serve_mod, cfg, params) -> dict:
 def draft_launches(common, lm, dcfg, into: dict):
     """Adds to ``into`` each kernel's launches made inside ``lm.decode_step``
     and ``lm.prefill_chunk`` on the config ``dcfg`` (the draft's), read off
-    the counts around every such call."""
+    the counts around every such call.  A call made while a dispatch graph
+    is captured executes nothing: its launches are the graph's, added again
+    at each of that graph's replays."""
+    from repro_torch.serving import graphs
     saved = {n: getattr(lm, n) for n in ("decode_step", "prefill_chunk")}
+    rec = graphs.CudaGraphRecorder
+    capture, replay = rec.capture, rec.replay
+    capturing, shares = [], {}       # the recorder capturing; its draft share
 
     def wrap(fn):
         def call(*a, **kw):
@@ -3981,18 +4088,34 @@ def draft_launches(common, lm, dcfg, into: dict):
                 return fn(*a, **kw)
             before = common.launch_counts()
             out = fn(*a, **kw)
+            dst = shares[id(capturing[-1])] if capturing else into
             for k, n in common.launch_counts().items():
-                into[k] = into.get(k, 0) + n - before[k]
+                dst[k] = dst.get(k, 0) + n - before[k]
             return out
         return call
 
+    def capturing_share(self, run, stream):
+        capturing.append(self)
+        shares[id(self)] = {}
+        try:
+            return capture(self, run, stream)
+        finally:
+            capturing.pop()
+
+    def replaying_share(self):
+        replay(self)
+        for k, n in shares.get(id(self), {}).items():
+            into[k] = into.get(k, 0) + n
+
     for n, fn in saved.items():
         setattr(lm, n, wrap(fn))
+    rec.capture, rec.replay = capturing_share, replaying_share
     try:
         yield
     finally:
         for n, fn in saved.items():
             setattr(lm, n, fn)
+        rec.capture, rec.replay = capture, replay
 
 
 def draft_parity(api, fff, lm, serve_mod, base_cfg) -> None:

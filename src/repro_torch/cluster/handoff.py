@@ -42,6 +42,7 @@ import torch
 
 from repro_torch import utils
 from repro_torch.models import lm
+from repro_torch.serving import graphs
 from repro_torch.serving.request import Request, SlotState
 
 _ROWS = ("k_rows", "v_rows", "draft_k_rows", "draft_v_rows")
@@ -172,11 +173,13 @@ def install(engine, h: KVHandoff) -> Optional[int]:
     args = [engine._dev(a) for a in (admit, tables, lengths, dst)]
     engine._record_shape("install", tables.shape)
     with torch.inference_mode():
-        engine.caches = lm.cache_install(engine.caches, *args, h.k_rows,
-                                         h.v_rows)
+        # settled into the engine's canonical tensors, which its captured
+        # decode graphs read (serving/graphs.py)
+        graphs.settle(engine.caches, lm.cache_install(
+            engine.caches, *args, h.k_rows, h.v_rows))
         if engine.spec:
-            engine.draft_caches = lm.cache_install(
-                engine.draft_caches, *args, h.draft_k_rows, h.draft_v_rows)
+            graphs.settle(engine.draft_caches, lm.cache_install(
+                engine.draft_caches, *args, h.draft_k_rows, h.draft_v_rows))
     engine._slot_pages[slot] = list(pages)
     engine._alloc_len[slot] = n_total * engine._page
     t = engine.now()

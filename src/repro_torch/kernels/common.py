@@ -3,7 +3,7 @@ helper, the nvcc build of ``csrc/*.cu`` into shared libraries with a plain C
 interface loaded through ``ctypes``, and a launch count per kernel (the
 counterpart of ``count_pallas_calls``: each wrapper adds one where it
 launches its kernel, so a run can show which kernels its path went
-through).
+through; a replayed CUDA graph credits the launches it holds, ``credit``).
 
 Nothing is compiled at import: a library is built from the repository's
 sources at the first launch of one of its kernels (or by ``build_all``),
@@ -176,6 +176,41 @@ def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
         k.paths.clear()
+
+
+def count_state() -> dict:
+    """Every kernel's launches and launches by path, for ``counts_since``."""
+    return {name: (k.launches, dict(k.paths)) for name, k in KERNELS.items()}
+
+
+def counts_since(state: dict) -> dict:
+    """The launches (and launches by path) each kernel counted since
+    ``count_state()`` gave ``state``; kernels that counted none left out."""
+    out = {}
+    for name, k in KERNELS.items():
+        n0, p0 = state.get(name, (0, {}))
+        paths = {p: c - p0.get(p, 0) for p, c in k.paths.items()
+                 if c != p0.get(p, 0)}
+        if k.launches != n0 or paths:
+            out[name] = (k.launches - n0, paths)
+    return out
+
+
+def credit(delta: dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (from ``counts_since``) to the counts.  A
+    CUDA graph's replay launches its kernels with no Python: the graph takes
+    back the launches its capture counted (``times=-1``; a capture executes
+    nothing) and credits them again at every replay
+    (``serving/graphs.py``)."""
+    for name, (n, paths) in delta.items():
+        k = KERNELS[name]
+        k.launches += times * n
+        for p, c in paths.items():
+            v = k.paths.get(p, 0) + times * c
+            if v:
+                k.paths[p] = v
+            else:
+                k.paths.pop(p, None)
 
 
 def check(t: torch.Tensor, name: str, *, like: Optional[torch.Tensor] = None,

@@ -40,8 +40,10 @@ and serves every FFF site expert-parallel (``grouped_ep``): every rank serves th
 and rank 0 reports; one process a rank, e.g. under ``python -m
 torch.distributed.run``; it refuses ``--cluster``, as the JAX driver does.
 ``--engine off`` keeps the fixed-batch loop: one batched prefill, then a
-greedy decode loop.  Both print latency percentiles, tokens/s and how many
-times each CUDA kernel launched.
+greedy decode loop.  Both replay their decode step (the engine also its
+speculative round) from a CUDA graph captured once per shape
+(``serving/graphs.py``), and print latency percentiles, tokens/s and how
+many times each CUDA kernel launched.
 
 ``serve(cfg, ...)`` and ``serve_engine(cfg, ...)`` take any
 ``ModelConfig``, e.g. a full-width config with fewer layers,
@@ -75,6 +77,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import time
@@ -92,6 +95,7 @@ from repro_torch.distributed import sharding
 from repro_torch.kernels import common
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm
+from repro_torch.serving import graphs
 from repro_torch.serving import metrics as metrics_lib
 from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
 from repro_torch.serving.request import Request
@@ -107,6 +111,7 @@ class ServeResult:
     steady: Optional[metrics_lib.LatencySummary]
     tokens_per_s: float
     launches: dict                 # kernel name -> launches during the run
+    graphs: dict                   # decode graphs captured (staged on the CPU)
 
 
 def _sync(dev: torch.device) -> None:
@@ -157,10 +162,23 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
 
     before = common.launch_counts()
     caches = lm.init_caches(cfg, batch, max_len, device=dev)
+    # the decode step, captured once as a CUDA graph and replayed (the JAX
+    # loop's decode_jit); its cache leaves settle into the prefill's caches
+    graph = graphs.DispatchCache(dev)
+
+    def decode(inp, offset):
+        with backend_ctx():
+            logits, new = lm.decode_step(params, cfg, inp["tok"], caches,
+                                         offset)
+        graphs.settle(caches, new)
+        return {"logits": logits}
+
     with torch.inference_mode():
         t0 = time.perf_counter()
         with backend_ctx():
             logits, caches = lm.prefill(params, cfg, inputs, caches)
+            ctx = graphs.context_key()
+            eager = graphs.eager_reason(params, cfg, batch, 1)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
         # "requested": ineligible sites fall through to auto resolution
@@ -178,9 +196,9 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
                 if done.all():
                     break
             t0 = time.perf_counter()
-            with backend_ctx():
-                logits, caches = lm.decode_step(params, cfg, tok, caches,
-                                                prompt_len + i)
+            logits = graph.run("decode", (tuple(tok.shape), False, ctx),
+                               functools.partial(decode, offset=prompt_len + i),
+                               {"tok": tok}, eager=eager)["logits"]
             _sync(dev)
             lat.append(time.perf_counter() - t0)
             step_tokens.append(int(batch - done.sum()))  # finished rows: pad
@@ -210,7 +228,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
     print("kernel launches: " + (" ".join(f"{k}={v}" for k, v in
                                           sorted(launches.items())) or "none"))
     return ServeResult(gen_tokens, t_prefill, lat, step_tokens, summary,
-                       tok_s, launches)
+                       tok_s, launches, graph.counts())
 
 
 @dataclasses.dataclass
@@ -219,6 +237,7 @@ class EngineRun:
     metrics: metrics_lib.EngineMetrics
     launches: dict                 # kernel name -> launches during the run
     shapes: dict                   # engine.dispatch_shapes()
+    compiled: dict                 # engine.compiled_shapes()
 
 
 def parse_tenant_weights(spec: str) -> dict:
@@ -317,8 +336,11 @@ def serve_engine(cfg: ModelConfig, ecfg: EngineConfig, requests: list, *,
     launches = {k: after[k] - before.get(k, 0) for k in after}
     print(m.report())
     shapes = engine.dispatch_shapes()
+    compiled = engine.compiled_shapes()
     print("dispatch shapes: " + " ".join(
-        f"{k}={sorted(v)}" for k, v in sorted(shapes.items())))
+        f"{k}={sorted(v)}" for k, v in sorted(shapes.items()))
+        + "; compiled (graphs, or shapes run eagerly): " + " ".join(
+            f"{k}={v}" for k, v in sorted(compiled.items())))
     print("kernel launches: " + " ".join(f"{k}={v}" for k, v in
                                          sorted(launches.items())))
     if metrics_json:
@@ -330,7 +352,7 @@ def serve_engine(cfg: ModelConfig, ecfg: EngineConfig, requests: list, *,
         with open(metrics_json, "w") as f:
             json.dump(payload, f, indent=1)
         print(f"wrote metrics to {metrics_json}")
-    return EngineRun(results, m, launches, shapes)
+    return EngineRun(results, m, launches, shapes, compiled)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -30,12 +30,20 @@
   optimistic appends back at the next round.  The draft's cache rows
   mirror the target's.
 
-Fixed shapes matter less without a compiler, but they keep the path the
-same every step: ``dispatch_shapes()`` records the shapes each dispatch saw
-(the counterpart of JAX's ``compiled_shapes()``), and CUDA-graph capture of
-the decode and verify shapes will rely on them.  On the card the FFF sites
-resolve per shape (``core/api.py``): decode and draft steps to the fused
-decode kernel, slabs of at most 32 tokens (the verify slab at 8 slots and
+Every dispatch runs at a fixed shape: ``dispatch_shapes()`` records the
+shapes each dispatch saw.  As the JAX engine compiles each dispatch once
+per shape with ``jax.jit``, the port captures the decode step and the whole
+speculative round (the rollback, the ``spec_k + 1`` draft steps with
+on-device sampling, the verify) once per shape as CUDA graphs and replays
+them (``serving/graphs.py``): inputs staged in pinned and static buffers,
+cache leaves settled back into the engine's canonical tensors inside the
+capture, one host copy of the outputs a dispatch.  ``compiled_shapes()``
+counts the captured graphs as JAX counts traces.  Only what cannot
+synchronize with the host is captured (``graphs.eager_reason``); prefill
+slabs, the chunk slab and admission run eagerly and settle their results
+into the same canonical tensors.  On the card the FFF sites resolve per
+shape (``core/api.py``): decode and draft steps to the fused decode
+kernel, slabs of at most 32 tokens (the verify slab at 8 slots and
 ``spec_k`` 3) to the gathered kernels, larger slabs to the grouped GEMMs.
 
 Admission policy is pluggable (``serving/scheduler.py``); ``leaf_aware``
@@ -76,12 +84,16 @@ from repro_torch.core import api
 from repro_torch.distributed import act as dist_act
 from repro_torch.models import lm
 from repro_torch.nn import mlp as mlp_lib
+from repro_torch.serving import graphs
 from repro_torch.serving import metrics as metrics_lib
 from repro_torch.serving import paging
 from repro_torch.serving import spec as spec_lib
 from repro_torch.serving.profiles import RoutingProfileStore
 from repro_torch.serving.request import Request, RequestResult, SlotState
 from repro_torch.serving.scheduler import Scheduler, SchedulerView, make_scheduler
+
+#: the one host copy of a dispatch's outputs (``graphs.to_host``)
+_to_host = graphs.to_host
 
 
 class TenantQueues:
@@ -146,18 +158,6 @@ def _pow2_buckets(lo: int, hi: int) -> Tuple[int, ...]:
         b *= 2
     out.append(hi)
     return tuple(sorted(set(out)))
-
-
-def _to_host(parts: Sequence[torch.Tensor]) -> List[np.ndarray]:
-    """Copy a dispatch's outputs to the host in one transfer, the round's
-    one synchronization: every part goes as float32 (token ids and leaf
-    counts stay exact below 2**24) and comes back in its own shape."""
-    flat = torch.cat([p.reshape(-1).float() for p in parts]).cpu().numpy()
-    out, o = [], 0
-    for p in parts:
-        out.append(flat[o:o + p.numel()].reshape(tuple(p.shape)))
-        o += p.numel()
-    return out
 
 
 @dataclasses.dataclass
@@ -411,6 +411,9 @@ class ContinuousBatchingEngine:
         self._prefill_counts = np.zeros((S, max(self.num_leaves, 1)),
                                         np.float64)
         self._shapes: Dict[str, Set[tuple]] = {}
+        # the decode step's and the spec round's graphs, one per key
+        self._graphs = graphs.DispatchCache(self.device)
+        self._eager: Dict[tuple, Optional[str]] = {}
         self._clock: Callable[[], float] = clock or time.monotonic
         self._t0 = self._clock()
         self.n_steps = self.n_prefills = self.n_chunks = 0
@@ -558,13 +561,14 @@ class ContinuousBatchingEngine:
         return None if cf is None else float(cf) * (self.ecfg.spec_k + 1)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return graphs.upload(a, self.device)
 
     def _record_shape(self, name: str, shape) -> None:
         self._shapes.setdefault(name, set()).add(tuple(shape))
 
     def _slab(self, name: str, toks: np.ndarray, valid: np.ndarray):
-        """One prefill slab through the target (and the draft under spec):
+        """One prefill slab through the target (and the draft under spec),
+        run eagerly, its cache leaves settled into the canonical tensors:
         returns (logits (S, V), the target's per-row leaf counts (S, E) or
         None), both on the host after one copy."""
         t, v = self._dev(toks), self._dev(valid)
@@ -572,21 +576,56 @@ class ContinuousBatchingEngine:
         dstats = None
         with self._ctx():
             if self.spec:
-                logits, self.caches, self.draft_caches, stats, dstats = \
-                    spec_lib.chunk_both(self.params, self.cfg,
-                                        self.draft_params, self.draft_cfg, t,
-                                        v, self.caches, self.draft_caches)
+                logits, caches, dcaches, stats, dstats = spec_lib.chunk_both(
+                    self.params, self.cfg, self.draft_params, self.draft_cfg,
+                    t, v, self.caches, self.draft_caches)
+                graphs.settle(self.draft_caches, dcaches)
             else:
-                logits, self.caches, stats = lm.prefill_chunk(
+                logits, caches, stats = lm.prefill_chunk(
                     self.params, self.cfg, t, v, self.caches)
-            sv, dv = self._reduce_stats(stats), self._reduce_stats(dstats)
-            host = _to_host([logits] + [p for p in (sv, dv) if p is not None])
-        logits, host = host[0], host[1:]
-        counts = self._fold_stats(host.pop(0), "prefill") if sv is not None \
-            else None
-        if dv is not None:
-            self._fold_stats(host.pop(0), "draft")
-        return logits, counts
+            graphs.settle(self.caches, caches)
+            parts = {"logits": logits, "stats": self._reduce_stats(stats),
+                     "dstats": self._reduce_stats(dstats)}
+            host = _to_host({k: v for k, v in parts.items() if v is not None})
+        counts = (self._fold_stats(host["stats"], "prefill")
+                  if "stats" in host else None)
+        if "dstats" in host:
+            self._fold_stats(host["dstats"], "draft")
+        return host["logits"], counts
+
+    def _eager_reason(self, name: str, ctx: tuple) -> Optional[str]:
+        """Why dispatch ``name`` ("decode" or "spec_round") runs eagerly,
+        or None when it is captured (``graphs.eager_reason``, read under
+        the dispatch's context: the spec round's draft steps under their
+        ``cuda_decode`` steer); cached per context."""
+        key = (name, ctx, dist_act.mesh_installed())
+        if key not in self._eager:
+            S = self.ecfg.num_slots
+            if name == "decode":
+                why = graphs.eager_reason(self.params, self.cfg, S, 1)
+            else:
+                with (api.overrides(backend="cuda_decode", mode="infer")
+                      if self.ecfg.cuda_decode else contextlib.nullcontext()):
+                    why = graphs.eager_reason(self.draft_params,
+                                              self.draft_cfg, S, 1)
+                why = (f"the draft: {why}" if why else graphs.eager_reason(
+                    self.params, self.cfg, S, self.ecfg.spec_k + 1))
+            self._eager[key] = why
+        return self._eager[key]
+
+    def _dispatch(self, name: str, fn, inputs: dict, shape: tuple, *,
+                  decode: bool = False, sampling: bool = False
+                  ) -> Dict[str, np.ndarray]:
+        """Dispatch ``name`` through the graph cache, keyed by (shape,
+        sampling, the ``api`` context it runs under): captured once and
+        replayed, or eager by the capture rule.  Its outputs come to the
+        host in one copy, after the replay."""
+        with self._ctx(decode=decode):
+            ctx = graphs.context_key()
+            why = self._eager_reason(name, ctx)
+        return _to_host(self._graphs.run(
+            name, (tuple(shape), sampling, ctx), fn, inputs, eager=why,
+            generators=(self._gen,) if sampling else ()))
 
     # -- telemetry -----------------------------------------------------------
 
@@ -795,9 +834,10 @@ class ContinuousBatchingEngine:
         else:
             args = [self._dev(admit)]
         with torch.inference_mode():
-            self.caches = lm.cache_admit(self.caches, *args)
+            graphs.settle(self.caches, lm.cache_admit(self.caches, *args))
             if self.spec:
-                self.draft_caches = lm.cache_admit(self.draft_caches, *args)
+                graphs.settle(self.draft_caches,
+                              lm.cache_admit(self.draft_caches, *args))
         if plan["cow_src"] is not None:
             # the copy is queued on the device ahead of any later reuse of
             # the source page: drop the admission's hold
@@ -966,21 +1006,50 @@ class ContinuousBatchingEngine:
         lv = np.zeros((S,), bool)
         lv[live] = True
         t0 = self._clock()
-        t, m = self._dev(toks), self._dev(lv)
-        self._record_shape("decode", t.shape)
-        with self._ctx(decode=True):
-            logits, self.caches, stats = lm.decode_step(
-                self.params, self.cfg, t, self.caches, write_mask=m,
-                token_valid=m, with_stats=True)
-            sv = self._reduce_stats(stats)
-            host = _to_host([logits] + ([sv] if sv is not None else []))
-        logits = host[0]
+        self._record_shape("decode", toks.shape)
+        host = self._dispatch("decode", self._decode_dispatch,
+                              {"tokens": toks, "live": lv}, toks.shape,
+                              decode=True)
+        logits = host["logits"]
         self._decode_done(t0)
-        if sv is not None:
-            self._update_occupancy(live, self._fold_stats(host[1], "decode"))
+        if "stats" in host:
+            self._update_occupancy(live, self._fold_stats(host["stats"],
+                                                          "decode"))
         for i in live:
             self._record_token(self.slots[i], self._sample(self.slots[i],
                                                            logits[i]))
+
+    def _decode_dispatch(self, inp: dict) -> dict:
+        """The decode step on device inputs, its cache leaves settled into
+        the canonical tensors: what the decode graph holds."""
+        with self._ctx(decode=True):
+            logits, caches, stats = lm.decode_step(
+                self.params, self.cfg, inp["tokens"], self.caches,
+                write_mask=inp["live"], token_valid=inp["live"],
+                with_stats=True)
+            graphs.settle(self.caches, caches)
+            return {"logits": logits, "stats": self._reduce_stats(stats)}
+
+    def _spec_dispatch(self, inp: dict) -> dict:
+        """The whole speculative round on device inputs (``spec_round``),
+        both trees' cache leaves settled into the canonical tensors: what
+        the round's graph holds."""
+        with self._ctx():
+            (drafts, q_logits, p_logits, caches, dcaches, dstats,
+             vstats) = spec_lib.spec_round(
+                self.params, self.cfg, self.draft_params, self.draft_cfg,
+                inp["tok0"], self.caches, self.draft_caches, inp["tlen"],
+                inp["dlen"], inp["wm"], inp["vlen"], inp["live"],
+                inp["temps"], self._gen, verify_cf=self._verify_cf(),
+                draft_backend="cuda_decode" if self.ecfg.cuda_decode else None)
+            graphs.settle(self.caches, caches)
+            graphs.settle(self.draft_caches, dcaches)
+            return {"p_logits": p_logits,                       # (S, k+1, V)
+                    "drafts": drafts,                           # (k, S)
+                    "q_logits": (q_logits if inp["temps"] is not None
+                                 else None),                    # (k+1, S, V)
+                    "dstats": self._reduce_stats(dstats),
+                    "vstats": self._reduce_stats(vstats)}
 
     def _spec_round(self) -> None:
         """One speculative round (``spec.spec_round``) in place of
@@ -1012,34 +1081,26 @@ class ContinuousBatchingEngine:
         wm = lv[None, :] & ((pos0[None, :] + np.arange(k + 1)[:, None])
                             < alloc[None, :])
         t0 = self._clock()
-        tok0 = self._dev(toks)
-        self._record_shape("draft", tok0.shape)
-        with self._ctx():
-            (drafts, q_logits, p_logits, self.caches, self.draft_caches,
-             dstats, vstats) = spec_lib.spec_round(
-                self.params, self.cfg, self.draft_params, self.draft_cfg,
-                tok0, self.caches, self.draft_caches, self._dev(self._tlen),
-                self._dev(self._dlen), self._dev(wm), self._dev(vlen),
-                self._dev(lv), self._dev(temps) if temps.any() else None,
-                self._gen, verify_cf=self._verify_cf(),
-                draft_backend="cuda_decode" if self.ecfg.cuda_decode else None)
-            self._record_shape("verify", p_logits.shape[:2])
-            dv, vv = self._reduce_stats(dstats), self._reduce_stats(vstats)
-            host = _to_host(
-                [p_logits, drafts]                     # (S, k+1, V), (k, S)
-                + ([q_logits] if temps.any() else [])  # (k+1, S, V)
-                + [p for p in (dv, vv) if p is not None])
-        p_logits, drafts = host[0], host[1].astype(np.int64)
-        q_logits = host[2] if temps.any() else None
-        host = host[3 if temps.any() else 2:]
+        self._record_shape("draft", toks.shape)
+        self._record_shape("verify", (S, k + 1))
+        sampling = bool(temps.any())
+        host = self._dispatch(
+            "spec_round", self._spec_dispatch,
+            {"tok0": toks, "tlen": self._tlen, "dlen": self._dlen, "wm": wm,
+             "vlen": vlen, "live": lv, "temps": temps if sampling else None},
+            (S, k + 1), sampling=sampling)
+        p_logits, drafts = host["p_logits"], host["drafts"].astype(np.int64)
+        q_logits = host.get("q_logits")
         self._decode_done(t0)
         # the draft's histograms are a prior on the verify's routing; the
         # verify is the target's decode
-        if dv is not None:
-            self._update_occupancy(live, self._fold_stats(host.pop(0), "draft"),
+        if "dstats" in host:
+            self._update_occupancy(live, self._fold_stats(host["dstats"],
+                                                          "draft"),
                                    measured=False)
-        if vv is not None:
-            self._update_occupancy(live, self._fold_stats(host.pop(0), "decode"))
+        if "vstats" in host:
+            self._update_occupancy(live, self._fold_stats(host["vstats"],
+                                                          "decode"))
         for i in live:
             st = self.slots[i]
             vl = int(vlen[i])
@@ -1203,18 +1264,30 @@ class ContinuousBatchingEngine:
         return self.occupancy[act].mean(axis=0)
 
     def compiled_shapes(self) -> Dict[str, int]:
-        """The number of distinct shapes each dispatch has seen, from
-        ``dispatch_shapes()`` (the counterpart of JAX's compile counts: 1
-        per dispatch after warm-up, one per prefill bucket used).  A
-        cluster worker's ``install`` entry counts the handoff installs'
-        table shapes (``cluster/handoff.install``)."""
-        return {k: len(v) for k, v in self._shapes.items()}
+        """Compiled dispatches per entry point, as JAX counts traces:
+        ``decode`` and ``spec_round`` count their captured graphs (on the
+        CPU, their staged dispatches; one per (shape, sampling on, context)
+        key, so 1 after warm-up, 2 when a run both samples and does not);
+        a dispatch that ran eagerly counts the shapes it saw
+        (``dispatch_shapes()``: ``prefill_<b>`` one per bucket used,
+        ``chunk``, a cluster worker's handoff ``install``, and ``decode``,
+        ``draft`` and ``verify`` where the capture rule or
+        ``graphs.disabled()`` kept them eager)."""
+        out = {k: len(v) for k, v in self._shapes.items()}
+        for name, n in self._graphs.counts().items():
+            for k in _GRAPH_SHAPES[name]:
+                out.pop(k, None)
+            out[name] = n
+        return out
 
     def dispatch_shapes(self) -> Dict[str, Set[tuple]]:
-        """The distinct token-slab shapes each dispatch has seen (the
-        counterpart of JAX's ``compiled_shapes()``).  The fixed-shape
-        contract: ``decode`` and ``draft`` exactly {(num_slots, 1)},
-        ``verify`` exactly {(num_slots, spec_k + 1)}, ``chunk`` exactly
-        {(num_slots, prefill_chunk)}, and ``prefill_<b>`` {(num_slots, b)}
-        for each bucket used."""
+        """The distinct token-slab shapes each dispatch has seen, captured
+        or not.  The fixed-shape contract: ``decode`` and ``draft`` exactly
+        {(num_slots, 1)}, ``verify`` exactly {(num_slots, spec_k + 1)},
+        ``chunk`` exactly {(num_slots, prefill_chunk)}, and ``prefill_<b>``
+        {(num_slots, b)} for each bucket used."""
         return {k: set(v) for k, v in self._shapes.items()}
+
+
+#: the dispatch shapes each graphed dispatch stands for in ``compiled_shapes``
+_GRAPH_SHAPES = {"decode": ("decode",), "spec_round": ("draft", "verify")}

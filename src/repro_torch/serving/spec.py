@@ -17,10 +17,11 @@ draft (Leviathan et al., 2023).
   gathered-kernel branch.
 * ``rejection_sample`` — host numpy, per row, exact.
 
-The JAX package runs a round as one compiled dispatch; PyTorch runs it
-eagerly and reads nothing on the host: the engine copies the round's
-logits, drafts and routing stats off the device in one transfer, for
-rejection sampling.  ``build_draft`` gives the ``self`` / ``self:N``
+The JAX package runs a round as one compiled dispatch; the port's engine
+captures it once as a CUDA graph and replays it (``serving/graphs.py``):
+the round reads nothing on the host, and the engine copies its logits,
+drafts and routing stats off the device in one transfer, for rejection
+sampling.  ``build_draft`` gives the ``self`` / ``self:N``
 early-exit draft, or an independent registry arch reduced to the target's
 width, heads and vocabulary with weights drawn from the engine's seed.
 """
