@@ -49,7 +49,11 @@ Phases (any failure raises, and the exit code is non-zero):
               8, 16, 32 narrow, 33, 64, 96 wide; group sizes 0, 1, 31, 32,
               33, 127, 128; capacity 264; D 100 and 45, off the 32-float
               step and off 4; D 1000 split; rows past the sizes non-zero;
-              an x 4 bytes off 16).  Every grouped call in the run
+              an x 4 bytes off 16); and both grouped kernels at the
+              overflow pass of a 1024-token slab (capacity 896, the 16
+              leaves' group sizes 0, 1, 31, 33, 896 and 11 x 0, main-path
+              widths, both dtypes), against their plain versions and
+              timed.  Every grouped call in the run
               counts its launch by path (kernels/leaf_gemm/kernel.py
               plan); each full-width call, the serve and engine runs' and
               the arch sites' included, must count on the TMA path in
@@ -66,8 +70,10 @@ Phases (any failure raises, and the exit code is non-zero):
               prompt 128, 16 greedy decode steps through
               repro_torch.launch.serve.serve (the fixed-batch loop); asserts
               each kernel's launch count on that run and that no site fell
-              back to the reference, and reports how many prefill tokens
-              overflowed a leaf's capacity (and took the dense repair).
+              back to the reference (the grouped kernels twice a tree where
+              the prefill's 1024 tokens pass a leaf's capacity: the
+              overflow pass), and reports how many prefill tokens
+              overflowed a leaf's capacity (and took the overflow pass).
               The loop's decode step is a replayed CUDA graph
               (serving/graphs.py); the same run op by op
               (graphs.disabled()) follows, the same counts asserted, and
@@ -82,17 +88,23 @@ Phases (any failure raises, and the exit code is non-zero):
               chunked (16-token chunks) admission.  Asserts the launch
               counts of each run (both gathered kernels once per layer per
               verify round, the fused decode kernel once per draft step,
-              the grouped kernels once per layer per admission slab; a
-              replayed graph credits the launches it holds), the fixed
-              dispatch shapes, one captured graph for the spec round
-              (compiled_shapes()), and that the reference never ran.  An
-              A/B in the same process follows: the monolithic run op by
-              op (graphs.disabled()), then on graphs in a fresh engine;
-              every request's tokens must be bit-identical to the first
-              run's, and each run's tok/s, TTFT and round p50 are logged.
+              the grouped kernels once per layer per pass of an admission
+              slab, two passes for a monolithic slab of 256-1024 tokens;
+              a replayed graph credits the launches it holds), the fixed
+              dispatch shapes, one captured graph for the spec round, for
+              admission and for each prefill bucket used (or the chunk
+              slab) and no eager dispatch, and that the reference never
+              ran.  Each dispatch's first eager call and first replay run
+              under torch.cuda.set_sync_debug_mode("error").  An A/B in the
+              same process follows: the monolithic run op by op
+              (graphs.disabled()), then on graphs in a fresh engine; every
+              request's tokens must be bit-identical to the first run's,
+              and each run's tok/s, TTFT, round p50 and admission slabs
+              (p50 of the replays, each dispatch's first call) are logged.
    engine profile — three warm speculative rounds under torch.profiler,
               replayed graphs and then op by op: host and graph launches,
-              kernels executed, stream syncs per round.
+              kernels executed, stream syncs per round; then a warm
+              monolithic admission (admit and an 8 x 128 slab) both ways.
    paged    — the same model and weights through the engine on the paged KV
               cache: 16 requests with a shared 64-token system prompt
               (prompts 65-128 tokens, 32 new tokens each, two tenants), 8
@@ -122,7 +134,9 @@ Phases (any failure raises, and the exit code is non-zero):
               requests, spec_k 3), once with the default policy ("drop", cf
               2.0) and once with "exact_dense" at cf 0.5: asserts the
               grouped kernels' launch counts (one call each per layer per
-              dispatch, no other kernel), that the reference never ran, and
+              dispatch, two where "exact_dense" repairs a dispatch that can
+              drop a token; no other kernel), every dispatch captured as a
+              graph, that the reference never ran, and
               overflow with repairs at cf 0.5; logs the overflow means and
               each run's device-busy share over one profiled spec round.
               Then float32 at 2 layers: lm.generate through grouped
@@ -268,8 +282,9 @@ Phases (any failure raises, and the exit code is non-zero):
               requests (32 greedy tokens, pages of 16) beside one engine of
               24 slots and one of 8: its tokens must equal the 8-slot
               engine's exactly; the launch counts around each worker's tick (a
-              prefill worker launches no fused decode and its dispatch
-              shapes are admission slabs; a decode worker launches the
+              prefill worker launches no fused decode and its compiled
+              dispatches are admission and its slabs, one graph each; a
+              decode worker launches the
               fused decode kernel alone, its shapes decode and install),
               TTFT, per-token latency and tok/s of the fleet and of the
               24-slot engine, and how many requests' bf16 tokens differ
@@ -297,7 +312,7 @@ Phases (any failure raises, and the exit code is non-zero):
               "starcoder2-15b draft" with the draft's launches), the engine
               run with its launch counts asserted (the target's as in the
               engine phase plus the draft's router and two grouped_matmul
-              per admission slab and 4 fused decode launches a round; the
+              a pass of an admission slab and 4 fused decode launches a round; the
               draft's read off the counts around each of its calls), the
               acceptance printed (random weights), and how many requests'
               bf16 tokens differ from the engine without speculation, with
@@ -364,7 +379,7 @@ Phases (any failure raises, and the exit code is non-zero):
               resident form; the serve, engine and draft runs' router
               launches must count on its cluster form).  The share of
               each site's tokens that the grouped buffers hold (the rest
-              run the plain overflow repair)
+              take the overflow pass)
               is printed and recorded: the trained models route most
               tokens to one leaf.  For each FFF model the first eval batch
               through the kernels against the reference backend, site by
@@ -495,7 +510,7 @@ MESH_NORM_RTOL = 0.01
 # card held against a CPU run at E2E; the examples phase's LM run
 VIT_LEAVES, VIT_CPU_STEPS = (32, 8, 1), 3
 # the least share of a balanced site's tokens the grouped buffers must hold
-# (the rest run the plain overflow repair); N(0, 1) tokens keep all of them
+# (the rest take the overflow pass); N(0, 1) tokens keep all of them
 VIT_KEPT_FLOOR = 0.95
 # an arch_kernels JSON row's keys; the ViT's rows add the share of tokens kept
 ARCH_ROW_KEYS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1281,6 +1296,33 @@ def phase_ragged(gen) -> None:
     torch.cuda.synchronize()
     log(f"[ragged] {checked} small kernel cases agree with their plain "
         f"versions (fp32 and bf16)")
+    overflow_pass_rows(gen)
+
+
+def overflow_pass_rows(gen) -> None:
+    """Both grouped kernels at the overflow pass of a 1024-token slab
+    (``leaf_gemm.ops.fff_leaf_mlp``): capacity 896 = round_up(1024 - 128,
+    32) at the main path's widths, the 16 leaves' group sizes 0, 1, 31,
+    33 and 896 and 0 for the other 11 (most leaves dead, as most of the
+    pass's are), in both dtypes: held against the plain versions (each
+    call twice, bit-identical, on its path) and timed."""
+    from repro_torch.kernels.leaf_gemm import ops as gemm_ops
+    dev = torch.device("cuda")
+    C = gemm_ops.overflow_rows(PREFILL_B * PREFILL_S, 128)
+    sizes = [0, 1, 31, 33, C] + [0] * (E - 5)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
+    for dtype in (torch.bfloat16, torch.float32):
+        xg = (torch.randn((E, C, D), generator=gen, device=dev) * mask).to(dtype)
+        wg, wu = ((torch.randn((E, D, L_W), generator=gen, device=dev)
+                   * D ** -0.5).to(dtype) for _ in range(2))
+        wd = (torch.randn((E, L_W, O), generator=gen, device=dev) * L_W ** -0.5).to(dtype)
+        _, rows = grouped_rows(f"[ragged] overflow pass C {C}", xg, (wg, wu), wd, gs,
+                               "swiglu", dtype)
+        log_rows({(f"{k} @overflow C {C}", dtype): r for k, r in rows.items()},
+                 tag=f"[ragged] group sizes {sizes[:5]} + {E - 5} x 0:")
+        del xg, wg, wu, wd
+    torch.cuda.empty_cache()
 
 
 def phase_router(gen) -> None:
@@ -1518,37 +1560,93 @@ def no_reference(api):
 @contextlib.contextmanager
 def kept_masks():
     """Yields a list that takes the kept mask of every grouped dispatch
-    (one per site and tree) made inside the context: a device tensor, no
-    sync."""
+    (one per site and tree) made inside the context: the tokens within
+    their leaf's capacity, a device tensor, no sync (the rest take the
+    overflow pass)."""
     from repro_torch.kernels.leaf_gemm import ops as gemm_ops
-    scatter, layouts = gemm_ops.scatter_to_groups, []
+    layout, layouts = gemm_ops._layout, []
 
-    def recording_scatter(x, leaf_idx, num_leaves, capacity, valid=None):
-        out = scatter(x, leaf_idx, num_leaves, capacity, valid)
-        layouts.append(out.kept)
+    def recording_layout(x, li, slot, num_leaves, capacity, first=0):
+        out = layout(x, li, slot, num_leaves, capacity, first)
+        if first == 0:
+            layouts.append(out.kept)
         return out
 
-    gemm_ops.scatter_to_groups = recording_scatter
+    gemm_ops._layout = recording_layout
     try:
         yield layouts
     finally:
-        gemm_ops.scatter_to_groups = scatter
+        gemm_ops._layout = layout
+
+
+def slab_passes(cfg, tokens: int) -> int:
+    """Each grouped GEMM's launches a tree of cfg's FFF sites for a slab of
+    ``tokens`` on the cuda backend: 1, or 2 where the overflow pass runs
+    (``leaf_gemm.ops.grouped_passes``, the shape alone decides)."""
+    from repro_torch.core import api
+    from repro_torch.kernels.leaf_gemm import ops as gemm_ops
+    return gemm_ops.grouped_passes(tokens, 2 ** cfg.period[0].ffn.fff_depth,
+                                   api.DEFAULT_CAPACITY_INFER)
+
+
+@contextlib.contextmanager
+def slab_log():
+    """Yields a list that takes (dispatch name, tokens, host seconds, first
+    call of that name in its engine) for every admission slab an engine
+    runs inside the context.  A slab ends in its host copy, so its host
+    time is its latency; an engine's first slab of a name includes its
+    graph's capture."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    slab, slabs = ContinuousBatchingEngine._slab, []
+
+    def timed(self, name, toks, valid):
+        seen = self.__dict__.setdefault("_smoke_slabs_seen", set())
+        first = name not in seen
+        seen.add(name)
+        t0 = time.perf_counter()
+        out = slab(self, name, toks, valid)
+        slabs.append((name, toks.size, time.perf_counter() - t0, first))
+        return out
+
+    ContinuousBatchingEngine._slab = timed
+    try:
+        yield slabs
+    finally:
+        ContinuousBatchingEngine._slab = slab
+
+
+def slab_summary(slabs) -> str:
+    """The slabs' count and sum, the p50 of every call but an engine's first
+    of each dispatch (replays, on graphs), and those first calls (a graph's
+    capture included); host clock, ms."""
+    rep = sorted(t for _, _, t, first in slabs if not first)
+    firsts = {n: round(t * 1e3, 2) for n, _, t, first in slabs if first}
+    p50 = f"{rep[len(rep) // 2] * 1e3:.2f}" if rep else "none"
+    return (f"{len(slabs)} slabs, {sum(t for _, _, t, _ in slabs) * 1e3:.2f} ms in all; "
+            f"{len(rep)} later calls p50 {p50} ms; first calls {firsts} ms")
 
 
 def phase_serve(common, api, serve_mod, cfg, params, label="[serve]"):
     """The fixed-batch loop (batch 8, prompt 128, 16 greedy decode steps) on
     the default infer backend, each kernel's launch count asserted, summed
     over the layers' own FFF sites (a layer without one adds nothing): per
-    tree the router and the grouped kernels once in the prefill (SwiGLU:
-    dual and down; otherwise grouped_matmul up and down), the fused decode
-    kernel once per FFF layer per step.  Returns (counts, the serve
-    result)."""
+    tree the router once and the grouped kernels once a pass in the prefill
+    (SwiGLU: dual and down; otherwise grouped_matmul up and down; two
+    passes where the 1024 tokens exceed a leaf's capacity, the overflow
+    pass's), the fused decode kernel once per FFF layer per step.  Returns
+    (counts, the serve result)."""
+    from repro_torch.core import api as api_mod
+    from repro_torch.kernels.leaf_gemm import ops as gemm_ops
     from repro_torch.serving import graphs
     sites = [fc for fc in site_configs(cfg) if fc is not None]
     trees = sum(fc.trees for fc in sites)
-    swiglu = sum(fc.trees for fc in sites if fc.activation == "swiglu")
+    passes = {id(fc): gemm_ops.grouped_passes(PREFILL_B * PREFILL_S, fc.num_leaves,
+                                              api_mod.DEFAULT_CAPACITY_INFER)
+              for fc in sites}
+    swiglu = sum(fc.trees * passes[id(fc)] for fc in sites if fc.activation == "swiglu")
+    up_down = sum(2 * fc.trees * passes[id(fc)] for fc in sites)
     want = {"fused_forest_decode": len(sites) * GEN, "tree_router": trees,
-            "grouped_matmul_dual": swiglu, "grouped_matmul": 2 * trees - swiglu,
+            "grouped_matmul_dual": swiglu, "grouped_matmul": up_down - swiglu,
             "gathered_matmul": 0, "gathered_matmul_dual": 0}
     runs = {}
     # the decode step as a replayed CUDA graph (the default), then op by op
@@ -1577,7 +1675,7 @@ def phase_serve(common, api, serve_mod, cfg, params, label="[serve]"):
             ((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError(f"{label} serve: bad generated tokens {tuple(toks.shape)}")
     dropped = [int((~k).sum()) for k in layouts]
-    log(f"{label} serve: prefill tokens over their leaf's capacity (dense repair): "
+    log(f"{label} serve: prefill tokens over their leaf's capacity (the overflow pass): "
         f"{sum(dropped)} of {sum(k.numel() for k in layouts)} over {len(layouts)} "
         f"grouped dispatches (sites x trees), most in one {max(dropped, default=0)}")
     log(f"{label} serve batch {PREFILL_B} x prompt {PREFILL_S}, {GEN} decode steps: "
@@ -1723,24 +1821,28 @@ def phase_parity(api, fff, lm, fff_config, label="[parity]", exact=True,
     torch.cuda.empty_cache()
 
 
-def check_engine_run(tag, cfg, run, counts, chunk, n_reqs) -> tuple[int, int]:
+def check_engine_run(tag, cfg, run, counts, chunk, n_reqs, slabs_seen) -> tuple[int, int]:
     """Asserts a speculative engine run's launch counts, dispatch shapes and
     results (spec_k SPEC_K, the self:DRAFT_LAYERS draft, ENGINE_GEN new
-    tokens a request); returns (spec rounds, admission slabs)."""
+    tokens a request); ``slabs_seen`` is the run's ``slab_log``.  Returns
+    (spec rounds, admission slabs)."""
     n_layers, trees = cfg.n_layers, cfg.period[0].ffn.fff_trees
     m = run.metrics
     rounds = m.n_steps
     slabs = m.n_chunks if chunk else m.n_prefills
+    if len(slabs_seen) != slabs:
+        raise AssertionError(f"{tag}: {len(slabs_seen)} slabs logged, {slabs} counted")
+    passes = sum(slab_passes(cfg, n) for _, n, _, _ in slabs_seen)
     # a verify round: every target layer's trees once each through the
     # gathered kernels (and the router); a draft step: the fused decode
     # kernel per draft layer (all trees in one launch); an admission slab
-    # (> 32 tokens): the grouped kernels and the router per tree of every
-    # target and draft layer
+    # (> 32 tokens): the router per tree of every target and draft layer,
+    # and the grouped kernels once a pass (two past a leaf's capacity)
     want = {"gathered_matmul": n_layers * trees * rounds,
             "gathered_matmul_dual": n_layers * trees * rounds,
             "fused_forest_decode": DRAFT_LAYERS * (SPEC_K + 1) * rounds,
-            "grouped_matmul": (n_layers + DRAFT_LAYERS) * trees * slabs,
-            "grouped_matmul_dual": (n_layers + DRAFT_LAYERS) * trees * slabs,
+            "grouped_matmul": (n_layers + DRAFT_LAYERS) * trees * passes,
+            "grouped_matmul_dual": (n_layers + DRAFT_LAYERS) * trees * passes,
             "tree_router": (n_layers * rounds + (n_layers + DRAFT_LAYERS) * slabs) * trees}
     if counts != want:
         raise AssertionError(f"{tag}: launch counts {counts} != expected {want}")
@@ -1772,7 +1874,7 @@ def phase_engine(common, api, serve_mod, cfg, params) -> dict:
                                     ENGINE_GEN, seed=0,
                                     min_prompt_len=ENGINE_MIN_PROMPT)
     n_layers = cfg.n_layers
-    out, runs = {}, {}
+    out, runs, slab_logs = {}, {}, {}
 
     def ecfg_of(chunk):
         return EngineConfig(num_slots=SLOTS, max_len=ENGINE_PROMPT + ENGINE_GEN + 1,
@@ -1786,16 +1888,17 @@ def phase_engine(common, api, serve_mod, cfg, params) -> dict:
             f"self:{DRAFT_LAYERS}, {len(reqs)} requests, prompts "
             f"{min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)}"
             f" tokens, {ENGINE_GEN} new tokens each")
-        with no_reference(api):
+        with no_reference(api), slab_log() as seen, sync_checked(mode), \
+                capture_log() as caps:
             common.reset_launch_counts()
             run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
             counts = common.launch_counts()
         m = run.metrics
         rounds, slabs = check_engine_run(f"[engine] {mode}", cfg, run, counts,
-                                         chunk, len(reqs))
+                                         chunk, len(reqs), seen)
         check_paths(common, f"[engine] {mode}", counts, cfg.param_dtype)
-        check_graphs(f"[engine] {mode}", run)
-        runs[mode] = run
+        check_graphs(f"[engine] {mode}", run, seen)
+        runs[mode], slab_logs[mode] = run, seen
         shapes = run.shapes
         log(f"[engine] {mode}: TTFT p50 {m.ttft.p50_ms:.2f} ms p90 "
             f"{m.ttft.p90_ms:.2f} ms; per-token p50 {m.per_token.p50_ms:.2f} ms "
@@ -1805,43 +1908,180 @@ def phase_engine(common, api, serve_mod, cfg, params) -> dict:
             f"({m.accepted_tokens}/{m.draft_tokens}; random weights: says "
             f"nothing of a trained model's acceptance); launches {counts} (as "
             f"expected: each gathered kernel {n_layers} per verify round); "
-            f"dispatch shapes {sorted((k, sorted(v)) for k, v in shapes.items())}")
+            f"dispatch shapes {sorted((k, sorted(v)) for k, v in shapes.items())}; "
+            f"graphs {run.graphs}; admission slabs (host clock): {slab_summary(seen)}")
+        log(f"[engine] {mode}: captures (host clock; device memory reserved by each "
+            f"graph's pool): {capture_summary(caps)}")
         out[mode] = counts
-    engine_ab(common, api, serve_mod, cfg, params, reqs, ecfg_of(0), runs["monolithic"])
+    engine_ab(common, api, serve_mod, cfg, params, reqs, ecfg_of(0), runs["monolithic"],
+              slab_logs["monolithic"])
     phase_engine_profile(cfg, params)
     with graphs.disabled():
         phase_engine_profile(cfg, params, label=", op by op (graphs.disabled())")
+    phase_admission_profile(cfg, params)
+    with graphs.disabled():
+        phase_admission_profile(cfg, params, label=", op by op (graphs.disabled())")
     return out["monolithic"]
 
 
-def check_graphs(tag, run) -> None:
-    """A speculative run on the kernels captures its round once: one graph
-    for the (spec_round, (SLOTS, SPEC_K + 1), greedy) key, and no round ran
-    eagerly (an eager round would count its draft and verify shapes)."""
-    if run.compiled.get("spec_round") != 1 or {"draft", "verify"} & set(run.compiled):
-        raise AssertionError(f"{tag}: compiled {run.compiled}: want one spec-round "
-                             f"graph and no eager round")
+def check_graphs(tag, run, slabs_seen) -> None:
+    """A speculative run on the kernels captures each dispatch once: one
+    graph for the spec round's (greedy) key, one for admission and one for
+    each slab name the run used (``prefill_<b>`` a bucket, or
+    ``prefill_chunk``); no dispatch ran eagerly (an eager one counts its
+    shapes in ``compiled_shapes()`` and makes no graph)."""
+    want = dict.fromkeys({"spec_round", "admit"} | {n for n, _, _, _ in slabs_seen}, 1)
+    if run.graphs != want or {"draft", "verify", "chunk"} & set(run.compiled):
+        raise AssertionError(f"{tag}: graphs {run.graphs} (want {want}), compiled "
+                             f"{run.compiled}: a dispatch ran eagerly")
 
 
-def engine_ab(common, api, serve_mod, cfg, params, reqs, ecfg, first) -> None:
+@contextlib.contextmanager
+def capture_log():
+    """Yields a list that takes (dispatch name, capture seconds, device
+    memory reserved by the capture, allocated by it) for every CUDA graph
+    captured inside the context: the first of these is the graph's own
+    memory pool (its outputs and the blocks its kernels wrote, which it
+    keeps), the second what stays allocated there (its outputs).  The
+    capture empties the allocator's cache as it begins
+    (``torch.cuda.graph``); emptying it just before also keeps the cached
+    blocks it releases out of the reserved bytes' difference."""
+    from repro_torch.serving import graphs
+    Entry, Rec = graphs._Entry, graphs.CudaGraphRecorder
+    first0, capture0 = Entry._first, Rec.capture
+    names, out = [], []
+
+    def first(self):
+        names.append(self.name)
+        try:
+            return first0(self)
+        finally:
+            names.pop()
+
+    def capture(self, run, stream):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0, a0 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = capture0(self, run, stream)
+        torch.cuda.synchronize()
+        out.append((names[-1] if names else "?", time.perf_counter() - t0,
+                    torch.cuda.memory_reserved() - r0, torch.cuda.memory_allocated() - a0))
+        return res
+
+    Entry._first, Rec.capture = first, capture
+    try:
+        yield out
+    finally:
+        Entry._first, Rec.capture = first0, capture0
+
+
+def capture_summary(caps) -> str:
+    return "; ".join(f"{n} {t * 1e3:.1f} ms, pool {r / 2 ** 20:.1f} MiB (outputs "
+                     f"{a / 2 ** 20:.1f} MiB)" for n, t, r, a in caps)
+
+
+@contextlib.contextmanager
+def sync_checked(tag):
+    """Each dispatch name's first eager call (the call before its capture)
+    and its first replay, staging included, run under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any op
+    that synchronizes with the host; the capture itself begins with a
+    device synchronization and runs outside it.  Logs the names checked."""
+    from repro_torch.serving import graphs
+    Entry = graphs._Entry
+    run0, call0 = Entry._run, Entry.__call__
+    eager_done, replay_done = set(), set()
+
+    def strict(fn, *a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def run(self):
+        if self.captured or torch.cuda.is_current_stream_capturing() or \
+                self.name in eager_done:
+            return run0(self)
+        eager_done.add(self.name)
+        return strict(run0, self)
+
+    def call(self, inputs):
+        if not self.captured or self.name in replay_done:
+            return call0(self, inputs)
+        replay_done.add(self.name)
+        return strict(call0, self, inputs)
+
+    Entry._run, Entry.__call__ = run, call
+    try:
+        yield
+    finally:
+        Entry._run, Entry.__call__ = run0, call0
+    log(f"[sync] {tag}: under sync debug mode 'error', nothing synchronized in the "
+        f"first eager call of {sorted(eager_done)} or the first replay (staging "
+        f"included) of {sorted(replay_done)}")
+
+
+def phase_admission_profile(cfg, params, label="") -> None:
+    """Where a warm monolithic admission's time goes: an engine (spec_k 3,
+    the self:1 draft) admits one 100-token prompt (bucket 128) to capture
+    its dispatches, then two more, the last under torch.profiler: the
+    ``admit`` dispatch and the 8 x 128 slab through both models, each a
+    replayed graph (op by op in the disabled() run), and the first token's
+    sampling."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
+    from repro_torch.serving.request import Request
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=ENGINE_PROMPT + ENGINE_GEN + 1,
+                        max_prompt_len=ENGINE_PROMPT, spec_k=SPEC_K,
+                        draft_config=f"self:{DRAFT_LAYERS}", device="cuda")
+    eng = ContinuousBatchingEngine(params, cfg, ecfg)
+    gen = torch.Generator().manual_seed(5)
+
+    def admit_one(i):
+        eng.submit(Request(rid=i, prompt=torch.randint(
+            0, cfg.vocab_size, (100,), generator=gen).numpy(),
+            max_new_tokens=ENGINE_GEN))
+        eng._admit()
+
+    admit_one(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    admit_one(1)
+    plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        admit_one(2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if eng.n_prefills != 3 or eng.queue:
+        raise AssertionError(f"[admission profile] {eng.n_prefills} prefills")
+    profile_report(f"monolithic admission (admit + 8 x 128 slab, target and draft)"
+                   f"{label}; graphs {eng._graphs.counts()}", prof, wall, 1,
+                   plain_s=plain)
+
+
+def engine_ab(common, api, serve_mod, cfg, params, reqs, ecfg, first, first_slabs) -> None:
     """The monolithic run again op by op (graphs.disabled()), then on graphs
     in a fresh engine, in one process on one card: every request's tokens
     must be bit-identical across the three runs, and the launch counts of
-    each equal the first's."""
+    each equal the first's.  Logs each run's admission slabs (host clock)
+    beside its TTFT."""
     from repro_torch.serving import graphs
-    runs = {"graphs": first}
+    runs, slabs = {"graphs": first}, {"graphs": first_slabs}
     for how, ctx in (("eager", graphs.disabled), ("graphs again", contextlib.nullcontext)):
-        with no_reference(api), ctx():
+        with no_reference(api), ctx(), slab_log() as seen:
             common.reset_launch_counts()
             run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
             counts = common.launch_counts()
         if counts != first.launches:
             raise AssertionError(f"[engine A/B] {how}: launch counts {counts} != "
                                  f"{first.launches}")
-        runs[how] = run
-    check_graphs("[engine A/B] graphs again", runs["graphs again"])
-    if runs["eager"].compiled.get("spec_round") is not None:
-        raise AssertionError(f"[engine A/B] eager: compiled {runs['eager'].compiled}")
+        runs[how], slabs[how] = run, seen
+    check_graphs("[engine A/B] graphs again", runs["graphs again"], slabs["graphs again"])
+    if runs["eager"].graphs:
+        raise AssertionError(f"[engine A/B] eager: graphs {runs['eager'].graphs}")
     want = by_rid(first.results)
     for how, run in runs.items():
         got = by_rid(run.results)
@@ -1854,7 +2094,8 @@ def engine_ab(common, api, serve_mod, cfg, params, reqs, ecfg, first) -> None:
             f"{how} {r.metrics.throughput_tok_s:.1f} tok/s, TTFT p50 "
             f"{r.metrics.ttft.p50_ms:.2f} ms, round p50 "
             f"{r.metrics.decode_step.p50_ms:.2f} ms p90 "
-            f"{r.metrics.decode_step.p90_ms:.2f} ms" for how, r in runs.items())
+            f"{r.metrics.decode_step.p90_ms:.2f} ms, admission slabs "
+            f"{slab_summary(slabs[how])}" for how, r in runs.items())
         + f"; every request's tokens bit-identical ({len(want)} requests); "
         f"compiled {runs['graphs again'].compiled} against op by op "
         f"{runs['eager'].compiled}")
@@ -1905,14 +2146,7 @@ def phase_paged(common, api, serve_mod, cfg, params) -> None:
     it and read just after (module docstring, phase 5).  Each admission
     slab (a prefill or chunk dispatch, which ends in its host copy) is
     timed on the host clock."""
-    from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
-    slab_fn, slab_s = ContinuousBatchingEngine._slab, []
-
-    def timed_slab(self, *a):
-        t0 = time.perf_counter()
-        out = slab_fn(self, *a)
-        slab_s.append(time.perf_counter() - t0)
-        return out
+    from repro_torch.serving.engine import EngineConfig
     reqs = serve_mod.build_requests(cfg.vocab_size, ENGINE_REQS, ENGINE_PROMPT,
                                     ENGINE_GEN, seed=0, shared_prefix=PAGED_PREFIX,
                                     tenants=sorted(PAGED_WEIGHTS))
@@ -1938,18 +2172,14 @@ def phase_paged(common, api, serve_mod, cfg, params) -> None:
                             max_prompt_len=ENGINE_PROMPT, spec_k=SPEC_K,
                             draft_config=f"self:{DRAFT_LAYERS}", seed=0,
                             device="cuda", **kw)
-        slab_s.clear()
-        ContinuousBatchingEngine._slab = timed_slab
-        try:
-            with no_reference(api):
-                common.reset_launch_counts()
-                run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
-                counts = common.launch_counts()
-        finally:
-            ContinuousBatchingEngine._slab = slab_fn
+        with no_reference(api), slab_log() as seen:
+            common.reset_launch_counts()
+            run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
+            counts = common.launch_counts()
         tag = f"[paged] ({key}) {label}"
         rounds, slabs = check_engine_run(tag, cfg, run, counts,
-                                         kw.get("prefill_chunk", 0), len(reqs))
+                                         kw.get("prefill_chunk", 0), len(reqs), seen)
+        check_graphs(tag, run, seen)
         m = run.metrics
         tokens[key] = {r.rid: r.tokens for r in run.results}
         if m.prefill_tokens + m.prefix_hit_tokens != prompt_tokens:
@@ -1969,9 +2199,8 @@ def phase_paged(common, api, serve_mod, cfg, params) -> None:
             f"{m.prefill_tokens}, from shared pages {m.prefix_hit_tokens}, "
             f"copy-on-write copies {m.cow_copies}, pages in use "
             f"{m.pages_in_use} free {m.pages_free}; {rounds} spec rounds, "
-            f"{slabs} admission slabs taking {sum(slab_s) * 1e3:.2f} ms in all "
-            f"(p50 {sorted(slab_s)[len(slab_s) // 2] * 1e3:.2f} ms, host "
-            f"clock); tenants: {tenants}; launches {counts} (as expected)")
+            f"admission slabs (host clock): {slab_summary(seen)}; tenants: {tenants}; "
+            f"launches {counts} (as expected); graphs {run.graphs}")
     diff = [rid for rid in tokens["a"]
             if not (tokens["b"][rid] == tokens["a"][rid]).all()]
     if diff:
@@ -2156,12 +2385,14 @@ def phase_grouped_serving(common, api, serve_mod, cfg, params) -> None:
     backend: the engine phase's requests, monolithic admission, spec_k 3,
     with the default policy ("drop", cf 2.0) and with "exact_dense" at cf
     0.5; each run's launch counts reset just before it and read just after,
-    then one profiled spec round of a warm engine with the same knobs."""
+    every dispatch captured (``check_graphs``), then one profiled spec round
+    of a warm engine with the same knobs."""
+    from repro_torch.core import routing
     from repro_torch.serving.engine import EngineConfig
     reqs = serve_mod.build_requests(cfg.vocab_size, ENGINE_REQS, ENGINE_PROMPT,
                                     ENGINE_GEN, seed=0,
                                     min_prompt_len=ENGINE_MIN_PROMPT)
-    n_layers = cfg.n_layers
+    n_layers, E = cfg.n_layers, 2 ** cfg.period[0].ffn.fff_depth
     for label, kw in (("drop, cf 2.0 (the defaults)", {}),
                       ("exact_dense, cf 0.5", dict(overflow_policy="exact_dense",
                                                    capacity_factor=0.5))):
@@ -2169,17 +2400,29 @@ def phase_grouped_serving(common, api, serve_mod, cfg, params) -> None:
                             max_prompt_len=ENGINE_PROMPT, spec_k=SPEC_K,
                             draft_config=f"self:{DRAFT_LAYERS}", scheduler="fcfs",
                             seed=0, device="cuda", fff_backend="grouped", **kw)
-        with no_reference(api):
+        with no_reference(api), slab_log() as seen:
             common.reset_launch_counts()
             run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
             counts = common.launch_counts()
         m = run.metrics
         rounds, slabs = m.n_steps, m.n_prefills
+        check_graphs(f"[grouped] {label}", run, seen)
         # every FFF dispatch on the grouped backend, one call of each kernel
-        # per layer: the verify slab and the admission slabs through the
-        # target's layers and the draft's, each draft step through the draft's
-        per_kernel = (n_layers * (rounds + slabs)
-                      + DRAFT_LAYERS * ((SPEC_K + 1) * rounds + slabs))
+        # per layer, and one more where "exact_dense" repairs a slab that can
+        # drop a token (routing.repair_rows, the shape alone decides): the
+        # verify slab and the admission slabs through the target's layers and
+        # the draft's, each draft step through the draft's; the round runs at
+        # the capacity factor times SPEC_K + 1
+        cf = kw.get("capacity_factor", 2.0)
+
+        def calls(tokens, c):
+            return 1 + (kw.get("overflow_policy") == "exact_dense"
+                        and routing.repair_rows(tokens, E, c) > 0)
+        slab_calls = sum(calls(n, cf) for _, n, _, _ in seen)
+        vcf = cf * (SPEC_K + 1)
+        per_kernel = (n_layers * (rounds * calls(SLOTS * (SPEC_K + 1), vcf) + slab_calls)
+                      + DRAFT_LAYERS * ((SPEC_K + 1) * rounds * calls(SLOTS, vcf)
+                                        + slab_calls))
         want = {k: 0 for k in counts}
         want["grouped_matmul"] = want["grouped_matmul_dual"] = per_kernel
         if counts != want:
@@ -2198,8 +2441,9 @@ def phase_grouped_serving(common, api, serve_mod, cfg, params) -> None:
             f"slots repaired; TTFT p50 {m.ttft.p50_ms:.2f} ms; per-token p50 "
             f"{m.per_token.p50_ms:.2f} ms; {m.throughput_tok_s:.1f} tok/s; {rounds} "
             f"spec rounds (p50 {m.decode_step.p50_ms:.2f} ms), {slabs} admission "
-            f"slabs; launches {counts} (as expected: each grouped kernel once per "
-            f"layer per dispatch); reference backend never ran")
+            f"slabs (host clock: {slab_summary(seen)}); launches {counts} (as "
+            f"expected: each grouped kernel once per layer per dispatch, twice where "
+            f"the repair runs); graphs {run.graphs}; reference backend never ran")
         phase_engine_profile(cfg, params, steps=1, label=f", grouped {label}",
                              fff_backend="grouped", **kw)
 
@@ -2985,11 +3229,13 @@ def arch_engine(common, api, serve_mod, label, cfg, params) -> None:
                         max_prompt_len=ENGINE_PROMPT, spec_k=SPEC_K,
                         draft_config=f"self:{DRAFT_LAYERS}", scheduler="fcfs", seed=0,
                         device="cuda")
-    with no_reference(api):
+    with no_reference(api), slab_log() as seen:
         common.reset_launch_counts()
         run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
         counts = common.launch_counts()
-    rounds, slabs = check_engine_run(f"{label} engine", cfg, run, counts, 0, len(reqs))
+    rounds, slabs = check_engine_run(f"{label} engine", cfg, run, counts, 0, len(reqs),
+                                     seen)
+    check_graphs(f"{label} engine", run, seen)
     m = run.metrics
     log(f"{label} engine: {SLOTS} slots, spec_k {SPEC_K}, draft self:{DRAFT_LAYERS}, "
         f"{len(reqs)} requests: TTFT p50 {m.ttft.p50_ms:.2f} ms p90 {m.ttft.p90_ms:.2f} ms;"
@@ -3195,7 +3441,9 @@ def phase_long(common, api, lm) -> None:
     finally:
         attention.flash_attention = flash
     L = cfg.n_layers
-    want = {"fused_forest_decode": L * LONG_GEN, "tree_router": L, "grouped_matmul": 2 * L,
+    # GELU leaves: grouped_matmul up and down, a pass each (two past capacity)
+    want = {"fused_forest_decode": L * LONG_GEN, "tree_router": L,
+            "grouped_matmul": 2 * L * slab_passes(cfg, LONG_PROMPT),
             "grouped_matmul_dual": 0, "gathered_matmul": 0, "gathered_matmul_dual": 0}
     if counts != want:
         raise AssertionError(f"[long] launch counts {counts} != expected {want}")
@@ -3760,14 +4008,16 @@ def cluster_fleet(common, cfg, params, reqs, n_prefill=1, n_decode=2):
 
 def check_roles(per, engines) -> None:
     """The per-role contract: a prefill worker launches no fused decode and
-    its dispatch shapes hold admission slabs alone; a decode worker
-    launches the fused decode kernel alone and its shapes are decode and
-    install."""
+    its compiled dispatches are admission and its slabs alone, each one
+    graph; a decode worker launches the fused decode kernel alone and its
+    shapes are decode and install."""
     for wid, eng in engines.items():
         c, shapes = per.get(wid, {}), eng.compiled_shapes()
         if wid.startswith("p"):
             ok = (c.get("fused_forest_decode", 0) == 0 and c.get("tree_router", 0) > 0
-                  and all(k.startswith("prefill_") for k in shapes))
+                  and shapes.pop("admit", 0) == 1 and shapes
+                  and all(k.startswith("prefill_") for k in shapes)
+                  and eng._graphs.counts() == dict(shapes, admit=1))
         else:
             ok = (c.get("fused_forest_decode", 0) > 0
                   and sum(v for k, v in c.items() if k != "fused_forest_decode") == 0
@@ -4011,7 +4261,7 @@ def phase_draft(common, api, fff, lm, serve_mod, cfg, params) -> dict:
     ecfg = EngineConfig(spec_k=SPEC_K, draft_config=DRAFT_ARCH, **kw)
     mine = {}
     with no_reference(api):
-        with draft_launches(common, lm, dcfg, mine):
+        with draft_launches(common, lm, dcfg, mine), slab_log() as seen:
             common.reset_launch_counts()
             run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
             counts = common.launch_counts()
@@ -4022,17 +4272,21 @@ def phase_draft(common, api, fff, lm, serve_mod, cfg, params) -> dict:
     m, L = run.metrics, cfg.n_layers
     rounds, slabs = m.n_steps, m.n_prefills
     mine = {k: mine.get(k, 0) for k in counts}
-    # the draft: one site, its slabs grouped (up and down), its steps fused
+    if len(seen) != slabs:
+        raise AssertionError(f"{label}: {len(seen)} slabs logged, {slabs} counted")
+    # the draft: one site, its slabs grouped (up and down, a pass each; two
+    # passes past a leaf's capacity), its steps fused
     want_mine = dict({k: 0 for k in counts}, tree_router=slabs,
-                     grouped_matmul=2 * slabs,
+                     grouped_matmul=2 * sum(slab_passes(dcfg, n) for _, n, _, _ in seen),
                      fused_forest_decode=(SPEC_K + 1) * rounds)
     if mine != want_mine:
         raise AssertionError(f"{label}: the draft's launch counts {mine} != "
                              f"expected {want_mine}")
+    passes = sum(slab_passes(cfg, n) for _, n, _, _ in seen)
     want = {"gathered_matmul": L * rounds, "gathered_matmul_dual": L * rounds,
             "fused_forest_decode": mine["fused_forest_decode"],
-            "grouped_matmul": L * slabs + mine["grouped_matmul"],
-            "grouped_matmul_dual": L * slabs,
+            "grouped_matmul": L * passes + mine["grouped_matmul"],
+            "grouped_matmul_dual": L * passes,
             "tree_router": L * rounds + L * slabs + mine["tree_router"]}
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts} != expected {want}")
@@ -4643,15 +4897,15 @@ def vit_capacity(B: int, E: int) -> int:
     """The grouped path's per-leaf capacity for B tokens over E leaves, as
     ``leaf_gemm.ops.fff_leaf_mlp`` sizes it at the cuda backend's default
     capacity factor."""
-    from repro_torch import utils
     from repro_torch.core import api
-    return max(128, utils.round_up(int(api.DEFAULT_CAPACITY_INFER * utils.cdiv(B, E)), 128))
+    from repro_torch.kernels.leaf_gemm import ops as gemm_ops
+    return gemm_ops.capacity(B, E, api.DEFAULT_CAPACITY_INFER)
 
 
 def kept_share(leaf_idx, E: int) -> tuple[float, int]:
     """One site call's (share of its tokens that the capacity-bounded
-    grouped buffers hold, leaves with a token); the other tokens run the
-    plain overflow repair."""
+    grouped buffers hold, leaves with a token); the other tokens take the
+    overflow pass."""
     li = leaf_idx.reshape(-1).long()
     gs = torch.bincount(li, minlength=E)[:E]
     return float(gs.clamp(max=vit_capacity(li.numel(), E)).sum()) / li.numel(), int((gs > 0).sum())
@@ -4726,7 +4980,7 @@ def phase_vit(common, api) -> dict:
     16384 tokens a site, router + grouped kernels; their launch counts set
     to 0 just before and read just after, > 0 asserted, every other kernel
     0; each site call's share of tokens that the grouped buffers hold
-    printed, the rest running the plain overflow repair).  For each FFF
+    printed, the rest taking the overflow pass).  For each FFF
     model: the first eval batch against the reference backend
     (``vit_eval_parity``), the router and grouped kernels at layer 0's
     site (rows "paper-vit lN" of the arch_kernels JSON with the eval
@@ -4827,8 +5081,8 @@ def phase_vit(common, api) -> dict:
             f"{E2E} of the CPU's; train {train_s:.1f}s, eval {eval_s:.2f}s")
         log(f"{label} {tag} eval: share of each site's tokens in the grouped buffers "
             f"(capacity {vit_capacity(x0.shape[0] * x0.shape[1], E)} a leaf of {E}; "
-            f"the rest run the plain overflow "
-            f"repair), by layer over the {len(shares) // cfg.n_layers} batches: "
+            f"the rest take the overflow "
+            f"pass), by layer over the {len(shares) // cfg.n_layers} batches: "
             + "; ".join(f"layer {i} " + ", ".join(f"{k:.4f}" for k in ks)
                         for i, ks in enumerate(per_layer))
             + f"; leaves live at most {max(n for _, n in shares)}")

@@ -542,11 +542,14 @@ def _infer_cuda(params, cfg, x, spec):
     tree_router descent, then per-token gathered leaf matmuls for slabs of
     at most ``PALLAS_DECODE_MAX_TOKENS`` flattened tokens (phantom rows
     included, so the branch depends on the shape alone) and the grouped
-    leaf GEMMs above.  Exact: tokens over a leaf's capacity are repaired
-    densely, so overflow_fraction is 0.  ``spec.valid`` masks the reported
-    ``leaf_idx``, as in ``_infer_cuda_decode``, and in the grouped branch
-    lets phantom rows take only the capacity the valid rows leave, so a
-    valid row's output never depends on a phantom row's content."""
+    leaf GEMMs above.  Exact: tokens over a leaf's capacity take an
+    overflow pass on the same grouped GEMMs, sized by the token count
+    alone, so overflow_fraction is 0 and neither branch reads a value on
+    the host (the dispatch can be captured as a CUDA graph).
+    ``spec.valid`` masks the reported ``leaf_idx``, as in
+    ``_infer_cuda_decode``, and in the grouped branch lets phantom rows
+    take only the capacity the valid rows leave, so a valid row's output
+    never depends on a phantom row's content."""
     xf, lead = utils.flatten_leading(x)
     if xf.shape[0] <= PALLAS_DECODE_MAX_TOKENS:
         y, leaf_idx = fused_ops.fff_decode(xf, params, cfg,

@@ -277,7 +277,9 @@ def leaf_apply_grouped(leaves: dict, x: torch.Tensor, leaf_idx: torch.Tensor,
     The same function as a per-token weight gather, computed leaf by leaf
     over the tokens routed to it: a gathered ``(B, D, l)`` weight copy is
     ~26 GB per weight at full width and 1024 tokens.  Tokens routed to the
-    sentinel leaf E get zeros."""
+    sentinel leaf E get zeros.  The plain evaluation (the reference
+    backend, training's gather): it reads the counts on the host, so no
+    path the card captures calls it."""
     B = x.shape[0]
     out_w = leaves["leaf_wd"] if activation == "swiglu" else leaves["leaf_w2"]
     E = out_w.shape[0]
@@ -553,17 +555,12 @@ def _forward_hard_grouped(params: Params, cfg: FFFConfig, x: torch.Tensor,
     ``api.apply`` adds to every token is what dropped tokens fall back to).
     ``overflow_fraction`` reports the true over-capacity rate under every
     policy."""
-    E = cfg.num_leaves
-
     def leaves(xf, idx, tl):
-        y, kept = routing_lib.grouped_leaf_apply(
+        # the repair: only real overflow, never sentinel pads or invalid rows
+        return routing_lib.grouped_leaf_apply(
             xf, idx, tl, cfg.activation, capacity_factor=capacity_factor,
-            accum_dtype=cfg.accum_dtype, serving=True, return_kept=True)
-        if overflow_policy == "exact_dense":
-            # only real overflow: sentinel pads and invalid rows need none
-            y = routing_lib._repair(y, ~kept & (idx < E), xf, idx, tl,
-                                    cfg.activation, cfg.accum_dtype)
-        return y, kept
+            accum_dtype=cfg.accum_dtype, serving=True, return_kept=True,
+            repair=overflow_policy == "exact_dense")
 
     return _forward_hard_capacity(params, cfg, x, dist_act.data_shard_count(),
                                   valid, dense_levels, leaves)

@@ -145,7 +145,7 @@ def group_slots(leaf_idx: torch.Tensor, num_groups: int) -> torch.Tensor:
     sort_idx = torch.argsort(idx, stable=True)
     rank = torch.empty(B, dtype=torch.int64, device=idx.device)
     rank[sort_idx] = torch.arange(B, device=idx.device)
-    sizes = torch.bincount(idx.clamp(max=num_groups), minlength=num_groups + 1)
+    sizes = _counts(idx.clamp(max=num_groups), num_groups + 1)
     offsets = torch.cumsum(sizes, 0) - sizes                  # exclusive scan
     return rank - offsets[idx.clamp(max=num_groups)]
 
@@ -238,17 +238,35 @@ def _num_leaves(params: dict) -> int:
     return (params["leaf_wg"] if "leaf_wg" in params else params["leaf_w1"]).shape[0]
 
 
+def _capacity(tokens: int, num_leaves: int, capacity_factor: float) -> int:
+    """A (shard, leaf)'s slots: ``max(8, round_up(int(cf * ceil(tokens /
+    E)), 8))``."""
+    return max(8, utils.round_up(int(capacity_factor
+                                     * utils.cdiv(tokens, num_leaves)), 8))
+
+
+def repair_rows(tokens: int, num_leaves: int, capacity_factor: float) -> int:
+    """The rows a leaf of ``grouped_leaf_apply``'s repair buffers for a
+    slab of ``tokens`` over the installed data shards G: the most tokens
+    one leaf can drop, G (Bg - capacity); 0 where none can, and the repair
+    is left out."""
+    G = dist_act.data_shard_count()
+    Bg = utils.round_up(max(tokens, 1), G) // G
+    return G * max(Bg - _capacity(Bg, num_leaves, capacity_factor), 0)
+
+
 def grouped_leaf_apply(x: torch.Tensor, leaf_idx: torch.Tensor, params: dict,
                        activation: str, capacity_factor: float = 1.5,
                        accum_dtype=torch.float32, serving: bool = False,
-                       return_kept: bool = False):
+                       return_kept: bool = False, repair: bool = False):
     """Capacity-bounded grouped leaf execution.
 
     The token axis is blocked by the data-shard count G (padded with
     capacity-neutral tokens when B % G != 0), so capacity is per (shard,
-    leaf): ``max(8, round_up(int(cf * ceil(B/G / E)), 8))``.  Tokens over
-    their shard's capacity contribute zeros; the caller's overflow policy
-    decides what they get instead.  ``serving`` picks the leaf MLP: True
+    leaf): ``_capacity(ceil(B/G), E, cf)``.  Tokens over their shard's
+    capacity contribute zeros, or with ``repair`` (the "exact_dense"
+    policy) their exact leaf outputs (``_repair``); sentinel tokens (leaf
+    id E) get zeros either way.  ``serving`` picks the leaf MLP: True
     (the inference backends) lets a CUDA buffer run the forward-only
     grouped GEMMs; False (the straight-through training backend) keeps the
     differentiable einsums on every device.
@@ -260,10 +278,10 @@ def grouped_leaf_apply(x: torch.Tensor, leaf_idx: torch.Tensor, params: dict,
     B, D = x.shape
     E = _num_leaves(params)
     G = dist_act.data_shard_count()
-    x, leaf_idx = _pad_tokens(x, leaf_idx, G, E)
-    Bg = x.shape[0] // G
-    capacity = max(8, utils.round_up(int(capacity_factor * utils.cdiv(Bg, E)), 8))
-    idx_g = leaf_idx.long().clamp(max=E).reshape(G, Bg)
+    xp, idx_p = _pad_tokens(x, leaf_idx, G, E)
+    Bg = xp.shape[0] // G
+    capacity = _capacity(Bg, E, capacity_factor)
+    idx_g = idx_p.long().clamp(max=E).reshape(G, Bg)
     # slot within (shard, leaf) from sort ranks over the combined key; E + 1
     # groups a shard, so pads (leaf id E) slot into a virtual group of their own
     shard = torch.arange(G, device=x.device)[:, None]
@@ -275,7 +293,7 @@ def grouped_leaf_apply(x: torch.Tensor, leaf_idx: torch.Tensor, params: dict,
     n = E * capacity
     flat = torch.where(kept, shard * n + idx_g * capacity + slot, G * n).reshape(-1)
     xbuf = torch.zeros((G * n + 1, D), dtype=x.dtype, device=x.device)
-    xbuf[flat] = x
+    xbuf[flat] = xp
     xbuf = xbuf[:-1].view(G, E, capacity, D)
     if serving:
         sizes = _counts(torch.where(kept, shard * E + idx_g, G * E), G * E).view(G, E)
@@ -286,8 +304,12 @@ def grouped_leaf_apply(x: torch.Tensor, leaf_idx: torch.Tensor, params: dict,
     kept = kept.reshape(-1)
     y = yg.reshape(G * n, O)[torch.where(kept, flat, 0)]
     y = torch.where(kept[:, None], y, torch.zeros_like(y)).to(accum_dtype)[:B]
+    kept = kept[:B]
+    if repair:
+        y = _repair(y, ~kept & (leaf_idx < E), x, leaf_idx, params,
+                    activation, accum_dtype, repair_rows(B, E, capacity_factor))
     if return_kept:
-        return y, kept[:B]
+        return y, kept
     return y
 
 
@@ -295,30 +317,34 @@ def grouped_leaf_apply(x: torch.Tensor, leaf_idx: torch.Tensor, params: dict,
 # the overflow repair and expert-parallel grouped leaf execution
 # ---------------------------------------------------------------------------
 
-def _dense_leaf_gather(x: torch.Tensor, leaf_idx: torch.Tensor, params: dict,
-                       activation: str, accum_dtype) -> torch.Tensor:
-    """Exact per-token leaf evaluation: x (B, D), leaf_idx (B,) indexing
-    the leaf axis of ``params`` -> (B, O), computed leaf by leaf over the
-    tokens routed to it (JAX gathers a (B, D, l) weight copy, ~13 GB a
-    weight in bf16 at full width and 1024 tokens).  The overflow repair,
-    paid only for tokens that overflowed capacity."""
-    # imported here: core/fff imports this module for its grouped paths
-    from repro_torch.core import fff as fff_lib
-    return fff_lib.leaf_apply_grouped(params, x, leaf_idx, activation,
-                                      accum_dtype)
-
-
 def _repair(y: torch.Tensor, dropped: torch.Tensor, x: torch.Tensor,
             leaf_idx: torch.Tensor, params: dict, activation: str,
-            accum_dtype) -> torch.Tensor:
-    """y with the ``dropped`` rows replaced by their exact leaf outputs; the
-    rest untouched (the JAX package's ``lax.cond`` on ``dropped.any()``)."""
-    rows = torch.nonzero(dropped).squeeze(1)
-    if rows.numel():
-        y = y.clone()
-        y[rows] = _dense_leaf_gather(x[rows], leaf_idx[rows], params,
-                                     activation, accum_dtype).to(y.dtype)
-    return y
+            accum_dtype, rows: int) -> torch.Tensor:
+    """y with the ``dropped`` rows replaced by their exact leaf outputs and
+    the rest untouched (the JAX package's ``lax.cond`` on ``dropped.any()``),
+    at shapes fixed by the caller's bound alone: ``rows``, the most tokens
+    one leaf can drop (0: none can, and y is returned as it is).
+
+    Each dropped token takes its rank among its leaf's dropped tokens as a
+    slot in (E, rows, D) buffers, the leaf MLP runs on them as on the
+    capacity buffers (``_leaf_mlp_on_buffers``: the grouped GEMMs on a
+    card, which read the group sizes on the device and skip the dead
+    rows), and a fixed-shape ``torch.where`` writes the outputs back.  No
+    step reads a count on the host."""
+    if rows <= 0:
+        return y
+    D = x.shape[1]
+    E = _num_leaves(params)
+    idx = torch.where(dropped, leaf_idx.long(), E)
+    slot = group_slots(idx, E)
+    # tokens not dropped all go to one spare row past the buffers, cut off
+    flat = torch.where(dropped, idx * rows + slot, E * rows)
+    xbuf = torch.zeros((E * rows + 1, D), dtype=x.dtype, device=x.device)
+    xbuf[flat] = x
+    yb = _leaf_mlp_on_buffers(xbuf[:-1].view(E, rows, D), params, activation,
+                              accum_dtype, _counts(idx, E))
+    yd = yb.reshape(E * rows, -1)[torch.where(dropped, flat, 0)]
+    return torch.where(dropped[:, None], yd.to(y.dtype), y)
 
 
 def grouped_leaf_apply_ep(x: torch.Tensor, leaf_idx: torch.Tensor,
@@ -350,7 +376,9 @@ def grouped_leaf_apply_ep(x: torch.Tensor, leaf_idx: torch.Tensor,
     their zeros (``api.apply``'s master term, when enabled, stands in).
 
     With no group installed (or a model group of 1, or E % M != 0) this is
-    the local grouped dispatch plus the same repair.  Returns (B, O), or
+    the local grouped dispatch plus the same repair, at shapes fixed by
+    the token count alone (``_repair``): nothing there syncs with the
+    host.  Returns (B, O), or
     ``(y, kept)`` with ``return_kept=True``; ``kept`` False marks tokens
     that overflowed and took the policy's overflow path."""
     held = _num_leaves(params)
@@ -362,12 +390,8 @@ def grouped_leaf_apply_ep(x: torch.Tensor, leaf_idx: torch.Tensor,
                              f"group of {E // held} ranks installed")
         y, kept = grouped_leaf_apply(
             x, leaf_idx, params, activation, capacity_factor=capacity_factor,
-            accum_dtype=accum_dtype, serving=True, return_kept=True)
-        if overflow_policy == "exact_dense":
-            # only real overflow: sentinel-padded tokens (leaf id E) are
-            # never kept and need no repair
-            y = _repair(y, ~kept & (leaf_idx < E), x, leaf_idx, params,
-                        activation, accum_dtype)
+            accum_dtype=accum_dtype, serving=True, return_kept=True,
+            repair=overflow_policy == "exact_dense")
         return (y, kept) if return_kept else y
 
     B = x.shape[0]
@@ -414,7 +438,7 @@ def grouped_leaf_apply_ep(x: torch.Tensor, leaf_idx: torch.Tensor,
             yd = torch.zeros((M * Bl, y_l.shape[-1]), dtype=accum_dtype,
                              device=x.device)
             yd = _repair(yd, own, xg, (ig - off).clamp(0, E_local - 1),
-                         leaves_l, activation, accum_dtype)
+                         leaves_l, activation, accum_dtype, M * max(Bl - C, 0))
             yd = collectives.all_reduce(yd, model)
             mine = yd[m * Bl:(m + 1) * Bl]
             y_l = torch.where(dropped[:, None], mine, y_l)

@@ -238,6 +238,7 @@ class EngineRun:
     launches: dict                 # kernel name -> launches during the run
     shapes: dict                   # engine.dispatch_shapes()
     compiled: dict                 # engine.compiled_shapes()
+    graphs: dict                   # dispatch graphs captured (staged on the CPU)
 
 
 def parse_tenant_weights(spec: str) -> dict:
@@ -352,7 +353,8 @@ def serve_engine(cfg: ModelConfig, ecfg: EngineConfig, requests: list, *,
         with open(metrics_json, "w") as f:
             json.dump(payload, f, indent=1)
         print(f"wrote metrics to {metrics_json}")
-    return EngineRun(results, m, launches, shapes, compiled)
+    return EngineRun(results, m, launches, shapes, compiled,
+                     engine._graphs.counts())
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -32,19 +32,24 @@
 
 Every dispatch runs at a fixed shape: ``dispatch_shapes()`` records the
 shapes each dispatch saw.  As the JAX engine compiles each dispatch once
-per shape with ``jax.jit``, the port captures the decode step and the whole
+per shape with ``jax.jit``, the port captures each once per shape as a CUDA
+graph and replays it (``serving/graphs.py``): the decode step, the whole
 speculative round (the rollback, the ``spec_k + 1`` draft steps with
-on-device sampling, the verify) once per shape as CUDA graphs and replays
-them (``serving/graphs.py``): inputs staged in pinned and static buffers,
-cache leaves settled back into the engine's canonical tensors inside the
-capture, one host copy of the outputs a dispatch.  ``compiled_shapes()``
-counts the captured graphs as JAX counts traces.  Only what cannot
-synchronize with the host is captured (``graphs.eager_reason``); prefill
-slabs, the chunk slab and admission run eagerly and settle their results
-into the same canonical tensors.  On the card the FFF sites resolve per
-shape (``core/api.py``): decode and draft steps to the fused decode
-kernel, slabs of at most 32 tokens (the verify slab at 8 slots and
-``spec_k`` 3) to the gathered kernels, larger slabs to the grouped GEMMs.
+on-device sampling, the verify), each prefill bucket's slab
+(``prefill_<b>``), the chunk slab (``prefill_chunk``) and admission
+(``admit``: ``lm.cache_admit`` into both trees under speculation); inputs
+staged in pinned and static buffers, cache leaves settled back into the
+engine's canonical tensors inside the capture, one host copy of the
+outputs a dispatch.  ``compiled_shapes()`` counts the captured graphs
+under JAX's names as JAX counts traces.  Only what cannot synchronize
+with the host is captured (``graphs.eager_reason``: MoE sites, an
+installed process group and learned positions keep a dispatch eager); an
+eager dispatch settles its results into the same canonical tensors.  On
+the card the FFF sites resolve per shape (``core/api.py``): decode and
+draft steps to the fused decode kernel, slabs of at most 32 tokens (the
+verify slab at 8 slots and ``spec_k`` 3) to the gathered kernels, larger
+slabs to the grouped GEMMs, whose over-capacity tokens take an overflow
+pass sized by the slab's shape.
 
 Admission policy is pluggable (``serving/scheduler.py``); ``leaf_aware``
 reads the per-slot FFF leaf occupancy the engine collects through
@@ -567,49 +572,67 @@ class ContinuousBatchingEngine:
         self._shapes.setdefault(name, set()).add(tuple(shape))
 
     def _slab(self, name: str, toks: np.ndarray, valid: np.ndarray):
-        """One prefill slab through the target (and the draft under spec),
-        run eagerly, its cache leaves settled into the canonical tensors:
+        """One prefill slab, ``prefill_<b>`` or ``prefill_chunk``, through
+        the target (and the draft under spec) as a dispatch (``_dispatch``):
         returns (logits (S, V), the target's per-row leaf counts (S, E) or
         None), both on the host after one copy."""
-        t, v = self._dev(toks), self._dev(valid)
-        self._record_shape(name, t.shape)
-        dstats = None
-        with self._ctx():
-            if self.spec:
-                logits, caches, dcaches, stats, dstats = spec_lib.chunk_both(
-                    self.params, self.cfg, self.draft_params, self.draft_cfg,
-                    t, v, self.caches, self.draft_caches)
-                graphs.settle(self.draft_caches, dcaches)
-            else:
-                logits, caches, stats = lm.prefill_chunk(
-                    self.params, self.cfg, t, v, self.caches)
-            graphs.settle(self.caches, caches)
-            parts = {"logits": logits, "stats": self._reduce_stats(stats),
-                     "dstats": self._reduce_stats(dstats)}
-            host = _to_host({k: v for k, v in parts.items() if v is not None})
+        self._record_shape("chunk" if name == "prefill_chunk" else name,
+                           toks.shape)
+        host = self._dispatch(name, self._slab_dispatch,
+                              {"tokens": toks, "valid": valid}, toks.shape)
         counts = (self._fold_stats(host["stats"], "prefill")
                   if "stats" in host else None)
         if "dstats" in host:
             self._fold_stats(host["dstats"], "draft")
         return host["logits"], counts
 
-    def _eager_reason(self, name: str, ctx: tuple) -> Optional[str]:
-        """Why dispatch ``name`` ("decode" or "spec_round") runs eagerly,
-        or None when it is captured (``graphs.eager_reason``, read under
-        the dispatch's context: the spec round's draft steps under their
-        ``cuda_decode`` steer); cached per context."""
-        key = (name, ctx, dist_act.mesh_installed())
+    def _slab_dispatch(self, inp: dict) -> dict:
+        """A prefill slab on device inputs, both trees' cache leaves settled
+        into the canonical tensors under spec: what a ``prefill_<b>`` or
+        ``prefill_chunk`` graph holds."""
+        dstats = None
+        with self._ctx():
+            if self.spec:
+                logits, caches, dcaches, stats, dstats = spec_lib.chunk_both(
+                    self.params, self.cfg, self.draft_params, self.draft_cfg,
+                    inp["tokens"], inp["valid"], self.caches, self.draft_caches)
+                graphs.settle(self.draft_caches, dcaches)
+            else:
+                logits, caches, stats = lm.prefill_chunk(
+                    self.params, self.cfg, inp["tokens"], inp["valid"],
+                    self.caches)
+            graphs.settle(self.caches, caches)
+            return {"logits": logits, "stats": self._reduce_stats(stats),
+                    "dstats": self._reduce_stats(dstats)}
+
+    def _eager_reason(self, name: str, ctx: tuple, width: int
+                      ) -> Optional[str]:
+        """Why dispatch ``name`` runs eagerly, or None when it is captured
+        (``graphs.eager_reason``, read under the dispatch's context): the
+        decode step at one token a row, the spec round's draft steps under
+        their ``cuda_decode`` steer and then its verify slab, a prefill slab
+        of ``width`` tokens a row through the draft (under spec) and the
+        target.  ``admit`` runs no model and is always captured.  Cached
+        per (name, width, context)."""
+        key = (name, width, ctx, dist_act.mesh_installed())
         if key not in self._eager:
-            S = self.ecfg.num_slots
+            S, why = self.ecfg.num_slots, None
             if name == "decode":
                 why = graphs.eager_reason(self.params, self.cfg, S, 1)
-            else:
+            elif name == "spec_round":
                 with (api.overrides(backend="cuda_decode", mode="infer")
                       if self.ecfg.cuda_decode else contextlib.nullcontext()):
                     why = graphs.eager_reason(self.draft_params,
                                               self.draft_cfg, S, 1)
                 why = (f"the draft: {why}" if why else graphs.eager_reason(
-                    self.params, self.cfg, S, self.ecfg.spec_k + 1))
+                    self.params, self.cfg, S, width))
+            elif name != "admit":
+                if self.spec:
+                    why = graphs.eager_reason(self.draft_params,
+                                              self.draft_cfg, S, width)
+                    why = why and f"the draft: {why}"
+                why = why or graphs.eager_reason(self.params, self.cfg, S,
+                                                 width)
             self._eager[key] = why
         return self._eager[key]
 
@@ -619,13 +642,15 @@ class ContinuousBatchingEngine:
         """Dispatch ``name`` through the graph cache, keyed by (shape,
         sampling, the ``api`` context it runs under): captured once and
         replayed, or eager by the capture rule.  Its outputs come to the
-        host in one copy, after the replay."""
+        host in one copy, after the replay (a dispatch with none, such as
+        ``admit``, does not wait for the device)."""
         with self._ctx(decode=decode):
             ctx = graphs.context_key()
-            why = self._eager_reason(name, ctx)
-        return _to_host(self._graphs.run(
+            why = self._eager_reason(name, ctx, shape[-1])
+        out = self._graphs.run(
             name, (tuple(shape), sampling, ctx), fn, inputs, eager=why,
-            generators=(self._gen,) if sampling else ()))
+            generators=(self._gen,) if sampling else ())
+        return _to_host(out) if out else {}
 
     # -- telemetry -----------------------------------------------------------
 
@@ -812,13 +837,17 @@ class ContinuousBatchingEngine:
 
     def _apply_admit(self, slot: int, plan: dict) -> None:
         """Install the plan's page table and shared-prefix length at
-        ``slot`` (``lm.cache_admit``, both trees under speculation); with
-        ``page_size`` 0 the slot's contiguous row restarts at length 0."""
+        ``slot`` (``lm.cache_admit``, both trees under speculation) as the
+        ``admit`` dispatch, at fixed ``(S,)`` and ``(S, pages)`` inputs;
+        with ``page_size`` 0 the slot's contiguous row restarts at length
+        0."""
         S, sentinel = self.ecfg.num_slots, self._num_pages
         admit = np.zeros((S,), bool)
         admit[slot] = True
         if plan["cow_src"] is not None:
             self.n_cow_copies += 1
+        inputs = {"admit": admit, "tables": None, "lengths": None,
+                  "cow_src": None, "cow_dst": None}
         if self.ecfg.page_size:
             tables = np.full((S, self._ppr), sentinel, np.int32)
             tables[slot, :len(plan["pages"])] = plan["pages"]
@@ -829,15 +858,9 @@ class ContinuousBatchingEngine:
             if plan["cow_src"] is not None:
                 cow_src[slot] = plan["cow_src"]
                 cow_dst[slot] = plan["cow_dst"]
-            args = [self._dev(a) for a in (admit, tables, lengths, cow_src,
-                                           cow_dst)]
-        else:
-            args = [self._dev(admit)]
-        with torch.inference_mode():
-            graphs.settle(self.caches, lm.cache_admit(self.caches, *args))
-            if self.spec:
-                graphs.settle(self.draft_caches,
-                              lm.cache_admit(self.draft_caches, *args))
+            inputs.update(tables=tables, lengths=lengths, cow_src=cow_src,
+                          cow_dst=cow_dst)
+        self._dispatch("admit", self._admit_dispatch, inputs, (S,))
         if plan["cow_src"] is not None:
             # the copy is queued on the device ahead of any later reuse of
             # the source page: drop the admission's hold
@@ -845,6 +868,19 @@ class ContinuousBatchingEngine:
         self._slot_pages[slot] = list(plan["pages"])
         self._alloc_len[slot] = len(plan["pages"]) * self._page
         self.n_prefix_hit_tokens += plan["shared_len"]
+
+    def _admit_dispatch(self, inp: dict) -> dict:
+        """``lm.cache_admit`` on device inputs into both trees under spec,
+        in one dispatch as JAX's ``_admit_jit``, settled into the canonical
+        tensors: what the ``admit`` graph holds.  No outputs."""
+        args = [inp[k] for k in ("admit", "tables", "lengths", "cow_src",
+                                 "cow_dst") if inp[k] is not None]
+        with self._ctx():
+            graphs.settle(self.caches, lm.cache_admit(self.caches, *args))
+            if self.spec:
+                graphs.settle(self.draft_caches,
+                              lm.cache_admit(self.draft_caches, *args))
+        return {}
 
     def _publish_prefix(self, slot: int) -> None:
         """Index the slot's full prompt pages for sharing, only now that its
@@ -957,7 +993,7 @@ class ContinuousBatchingEngine:
             toks[i, :n] = p[st.prefill_pos:st.prefill_pos + n]
             toks[i, n:] = p[st.prefill_pos + n - 1]
             valid[i] = n
-        logits, counts = self._slab("chunk", toks, valid)
+        logits, counts = self._slab("prefill_chunk", toks, valid)
         self.n_chunks += 1
         for i in prefilling:
             st = self.slots[i]
@@ -1264,18 +1300,19 @@ class ContinuousBatchingEngine:
         return self.occupancy[act].mean(axis=0)
 
     def compiled_shapes(self) -> Dict[str, int]:
-        """Compiled dispatches per entry point, as JAX counts traces:
-        ``decode`` and ``spec_round`` count their captured graphs (on the
-        CPU, their staged dispatches; one per (shape, sampling on, context)
-        key, so 1 after warm-up, 2 when a run both samples and does not);
-        a dispatch that ran eagerly counts the shapes it saw
-        (``dispatch_shapes()``: ``prefill_<b>`` one per bucket used,
-        ``chunk``, a cluster worker's handoff ``install``, and ``decode``,
-        ``draft`` and ``verify`` where the capture rule or
-        ``graphs.disabled()`` kept them eager)."""
-        out = {k: len(v) for k, v in self._shapes.items()}
+        """Compiled dispatches per entry point, under the JAX engine's names,
+        as JAX counts traces: ``decode``, ``spec_round``, ``prefill_<b>``
+        (one per bucket used), ``prefill_chunk`` and ``admit`` count their
+        captured graphs (on the CPU, their staged dispatches; one per
+        (shape, sampling on, context) key, so 1 after warm-up, 2 when a
+        run both samples and does not); a dispatch that ran eagerly counts
+        the shapes it saw (``dispatch_shapes()``; ``chunk`` as
+        ``prefill_chunk``, a cluster worker's handoff ``install``, and
+        ``draft`` and ``verify`` for a spec round the capture rule or
+        ``graphs.disabled()`` kept eager)."""
+        out = {_JAX_NAMES.get(k, k): len(v) for k, v in self._shapes.items()}
         for name, n in self._graphs.counts().items():
-            for k in _GRAPH_SHAPES[name]:
+            for k in _GRAPH_SHAPES.get(name, ()):
                 out.pop(k, None)
             out[name] = n
         return out
@@ -1289,5 +1326,8 @@ class ContinuousBatchingEngine:
         return {k: set(v) for k, v in self._shapes.items()}
 
 
-#: the dispatch shapes each graphed dispatch stands for in ``compiled_shapes``
-_GRAPH_SHAPES = {"decode": ("decode",), "spec_round": ("draft", "verify")}
+#: ``dispatch_shapes`` names that ``compiled_shapes`` reports under JAX's
+_JAX_NAMES = {"chunk": "prefill_chunk"}
+#: the dispatch shapes a graphed dispatch stands for in ``compiled_shapes``,
+#: where they differ from its own name
+_GRAPH_SHAPES = {"spec_round": ("draft", "verify")}

@@ -31,15 +31,19 @@ draft's ``torch.Generator`` is registered with the graph
 (``CUDAGraph.register_generator_state``), so each replay draws anew.
 
 The capture rule (``eager_reason``): a dispatch is captured only when it
-cannot synchronize with the host.  Every FFF site must resolve, on the
-card and under the dispatch's context, to ``cuda_decode``, or to ``cuda``
-at no more than ``api.PALLAS_DECODE_MAX_TOKENS`` tokens (the gathered
-kernels).  Larger slabs take the grouped GEMMs, and ``grouped`` and
-``grouped_ep`` size their overflow repair on the host; MoE sites do too;
-an installed process group stages its gloo collectives through host
-memory; learned positions read the step's offset on the host.  Those run
-eagerly, and so does every dispatch the caller runs outside the cache.
-On the card a capture that fails raises: it never falls back to eager.
+cannot synchronize with the host.  Every FFF site must resolve, on the card
+and under the dispatch's context, to a backend whose shapes the token count
+alone fixes: ``cuda`` at any token count (the gathered kernels up to
+``api.PALLAS_DECODE_MAX_TOKENS`` tokens, the grouped GEMMs above, whose
+overflow pass is sized by the shape), ``cuda_decode``, or ``grouped`` and
+``grouped_ep`` with no process group installed (their repair, too, runs at
+a shape fixed by the token count).  Three cases stay eager, each with its
+reason: a MoE site (its sparse dispatch reads expert counts on the host),
+an installed process group (its gloo collectives stage through host
+memory) and learned positions (the step's offset is read on the host); so
+does the ``reference`` backend, which evaluates leaf by leaf on host
+counts, and every dispatch the caller runs outside the cache.  On the card
+a capture that fails raises: it never falls back to eager.
 
 On the CPU the same staging runs and only capture and replay are skipped:
 the dispatch function runs on the static buffers at every call, so the
@@ -65,6 +69,10 @@ Inputs = Dict[str, object]          # name -> np.ndarray, torch.Tensor or None
 Outputs = Dict[str, torch.Tensor]   # name -> a tensor the host reads
 
 _ALIGN = 16                          # bytes between staged inputs
+#: the FFF backends whose dispatch reads nothing on the host at any token
+#: count (the grouped ones with no process group installed; the fused
+#: decode kernel on a tree with a node to descend)
+_STATIC_BACKENDS = ("cuda", "cuda_decode", "grouped", "grouped_ep")
 _disabled = 0
 
 
@@ -133,7 +141,6 @@ def eager_reason(params: dict, cfg, rows: int, seq: int) -> Optional[str]:
                 "through host memory")
     if cfg.pos_emb == "learned":
         return "learned positions read the step's offset on the host"
-    tokens = rows * seq
     cuda = torch.device("cuda")
     for i, layer in enumerate(params["stack"]):
         spec = cfg.period[i % len(cfg.period)].ffn
@@ -147,11 +154,12 @@ def eager_reason(params: dict, cfg, rows: int, seq: int) -> Optional[str]:
         backend = api.resolve_backend(layer["ffn"], fc, "infer",
                                       x_shape=(rows, seq, cfg.d_model),
                                       x_device=cuda)
-        if backend == "cuda_decode" or (
-                backend == "cuda" and tokens <= api.PALLAS_DECODE_MAX_TOKENS):
+        if backend in _STATIC_BACKENDS and (backend != "cuda_decode"
+                                            or fc.depth > 0):
             continue
-        return (f"layer {i}'s FFF site resolves to {backend!r} at {tokens} "
-                f"tokens, whose dispatch syncs")
+        return (f"layer {i}'s FFF site resolves to {backend!r} at "
+                f"{rows * seq} tokens, which evaluates leaf by leaf on "
+                f"counts read on the host")
     return None
 
 

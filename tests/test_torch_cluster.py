@@ -509,7 +509,7 @@ def test_cluster_parity_and_compile_contract(model):
     for wid, eng in engines.items():
         shapes = eng.compiled_shapes()
         if wid.startswith("p"):
-            assert set(shapes) == {"prefill_16"}
+            assert set(shapes) == {"prefill_16", "admit"}
         else:
             assert shapes == {"decode": 1, "install": 1}
     m = router.metrics()
@@ -532,7 +532,7 @@ def test_cluster_kill_decode_worker_exact_replay(model):
     assert cm["duplicate_results"] == 0                 # zero duplicated
     assert _tokens(res) == jax_reference(model, "kill", reqs, **kw)
     assert "d0" not in router.views and "d2" in router.views
-    assert engines["p0"].compiled_shapes() == {"chunk": 1}
+    assert engines["p0"].compiled_shapes() == {"prefill_chunk": 1, "admit": 1}
 
 
 def test_cluster_drain_blocks_new_admissions(model):

@@ -4,10 +4,11 @@ There is no capture here: the staged path (static input buffers, one
 upload, cache leaves settled into the engine's canonical tensors) runs
 the dispatch on every call, which is the code the card captures.  It must
 leave the engine's caches and tokens bit-identical to ``graphs.disabled()``
-(op by op) in every mode; ``compiled_shapes()`` must count what the JAX
-engine counts for ``decode`` and ``spec_round``; a replay must credit the
-launch counters once (a stand-in recorder plays the graph); and the
-capture rule must keep host-syncing dispatches eager.
+(op by op) in every mode, admission with a copy-on-write page included;
+``compiled_shapes()`` must count what the JAX engine counts for ``decode``,
+``admit``, each ``prefill_<b>``, ``prefill_chunk`` and ``spec_round``; a
+replay must credit the launch counters once (a stand-in recorder plays the
+graph); and the capture rule must keep host-syncing dispatches eager.
 """
 import contextlib
 import dataclasses
@@ -30,7 +31,8 @@ from repro_torch.kernels import common
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import lm
 from repro_torch.serving import graphs
-from repro_torch.serving.engine import ContinuousBatchingEngine, EngineConfig
+from repro_torch.serving.engine import (ContinuousBatchingEngine, EngineConfig,
+                                       VirtualClock)
 from repro_torch.serving.request import Request
 
 torch.set_num_threads(2)
@@ -105,7 +107,8 @@ def cache_leaves(eng):
 def test_staged_dispatches_equal_disabled(model, spec, paged, chunk, one_thread):
     """The engine's pools, tables, lengths and tokens after every step of a
     run are bit-identical staged and op by op; the staged run's decode or
-    spec round went through one entry, the disabled run's through none."""
+    spec round, admission and each prefill slab's shape went through one
+    entry each, the disabled run's through none."""
     kw = dict(prefill_chunk=chunk, **(SPEC if spec else {}),
               **(dict(page_size=PAGE) if paged else {}))
     runs = []
@@ -127,12 +130,43 @@ def test_staged_dispatches_equal_disabled(model, spec, paged, chunk, one_thread)
     tok = lambda e: {r.rid: r.tokens.tolist() for r in e.results}
     assert tok(staged) == tok(eager) and len(staged.results) == N_REQ
     name = "spec_round" if spec else "decode"
-    assert staged._graphs.counts() == {name: 1}
+    slabs = {"prefill_chunk" if k == "chunk" else k
+             for k in eager.dispatch_shapes() if k == "chunk" or k.startswith("prefill_")}
+    assert slabs and staged._graphs.counts() == dict.fromkeys({name, "admit"} | slabs, 1)
     assert eager._graphs.counts() == {}
     assert staged.dispatch_shapes() == eager.dispatch_shapes()
     assert staged.compiled_shapes()[name] == 1
     if paged:
         assert staged.n_prefix_hit_tokens > 0
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+@pytest.mark.parametrize("chunk", [0, 8], ids=["monolithic", "chunked"])
+def test_staged_admit_with_copy_on_write_equals_disabled(model, spec, chunk,
+                                                         one_thread):
+    """A prompt covered entirely by a finished prompt's shared pages (it
+    arrives, on a virtual clock, once the first has finished) is admitted
+    with a copy-on-write page through the staged ``admit`` dispatch: every
+    request's tokens and the pools equal the op-by-op run's."""
+    a = model["prompts"][0][:3 * PAGE]
+    reqs = lambda: [Request(rid=0, prompt=a, max_new_tokens=GEN),
+                    Request(rid=1, prompt=a.copy(), max_new_tokens=GEN,
+                            arrival_time=0.5)]
+    kw = dict(page_size=PAGE, prefill_chunk=chunk, **(SPEC if spec else {}))
+    runs = []
+    for off in (False, True):
+        eng = ContinuousBatchingEngine(model["tp"], model["tcfg"], EngineConfig(
+            num_slots=SLOTS, max_len=MAX_LEN, max_prompt_len=PROMPT,
+            device="cpu", **kw), clock=VirtualClock())
+        with graphs.disabled() if off else contextlib.nullcontext():
+            res, _ = eng.run(reqs())
+        runs.append((eng, [r.tokens.tolist() for r in res]))
+    (staged, s_tok), (eager, e_tok) = runs
+    assert s_tok == e_tok and len(s_tok) == 2
+    assert staged.n_cow_copies == eager.n_cow_copies == 1
+    for x, y in zip(cache_leaves(staged), cache_leaves(eager)):
+        assert torch.equal(x, y)
+    assert staged._graphs.counts()["admit"] == 1
 
 
 def test_entries_made_in_inference_mode_stage_outside_it(model):
@@ -145,7 +179,8 @@ def test_entries_made_in_inference_mode_stage_outside_it(model):
         eng.step()
     while eng.has_work():
         eng.step()
-    assert len(eng.results) == N_REQ and eng._graphs.counts() == {"decode": 1}
+    assert len(eng.results) == N_REQ and eng._graphs.counts() == {
+        "decode": 1, "admit": 1, "prefill_16": 1}
 
 
 def test_serve_loop_staged_equals_disabled(model, one_thread):
@@ -164,11 +199,13 @@ def test_serve_loop_staged_equals_disabled(model, one_thread):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
-def test_compiled_shapes_match_jax(model, spec):
+@pytest.mark.parametrize("chunk", [0, 8], ids=["monolithic", "chunked"])
+def test_compiled_shapes_match_jax(model, spec, chunk):
     """For the same requests, the port's captured (here: staged) graphs per
-    dispatch equal the JAX engine's compiled traces for ``decode`` and the
-    spec round."""
-    kw = SPEC if spec else {}
+    dispatch equal the JAX engine's compiled traces for every dispatch JAX
+    counts: ``decode``, ``admit``, each bucket's ``prefill_<b>`` (0 for a
+    bucket never used), ``prefill_chunk`` and the spec round."""
+    kw = dict(prefill_chunk=chunk, **(SPEC if spec else {}))
     jeng = jengine.ContinuousBatchingEngine(
         model["jp"], model["jcfg"], jengine.EngineConfig(
             num_slots=SLOTS, max_len=MAX_LEN, max_prompt_len=PROMPT,
@@ -177,12 +214,12 @@ def test_compiled_shapes_match_jax(model, spec):
     eng = engine(model, **kw)
     eng.run(requests(model))
     want, got = jeng.compiled_shapes(), eng.compiled_shapes()
-    for name in ("decode", "spec_round"):
-        assert got.get(name, 0) == want.get(name, 0), (name, got, want)
-    assert want["spec_round" if spec else "decode"] == 1
-    # the eager admission slabs count their shapes, one per bucket used
-    assert {k for k in got if k.startswith("prefill_")} == {
-        k for k, v in want.items() if k.startswith("prefill_") and v}
+    assert {"decode", "admit", "prefill_16"} <= set(want)
+    for name in want:
+        assert got.get(name, 0) == want[name], (name, got, want)
+    assert want["spec_round" if spec else "decode"] == want["admit"] == 1
+    assert want.get("prefill_chunk", 0) == (1 if chunk else 0)
+    assert set(got) <= set(want), (got, want)
 
 
 def test_sampling_keys_its_own_graph(model, one_thread):
@@ -293,33 +330,50 @@ def test_capture_rule(model):
     p, cfg = model["tp"], model["tcfg"]
     assert graphs.eager_reason(p, cfg, 8, 1) is None            # fused decode
     assert graphs.eager_reason(p, cfg, 8, 4) is None            # 32-token verify
-    assert "33 tokens" in graphs.eager_reason(p, cfg, 11, 3)    # grouped GEMMs
-    assert graphs.eager_reason(p, cfg, 64, 1) is None           # decode, any batch
+    assert graphs.eager_reason(p, cfg, 11, 3) is None           # grouped GEMMs
+    assert graphs.eager_reason(p, cfg, 8, 128) is None          # a prefill bucket
     with api.overrides(backend="grouped", mode="infer"):
-        assert "'grouped'" in graphs.eager_reason(p, cfg, 8, 1)
+        assert graphs.eager_reason(p, cfg, 8, 1) is None
+    with api.overrides(backend="reference", mode="infer"):
+        assert "'reference'" in graphs.eager_reason(p, cfg, 8, 16)
     with dist_act.groups_installed((object(), None)):
         assert "process group" in graphs.eager_reason(p, cfg, 8, 1)
+    learned = dataclasses.replace(cfg, pos_emb="learned")
+    assert "learned positions" in graphs.eager_reason(p, learned, 8, 1)
     moe = registry.get_config("olmoe-1b-7b", ffn="native").reduced(n_layers=1)
     mp = lm.init(moe, seed=0, device="cpu")
     assert "MoE" in graphs.eager_reason(mp, moe, 2, 1)
 
 
+@pytest.fixture(scope="module")
+def moe_model():
+    cfg = registry.get_config("olmoe-1b-7b", ffn="native").reduced(n_layers=1)
+    r = np.random.default_rng(9)
+    prompts = [r.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in r.integers(4, PROMPT + 1, N_REQ)]
+    return dict(tp=lm.init(cfg, seed=0, device="cpu"), tcfg=cfg, prompts=prompts)
+
+
 @pytest.mark.parametrize("kw, eager", [
-    (dict(num_slots=11, **SPEC), "spec_round"),               # 33-token verify
-    (dict(fff_backend="grouped", **SPEC), "spec_round"),
-    (dict(fff_backend="grouped"), "decode"),
-    (dict(num_slots=11), None),                               # decode is captured
+    (dict(num_slots=11, **SPEC), None),                       # 33-token verify
+    (dict(fff_backend="grouped", **SPEC), None),
+    (dict(fff_backend="grouped"), None),
+    (dict(), "moe"),                                          # a MoE site
 ])
-def test_engine_keeps_syncing_dispatches_eager(model, kw, eager):
-    eng = ContinuousBatchingEngine(model["tp"], model["tcfg"], EngineConfig(
+def test_engine_keeps_syncing_dispatches_eager(model, moe_model, kw, eager):
+    """The grouped paths are captured at every slab now; a MoE model's
+    decode step and slabs stay eager and count their shapes, as a trace
+    count would, while its admission (no model) is captured."""
+    m = moe_model if eager else model
+    eng = ContinuousBatchingEngine(m["tp"], m["tcfg"], EngineConfig(
         **{**dict(num_slots=SLOTS, max_len=MAX_LEN, max_prompt_len=PROMPT,
                   device="cpu"), **kw}))
-    res, _ = eng.run(requests(model))
+    res, _ = eng.run(requests(m))
     assert len(res) == N_REQ
     counts, shapes = eng._graphs.counts(), eng.compiled_shapes()
+    step = "spec_round" if "spec_k" in kw else "decode"
     if eager is None:
-        assert counts == {"decode": 1}
+        assert counts == {step: 1, "admit": 1, "prefill_16": 1}
     else:
-        # an eager dispatch counts the shapes it ran, as a trace count would
-        assert counts == {} and "spec_round" not in shapes
-        assert shapes["verify" if eager == "spec_round" else "decode"] == 1
+        assert counts == {"admit": 1}
+        assert shapes == {"decode": 1, "admit": 1, "prefill_16": 1}

@@ -253,13 +253,14 @@ def test_prefill_into_a_paged_cache_matches_jax():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("act", ["swiglu", "relu"])
-def test_phantom_rows_never_take_a_valid_rows_capacity(act, monkeypatch):
+def test_phantom_rows_never_take_a_valid_rows_capacity(act):
     """The grouped dispatch of a slab: a leaf's valid tokens take its slots
-    first, and the dense repair takes the valid tokens that still overflow
-    in a call of their own, so neither which valid tokens fit nor how they
-    are computed depends on the phantom rows (whose content differs between
-    a paged and a contiguous cache); every output stays the exact leaf
-    output."""
+    first, and the tokens past capacity, valid and phantom, take one
+    overflow pass, in which a row's result depends on no other row; so
+    neither which valid tokens fit nor their outputs depend on the phantom
+    rows (whose content differs between a paged and a contiguous cache):
+    new phantom rows leave every valid output bit-identical, and every
+    output stays the exact leaf output."""
     r = rng(12)
     cfg = fff.FFFConfig(dim_in=16, dim_out=16, depth=2, leaf_width=8,
                         activation=act, leaf_bias=False)
@@ -272,15 +273,13 @@ def test_phantom_rows_never_take_a_valid_rows_capacity(act, monkeypatch):
     alone = g_ops.scatter_to_groups(x[valid], idx[valid], 4, 8)
     np.testing.assert_array_equal(layout.slot[valid].numpy(), alone.slot.numpy())
     assert not bool(alone.kept.all())                # valid tokens overflow
-    repaired = []
-    leaf_apply = fff.leaf_apply_grouped
-    monkeypatch.setattr(g_ops.fff_lib, "leaf_apply_grouped",
-                        lambda p, xs, *a: (repaired.append(xs), leaf_apply(p, xs, *a))[1])
-    y = g_ops.fff_leaf_mlp(x, idx, leaves, activation=act, capacity_factor=0.5,
-                           block_c=4, valid=valid)
-    assert torch.equal(repaired[0], x[valid][~alone.kept])
-    assert all(not bool((xs[:, None] == x[valid][None]).all(-1).any())
-               for xs in repaired[1:])               # phantom rows apart
+    run = lambda xs, ids: g_ops.fff_leaf_mlp(xs, ids, leaves, activation=act,
+                                             capacity_factor=0.5, block_c=4,
+                                             valid=valid)
+    y = run(x, idx)
+    other_x = torch.where(valid[:, None], x, t(r.normal(size=(40, 16)).astype(np.float32)))
+    other_idx = torch.where(valid, idx, t(np.full(40, 1, np.int32)))
+    assert torch.equal(run(other_x, other_idx)[valid], y[valid])
     want = fff.leaf_apply_grouped(leaves, x, idx, act, torch.float32)
     np.testing.assert_allclose(y.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 

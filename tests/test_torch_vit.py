@@ -36,6 +36,7 @@ from repro_torch import optim, utils, weights
 from repro_torch.configs import paper_vit as vit
 from repro_torch.core import api
 from repro_torch.kernels.leaf_gemm import kernel as gemm_kernel
+from repro_torch.kernels.leaf_gemm import ops as gemm_ops
 from repro_torch.kernels.tree_router import kernel as router_kernel
 
 torch.set_num_threads(2)
@@ -130,7 +131,9 @@ def test_vit_forward_matches_jax(leaf, monkeypatch):
     if leaf == 0:
         return
     # the card's branch of the resolver: tree_router, then grouped_matmul up
-    # (gelu) and down, their plain versions on CPU tensors
+    # (gelu) and down, their plain versions on CPU tensors; up and down once
+    # more where the site's tokens can pass a leaf's capacity (the overflow
+    # pass, which the shape alone decides)
     calls = []
     for mod, name in ((router_kernel, "tree_router"), (gemm_kernel, "grouped_matmul")):
         fn = getattr(mod, name)
@@ -142,8 +145,10 @@ def test_vit_forward_matches_jax(leaf, monkeypatch):
     with torch.inference_mode():
         got, _ = ex.vit_forward(tp, tc, tproj, torch.from_numpy(x), "eval")
     close(got.numpy(), fwd(jp, x, "eval")[0])
+    passes = gemm_ops.grouped_passes(B * 64, _site_cfg(tc).num_leaves,
+                                     api.DEFAULT_CAPACITY_INFER)
     assert calls.count("tree_router") == tc.n_layers
-    assert calls.count("grouped_matmul") == 2 * tc.n_layers
+    assert calls.count("grouped_matmul") == 2 * tc.n_layers * passes
 
 
 def _site_cfg(cfg):
