@@ -75,9 +75,12 @@ Phases (any failure raises, and the exit code is non-zero):
               overflow pass), and reports how many prefill tokens
               overflowed a leaf's capacity (and took the overflow pass).
               The loop's decode step is a replayed CUDA graph
-              (serving/graphs.py); the same run op by op
-              (graphs.disabled()) follows, the same counts asserted, and
-              both decode p50s are logged.
+              (serving/graphs.py; asserted captured, its first eager call
+              and first replay under torch.cuda.set_sync_debug_mode
+              ("error")); the same run op by op (graphs.disabled())
+              follows, the same counts asserted, the tokens bit-identical,
+              and both decode p50s are logged.  Every loop of the later
+              phases goes through the same checks.
    profile  — a warm prefill and warm decode steps of that model under
               torch.profiler: device busy share and the top kernels.
 5. engine   — the same model and weights through the continuous-batching
@@ -211,12 +214,21 @@ Phases (any failure raises, and the exit code is non-zero):
               counts asserted per tree, and its FFN sites are timed for moe.
 12. moe     — olmoe-1b-7b native: the noisy top-k MoE (64 GELU experts of
               width 1024, top 8) at full width, all 16 layers, bf16, its
-              gates drawn at random (zero gates tie every expert): the
-              fixed-batch loop (no kernel launches), the FFN sites' device
-              time against the FFF forest's (same inference width, 8 x 1024)
-              in a warm prefill and decode step, beside the MoE sites' bound
-              (it is a plain, unfused MoE), and forward_sparse's
-              grouped form against its gather form on layer 0's input.
+              gates drawn at random (zero gates tie every expert), its
+              sites on the grouped GEMMs (core/moe.forward_sparse): the
+              fixed-batch loop as serve (graphs and op by op; grouped_matmul
+              up and down once a pass a site, two passes for the 1024-token
+              prefill), its decode p50 beside the FFF forest's (same
+              inference width, 8 x 1024); the FFN sites' device time
+              against the forest's in a warm prefill and decode step,
+              beside the MoE sites' bound; the MoE site on layer 0's
+              prefill and decode inputs against the gather form (bf16
+              tolerance, bit-identical twice), its device time, bound and
+              buffer bytes, and both grouped GEMMs on its buffers against
+              their plain versions; 8 requests through the engine (8
+              slots): decode, each prefill bucket and admission captured
+              once, no host sync in a first call or first replay, tokens
+              bit-identical to op by op.
 13. long    — starcoder2-15b FFF at full width, 2 of 40 layers: one
               6144-token prompt prefilled through flash_attention (the 4096
               window binds), 8 decode steps, launch counts asserted, time
@@ -228,8 +240,8 @@ Phases (any failure raises, and the exit code is non-zero):
               at 1 of 61 layers, bf16: every kernel at its site's shapes
               (as archs), the fixed-batch loop with its launch counts; the
               native MoE (384 experts, top 8, gates drawn N(0, 1/d_model))
-              at 1 layer through the same loop (no launches), its decode
-              p50 beside the forest's; fp32 greedy parity at 1 layer with
+              at 1 layer through the same loop (the grouped GEMMs, from
+              graphs), its decode p50 beside the forest's; fp32 greedy parity at 1 layer with
               the forest cut to 2 trees (8 fp32 trees are ~90 GB).
 15. jamba   — jamba-1.5-large-398b FFF, bf16, its period cut to positions
               (0, 1, 7): Mamba with the MoE-derived forest (2 trees of depth
@@ -258,7 +270,9 @@ Phases (any failure raises, and the exit code is non-zero):
               kernel (its sites run FORWARD_T in train mode, as in the JAX
               package); the fixed-batch loop with enc_embeds (8, 1500, 768):
               12 router and 24 grouped_matmul launches in the prefill, 12
-              fused decode launches a step; the loop again, warm; a warm
+              fused decode launches a step, the decode step from a graph
+              (learned positions from a staged offset); the loop again,
+              warm; a warm
               prefill and decode step profiled (as profile); the engine's
               refusal (the JAX message); the encoder in float32 on
               the card against the CPU (2 x 1500 frames, within 1e-3); fp32
@@ -276,7 +290,9 @@ Phases (any failure raises, and the exit code is non-zero):
               of the engine phase's requests a wave: each request's pages,
               extracted to the host and installed, equal the source
               engine's bit for bit, and both engines then decode all 8 to
-              the same tokens (extract and install timed, bytes counted);
+              the same tokens (extract and install timed, bytes counted;
+              install, padded to the table width, a captured graph whose
+              first eager call and first replay must not sync);
               then a LocalBus fleet of 1 prefill + 2 decode workers of 8
               slots sharing the parameters serves the engine phase's 16
               requests (32 greedy tokens, pages of 16) beside one engine of
@@ -285,7 +301,8 @@ Phases (any failure raises, and the exit code is non-zero):
               prefill worker launches no fused decode and its compiled
               dispatches are admission and its slabs, one graph each; a
               decode worker launches the
-              fused decode kernel alone, its shapes decode and install),
+              fused decode kernel alone, and captures decode and install
+              once each),
               TTFT, per-token latency and tok/s of the fleet and of the
               24-slot engine, and how many requests' bf16 tokens differ
               from the 24-slot engine's (for each, its first differing
@@ -427,6 +444,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -494,6 +512,8 @@ MIXER_B, MIXER_S, MIXER_STEPS, E2E = 2, 32, 4, 1e-3
 # against the CPU's in float32 at WHISPER_CPU_B rows; internvl2-26b at
 # INTERNVL_LAYERS of 48 layers
 WHISPER_CPU_B, INTERNVL_LAYERS = 2, 8
+# the moe phase's engine run: requests and new tokens a request
+MOE_ENGINE_REQS, MOE_ENGINE_GEN = 8, 16
 # the cluster phases: a decode worker SIGKILLed after this many results; the
 # registry arch the draft phase serves as --draft-config
 CLUSTER_KILL_AFTER, DRAFT_ARCH = 4, "starcoder2-15b"
@@ -1566,9 +1586,9 @@ def kept_masks():
     from repro_torch.kernels.leaf_gemm import ops as gemm_ops
     layout, layouts = gemm_ops._layout, []
 
-    def recording_layout(x, li, slot, num_leaves, capacity, first=0):
-        out = layout(x, li, slot, num_leaves, capacity, first)
-        if first == 0:
+    def recording_layout(x, li, slot, num_leaves, capacity, first=0, **kw):
+        out = layout(x, li, slot, num_leaves, capacity, first, **kw)
+        if first == 0 and kw.get("zero", True):   # an FFF site's, not a MoE site's
             layouts.append(out.kept)
         return out
 
@@ -1626,31 +1646,74 @@ def slab_summary(slabs) -> str:
             f"{len(rep)} later calls p50 {p50} ms; first calls {firsts} ms")
 
 
+def moe_site_configs(cfg) -> list:
+    """The MoEConfig of each of cfg's MoE sites, one a layer that has one."""
+    from repro_torch.nn import mlp
+    return [mlp.make_moe_config(f, cfg.d_model, param_dtype=cfg.param_dtype,
+                                accum_dtype=cfg.accum_dtype)
+            for f in (cfg.period[i % len(cfg.period)].ffn for i in range(cfg.n_layers))
+            if f.kind == "moe"]
+
+
+def moe_passes(mcfg, tokens: int) -> int:
+    """A MoE site's launches of each grouped GEMM (up and down) for a slab
+    of ``tokens``: 1, or 2 where its overflow pass runs (the shape alone
+    decides, ``core/moe.overflow_rows``)."""
+    from repro_torch.core import moe
+    return 1 + bool(moe.overflow_rows(tokens, mcfg))
+
+
+def moe_buffer_bytes(mcfg, tokens: int) -> int:
+    """The bytes of a MoE site's capacity-padded buffers for a slab of
+    ``tokens`` (x (E, C, D), the hidden layer (E, C, H) and the output (E, C,
+    O), first pass and overflow pass together)."""
+    from repro_torch.core import moe
+    rows = moe.capacity(tokens, mcfg) + moe.overflow_rows(tokens, mcfg)
+    sz = torch.finfo(mcfg.param_dtype).bits // 8
+    return (mcfg.num_experts * rows * (mcfg.dim_in + mcfg.expert_width + mcfg.dim_out)
+            * sz)
+
+
+def moe_capacity_tag(mcfg, tokens: int) -> str:
+    """C, plus the overflow pass's rows where it runs."""
+    from repro_torch.core import moe
+    rows = moe.overflow_rows(tokens, mcfg)
+    return f"{moe.capacity(tokens, mcfg)}" + (f" + overflow {rows}" if rows else "")
+
+
 def phase_serve(common, api, serve_mod, cfg, params, label="[serve]"):
     """The fixed-batch loop (batch 8, prompt 128, 16 greedy decode steps) on
     the default infer backend, each kernel's launch count asserted, summed
-    over the layers' own FFF sites (a layer without one adds nothing): per
-    tree the router once and the grouped kernels once a pass in the prefill
-    (SwiGLU: dual and down; otherwise grouped_matmul up and down; two
-    passes where the 1024 tokens exceed a leaf's capacity, the overflow
-    pass's), the fused decode kernel once per FFF layer per step.  Returns
-    (counts, the serve result)."""
+    over the layers' own FFF and MoE sites (a layer without one adds
+    nothing): per FFF tree the router once and the grouped kernels once a
+    pass in the prefill (SwiGLU: dual and down; otherwise grouped_matmul
+    up and down; two passes where the 1024 tokens exceed a leaf's
+    capacity, the overflow pass's), the fused decode kernel once per FFF
+    layer per step; per MoE site grouped_matmul up and down once a pass in
+    the prefill and in each decode step.  The run on graphs must capture
+    the decode step (every loop does), its first eager call and first
+    replay under sync debug mode "error", and give the op-by-op run's
+    tokens bit for bit.  Returns (counts, the serve result)."""
     from repro_torch.core import api as api_mod
     from repro_torch.kernels.leaf_gemm import ops as gemm_ops
     from repro_torch.serving import graphs
     sites = [fc for fc in site_configs(cfg) if fc is not None]
+    moes = moe_site_configs(cfg)
     trees = sum(fc.trees for fc in sites)
     passes = {id(fc): gemm_ops.grouped_passes(PREFILL_B * PREFILL_S, fc.num_leaves,
                                               api_mod.DEFAULT_CAPACITY_INFER)
               for fc in sites}
     swiglu = sum(fc.trees * passes[id(fc)] for fc in sites if fc.activation == "swiglu")
     up_down = sum(2 * fc.trees * passes[id(fc)] for fc in sites)
+    moe_gemms = sum(2 * (moe_passes(m, PREFILL_B * PREFILL_S) + GEN * moe_passes(m, PREFILL_B))
+                    for m in moes)
     want = {"fused_forest_decode": len(sites) * GEN, "tree_router": trees,
-            "grouped_matmul_dual": swiglu, "grouped_matmul": up_down - swiglu,
+            "grouped_matmul_dual": swiglu, "grouped_matmul": up_down - swiglu + moe_gemms,
             "gathered_matmul": 0, "gathered_matmul_dual": 0}
     runs = {}
     # the decode step as a replayed CUDA graph (the default), then op by op
-    for how, ctx in (("graphs", contextlib.nullcontext), ("eager", graphs.disabled)):
+    for how, ctx in (("graphs", lambda: sync_checked(f"{label} serve")),
+                     ("eager", graphs.disabled)):
         with kept_masks() as layouts, no_reference(api), ctx():
             common.reset_launch_counts()
             res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S,
@@ -1663,13 +1726,22 @@ def phase_serve(common, api, serve_mod, cfg, params, label="[serve]"):
                                                counts, cfg.param_dtype))
     (res, layouts, paths), eager = runs["graphs"], runs["eager"][0]
     same = bool(torch.equal(res.tokens, eager.tokens))
-    # a loop the capture rule keeps eager (learned positions, a MoE site)
-    # captures nothing: both of its columns then run op by op
+    if res.graphs != {"decode": 1} or eager.graphs or not same:
+        raise AssertionError(f"{label} serve: decode graphs {res.graphs} (op by op "
+                             f"{eager.graphs}), tokens bit-identical: {same}")
     log(f"{label} serve A/B, decode p50 / p90 (host clock): graphs "
         f"{res.steady.p50_ms:.2f} / {res.steady.p90_ms:.2f} ms (decode graphs "
-        f"captured {res.graphs or 'none: eager by the capture rule'}), op by op "
-        f"{eager.steady.p50_ms:.2f} / {eager.steady.p90_ms:.2f} ms; tokens "
-        f"bit-identical: {same}")
+        f"captured {res.graphs}), op by op {eager.steady.p50_ms:.2f} / "
+        f"{eager.steady.p90_ms:.2f} ms; tokens bit-identical: {same}")
+    if moes:
+        m = moes[0]
+        log(f"{label} serve: {len(moes)} MoE sites, each grouped_matmul up and down "
+            f"x{moe_passes(m, PREFILL_B * PREFILL_S)} in the prefill ({PREFILL_B * PREFILL_S}"
+            f" tokens, capacity {moe_capacity_tag(m, PREFILL_B * PREFILL_S)}, buffers "
+            f"{moe_buffer_bytes(m, PREFILL_B * PREFILL_S) / 1e6:.1f} MB a site) and "
+            f"x{moe_passes(m, PREFILL_B)} a decode step (capacity "
+            f"{moe_capacity_tag(m, PREFILL_B)}, buffers "
+            f"{moe_buffer_bytes(m, PREFILL_B) / 1e6:.2f} MB a site)")
     toks = res.tokens
     if tuple(toks.shape) != (PREFILL_B, GEN + 1) or not bool(
             ((toks >= 0) & (toks < cfg.vocab_size)).all()):
@@ -3250,7 +3322,7 @@ def phase_archs(common, api, fff, lm, serve_mod) -> dict:
     kernel at its sites' shapes, the fixed-batch loop, fp32 greedy parity;
     olmoe-1b-7b also through the engine, and its FFN sites' device time
     for the moe phase.  Returns {arch: {kernel: row}} and olmoe's site
-    times under "olmoe ffn"."""
+    times and loop decode p50 under "olmoe ffn"."""
     import importlib
     from repro_torch.configs import registry
     from repro_torch.nn import mlp
@@ -3270,11 +3342,12 @@ def phase_archs(common, api, fff, lm, serve_mod) -> dict:
             f"{time.perf_counter() - t0:.1f}s")
         with torch.inference_mode():
             rows = arch_kernels(label, cfg, params)
-        counts, _ = phase_serve(common, api, serve_mod, cfg, params, label=label)
+        counts, res = phase_serve(common, api, serve_mod, cfg, params, label=label)
         log_rows(rows, f"{label} kernel", counts)
         if arch == "olmoe-1b-7b":
             arch_engine(common, api, serve_mod, label, cfg, params)
-            out["olmoe ffn"] = ffn_site_times(lm, mlp, cfg, params, tag=label)
+            out["olmoe ffn"] = (ffn_site_times(lm, mlp, cfg, params, tag=label),
+                                res.steady.p50_ms)
         del params
         torch.cuda.empty_cache()
         phase_parity(api, fff, lm, mod.FFF_CONFIG, label=f"{label} parity", exact=False)
@@ -3332,38 +3405,140 @@ def moe_sites_bound(moe, mcfg, inputs) -> tuple[float, int]:
     return total, live_all
 
 
-def phase_moe(common, lm, serve_mod, fff_times) -> None:
+def moe_layout(moe, gemm_ops, p, mcfg, x):
+    """A MoE site's first-pass grouped layout for x (B, D), as
+    ``forward_sparse`` builds it (dead rows zeroed, so the plain versions'
+    outputs are finite there)."""
+    _, _, _, top_idx = moe._clean_top_k(p, mcfg, x)
+    B, k = top_idx.shape
+    pairs = x.to(p["expert_w1"].dtype)[:, None].expand(B, k, x.shape[1]).reshape(B * k, -1)
+    flat = top_idx.reshape(-1)
+    slot = gemm_ops._slots(flat, mcfg.num_experts, None)
+    return gemm_ops._layout(pairs, flat, slot, mcfg.num_experts, moe.capacity(B, mcfg))
+
+
+def moe_site_rows(label, moe, mcfg, p, x) -> dict:
+    """One MoE site on x: ``forward_sparse`` (the grouped GEMMs) twice,
+    bit-identical, against ``forward_sparse_gather`` (the same experts; the
+    bf16 tolerance), its device time (CUDA graph replays: it reads nothing
+    on the host) against the site's bound and its buffers' bytes; then both
+    grouped GEMMs on the site's first-pass buffers against their plain
+    versions (``grouped_rows``).  Returns those kernel rows."""
+    from repro_torch.kernels.leaf_gemm import ops as gemm_ops
+    x = x.reshape(-1, x.shape[-1])
+    B = x.shape[0]
+    site = lambda: moe.forward_sparse(p, mcfg, x)[0]
+    y = twice(f"{label} forward_sparse", site)
+    aux = moe.forward_sparse(p, mcfg, x)[1]
+    y_ref, aux_ref = moe.forward_sparse_gather(p, mcfg, x)
+    if not torch.equal(aux["expert_idx"], aux_ref["expert_idx"]):
+        raise AssertionError(f"{label}: the grouped and gather forms chose other experts")
+    err = compare(f"{label} forward_sparse vs gather", y, y_ref, mcfg.param_dtype)
+    del y_ref
+    ms = device_ms(site)
+    gather_ms = time_ms(lambda: moe.forward_sparse_gather(p, mcfg, x), reps=3, warmup=1)
+    b_ms, live = moe_sites_bound(moe, mcfg, [(p, x)])
+    load = torch.bincount(aux["expert_idx"].reshape(-1), minlength=mcfg.num_experts)
+    log(f"{label} MoE site, {B} tokens: forward_sparse (grouped GEMMs, capacity "
+        f"{moe_capacity_tag(mcfg, B)}, buffers {moe_buffer_bytes(mcfg, B) / 1e6:.2f} MB) "
+        f"equals the gather form within the {mcfg.param_dtype} tolerance (max|err| "
+        f"{err:.3e}), "
+        f"bit-identical twice; {live} of {mcfg.num_experts} experts live, "
+        f"{int(load.min())}-{int(load.max())} pairs each; device {ms:.4f} ms against "
+        f"its bound {b_ms:.4f} ms ({ms / b_ms:.2f}x); gather form {gather_ms:.4f} ms "
+        f"(loop)")
+    lay = moe_layout(moe, gemm_ops, p, mcfg, x)
+    _, rows = grouped_rows(f"{label} MoE site {B} tok", lay.x_grouped, (p["expert_w1"],),
+                           p["expert_w2"], lay.group_sizes, mcfg.activation,
+                           mcfg.param_dtype)
+    C = lay.x_grouped.shape[1]
+    return {f"{k} [moe {B} tok]": dict(v, capacity=C) for k, v in rows.items()}
+
+
+def moe_engine(common, api, serve_mod, label, cfg, params) -> None:
+    """A few requests through the engine on the MoE model (8 slots, no
+    speculation, MOE_ENGINE_REQS requests of MOE_ENGINE_GEN new tokens):
+    decode, each prefill bucket and admission captured once and nothing
+    run eagerly, each dispatch's first eager call and first replay with no
+    host sync, the grouped GEMMs' launches the slab shapes fix
+    asserted; then op by op, every request's tokens bit-identical."""
+    from repro_torch.serving import graphs
+    from repro_torch.serving.engine import EngineConfig
+    moes = moe_site_configs(cfg)
+    reqs = serve_mod.build_requests(cfg.vocab_size, MOE_ENGINE_REQS, ENGINE_PROMPT,
+                                    MOE_ENGINE_GEN, seed=0,
+                                    min_prompt_len=ENGINE_MIN_PROMPT)
+    ecfg = EngineConfig(num_slots=SLOTS, max_len=ENGINE_PROMPT + MOE_ENGINE_GEN + 1,
+                        max_prompt_len=ENGINE_PROMPT, scheduler="fcfs", seed=0,
+                        device="cuda")
+    runs = {}
+    for how, ctx in (("graphs", lambda: sync_checked(f"{label} engine")),
+                     ("op by op", graphs.disabled)):
+        with no_reference(api), slab_log() as seen, ctx():
+            common.reset_launch_counts()
+            run = serve_mod.serve_engine(cfg, ecfg, reqs, params=params)
+            counts = common.launch_counts()
+        m = run.metrics
+        want = dict.fromkeys(common.KERNELS, 0)
+        want["grouped_matmul"] = sum(
+            2 * (sum(moe_passes(mc, n) for _, n, _, _ in seen)
+                 + m.n_steps * moe_passes(mc, SLOTS)) for mc in moes)
+        if counts != want or len(seen) != m.n_prefills:
+            raise AssertionError(f"{label} engine ({how}): launches {counts} != {want} "
+                                 f"({len(seen)} slabs logged, {m.n_prefills} counted)")
+        check_paths(common, f"{label} engine ({how})", counts, cfg.param_dtype)
+        runs[how] = run
+        log(f"{label} engine ({how}): {SLOTS} slots, {len(reqs)} requests, "
+            f"{MOE_ENGINE_GEN} new tokens each: TTFT p50 {m.ttft.p50_ms:.2f} ms; "
+            f"per-token p50 {m.per_token.p50_ms:.2f} ms; decode step p50 "
+            f"{m.decode_step.p50_ms:.2f} ms; {m.throughput_tok_s:.1f} tok/s; "
+            f"{m.n_steps} decode steps, {m.n_prefills} admission slabs "
+            f"({slab_summary(seen)}); launches {counts} (as the slab shapes fix); "
+            f"graphs {run.graphs}; dispatch shapes "
+            f"{sorted((k, sorted(v)) for k, v in run.shapes.items())}")
+        if how == "graphs":
+            slabs = {n for n, _, _, _ in seen}
+            want_graphs = dict.fromkeys({"decode", "admit"} | slabs, 1)
+            if run.graphs != want_graphs or set(run.compiled) != set(want_graphs):
+                raise AssertionError(f"{label} engine: graphs {run.graphs} (want "
+                                     f"{want_graphs}), compiled {run.compiled}")
+    got, ref = by_rid(runs["graphs"].results), by_rid(runs["op by op"].results)
+    bad = [rid for rid in ref if not np.array_equal(got[rid], ref[rid])]
+    if bad or len(got) != len(reqs):
+        raise AssertionError(f"{label} engine: rids {bad} differ between graphs and op "
+                             f"by op")
+    log(f"{label} engine: every request's tokens bit-identical, graphs against op by op")
+
+
+def phase_moe(common, api, lm, serve_mod, fff_ref) -> dict:
     """olmoe-1b-7b native: the noisy top-k MoE (64 experts, top 8, GELU
-    experts of width 1024, no bias) at full width, all 16 layers, bf16: the
-    fixed-batch loop (no kernel launches), the FFN sites' device time
-    against the FFF forest's (same inference width, 8 x 1024) in a warm
-    prefill and decode step, and forward_sparse's grouped form against its
-    gather form on layer 0's FFN input of the warm prefill."""
+    experts of width 1024, no bias) at full width, all 16 layers, bf16, its
+    sites on the grouped GEMMs: the fixed-batch loop through phase_serve
+    (graphs and op by op, the grouped launches the shapes fix), its decode
+    p50 beside the FFF forest's (same inference width, 8 x 1024), the FFN
+    sites' device time against the forest's in a warm prefill and decode
+    step, the MoE site on layer 0's prefill and decode inputs
+    (``moe_site_rows``), and a few requests through the engine
+    (``moe_engine``).  Returns the kernel rows with the loop's launches."""
     from repro_torch.configs.olmoe_1b_7b import CONFIG
     from repro_torch.core import moe
     from repro_torch.nn import mlp
     t0 = time.perf_counter()
+    label = "[moe]"
     cfg = CONFIG
     spec = cfg.period[0].ffn
+    fff_times, fff_p50 = fff_ref
     params = lm.init(cfg, seed=0, device="cuda")
     random_gates(cfg, params, seed=6)
-    log(f"[moe] {cfg.arch_id} native (moe: {spec.moe_experts} experts, top "
+    log(f"{label} {cfg.arch_id} native (moe: {spec.moe_experts} experts, top "
         f"{spec.moe_top_k}, width {spec.d_ff}; active width {spec.active_width}) full "
         f"width, all {cfg.n_layers} layers, {lm.param_count(params) / 1e9:.2f}B params "
         f"{cfg.param_dtype}; gates drawn N(0, 1/d_model)")
-    common.reset_launch_counts()
-    res = serve_mod.serve(cfg, batch=PREFILL_B, prompt_len=PREFILL_S, gen=GEN,
-                          device="cuda", params=params)
-    counts = common.launch_counts()
-    toks = res.tokens
-    if any(counts.values()) or tuple(toks.shape) != (PREFILL_B, GEN + 1) or not bool(
-            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        raise AssertionError(f"[moe] serve: launches {counts}, tokens {tuple(toks.shape)}")
-    log(f"[moe] serve batch {PREFILL_B} x prompt {PREFILL_S}, {GEN} decode steps: "
-        f"prefill {res.prefill_s * 1e3:.2f} ms (first call); decode p50 "
-        f"{res.steady.p50_ms:.2f} ms p90 {res.steady.p90_ms:.2f} ms; "
-        f"{res.tokens_per_s:.1f} tok/s; kernel launches {counts} (none: MoE)")
-    moe_times = ffn_site_times(lm, mlp, cfg, params, tag="[moe]")
+    counts, res = phase_serve(common, api, serve_mod, cfg, params, label=label)
+    log(f"{label} decode p50 (batch {PREFILL_B}, {cfg.n_layers} layers, host clock, "
+        f"both on graphs): MoE {res.steady.p50_ms:.2f} ms, FFF forest {fff_p50:.2f} ms "
+        f"(MoE/FFF {res.steady.p50_ms / fff_p50:.2f}x)")
+    moe_times = ffn_site_times(lm, mlp, cfg, params, tag=label)
     inputs = site_inputs(lm, mlp, cfg, params)
     mcfg = mlp.make_moe_config(spec, cfg.d_model, param_dtype=cfg.param_dtype,
                                accum_dtype=cfg.accum_dtype)
@@ -3371,33 +3546,25 @@ def phase_moe(common, lm, serve_mod, fff_times) -> None:
                         ("decode", f"one step, batch {PREFILL_B}")):
         m, f = moe_times[phase], fff_times[phase]
         for name, (busy, inside) in (("MoE", m), ("FFF", f)):
-            log(f"[moe] warm {phase} ({what}), {name}: FFN sites {inside:.3f} ms device "
+            log(f"{label} warm {phase} ({what}), {name}: FFN sites {inside:.3f} ms device "
                 f"time (kernels inside the {cfg.n_layers} sites' device-side spans); "
                 f"device busy {busy:.3f} ms")
         b_ms, live = moe_sites_bound(moe, mcfg, inputs[phase])
-        log(f"[moe] warm {phase}: FFN sites' device time MoE/FFF "
-            f"{m[1] / max(f[1], 1e-9):.2f}x, against a plain, unfused MoE (one "
-            f"product pair per live expert and a host sync a site): its sites' bound "
-            f"{b_ms:.3f} ms ({live} live experts over {cfg.n_layers} sites), "
-            f"MoE sites/bound {m[1] / b_ms:.2f}")
-    # the grouped form against the gather form on one layer's input
-    p, x = inputs["prefill"][0]
+        log(f"{label} warm {phase}: FFN sites' device time MoE/FFF "
+            f"{m[1] / max(f[1], 1e-9):.2f}x; the MoE sites' bound {b_ms:.3f} ms ({live} "
+            f"live experts over {cfg.n_layers} sites), MoE sites/bound {m[1] / b_ms:.2f}")
+    rows = {}
     with torch.inference_mode():
-        y, aux = moe.forward_sparse(p, mcfg, x)
-        y_ref, aux_ref = moe.forward_sparse_gather(p, mcfg, x)
-        if not torch.equal(aux["expert_idx"], aux_ref["expert_idx"]):
-            raise AssertionError("[moe] the grouped and gather forms chose other experts")
-        err = compare("[moe] forward_sparse grouped vs gather", y, y_ref, cfg.param_dtype)
-        load = torch.bincount(aux["expert_idx"].reshape(-1), minlength=spec.moe_experts)
-        grouped_ms = time_ms(lambda: moe.forward_sparse(p, mcfg, x), reps=5, warmup=1)
-    log(f"[moe] forward_sparse on layer 0's prefill input ({tuple(x.shape)}): grouped "
-        f"by expert equals the gather form within the bf16 tolerance (max|err| "
-        f"{err:.3e}); {int((load > 0).sum())} of {spec.moe_experts} experts live, "
-        f"{int(load.min())}-{int(load.max())} (token, choice) pairs each; grouped "
-        f"{grouped_ms:.3f} ms a site (CUDA events, host sync included)")
-    del params, p, x, y, y_ref, inputs
+        for phase in ("prefill", "decode"):
+            p, x = inputs[phase][0]
+            rows.update(moe_site_rows(f"{label} layer 0 {phase}", moe, mcfg, p, x))
+            torch.cuda.empty_cache()
+    del inputs, p, x
+    moe_engine(common, api, serve_mod, label, cfg, params)
+    del params
     torch.cuda.empty_cache()
-    log(f"[moe] done in {time.perf_counter() - t0:.1f}s")
+    log(f"{label} done in {time.perf_counter() - t0:.1f}s")
+    return {k: dict(v, launches=counts.get(kernel_of(k), 0)) for k, v in rows.items()}
 
 
 def phase_long(common, api, lm) -> None:
@@ -3536,9 +3703,10 @@ def arch_intro(label, lm, cfg, params, layers_of, t0) -> None:
 def phase_kimi(common, api, fff, lm, serve_mod) -> dict:
     """kimi-k2-1t-a32b FFF (8 trees of depth 6, leaves of 2048, D 7168) at
     KIMI_LAYERS of 61 layers, bf16: every kernel at its site's shapes, the
-    fixed-batch loop; the native MoE (384 experts, top 8) through the same
-    loop; fp32 greedy parity with the forest cut to KIMI_PARITY_TREES
-    trees.  Returns the kernel rows with their launches."""
+    fixed-batch loop; the native MoE (384 experts, top 8, on the grouped
+    GEMMs) through the same loop, from graphs and op by op; fp32 greedy
+    parity with the forest cut to KIMI_PARITY_TREES trees.  Returns the
+    kernel rows with their launches."""
     from repro_torch.configs import kimi_k2_1t_a32b as mod
     t0 = time.perf_counter()
     label = "[kimi]"
@@ -3552,7 +3720,7 @@ def phase_kimi(common, api, fff, lm, serve_mod) -> dict:
     log_rows(rows, f"{label} kernel", counts)
     fff_p50 = res.steady.p50_ms
     del params, res
-    torch.cuda.empty_cache()
+    free_device()
     t1 = time.perf_counter()
     ncfg = dataclasses.replace(mod.CONFIG, n_layers=KIMI_LAYERS)
     params = lm.init(ncfg, seed=0, device="cuda")
@@ -3560,11 +3728,11 @@ def phase_kimi(common, api, fff, lm, serve_mod) -> dict:
     torch.cuda.synchronize()
     arch_intro(f"{label} native MoE", lm, ncfg, params, mod.CONFIG.n_layers, t1)
     _, res = phase_serve(common, api, serve_mod, ncfg, params, label=f"{label} native")
-    log(f"{label} decode p50 (batch {PREFILL_B}, {KIMI_LAYERS} layer, host clock): FFF "
-        f"forest {fff_p50:.2f} ms, native MoE (384 experts, top 8, gates drawn "
-        f"N(0, 1/d_model)) {res.steady.p50_ms:.2f} ms")
+    log(f"{label} decode p50 (batch {PREFILL_B}, {KIMI_LAYERS} layer, host clock, both "
+        f"on graphs): FFF forest {fff_p50:.2f} ms, native MoE (384 experts, top 8, on "
+        f"the grouped GEMMs, gates drawn N(0, 1/d_model)) {res.steady.p50_ms:.2f} ms")
     del params, res
-    torch.cuda.empty_cache()
+    free_device()
     cut = dataclasses.replace(mod.FFF_CONFIG, period=tuple(
         dataclasses.replace(b, ffn=dataclasses.replace(b.ffn, fff_trees=KIMI_PARITY_TREES))
         for b in mod.FFF_CONFIG.period))
@@ -4010,7 +4178,7 @@ def check_roles(per, engines) -> None:
     """The per-role contract: a prefill worker launches no fused decode and
     its compiled dispatches are admission and its slabs alone, each one
     graph; a decode worker launches the fused decode kernel alone and its
-    shapes are decode and install."""
+    dispatches are decode and install, each one graph."""
     for wid, eng in engines.items():
         c, shapes = per.get(wid, {}), eng.compiled_shapes()
         if wid.startswith("p"):
@@ -4021,7 +4189,7 @@ def check_roles(per, engines) -> None:
         else:
             ok = (c.get("fused_forest_decode", 0) > 0
                   and sum(v for k, v in c.items() if k != "fused_forest_decode") == 0
-                  and shapes == {"decode": 1, "install": 1})
+                  and shapes == eng._graphs.counts() == {"decode": 1, "install": 1})
         if not ok:
             raise AssertionError(f"[cluster] worker {wid}: launches {c}, dispatch "
                                  f"shapes {shapes} break its role's contract")
@@ -4067,7 +4235,8 @@ def phase_cluster(common, api, fff, lm, serve_mod, cfg, params) -> None:
         f"prompts {min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)}"
         f" tokens, {ENGINE_GEN} greedy tokens each")
     with no_reference(api):
-        rt = handoff_round_trip(cfg, params, reqs)
+        with sync_checked("[cluster] handoff round trip"):
+            rt = handoff_round_trip(cfg, params, reqs)
         b = np.asarray(rt["bytes"])
         log(f"[cluster] handoff round trip: {len(b)} requests, installed pages equal "
             f"the extracted ones bit for bit and the decode engine's tokens equal the "
@@ -4076,7 +4245,8 @@ def phase_cluster(common, api, fff, lm, serve_mod, cfg, params) -> None:
             f"{b.sum() / 1e6:.2f} MB in all); extract ms p50 "
             f"{np.median(rt['extract_ms']):.3f} max {max(rt['extract_ms']):.3f}; install "
             f"ms p50 {np.median(rt['install_ms']):.3f} max {max(rt['install_ms']):.3f} "
-            f"(host clock, each call between two synchronizations)")
+            f"(host clock, each call between two synchronizations; an engine's first "
+            f"install runs eagerly and captures its graph, the rest replay it)")
         one = ContinuousBatchingEngine(params, cfg, cluster_ecfg(n_workers * SLOTS))
         want, m1 = one.run(reqs)
         same, _ = ContinuousBatchingEngine(params, cfg, cluster_ecfg()).run(reqs)
@@ -4591,7 +4761,7 @@ def phase_model_parallel(common, api, fff, lm, serve_mod, cfg, params) -> dict:
     if {n for _, n in ran} != {"grouped_ep"}:
         raise AssertionError(f"[model_parallel] one process ran backends {set(ran)}")
     del p32
-    torch.cuda.empty_cache()
+    free_device()
 
     t0 = time.perf_counter()
     ranks = mesh_lib.spawn_ranks(mp_serve_rank, M, timeout_s=MP_LIMIT_S)
@@ -5167,10 +5337,22 @@ def phase_examples(common) -> None:
 
 @contextlib.contextmanager
 def timed(name: str):
-    """Logs the seconds the phase inside took."""
+    """Logs the seconds the phase inside took, then frees what the phase
+    left unreachable (``free_device``)."""
     t0 = time.perf_counter()
     yield
     log(f"[time] {name}: {time.perf_counter() - t0:.1f}s")
+    free_device()
+
+
+def free_device() -> None:
+    """Collects garbage, then empties the allocator's cache.  An engine is
+    in a reference cycle with its graph cache (each entry's dispatch is
+    one of the engine's methods), so its KV pools, its graphs' memory pools
+    and a draft's weights go back to the card only when the cycle
+    collector runs, which a phase's allocations alone may not trigger."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -5237,7 +5419,8 @@ def main() -> int:
     with timed("archs"):
         archs = phase_archs(common, api, fff, lm, serve_mod)
     with timed("moe"):
-        phase_moe(common, lm, serve_mod, archs.pop("olmoe ffn"))
+        archs["olmoe-1b-7b native"] = phase_moe(common, api, lm, serve_mod,
+                                                archs.pop("olmoe ffn"))
     with timed("long"):
         phase_long(common, api, lm)
     with timed("kimi"):

@@ -17,10 +17,15 @@ worker placement picked.  This module is both ends of that wire:
 * ``install(engine, handoff)``: on the decode worker, fund pages for the
   whole ``prompt + max_new`` horizon from the local pool (all or nothing:
   a short pool returns None and the worker keeps the handoff queued, the
-  cluster's backpressure), copy the shipped rows into the first of them
-  and install table and length in one batched call (``lm.cache_install``),
-  then rebuild the host-side ``SlotState`` so the engine decodes the
-  request as if it had prefilled it.
+  cluster's backpressure), pad the shipped rows to the table's width
+  ``ppr`` with zeros, copy them into the funded pages (the padding past
+  them lands in the generation room, the sentinel entries in the sink
+  page) and install table and length in one batched call
+  (``lm.cache_install``), as the engine's ``install`` dispatch: one CUDA
+  graph an engine, its rows staged through the entry's pinned buffer in one
+  upload (``serving/graphs.py``).  Then it rebuilds the host-side
+  ``SlotState`` so the engine decodes the request as if it had prefilled
+  it.
 
 Sampling is keyed by ``(seed, rid, len(tokens))`` on whichever engine
 holds the slot, so a request decoded after a handoff emits the tokens one
@@ -35,6 +40,7 @@ segment outlives a killed sender); a CUDA tensor is refused.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional
 
 import numpy as np
@@ -136,6 +142,32 @@ def extract(engine, slot: int) -> KVHandoff:
         measured=bool(engine._measured[slot]))
 
 
+def _pad(rows: torch.Tensor, ppr: int) -> torch.Tensor:
+    """A layer's shipped (n_pages, page_size, K, hd) rows, zero-padded to
+    ``ppr`` pages."""
+    out = torch.zeros((ppr,) + tuple(rows.shape[1:]), dtype=rows.dtype)
+    out[:rows.shape[0]] = rows
+    return out
+
+
+def _install_dispatch(engine, inp: dict) -> dict:
+    """``lm.cache_install`` of the staged rows into both trees under spec,
+    settled into the engine's canonical tensors (which its decode graphs
+    read): what the ``install`` graph holds.  No outputs."""
+    args = [inp[k] for k in ("admit", "tables", "lengths", "dst")]
+
+    def rows(f, n):
+        return [inp[f"{f}.{i}"] for i in range(n)]
+
+    trees = [(engine.caches, "k_rows", "v_rows")]
+    if engine.spec:
+        trees.append((engine.draft_caches, "draft_k_rows", "draft_v_rows"))
+    for caches, k, v in trees:
+        n = len(caches)
+        graphs.settle(caches, lm.cache_install(caches, *args, rows(k, n), rows(v, n)))
+    return {}
+
+
 def install(engine, h: KVHandoff) -> Optional[int]:
     """Install ``h`` into a free slot of ``engine`` (module docstring).
 
@@ -167,19 +199,19 @@ def install(engine, h: KVHandoff) -> Optional[int]:
     tables[slot, :n_total] = pages
     lengths = np.zeros((S,), np.int32)
     lengths[slot] = L
-    # the shipped rows land on the first n_pages of the funded pages; the
-    # generation room past them is written by decode
-    dst = np.asarray(pages[:h.n_pages], np.int32)
-    args = [engine._dev(a) for a in (admit, tables, lengths, dst)]
+    # the rows, padded to ppr pages, land on the funded pages (the zero
+    # padding past n_pages in the generation room, which decode writes
+    # before anything reads it) and, past those, on the sink page
+    dst = np.full((ppr,), sentinel, np.int32)
+    dst[:n_total] = pages
+    inputs = {"admit": admit, "tables": tables, "lengths": lengths, "dst": dst}
+    for f in _ROWS:
+        for i, r in enumerate(getattr(h, f) or ()):
+            inputs[f"{f}.{i}"] = _pad(r, ppr)
     engine._record_shape("install", tables.shape)
     with torch.inference_mode():
-        # settled into the engine's canonical tensors, which its captured
-        # decode graphs read (serving/graphs.py)
-        graphs.settle(engine.caches, lm.cache_install(
-            engine.caches, *args, h.k_rows, h.v_rows))
-        if engine.spec:
-            graphs.settle(engine.draft_caches, lm.cache_install(
-                engine.draft_caches, *args, h.draft_k_rows, h.draft_v_rows))
+        engine._dispatch("install", functools.partial(_install_dispatch, engine),
+                         inputs, tables.shape)
     engine._slot_pages[slot] = list(pages)
     engine._alloc_len[slot] = n_total * engine._page
     t = engine.now()

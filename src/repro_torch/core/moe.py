@@ -8,14 +8,17 @@ the load loss through the normal-CDF inclusion probability).
 
 Top-k is stable, as ``jax.lax.top_k`` is: of equal logits the lower expert
 index ranks first (the zero-initialised gates tie every expert).  The JAX
-package has no Pallas kernel here, so the products are plain PyTorch.
-``forward_sparse`` groups the (token, expert) pairs by expert and runs one
-product per live expert; ``forward_sparse_gather`` is the JAX package's
-form, a per-token gathered ``(B, D, H)`` expert slab for each of the k
-choices, kept as the plain version the grouped form is held against (the
-two differ only in summation order).  The gathered slab is 4.3 GB a take
-at olmoe-1b-7b's widths and 1024 tokens in bf16, which is why serving
-does not use it.
+package has no Pallas kernel here.  ``forward_sparse`` treats the B k
+(token, choice) pairs as tokens routed to experts and runs them on the FFF
+leaves' grouped GEMMs (``kernels/leaf_gemm``), at shapes the token count
+alone fixes, with nothing read on the host (so a serving dispatch through
+it is captured as a CUDA graph); ``forward_sparse_gather`` is the JAX
+package's form, a per-token gathered ``(B, D, H)`` expert slab for each of
+the k choices, kept as the plain version the grouped form is held against
+(the two differ only in summation order and, in bf16, in rounding the
+hidden layer to bf16).  The gathered slab is 4.3 GB a take at
+olmoe-1b-7b's widths and 1024 tokens in bf16, which is why serving does
+not use it.
 """
 from __future__ import annotations
 
@@ -26,6 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import utils
+from repro_torch.kernels.leaf_gemm import kernel as gemm_kernel
+from repro_torch.kernels.leaf_gemm import ops as gemm_ops
+from repro_torch.kernels.leaf_gemm import ref as gemm_ref
 
 Params = dict
 
@@ -111,22 +117,18 @@ def _top_k_gates(clean: torch.Tensor, noisy: torch.Tensor,
     return gates, prob.sum(dim=0)
 
 
-def _expert_mlp(params: Params, cfg: MoEConfig, x: torch.Tensor, e) -> torch.Tensor:
-    """Expert(s) ``e`` on x (n, D) -> (n, O): an int applies expert e's (D,
-    H) and (H, O) matrices to every row; an index tensor (n,) one expert per
-    row, through the gathered (n, D, H) slab of the JAX form."""
+def _expert_mlp(params: Params, cfg: MoEConfig, x: torch.Tensor,
+                e: torch.Tensor) -> torch.Tensor:
+    """Experts ``e`` (n,) on x (n, D) -> (n, O), one expert a row, through
+    the gathered (n, D, H) slab of the JAX form."""
     ad = cfg.accum_dtype
-    take = lambda name: params[name][e]
-    w1 = take("expert_w1")
-    eq1, eq2 = (("bd,dh->bh", "bh,ho->bo") if w1.dim() == 2
-                else ("bd,bdh->bh", "bh,bho->bo"))
-    h = utils.einsum_as(eq1, x, w1, out_dtype=ad)
+    h = utils.einsum_as("bd,bdh->bh", x, params["expert_w1"][e], out_dtype=ad)
     if "expert_b1" in params:
-        h = h + take("expert_b1").to(ad)
+        h = h + params["expert_b1"][e].to(ad)
     h = utils.get_activation(cfg.activation)(h)
-    y = utils.einsum_as(eq2, h, take("expert_w2"), out_dtype=ad)
+    y = utils.einsum_as("bh,bho->bo", h, params["expert_w2"][e], out_dtype=ad)
     if "expert_b2" in params:
-        y = y + take("expert_b2").to(ad)
+        y = y + params["expert_b2"][e].to(ad)
     return y
 
 
@@ -189,28 +191,85 @@ def _combine(ys, gates_k: torch.Tensor) -> torch.Tensor:
     return y
 
 
+#: an expert's rows in ``forward_sparse``'s first pass: twice its even
+#: share of the (token, choice) pairs, in steps of CAPACITY_STEP rows
+CAPACITY_FACTOR, CAPACITY_STEP = 2.0, 8
+
+
+def capacity(tokens: int, cfg: MoEConfig) -> int:
+    """An expert's rows in ``forward_sparse``'s first pass for ``tokens``
+    tokens: ``CAPACITY_FACTOR`` times its even share of the tokens x k
+    pairs, and no more than the tokens, each rounded up to
+    ``CAPACITY_STEP``.  The k experts of a token are distinct, so an expert
+    holds at most one pair a token: at this capacity a slab of at most C
+    tokens never overflows."""
+    share = int(CAPACITY_FACTOR * utils.cdiv(tokens * cfg.top_k, cfg.num_experts))
+    return min(utils.round_up(tokens, CAPACITY_STEP),
+               utils.round_up(share, CAPACITY_STEP))
+
+
+def overflow_rows(tokens: int, cfg: MoEConfig) -> int:
+    """The overflow pass's rows an expert: the most pairs one expert can
+    hold past ``capacity`` (one a token), rounded up to 32; 0 where the pass
+    is left out.  The shape alone decides."""
+    return gemm_ops.overflow_rows(tokens, capacity(tokens, cfg))
+
+
+def _experts(params: Params, cfg: MoEConfig, layout, w1: torch.Tensor,
+             w2: torch.Tensor) -> torch.Tensor:
+    """Every expert's MLP over a layout's buffers through the grouped GEMMs,
+    gathered back to the pairs (zeros for pairs outside the buffers).
+    Biases are added on the buffers; rows past an expert's group size are
+    junk then, which no pair gathers and the down GEMM never reads (its
+    rows past the size come out zero whatever x holds there)."""
+    gs, b1, b2 = layout.group_sizes, params.get("expert_b1"), params.get("expert_b2")
+    if b1 is None and cfg.activation in gemm_ref.ACTS:
+        h = gemm_kernel.grouped_matmul(layout.x_grouped, w1, gs, act=cfg.activation)
+    else:
+        h = gemm_kernel.grouped_matmul(layout.x_grouped, w1, gs)
+        if b1 is not None:
+            h = h + b1.to(h.dtype)[:, None]
+        h = utils.get_activation(cfg.activation)(h)
+    y = gemm_kernel.grouped_matmul(h, w2, gs)
+    if b2 is not None:
+        y = y + b2.to(y.dtype)[:, None]
+    return gemm_ops.gather_from_groups(y, layout)
+
+
 def forward_sparse(params: Params, cfg: MoEConfig, x: torch.Tensor
                    ) -> tuple[torch.Tensor, dict]:
     """Inference: clean top-k, only the selected experts evaluated.  The
-    (token, choice) pairs are sorted by expert and each live expert runs
-    one product over its tokens; the gate only knows its experts through
-    an O(E) logit row, the linear cost the paper contrasts with FFF's
-    O(log E) descent.  One host synchronization reads the experts' token
-    counts."""
+    gate only knows its experts through an O(E) logit row, the linear cost
+    the paper contrasts with FFF's O(log E) descent.
+
+    The B k (token, choice) pairs are routed like tokens to leaves: each
+    takes a slot in its expert by sort ranks and counts by ``index_add_``
+    (``leaf_gemm.ops``), is scattered into capacity-padded (E, C, D)
+    buffers (``capacity``), runs the grouped GEMMs up (the activation
+    fused) and down, and is gathered back and combined in choice order.
+    Pairs past C take an overflow pass on the same kernels, slot ``s - C``
+    of (E, ``overflow_rows``, D), so no pair is dropped.  Shapes depend on
+    B alone and nothing is read on the host.  The buffers are not
+    cleared: the kernels read no row past an expert's group size.  The
+    products run in the weights' dtype (x's where it is wider)."""
     xf, lead, gates_k, top_idx = _clean_top_k(params, cfg, x)
     B, k = top_idx.shape
+    E = cfg.num_experts
+    dt = xf.dtype
+    for n in ("expert_w1", "expert_w2"):
+        dt = torch.promote_types(dt, params[n].dtype)
+    w1, w2 = (params[n].to(dt).contiguous() for n in ("expert_w1", "expert_w2"))
+    pairs = xf.to(dt)[:, None].expand(B, k, xf.shape[1]).reshape(B * k, -1)
     flat = top_idx.reshape(-1)
-    order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=cfg.num_experts).tolist()
-    y = torch.empty((B * k, cfg.dim_out), dtype=cfg.accum_dtype,
-                    device=xf.device)
-    start = 0
-    for e, n in enumerate(counts):
-        if n:
-            pairs = order[start:start + n]
-            y[pairs] = _expert_mlp(params, cfg, xf[pairs // k], e).to(y.dtype)
-            start += n
-    y = y.view(B, k, -1)
+    slot = gemm_ops._slots(flat, E, None)
+    C = capacity(B, cfg)
+    y = _experts(params, cfg, gemm_ops._layout(pairs, flat, slot, E, C, zero=False),
+                 w1, w2)
+    rows = overflow_rows(B, cfg)
+    if rows:
+        over = gemm_ops._layout(pairs, flat, slot, E, rows, first=C, zero=False)
+        y = torch.where(over.kept[:, None], _experts(params, cfg, over, w1, w2), y)
+    y = y.to(cfg.accum_dtype).view(B, k, -1)
     out = _combine([y[:, j] for j in range(k)], gates_k)
     return utils.unflatten_leading(out, lead), {"expert_idx": top_idx}
 

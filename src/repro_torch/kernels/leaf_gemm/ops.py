@@ -46,16 +46,18 @@ def _slots(leaf_idx: torch.Tensor, num_leaves: int,
 
 
 def _layout(x: torch.Tensor, li: torch.Tensor, slot: torch.Tensor,
-            num_leaves: int, capacity: int, first: int = 0) -> GroupedLayout:
+            num_leaves: int, capacity: int, first: int = 0,
+            zero: bool = True) -> GroupedLayout:
     """The buffers of slots ``[first, first + capacity)`` of every leaf:
     those tokens go to row ``slot - first`` of their leaf's buffer, all
-    others to one spare row past the buffers, which is cut off."""
+    others to one spare row past the buffers, which is cut off.  With
+    ``zero=False`` the rows past each leaf's tokens are left unwritten."""
     D = x.shape[1]
     kept = (slot >= first) & (slot < first + capacity) & (li < num_leaves)
     row = slot - first
     flat_idx = torch.where(kept, li * capacity + row, num_leaves * capacity)
-    xg = torch.zeros((num_leaves * capacity + 1, D), dtype=x.dtype,
-                     device=x.device)
+    xg = (torch.zeros if zero else torch.empty)(
+        (num_leaves * capacity + 1, D), dtype=x.dtype, device=x.device)
     xg[flat_idx] = x
     sizes = routing_lib._counts(li, num_leaves) - first
     return GroupedLayout(xg[:-1].view(num_leaves, capacity, D), li,

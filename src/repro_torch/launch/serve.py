@@ -77,7 +77,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
-import functools
 import io
 import json
 import time
@@ -163,13 +162,14 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
     before = common.launch_counts()
     caches = lm.init_caches(cfg, batch, max_len, device=dev)
     # the decode step, captured once as a CUDA graph and replayed (the JAX
-    # loop's decode_jit); its cache leaves settle into the prefill's caches
+    # loop's decode_jit); its cache leaves settle into the prefill's caches,
+    # and the step's position is a staged input, as JAX passes it traced
     graph = graphs.DispatchCache(dev)
 
-    def decode(inp, offset):
+    def decode(inp):
         with backend_ctx():
             logits, new = lm.decode_step(params, cfg, inp["tok"], caches,
-                                         offset)
+                                         inp["offset"])
         graphs.settle(caches, new)
         return {"logits": logits}
 
@@ -196,9 +196,9 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
                 if done.all():
                     break
             t0 = time.perf_counter()
-            logits = graph.run("decode", (tuple(tok.shape), False, ctx),
-                               functools.partial(decode, offset=prompt_len + i),
-                               {"tok": tok}, eager=eager)["logits"]
+            logits = graph.run("decode", (tuple(tok.shape), False, ctx), decode,
+                               {"tok": tok, "offset": np.int32(prompt_len + i)},
+                               eager=eager)["logits"]
             _sync(dev)
             lat.append(time.perf_counter() - t0)
             step_tokens.append(int(batch - done.sum()))  # finished rows: pad

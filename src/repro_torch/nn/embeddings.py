@@ -43,21 +43,29 @@ def learned_pos_init(gen: torch.Generator, max_len: int, d_model: int,
 
 
 def learned_pos(params: Params, x: torch.Tensor, offset=0) -> torch.Tensor:
-    """x (B, S, D) plus learned position rows from ``offset``: an int (the
-    whole batch's prefix length) or a (B,) tensor of per-row offsets.  As
-    in the JAX package, a scalar window is clamped into the table
-    (``lax.dynamic_slice``) and a per-row position past it reads NaN
-    (``jnp.take``'s fill)."""
+    """x (B, S, D) plus learned position rows from ``offset``: an int or a
+    0-dim tensor (the whole batch's prefix length) or a (B,) tensor of
+    per-row offsets.  As in the JAX package, a scalar window is clamped
+    into the table, a negative start counting from the table's end
+    (``lax.dynamic_slice``), and a per-row position past it reads NaN
+    (``jnp.take``'s fill).  A tensor offset is read on the device, never
+    on the host."""
     table = params["pos"]
     n, S = table.shape[0], x.shape[1]
-    if isinstance(offset, torch.Tensor) and offset.ndim == 1:
-        idx = (offset.to(x.device).long()[:, None]
-               + torch.arange(S, device=x.device)[None, :])
-        inside = (idx >= 0) & (idx < n)
-        pos = table[idx.clamp(0, n - 1)].to(x.dtype)
-        return x + torch.where(inside[..., None], pos, torch.nan)
-    start = min(max(int(offset), 0), max(n - S, 0))
-    return x + table[start:start + S].to(x.dtype)
+    if not isinstance(offset, torch.Tensor):
+        start = int(offset)
+        start = min(max(start + n if start < 0 else start, 0), max(n - S, 0))
+        return x + table[start:start + S].to(x.dtype)
+    steps = torch.arange(S, device=x.device)
+    offset = offset.to(x.device).long()
+    if offset.ndim == 0:
+        start = torch.where(offset < 0, offset + n, offset)
+        rows = start.clamp(0, max(n - S, 0)) + steps
+        return x + table[rows].to(x.dtype)
+    idx = offset[:, None] + steps[None, :]
+    inside = (idx >= 0) & (idx < n)
+    pos = table[idx.clamp(0, n - 1)].to(x.dtype)
+    return x + torch.where(inside[..., None], pos, torch.nan)
 
 
 def frontend_init(gen: torch.Generator, kind: str, d_model: int,

@@ -36,15 +36,17 @@ per shape with ``jax.jit``, the port captures each once per shape as a CUDA
 graph and replays it (``serving/graphs.py``): the decode step, the whole
 speculative round (the rollback, the ``spec_k + 1`` draft steps with
 on-device sampling, the verify), each prefill bucket's slab
-(``prefill_<b>``), the chunk slab (``prefill_chunk``) and admission
-(``admit``: ``lm.cache_admit`` into both trees under speculation); inputs
+(``prefill_<b>``), the chunk slab (``prefill_chunk``), admission
+(``admit``: ``lm.cache_admit`` into both trees under speculation) and a
+cluster decode worker's ``install`` of a handoff; inputs
 staged in pinned and static buffers, cache leaves settled back into the
 engine's canonical tensors inside the capture, one host copy of the
 outputs a dispatch.  ``compiled_shapes()`` counts the captured graphs
 under JAX's names as JAX counts traces.  Only what cannot synchronize
-with the host is captured (``graphs.eager_reason``: MoE sites, an
-installed process group and learned positions keep a dispatch eager); an
-eager dispatch settles its results into the same canonical tensors.  On
+with the host is captured (``graphs.eager_reason``: an installed process
+group keeps a dispatch eager); an eager dispatch settles its results into
+the same canonical tensors.  A MoE site runs the grouped GEMMs at shapes
+the slab fixes (``core/moe.forward_sparse``), so it is captured too.  On
 the card the FFF sites resolve per shape (``core/api.py``): decode and
 draft steps to the fused decode kernel, slabs of at most 32 tokens (the
 verify slab at 8 slots and ``spec_k`` 3) to the gathered kernels, larger
@@ -70,7 +72,7 @@ steps to the fused decode kernel.  The engine clock is injectable
 (``repro_torch.cluster``) drives one engine per worker through
 ``release_slot(i, record_result=False)``, ``_evict_finished``,
 ``occupancy_snapshot`` and ``compiled_shapes``, and installs handed-off
-KV pages with ``lm.cache_install``.
+KV pages with ``lm.cache_install`` through ``_dispatch`` (``install``).
 """
 from __future__ import annotations
 
@@ -612,8 +614,8 @@ class ContinuousBatchingEngine:
         decode step at one token a row, the spec round's draft steps under
         their ``cuda_decode`` steer and then its verify slab, a prefill slab
         of ``width`` tokens a row through the draft (under spec) and the
-        target.  ``admit`` runs no model and is always captured.  Cached
-        per (name, width, context)."""
+        target.  ``admit`` and a cluster worker's ``install`` run no model
+        and are always captured.  Cached per (name, width, context)."""
         key = (name, width, ctx, dist_act.mesh_installed())
         if key not in self._eager:
             S, why = self.ecfg.num_slots, None
@@ -626,7 +628,7 @@ class ContinuousBatchingEngine:
                                               self.draft_cfg, S, 1)
                 why = (f"the draft: {why}" if why else graphs.eager_reason(
                     self.params, self.cfg, S, width))
-            elif name != "admit":
+            elif name not in ("admit", "install"):
                 if self.spec:
                     why = graphs.eager_reason(self.draft_params,
                                               self.draft_cfg, S, width)
@@ -1302,12 +1304,12 @@ class ContinuousBatchingEngine:
     def compiled_shapes(self) -> Dict[str, int]:
         """Compiled dispatches per entry point, under the JAX engine's names,
         as JAX counts traces: ``decode``, ``spec_round``, ``prefill_<b>``
-        (one per bucket used), ``prefill_chunk`` and ``admit`` count their
-        captured graphs (on the CPU, their staged dispatches; one per
-        (shape, sampling on, context) key, so 1 after warm-up, 2 when a
-        run both samples and does not); a dispatch that ran eagerly counts
-        the shapes it saw (``dispatch_shapes()``; ``chunk`` as
-        ``prefill_chunk``, a cluster worker's handoff ``install``, and
+        (one per bucket used), ``prefill_chunk``, ``admit`` and a cluster
+        worker's handoff ``install`` count their captured graphs (on the
+        CPU, their staged dispatches; one per (shape, sampling on,
+        context) key, so 1 after warm-up, 2 when a run both samples and
+        does not); a dispatch that ran eagerly counts the shapes it saw
+        (``dispatch_shapes()``; ``chunk`` as ``prefill_chunk``, and
         ``draft`` and ``verify`` for a spec round the capture rule or
         ``graphs.disabled()`` kept eager)."""
         out = {_JAX_NAMES.get(k, k): len(v) for k, v in self._shapes.items()}

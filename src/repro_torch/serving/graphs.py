@@ -7,8 +7,9 @@ shape, whether sampling is on, and the ``api`` context it runs under
 they are part of the key).  An entry
 
 * stages its inputs: one pinned host buffer and one static device buffer
-  hold every input, and one non-blocking upload moves them (numpy inputs;
-  a device tensor is copied on the device);
+  hold every input, and one non-blocking upload moves them (numpy inputs
+  and CPU tensors, such as a cluster handoff's bfloat16 rows; a tensor on
+  the entry's device is copied there);
 * on its first call runs the dispatch eagerly on a side stream: that call
   is the step itself, and it does every first-call piece of work outside
   any capture (kernel builds, ``cudaFuncSetAttribute``, workspace and
@@ -37,13 +38,14 @@ alone fixes: ``cuda`` at any token count (the gathered kernels up to
 ``api.PALLAS_DECODE_MAX_TOKENS`` tokens, the grouped GEMMs above, whose
 overflow pass is sized by the shape), ``cuda_decode``, or ``grouped`` and
 ``grouped_ep`` with no process group installed (their repair, too, runs at
-a shape fixed by the token count).  Three cases stay eager, each with its
-reason: a MoE site (its sparse dispatch reads expert counts on the host),
-an installed process group (its gloo collectives stage through host
-memory) and learned positions (the step's offset is read on the host); so
-does the ``reference`` backend, which evaluates leaf by leaf on host
-counts, and every dispatch the caller runs outside the cache.  On the card
-a capture that fails raises: it never falls back to eager.
+a shape fixed by the token count).  A MoE site qualifies at any token
+count (``core/moe.forward_sparse`` runs the grouped GEMMs the same way),
+and so do learned positions (the step's offset is a staged 0-dim input).
+An installed process group keeps a dispatch eager, with its reason (its
+gloo collectives stage through host memory); so does the ``reference``
+backend, which evaluates leaf by leaf on host counts, and every dispatch
+the caller runs outside the cache (the loop's single prefill).  On the
+card a capture that fails raises: it never falls back to eager.
 
 On the CPU the same staging runs and only capture and replay are skipped:
 the dispatch function runs on the static buffers at every call, so the
@@ -139,13 +141,9 @@ def eager_reason(params: dict, cfg, rows: int, seq: int) -> Optional[str]:
     if dist_act.mesh_installed():
         return ("a process group is installed: its collectives stage "
                 "through host memory")
-    if cfg.pos_emb == "learned":
-        return "learned positions read the step's offset on the host"
     cuda = torch.device("cuda")
     for i, layer in enumerate(params["stack"]):
         spec = cfg.period[i % len(cfg.period)].ffn
-        if spec.kind == "moe":
-            return f"layer {i} is a MoE site: its sparse dispatch syncs"
         if spec.kind != "fff":
             continue
         fc = mlp_lib.make_fff_config(spec, cfg.d_model,
@@ -199,7 +197,8 @@ def upload(v, device: torch.device):
     device as it is (pageable), a tensor moved there, None kept."""
     if v is None or isinstance(v, torch.Tensor):
         return None if v is None else v.to(device)
-    return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    a = np.asarray(v)          # a 0-dim input stays 0-dim
+    return torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +246,11 @@ def _side_stream(device: torch.device):
     return _SIDE[i]
 
 
+def _dtype(v) -> torch.dtype:
+    return (v.dtype if isinstance(v, torch.Tensor) else
+            torch.from_numpy(np.asarray(v).reshape(-1)[:0]).dtype)
+
+
 class _Entry:
     """One key's staged inputs, captured graph and outputs."""
 
@@ -259,8 +263,7 @@ class _Entry:
             if v is None:
                 self.layout[k] = None
                 continue
-            dtype = (v.dtype if isinstance(v, torch.Tensor) else
-                     torch.from_numpy(np.asarray(v).reshape(-1)[:0]).dtype)
+            dtype = _dtype(v)
             nbytes = int(np.prod(v.shape, dtype=np.int64)) * dtype.itemsize
             self.layout[k] = (offset, dtype, tuple(v.shape), nbytes)
             offset += -(-nbytes // _ALIGN) * _ALIGN
@@ -277,10 +280,9 @@ class _Entry:
             return buf[off:off + nbytes].view(dtype).view(shape)
         self.static = {k: None if spec is None else views(self.dev_buf, k)
                        for k, spec in self.layout.items()}
-        self.staging = {k: views(self.host_buf, k).numpy()
+        self.staging = {k: views(self.host_buf, k)
                         for k, spec in self.layout.items()
-                        if spec is not None and not isinstance(inputs[k],
-                                                               torch.Tensor)}
+                        if spec is not None and self._on_host(inputs[k])}
         self.uploaded = torch.cuda.Event() if self.cuda else None
         self.recorder = recorder
         self.captured = False
@@ -299,25 +301,33 @@ class _Entry:
             if self.uploaded is not None:
                 self.uploaded.synchronize()    # the last upload left the host
             for k, a in self.staging.items():
-                a[...] = inputs[k]
+                v = inputs[k]
+                if isinstance(v, torch.Tensor):
+                    a.copy_(v)
+                else:
+                    a.numpy()[...] = v
             self.dev_buf.copy_(self.host_buf, non_blocking=self.cuda)
             if self.uploaded is not None:
                 self.uploaded.record()
         for k, v in inputs.items():
-            if isinstance(v, torch.Tensor):
+            if v is not None and k not in self.staging:
                 self.static[k].copy_(v)
 
+    def _on_host(self, v) -> bool:
+        """Whether input ``v`` goes through the pinned buffer: numpy, or a
+        CPU tensor for an entry on the card."""
+        return not isinstance(v, torch.Tensor) or (self.cuda and
+                                                   v.device.type == "cpu")
+
     def _matches(self, k: str, v) -> bool:
-        """Whether input ``v`` has the None-ness, kind (numpy or a device
-        tensor), shape and dtype that entry ``k`` was staged for."""
+        """Whether input ``v`` has the None-ness, kind (staged from the host
+        or copied on the device), shape and dtype that entry ``k`` was
+        made for."""
         spec = self.layout[k]
         if v is None or spec is None:
             return v is None and spec is None
-        if isinstance(v, torch.Tensor):
-            return k not in self.staging and v.dtype == spec[1] and (
-                tuple(v.shape) == spec[2])
-        return (k in self.staging and np.asarray(v).dtype == self.staging[k].dtype
-                and tuple(v.shape) == spec[2])
+        return (self._on_host(v) == (k in self.staging) and _dtype(v) == spec[1]
+                and tuple(np.shape(v)) == spec[2])
 
     def _run(self) -> Outputs:
         return {k: v for k, v in self.fn(self.static).items() if v is not None}

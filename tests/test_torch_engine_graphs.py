@@ -338,11 +338,16 @@ def test_capture_rule(model):
         assert "'reference'" in graphs.eager_reason(p, cfg, 8, 16)
     with dist_act.groups_installed((object(), None)):
         assert "process group" in graphs.eager_reason(p, cfg, 8, 1)
+    # learned positions take the step's offset as a staged input, and a
+    # MoE site runs the grouped GEMMs at shapes the token count fixes
     learned = dataclasses.replace(cfg, pos_emb="learned")
-    assert "learned positions" in graphs.eager_reason(p, learned, 8, 1)
+    assert graphs.eager_reason(p, learned, 8, 1) is None
     moe = registry.get_config("olmoe-1b-7b", ffn="native").reduced(n_layers=1)
     mp = lm.init(moe, seed=0, device="cpu")
-    assert "MoE" in graphs.eager_reason(mp, moe, 2, 1)
+    assert graphs.eager_reason(mp, moe, 2, 1) is None
+    assert graphs.eager_reason(mp, moe, 2, 16) is None
+    with dist_act.groups_installed((object(), None)):
+        assert "process group" in graphs.eager_reason(mp, moe, 2, 1)
 
 
 @pytest.fixture(scope="module")
@@ -361,10 +366,10 @@ def moe_model():
     (dict(), "moe"),                                          # a MoE site
 ])
 def test_engine_keeps_syncing_dispatches_eager(model, moe_model, kw, eager):
-    """The grouped paths are captured at every slab now; a MoE model's
-    decode step and slabs stay eager and count their shapes, as a trace
-    count would, while its admission (no model) is captured."""
-    m = moe_model if eager else model
+    """The grouped paths are captured at every slab now, and so is a MoE
+    model's decode step, prefill bucket and admission: its sites run the
+    grouped GEMMs at shapes the slab fixes."""
+    m = moe_model if eager == "moe" else model
     eng = ContinuousBatchingEngine(m["tp"], m["tcfg"], EngineConfig(
         **{**dict(num_slots=SLOTS, max_len=MAX_LEN, max_prompt_len=PROMPT,
                   device="cpu"), **kw}))
@@ -372,8 +377,6 @@ def test_engine_keeps_syncing_dispatches_eager(model, moe_model, kw, eager):
     assert len(res) == N_REQ
     counts, shapes = eng._graphs.counts(), eng.compiled_shapes()
     step = "spec_round" if "spec_k" in kw else "decode"
-    if eager is None:
-        assert counts == {step: 1, "admit": 1, "prefill_16": 1}
-    else:
-        assert counts == {"admit": 1}
+    assert counts == {step: 1, "admit": 1, "prefill_16": 1}
+    if eager == "moe":
         assert shapes == {"decode": 1, "admit": 1, "prefill_16": 1}
